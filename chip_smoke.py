@@ -21,7 +21,25 @@ Phases (each one that fails ends the run with a non-zero exit):
    ``decode_corpus``, MLF, PER. Both kernels' launch counts must be > 0
    for that run. The plain LSTM's posteriors must agree within the
    stated tolerance, and the plain Viterbi's decode of the kernel run's
-   posteriors must give identical segments and PER.
+   posteriors must give identical segments and PER;
+6. a profiled repeat of the slice: device busy share and top device ops;
+7. ``lstm_train_forward`` against its plain version at the training
+   shapes (T=20, B=128, H=1024), f32 and bf16 proj: hs, c_T, h_T
+   bit-equal to the ``lstm_scan`` kernel and within the stated
+   tolerance of the plain version, residuals within theirs;
+8. ``lstm_train_backward`` and its dW kernel ``lstm_train_dw`` against
+   their plain versions on the same residuals, with cuDNN ``nn.LSTM``
+   bf16 forward and backward timed beside them as the yardstick;
+9. the training slice: ``train_cli.main`` trains LSTM 4x1024 -> 1909
+   (TBPTT, batch 128, bprop 20, momentumsgd lr 1e-2, 2 epochs) on phase
+   5's corpus written as a corpus tree; the training kernels and the
+   validation's ``lstm_scan`` must all be launched, every loss finite,
+   epoch 2's train loss below epoch 1's, and ``model.npz`` must load
+   into the serving network;
+10. 3 updates through ``train_network`` with the kernels against the
+    same 3 updates with the plain versions (per-update losses within the
+    stated tolerance), then one ``--dtype bfloat16`` epoch;
+11. a profiled repeat of 3 updates: device busy share and top ops.
 
 Output: progress lines, then the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -51,6 +69,23 @@ F32_FLOPS = 67e12
 # T=512, 1.8e-3 for the 4-layer posteriors.
 LSTM_ATOL = 5e-3
 POSTERIOR_ATOL = 1e-2
+# training kernels. Residuals (and bf16 hs) are bf16 roundings of values
+# within LSTM_ATOL, so they may also differ by one bf16 ulp: |kernel -
+# plain| <= LSTM_ATOL + RES_RTOL * |plain|. The backward, on the same
+# residuals, differs from its plain version by the order of its float32
+# sums, and through them by the bf16 roundings of dz that flip; those
+# errors scale with the gradients and grow along the 20 reverse steps:
+# each of dproj, dc0, dh0 within BWD_RTOL of its largest value (dh0, a
+# sum of 4H such perturbed bf16(dz) terms, is the widest: 1.7e-3 of its
+# max observed on an H100; the JAX tests allow 0.03 of max for this
+# comparison, tests/test_rnn_pallas.py:365-367), dW within DW_RTOL of
+# max |dW| (observed 6.4e-4). Three kernel updates against three plain
+# ones: the losses within E2E_LOSS_RTOL.
+RES_RTOL = 2.0 ** -7
+BWD_RTOL = 1e-2
+DW_RTOL = 3e-3
+E2E_LOSS_RTOL = 1e-3
+T_TRAIN = 20
 
 T_MAIN, B_MAIN, H_MAIN, LAYERS, CLASSES, DIM = 512, 128, 1024, 4, 1909, 40
 PHONES = 48
@@ -109,6 +144,319 @@ def numpy_lstm_params(seed):
                  ).astype(np.float32),
            "b": np.zeros(CLASSES, np.float32)}
     return {"cells": cells, "out": out}
+
+
+def device_profile(torch, fn):
+    """Run ``fn`` under the profiler; returns wall ms, device busy ms and
+    the top device ops (device-side events only: a host op's device time
+    repeats the time of the kernels it launched)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_us = {}
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us > 0:
+            dev_us[ev.key] = dev_us.get(ev.key, 0) + us
+    busy_ms = sum(dev_us.values()) / 1e3
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]
+    return wall_ms, busy_ms, {k: v / 1e3 for k, v in top}
+
+
+def log_profile(tag, wall_ms, busy_ms, top, card):
+    if busy_ms > 0:
+        log(f"[{tag}] {wall_ms:.1f} ms wall, device busy {busy_ms:.1f} ms "
+            f"({100 * busy_ms / wall_ms:.1f} %); top: "
+            + "; ".join(f"{k[:60]} {v:.2f} ms" for k, v in top.items())
+            + f" [{card}]")
+    else:
+        log(f"[{tag}] {wall_ms:.1f} ms wall; device time not measured "
+            f"(the profiler recorded none)")
+
+
+def train_phases(torch, np, dev, card, corpus, report):
+    """Phases 7-11: the training kernels against their plain versions,
+    the training slice through ``train_cli``, kernel against plain end
+    to end, and a profile. Returns the kernels' entries of the
+    ``{"kernels": [...]}`` line."""
+    from nnacousticmodeling_tpu_torch import kernels
+    from nnacousticmodeling_tpu_torch.models import get_network
+    from nnacousticmodeling_tpu_torch.ops import rnn_cuda
+    from nnacousticmodeling_tpu_torch.pipeline import train_cli
+    from nnacousticmodeling_tpu_torch.train import (
+        TrainConfig, TrainStage, load_jax_params, train_network)
+    from nnacousticmodeling_tpu_torch.utils.synthetic import (
+        write_corpus_tree)
+
+    T, B, H = T_TRAIN, B_MAIN, H_MAIN
+    G = 4 * H
+    TBH = T * B * H
+
+    # ---- 7. lstm_train_forward against its plain version ---------------
+    g = torch.Generator().manual_seed(2)
+    proj = torch.randn(T, B, G, generator=g).to(dev)
+    wh = (torch.randn(H, G, generator=g) / H ** 0.5).to(dev)
+    c0 = (torch.randn(B, H, generator=g) * 0.1).to(dev)
+    h0 = (torch.randn(B, H, generator=g) * 0.1).to(dev)
+    fwd = {}
+    for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        p = proj.to(dt)
+        hs_k, res_k, ct_k, ht_k = rnn_cuda.lstm_train_forward(p, wh, c0, h0)
+        (c_s, h_s), hs_s = rnn_cuda.lstm_scan(p, wh, c0, h0)
+        hs_r, res_r, ct_r, ht_r = rnn_cuda.lstm_train_forward_reference(
+            p, wh, c0, h0)
+        torch.cuda.synchronize()
+        if not (torch.equal(hs_k, hs_s) and torch.equal(ct_k, c_s)
+                and torch.equal(ht_k, h_s)):
+            fail(f"lstm_train_forward ({tag}) is not bit-equal to lstm_scan")
+        err = max(float((hs_k.float() - hs_r.float()).abs().max()),
+                  float((ct_k - ct_r).abs().max()),
+                  float((ht_k - ht_r).abs().max()))
+        res_d = (res_k.float() - res_r.float()).abs()
+        res_over = float((res_d - RES_RTOL * res_r.float().abs()).max())
+        hs_over = float(((hs_k.float() - hs_r.float()).abs()
+                         - RES_RTOL * hs_r.float().abs()).max())
+        c_err = max(float((ct_k - ct_r).abs().max()),
+                    float((ht_k - ht_r).abs().max()))
+        hs_ok = (hs_over if dt == torch.bfloat16 else err) <= LSTM_ATOL
+        if not (hs_ok and c_err <= LSTM_ATOL and res_over <= LSTM_ATOL):
+            fail(f"lstm_train_forward ({tag}) differs from its plain version"
+                 f": {err} (tolerance {LSTM_ATOL}; bf16 hs beyond one ulp "
+                 f"{hs_over}), residuals beyond {RES_RTOL} relative by "
+                 f"{res_over} (tolerance {LSTM_ATOL})")
+        fwd[tag] = dict(err=err, res_err=float(res_d.max()),
+                        res_over=res_over)
+        log(f"[train fwd {tag}] T={T} B={B} H={H}: hs, c_T, h_T bit-equal to "
+            f"lstm_scan; max |kernel - plain| {err:.3e} (tolerance "
+            f"{LSTM_ATOL}), residuals {float(res_d.max()):.3e}, beyond "
+            f"{RES_RTOL:.4f} relative {res_over:.3e} (tolerance {LSTM_ATOL})")
+    fwd_ms = cuda_ms(torch, lambda: rnn_cuda.lstm_train_forward(
+        proj, wh, c0, h0), 10)
+    fwd_plain_ms = cuda_ms(torch, lambda: rnn_cuda.lstm_train_forward_reference(
+        proj, wh, c0, h0), 5)
+    cudnn = torch.nn.LSTM(H, H, device=dev, dtype=torch.bfloat16)
+    x_lib = torch.randn(T, B, H, generator=g).to(dev, torch.bfloat16)
+    x_lib.requires_grad_()
+    fwd_lib_ms = cuda_ms(torch, lambda: cudnn(x_lib), 10)
+    out_lib, _ = cudnn(x_lib)
+    gout = torch.randn_like(out_lib)
+    lib_inputs = [x_lib] + list(cudnn.parameters())
+    bwd_lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        out_lib, lib_inputs, gout, retain_graph=True), 10)
+    del out_lib, gout, lib_inputs
+    fwd_bytes = (T * B * G * 4 + H * G * 4 + 2 * B * H * 4 + TBH * 4
+                 + TBH * 7 * 2 + 2 * B * H * 4)
+    fwd_bound, fwd_by = bound(fwd_bytes, 2 * TBH * G, BF16_TENSOR_FLOPS)
+    log(f"[train fwd] kernel {fwd_ms:.3f} ms, plain {fwd_plain_ms:.3f} ms, "
+        f"cuDNN nn.LSTM bf16 forward {fwd_lib_ms:.3f} ms, bound "
+        f"{fwd_bound:.4f} ms ({fwd_by}) [{card}]")
+
+    # ---- 8. lstm_train_backward and lstm_train_dw against plain -------
+    g = torch.Generator().manual_seed(3)
+    dhs = torch.randn(T, B, H, generator=g).to(dev)
+    dct = torch.randn(B, H, generator=g).to(dev)
+    dht = torch.randn(B, H, generator=g).to(dev)
+    _, res, _, _ = rnn_cuda.lstm_train_forward(proj, wh, c0, h0)
+    got = rnn_cuda.lstm_train_backward(res, wh, dhs, dct, dht, torch.float32)
+    want = rnn_cuda.lstm_train_backward_reference(res, wh, dhs, dct, dht,
+                                                  torch.float32)
+    torch.cuda.synchronize()
+    names = ("dproj", "dW", "dc0", "dh0")
+    scales = [float(w.abs().max()) for w in want]
+    abs_errs = [float((k - w).abs().max()) for k, w in zip(got, want)]
+    rel = [e / sc for e, sc in zip(abs_errs, scales)]
+    bwd_err = max(abs_errs[i] for i in (0, 2, 3))
+    bwd_rel = max(rel[i] for i in (0, 2, 3))
+    dw_err = rel[1]
+    detail = ", ".join(f"{n} {e:.3e} of max {sc:.3e} ({r:.2e})"
+                       for n, e, sc, r in zip(names, abs_errs, scales, rel))
+    if not (bwd_rel <= BWD_RTOL and dw_err <= DW_RTOL):
+        fail(f"lstm_train_backward differs from its plain version: {detail}"
+             f" (tolerances {BWD_RTOL} of max for dproj/dc0/dh0, {DW_RTOL} "
+             f"of max |dW|)")
+    dz = want[0].to(torch.bfloat16)       # the plain version's bf16(dz)
+    dw_k = rnn_cuda.lstm_train_dw(res, dz)
+    dw_r = rnn_cuda.lstm_train_dw_reference(res, dz)
+    torch.cuda.synchronize()
+    dw_alone_abs = float((dw_k - dw_r).abs().max())
+    dw_alone_scale = float(dw_r.abs().max())
+    dw_alone_err = dw_alone_abs / dw_alone_scale
+    if not dw_alone_err <= DW_RTOL:
+        fail(f"lstm_train_dw differs from its plain version by "
+             f"{dw_alone_err} of max |dW| (tolerance {DW_RTOL})")
+    bwd_ms = cuda_ms(torch, lambda: rnn_cuda.lstm_train_backward(
+        res, wh, dhs, dct, dht, torch.float32), 10)
+    bwd_plain_ms = cuda_ms(
+        torch, lambda: rnn_cuda.lstm_train_backward_reference(
+            res, wh, dhs, dct, dht, torch.float32), 5)
+    dw_ms = cuda_ms(torch, lambda: rnn_cuda.lstm_train_dw(res, dz), 10)
+    dw_plain_ms = cuda_ms(
+        torch, lambda: rnn_cuda.lstm_train_dw_reference(res, dz), 10)
+    hp = res[..., 6 * H:].reshape(-1, H).contiguous()
+    dz2 = dz.reshape(-1, G)
+    dw_lib_ms = cuda_ms(torch, lambda: torch.matmul(hp.T, dz2), 10)
+    bwd_bytes = (TBH * 7 * 2 + H * G * 4 + TBH * 4 + 2 * B * H * 4
+                 + T * B * G * 4 + H * G * 4 + 2 * B * H * 4)
+    bwd_bound, bwd_by = bound(bwd_bytes, 2 * 2 * TBH * G, BF16_TENSOR_FLOPS)
+    dw_bytes = TBH * 2 + T * B * G * 2 + H * G * 4
+    dw_bound, dw_by = bound(dw_bytes, 2 * TBH * G, BF16_TENSOR_FLOPS)
+    log(f"[train bwd] max |kernel - plain|: {detail} (tolerances "
+        f"{BWD_RTOL} of max for dproj/dc0/dh0, {DW_RTOL} for dW); dW kernel "
+        f"alone {dw_alone_err:.3e} of max |dW|")
+    log(f"[train bwd] backward (with dW) {bwd_ms:.3f} ms, plain "
+        f"{bwd_plain_ms:.3f} ms, cuDNN nn.LSTM bf16 backward "
+        f"{bwd_lib_ms:.3f} ms, bound {bwd_bound:.4f} ms ({bwd_by}); dW "
+        f"kernel {dw_ms:.3f} ms, plain {dw_plain_ms:.3f} ms, cuBLAS bf16 "
+        f"{dw_lib_ms:.3f} ms, bound {dw_bound:.4f} ms ({dw_by}) [{card}]")
+    del proj, res, got, want, dz, dw_k, dw_r, hp, dz2, cudnn, x_lib
+
+    # ---- 9. the training slice through train_cli -----------------------
+    n_train = int(corpus.train.data.shape[0])
+    steps = n_train // (B * T)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        write_corpus_tree(corpus, tmp)
+        common = ["-n", "lstm", "-l", str(LAYERS), "-u", str(H),
+                  "--num-classes", str(CLASSES), "-b", str(B),
+                  "--bproplen", str(T), "-o", "momentumsgd", "--lr", "0.01",
+                  "--early-stopping", "false", "--noplot",
+                  "--data-dir", f"{tmp}/data", "--offset-dir", f"{tmp}/data",
+                  "--target-dir", f"{tmp}/data"]
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = train_cli.main(common + ["-e", "2", "--out", f"{tmp}/f32"])
+        torch.cuda.synchronize()
+        train_wall_s = time.perf_counter() - t0
+        train_launches = dict(kernels.launches)
+        log(f"[train] main-path launches: {train_launches}")
+        for name in ("lstm_train_forward", "lstm_train_backward",
+                     "lstm_train_dw", "lstm_scan"):
+            if train_launches.get(name, 0) <= 0:
+                fail(f"the training path did not launch {name}")
+        hist = result.history
+        losses = [h[k] for h in hist for k in
+                  ("main/loss", "validation/main/loss")]
+        if len(hist) != 2 or not np.isfinite(losses).all():
+            fail(f"training history malformed: {hist}")
+        if not hist[1]["main/loss"] < hist[0]["main/loss"]:
+            fail(f"train loss did not fall: {hist[0]['main/loss']} -> "
+                 f"{hist[1]['main/loss']}")
+        serving = get_network("lstm", LAYERS, [H], CLASSES, in_dim=DIM,
+                              scan_impl="pallas", device=dev)
+        serving.load_state_dict(load_jax_params(f"{tmp}/f32/model.npz",
+                                                device=dev))
+        update_ms = hist[1]["elapsed_time"] / steps * 1e3
+        frames_per_s = steps * B * T / hist[1]["elapsed_time"]
+        log(f"[train] LSTM {LAYERS}x{H} -> {CLASSES}, TBPTT b{B} L{T}, "
+            f"{n_train} frames, {steps} updates an epoch: epoch times "
+            + ", ".join(f"{h['elapsed_time']:.3f} s" for h in hist)
+            + f"; epoch 2: {update_ms:.2f} ms per update, "
+            f"{frames_per_s:.0f} train frames/s; losses "
+            + ", ".join(f"{h['main/loss']:.4f} (val "
+                        f"{h['validation/main/loss']:.4f})" for h in hist)
+            + f"; whole call {train_wall_s:.1f} s; model.npz loads into the "
+            f"serving network [{card}]")
+
+        # ---- 10. kernel against plain, end to end; the bf16 epoch ------
+        n3 = B * T
+        x3, y3 = corpus.train.data[:n3], corpus.train.targets[:n3]
+        init = numpy_lstm_params(1)
+        cfg3 = TrainConfig(
+            stages=[TrainStage(epoch=3, optimizer="momentumsgd",
+                               batch_size=B, lr=0.01, early_stopping=False)],
+            bprop_len=T, seed=0, log=None, use_validation=False)
+
+        def three_updates():
+            net3 = get_network("lstm", LAYERS, [H], CLASSES, in_dim=DIM,
+                               scan_impl="pallas", device=dev)
+            return train_network(net3, x3, y3, cfg3,
+                                 init_params=load_jax_params(init, device=dev),
+                                 device=dev)
+
+        k_hist = [h["main/loss"] for h in three_updates().history]
+        before = dict(kernels.launches)
+        with mock.patch.multiple(
+                rnn_cuda,
+                lstm_train_forward=rnn_cuda.lstm_train_forward_reference,
+                lstm_train_backward=rnn_cuda.lstm_train_backward_reference):
+            p_hist = [h["main/loss"] for h in three_updates().history]
+        if dict(kernels.launches) != before:
+            fail("the plain run launched a kernel")
+        e2e_err = max(abs(a - b) / abs(b) for a, b in zip(k_hist, p_hist))
+        if not (len(k_hist) == 3 and e2e_err <= E2E_LOSS_RTOL):
+            fail(f"3 kernel updates {k_hist} differ from 3 plain ones "
+                 f"{p_hist} (tolerance {E2E_LOSS_RTOL} relative)")
+        log(f"[train e2e] 3 updates, kernel losses {k_hist}, plain {p_hist}:"
+            f" max relative difference {e2e_err:.3e} (tolerance "
+            f"{E2E_LOSS_RTOL})")
+
+        kernels.reset_launches()
+        bf = train_cli.main(common + ["-e", "1", "--dtype", "bfloat16",
+                                      "--out", f"{tmp}/bf16"])
+        bf_launches = dict(kernels.launches)
+        bf_losses = [bf.history[0][k] for k in ("main/loss",
+                                                "validation/main/loss")]
+        if not np.isfinite(bf_losses).all() or min(
+                bf_launches.get(k, 0) for k in (
+                    "lstm_train_forward", "lstm_train_backward",
+                    "lstm_train_dw", "lstm_scan")) <= 0:
+            fail(f"bf16 epoch: losses {bf_losses}, launches {bf_launches}")
+        bf_update_ms = bf.history[0]["elapsed_time"] / steps * 1e3
+        log(f"[train bf16] 1 epoch: losses {bf_losses}, launches "
+            f"{bf_launches}, {bf_update_ms:.2f} ms per update (epoch 1, "
+            f"warm-up included) [{card}]")
+
+    # ---- 11. where the time goes: 3 updates, profiled ------------------
+    net_p = get_network("lstm", LAYERS, [H], CLASSES, in_dim=DIM,
+                        scan_impl="pallas", device=dev)
+    init_p = load_jax_params(init, device=dev)
+    wall_ms, busy_ms, top = device_profile(torch, lambda: train_network(
+        net_p, x3, y3, cfg3, init_params=init_p, device=dev))
+    log_profile("train profile", wall_ms, busy_ms, top, card)
+
+    report["train"] = dict(
+        fwd=fwd, fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain_ms,
+        fwd_lib_ms=fwd_lib_ms, bwd_err=bwd_err, dw_err=dw_err,
+        dw_alone_err=dw_alone_err, bwd_abs_errs=abs_errs,
+        bwd_scales=scales, bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms,
+        bwd_lib_ms=bwd_lib_ms, dw_ms=dw_ms, dw_plain_ms=dw_plain_ms,
+        dw_lib_ms=dw_lib_ms, history=hist, update_ms=update_ms,
+        frames_per_s=frames_per_s, launches=train_launches,
+        e2e=dict(kernel=k_hist, plain=p_hist, err=e2e_err),
+        bf16=dict(history=bf.history, launches=bf_launches,
+                  update_ms=bf_update_ms),
+        profile=dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                     top_device_ms=top))
+    src = "nnacousticmodeling_tpu_torch/csrc/lstm_train.cu"
+    return [
+        {"name": "lstm_train_forward", "route": "cuda", "source": src,
+         "replaces": "nnacousticmodeling_tpu/ops/rnn_pallas.py:384",
+         "launches": train_launches["lstm_train_forward"],
+         "max_abs_err": fwd["f32"]["err"], "tolerance": LSTM_ATOL,
+         "ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound,
+         "bound_by": fwd_by, "library_ms": fwd_lib_ms},
+        {"name": "lstm_train_backward", "route": "cuda", "source": src,
+         "replaces": "nnacousticmodeling_tpu/ops/rnn_pallas.py:485",
+         "launches": train_launches["lstm_train_backward"],
+         "max_abs_err": bwd_err,
+         "tolerance": BWD_RTOL * max(scales[i] for i in (0, 2, 3)),
+         "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound,
+         "bound_by": bwd_by, "library_ms": bwd_lib_ms},
+        {"name": "lstm_train_dw", "route": "cuda", "source": src,
+         "replaces": "nnacousticmodeling_tpu/ops/rnn_pallas.py:575",
+         "launches": train_launches["lstm_train_dw"],
+         "max_abs_err": dw_alone_abs, "tolerance": DW_RTOL * dw_alone_scale,
+         "ms": dw_ms, "plain_ms": dw_plain_ms, "bound_ms": dw_bound,
+         "bound_by": dw_by, "library_ms": dw_lib_ms},
+    ]
 
 
 def main():
@@ -337,37 +685,17 @@ def main():
             f"{same} utterances and PER identical")
 
     # ---- 6. where the time goes: the main path once more, profiled ------
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    def serve():
         lp_prof = rnn_log_posteriors(net, x, offsets, ap=ap, batch=B_MAIN)
         decode_corpus(dec, lp_prof, offsets, batch=B_MAIN)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only (kernels, copies): a host op's device time
-    # repeats the time of the kernels it launched
-    dev_us = {}
-    for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) != DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0))
-        if us > 0:
-            dev_us[ev.key] = dev_us.get(ev.key, 0) + us
-    busy_ms = sum(dev_us.values()) / 1e3
-    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]
+
+    wall_ms, busy_ms, top = device_profile(torch, serve)
     report["profile"] = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
-                             top_device_ms={k: v / 1e3 for k, v in top})
-    if busy_ms > 0:
-        log(f"[profile] profiled main path {wall_ms:.1f} ms wall, device "
-            f"busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %); top: "
-            + "; ".join(f"{k[:60]} {v / 1e3:.1f} ms" for k, v in top)
-            + f" [{card}]")
-    else:
-        log(f"[profile] {wall_ms:.1f} ms wall; device time not measured "
-            f"(the profiler recorded none)")
+                             top_device_ms=top)
+    log_profile("profile", wall_ms, busy_ms, top, card)
+    del net, dec, dec_beam
+
+    train_kernels = train_phases(torch, np, dev, card, corpus, report)
 
     report.update(
         lstm=dict(err=lstm_err, ms=lstm_ms, plain_ms=lstm_plain_ms,
@@ -392,7 +720,7 @@ def main():
          "max_abs_err": vit["exact"]["err"], "tolerance": 0.0,
          "ms": vit["exact"]["ms"], "plain_ms": vit["exact"]["plain_ms"],
          "bound_ms": vit_bound, "bound_by": vit_by, "library_ms": None},
-    ]}
+    ] + train_kernels}
     report["kernels"] = kernels_line["kernels"]
     report["total_s"] = time.perf_counter() - t_start
     print(f"[report] {json.dumps(report)}", file=sys.stderr)

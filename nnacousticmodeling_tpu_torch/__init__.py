@@ -9,12 +9,14 @@ modules.
 Subpackages
 -----------
 io        artifact I/O: .npy corpora, MLF, Kaldi files, phone maps
-ops       splice, numerics, and the hand-written LSTM recurrence kernel
-models    LSTM cells and the LSTM stack as an ``nn.Module``
-train     the JAX ``save_pytree`` checkpoint carried into the port
+ops       splice, numerics, time delay, and the hand-written LSTM
+          recurrence kernels (inference; training forward, backward, dW)
+models    LSTM cells, the LSTM stack as an ``nn.Module``, bf16 compute
+train     staged TBPTT engine, optimizers, schedules, stream layout, and
+          ``.npz`` checkpoints under the JAX package's keys
 infer     bucketed posterior inference
 decoder   HMM image I/O, collapsed Viterbi kernel + backtrace, PER
-pipeline  single-model evaluation CLI
+pipeline  single-model evaluation and training CLIs
 
 Devices: entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; without a card and without that request they raise.

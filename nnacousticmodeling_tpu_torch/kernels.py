@@ -28,6 +28,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = {
     "lstm_scan": "lstm_scan.cu",
+    "lstm_train": "lstm_train.cu",
     "viterbi_collapsed": "viterbi_collapsed.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",

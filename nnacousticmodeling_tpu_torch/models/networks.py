@@ -5,9 +5,17 @@ ports the LSTM stack (``networks.py:172-328``): each layer hoists its
 input projection over all timesteps into one ``(B*T, D) @ (D, 4H)``
 matmul, and only the recurrence runs per step, either as the float32
 step loop (``scan_impl="xla"``, the twin of the JAX ``lax.scan`` path)
-or through ``ops.rnn_cuda.lstm_scan`` (``scan_impl="pallas"``, the twin
-of the JAX ``lstm_scan_pallas`` path: the CUDA kernel for CUDA tensors,
-its plain bf16-operand version for CPU tensors).
+or through the CUDA recurrence kernels (``scan_impl="pallas"``, the twin
+of the JAX Pallas path: ``ops.rnn_cuda.lstm_scan`` for inference and the
+differentiable ``lstm_scan_train`` when training, as
+``networks.py:268-271`` picks ``lstm_scan_pallas_train``; the CUDA
+kernels for CUDA tensors, their plain bf16-operand versions for CPU
+tensors).
+
+Dropout is the JAX package's placement (``networks.py:42-47``, the
+reference's): inverted dropout ``x / (1 - rate)`` on the input and after
+every layer, only when training, its masks drawn from the
+``torch.Generator`` the caller passes.
 
 Parameter names follow the JAX pytree paths with ``.`` for ``/``
 (``cells.0.wx``, ``out.w``), so ``train.checkpoint.load_jax_params``
@@ -17,14 +25,26 @@ output loads with ``load_state_dict``. Weights keep the dense
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
-from ..ops.rnn_cuda import lstm_scan
+from ..ops.rnn_cuda import lstm_scan, lstm_scan_train
 from ..utils.device import resolve_device
 from . import cells
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout, Chainer-compatible scaling (kept values are
+    ``x / (1 - rate)``); the identity unless training with a generator
+    and a rate above 0."""
+    if not train or rate == 0.0 or generator is None:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < (
+        1.0 - rate)
+    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 class _Dense(nn.Module):
@@ -43,7 +63,7 @@ class _LSTMLayer(nn.Module):
 
 
 class LSTM(nn.Module):
-    """LSTM stack twin (chainer_networks.py:44-62), inference path.
+    """LSTM stack twin (chainer_networks.py:44-62).
 
     ``in_dim`` is the feature width (the JAX ``init``'s argument).
     Weights are drawn from ``seed`` with a ``torch.Generator`` (they do
@@ -61,7 +81,7 @@ class LSTM(nn.Module):
                              f"{scan_impl!r}")
         dev = resolve_device(device)
         self.units, self.num_classes, self.layers = units, num_classes, layers
-        self.dropout = dropout          # training-time only; not ported yet
+        self.dropout = dropout          # input and after every layer
         self.scan_impl = scan_impl
         gen = torch.Generator().manual_seed(seed)
         layer_list = []
@@ -94,11 +114,18 @@ class LSTM(nn.Module):
             new_state.append(carry)
         return new_state, cells.dense({"w": self.out.w, "b": self.out.b}, x)
 
-    def hidden_sequence(self, xs: torch.Tensor, state=None):
-        """(B, T, D) -> ((B, T, H) last-layer hiddens, state)."""
+    def hidden_sequence(self, xs: torch.Tensor, state=None,
+                        train: bool = False,
+                        generator: Optional[torch.Generator] = None):
+        """(B, T, D) -> ((B, T, H) last-layer hiddens, state).
+
+        ``train`` turns dropout on (masks from ``generator``) and, with
+        ``scan_impl="pallas"``, routes the recurrence through the
+        differentiable ``lstm_scan_train``."""
         b, t, _ = xs.shape
         if state is None:
             state = self.init_state(b)
+        xs = dropout(xs, self.dropout, train, generator)
         new_state = []
         for l in range(self.layers):
             p = self._params(l)
@@ -106,7 +133,8 @@ class LSTM(nn.Module):
             proj = proj.reshape(b, t, -1).transpose(0, 1).contiguous()
             if self.scan_impl == "pallas":
                 c, h = state[l]
-                carry, hs = lstm_scan(proj, p["wh"], c, h)
+                scan = lstm_scan_train if train else lstm_scan
+                carry, hs = scan(proj, p["wh"], c, h)
             else:
                 carry = state[l]
                 steps = []
@@ -115,13 +143,16 @@ class LSTM(nn.Module):
                     steps.append(h)
                 hs = torch.stack(steps)
             new_state.append(carry)
-            xs = hs.transpose(0, 1)                       # (B, T, H)
+            xs = dropout(hs.transpose(0, 1), self.dropout, train,
+                         generator)                       # (B, T, H)
         return xs, new_state
 
-    def apply_sequence(self, xs: torch.Tensor, state=None):
+    def apply_sequence(self, xs: torch.Tensor, state=None,
+                       train: bool = False,
+                       generator: Optional[torch.Generator] = None):
         """(B, T, D) -> ((B, T, C) logits, state)."""
         b, t, _ = xs.shape
-        hs, new_state = self.hidden_sequence(xs, state)
+        hs, new_state = self.hidden_sequence(xs, state, train, generator)
         logits = cells.dense({"w": self.out.w, "b": self.out.b},
                              hs.reshape(b * t, -1))
         return logits.reshape(b, t, -1), new_state
@@ -137,7 +168,7 @@ def get_network(network: str, layers: int, units: Sequence[int],
                 num_classes: int, activation: str = "relu",
                 tdnn_ksize: Sequence[int] = (5,),
                 dropout: Sequence[float] = (0.0,), *, in_dim: int,
-                scan_impl: str = "xla", device="cuda"):
+                scan_impl: str = "xla", device="cuda", seed: int = 0):
     """Twin of get_nn (chainer_networks.py:163-187). This slice builds
     ``"lstm"``; the rest of the zoo is ROADMAP Queue 1 item 8 (and MLP /
     TDNN item 2)."""
@@ -146,7 +177,7 @@ def get_network(network: str, layers: int, units: Sequence[int],
     if network == "lstm":
         return LSTM(units=units[0], num_classes=num_classes, layers=layers,
                     dropout=dropout[0], in_dim=in_dim, scan_impl=scan_impl,
-                    device=device)
+                    device=device, seed=seed)
     if network in _LATER:
         raise NotImplementedError(
             f"network {network!r} is not ported yet (ROADMAP Queue 1: "

@@ -1,6 +1,8 @@
 from .numerics import log_softmax
-from .rnn_cuda import lstm_scan, lstm_scan_reference
+from .rnn_cuda import lstm_scan, lstm_scan_reference, lstm_scan_train
 from .splice import splice_flat, splice_utts
+from .timedelay import apply_time_delay
 
-__all__ = ["log_softmax", "lstm_scan", "lstm_scan_reference", "splice_flat",
+__all__ = ["apply_time_delay", "log_softmax", "lstm_scan",
+           "lstm_scan_reference", "lstm_scan_train", "splice_flat",
            "splice_utts"]

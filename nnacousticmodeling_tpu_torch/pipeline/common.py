@@ -1,6 +1,7 @@
 """Shared pipeline helpers: argparse fragments, data preparation and
 model construction (counterpart of the JAX package's
-``pipeline/common.py``, the subset the evaluation path uses)."""
+``pipeline/common.py``, the subset the evaluation and training paths
+use)."""
 
 from __future__ import annotations
 
@@ -16,6 +17,14 @@ from ..io.kaldi import (
 )
 from ..models import get_network, is_recurrent
 from ..ops.splice import splice_flat
+
+
+def str2bool(v: str) -> bool:
+    if v.lower() in ("yes", "true", "t", "y", "1"):
+        return True
+    if v.lower() in ("no", "false", "f", "n", "0"):
+        return False
+    raise argparse.ArgumentTypeError("Boolean value expected.")
 
 
 def add_network_args(parser: argparse.ArgumentParser) -> None:
@@ -70,8 +79,9 @@ def num_classes_for(args) -> int:
 
 
 def build_network(args, num_classes: int, in_dim: int, device):
-    """The network named by ``args`` on ``device``; ``--scan-impl auto``
-    picks the kernel path on CUDA and the float32 loop elsewhere."""
+    """The network named by ``args`` on ``device``, its weights drawn from
+    ``args.seed`` where the parser has one; ``--scan-impl auto`` picks
+    the kernel path on CUDA and the float32 loop elsewhere."""
     impl = getattr(args, "scan_impl", "auto")
     if impl == "auto":
         impl = "pallas" if device.type == "cuda" else "xla"
@@ -79,7 +89,8 @@ def build_network(args, num_classes: int, in_dim: int, device):
                        args.activation, args.tdnn_ksize,
                        args.dropout if isinstance(args.dropout, list)
                        else [args.dropout],
-                       in_dim=in_dim, scan_impl=impl, device=device)
+                       in_dim=in_dim, scan_impl=impl, device=device,
+                       seed=getattr(args, "seed", 0))
 
 
 def effective_splice(args) -> int:
@@ -114,3 +125,11 @@ def prepare_features(x: np.ndarray, args, splice: int,
     if ivectors is not None:
         x = np.concatenate((x, ivectors), axis=1)
     return x
+
+
+def dump_args(args, out_dir: str) -> None:
+    """Echo all args to <out>/args.txt (train.py:88-98)."""
+    Path(out_dir).mkdir(exist_ok=True, parents=True)
+    with open(Path(out_dir) / "args.txt", "w") as f:
+        for attr in sorted(vars(args)):
+            f.write(f"# {attr}: {getattr(args, attr)}\n")

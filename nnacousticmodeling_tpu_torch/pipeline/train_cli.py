@@ -1,0 +1,258 @@
+"""Training CLI, single-model path: trains one recurrent network through
+staged (optimizer, batch-size, lr, early-stop) phases and writes
+``model.npz`` (under the JAX package's keys), ``log.json`` and
+``args.txt``.
+
+Counterpart of ``nnacousticmodeling_tpu/pipeline/train_cli.py`` with the
+same argv surface plus ``--device`` (default ``cuda``; ``--device cpu``
+runs without a card). In this slice: the master and ``--train-fold``
+data paths, ``--resume``, ``--dtype``, ``--timedelay``. Not ported yet
+(they raise ``NotImplementedError``): ``--train-rpl``,
+``--train-all-folds``, ``--mesh``, ``--distributed`` / ``--coordinator``,
+and feed-forward networks (which ``--shuffle-sequences`` is for).
+
+Run: ``python -m nnacousticmodeling_tpu_torch.pipeline.train_cli [args]``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import shutil
+from pathlib import Path
+
+import numpy as np
+
+from ..models import is_recurrent
+from ..ops.timedelay import apply_time_delay
+from ..train import TrainConfig, build_stages, save_pytree, train_network
+from ..utils.device import resolve_device
+from .common import (
+    add_data_args, add_network_args, build_network, dump_args,
+    effective_splice, load_transform, num_classes_for, prepare_features,
+    str2bool,
+)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="Acoustic model trainer")
+    parser.add_argument("--epoch", "-e", type=int, nargs="+", default=[20])
+    parser.add_argument("--optimizer", "-o", nargs="+", default=["momentumsgd"])
+    parser.add_argument("--batch-size", "-b", type=int, nargs="+", default=[128])
+    parser.add_argument("--lr", type=float, nargs="+",
+                        default=[1e-2, 1e-3, 1e-4, 1e-5])
+    parser.add_argument("--early-stopping", type=str2bool, nargs="+",
+                        default=[True])
+    parser.add_argument("--bproplen", type=int, default=20)
+    parser.add_argument("--shuffle-sequences", action="store_true",
+                        help="sentence-level shuffling with stream batch "
+                             "layout even for feed-forward nets "
+                             "(the reference's flag, train.py:49,307)")
+    parser.add_argument("--dtype", choices=["float32", "bfloat16"],
+                        default="float32",
+                        help="compute dtype for forward/backward; master "
+                             "params and optimizer state stay float32")
+    parser.add_argument("--mesh", default="",
+                        help="device mesh spec; not ported yet")
+    parser.add_argument("--distributed", action="store_true",
+                        help="multi-host bring-up; not ported yet")
+    parser.add_argument("--coordinator", default="",
+                        help="coordinator address for --distributed; not "
+                             "ported yet")
+    parser.add_argument("--num-processes", type=int, default=None)
+    parser.add_argument("--process-id", type=int, default=None)
+    parser.add_argument("--out", default="result")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--no-validation", dest="use_validation",
+                        action="store_false")
+    parser.add_argument("--no-progress", action="store_true")
+    parser.add_argument("--noplot", dest="plot", action="store_false",
+                        help="disable loss/accuracy plot PNGs")
+    parser.add_argument("--resume", "-r", default="",
+                        help="resume from a training snapshot "
+                             "(<out>/snapshot.npz written every epoch)")
+    # fold / RPL training modes (train.py:59-70)
+    parser.add_argument("--train-fold", type=int)
+    parser.add_argument("--train-all-folds", action="store_true",
+                        help="fold-parallel training; not ported yet")
+    parser.add_argument("--train-rpl", action="store_true",
+                        help="RPL head training; not ported yet")
+    parser.add_argument("--fold-data-dir", default="fold_data")
+    parser.add_argument("--fold-output-dir", default="fold_data_out")
+    parser.add_argument("--fold-model-dir", default="fold_models")
+    parser.add_argument("--fold-data-pattern", default="data_{0}.npy")
+    parser.add_argument("--fold-offset-pattern", default="offsets_{0}.npy")
+    parser.add_argument("--fold-target-pattern", default="targets_{0}.npy")
+    parser.add_argument("--fold-ivector-pattern", default="ivectors_{}.npy")
+    parser.add_argument("--fold-output-pattern", default="data_{0}.npy")
+    parser.add_argument("--fold-network-pattern", default="fold_{0}.npz")
+    add_network_args(parser)
+    add_data_args(parser)
+    return parser
+
+
+def _check_ported(args) -> None:
+    if args.train_rpl:
+        raise NotImplementedError("--train-rpl is not ported yet (ROADMAP "
+                                  "Queue 1 item 7: ensembles)")
+    if args.train_all_folds:
+        raise NotImplementedError("--train-all-folds is not ported yet "
+                                  "(ROADMAP Queue 1 item 11: fold-parallel "
+                                  "training)")
+    if args.mesh:
+        raise NotImplementedError("--mesh is not ported yet (ROADMAP Queue 1 "
+                                  "item 11: parallelism)")
+    if args.distributed or args.coordinator:
+        raise NotImplementedError("--distributed / --coordinator are not "
+                                  "ported yet (ROADMAP Queue 1 item 11: "
+                                  "parallelism)")
+    if not is_recurrent(args.network):
+        raise NotImplementedError(
+            f"training network {args.network!r} is not ported yet: "
+            f"feed-forward stages are ROADMAP Queue 1 item 2")
+
+
+def _load_fold_train_data(args, recurrent: bool):
+    """Concatenation of all folds except --train-fold (train.py:162-206)."""
+    xs, ys, ivs = [], [], []
+    offsets = [0]
+    num = 0
+    fold = 0
+    while True:
+        if fold == args.train_fold:
+            fold += 1
+            continue
+        x_file = Path(args.fold_data_dir, args.fold_data_pattern.format(fold))
+        if not x_file.is_file():
+            break
+        print(f"Loading fold {fold} data")
+        x_fold = np.load(str(x_file))
+        xs.append(x_fold)
+        if recurrent:
+            off = np.load(str(Path(args.fold_data_dir,
+                                   args.fold_offset_pattern.format(fold))))
+            offsets.extend((off[1:] + num).tolist())
+        ys.append(np.load(str(Path(args.fold_data_dir,
+                                   args.fold_target_pattern.format(fold)))))
+        if args.ivector_dir is not None:
+            ivs.append(np.load(str(Path(args.fold_data_dir,
+                                        args.fold_ivector_pattern.format(fold)))))
+        num += x_fold.shape[0]
+        fold += 1
+    if not xs:
+        raise FileNotFoundError("No fold data found")
+    x = np.concatenate(xs, axis=0)
+    y = np.concatenate(ys, axis=0)
+    iv = np.concatenate(ivs, axis=0) if ivs else None
+    off = np.asarray(offsets, dtype=np.int64) if recurrent else None
+    return x, y, off, iv
+
+
+def main(arg_list=None):
+    parser = build_parser()
+    args = parser.parse_args(list(map(str, arg_list)) if arg_list is not None
+                             else None)
+    _check_ported(args)
+    device = resolve_device(args.device)
+    dump_args(args, args.out)
+    num_classes = num_classes_for(args)
+
+    # ---- data ---------------------------------------------------------
+    offsets = offsets_dev = None
+    ivectors = ivectors_dev = None
+    if args.train_fold is not None:
+        x, y, offsets, ivectors = _load_fold_train_data(args, True)
+    else:
+        x = np.load(str(Path(args.data_dir, args.data.format("train"))))
+        y = np.load(str(Path(args.target_dir, args.targets.format("train"))))
+        offsets = np.load(str(Path(args.offset_dir,
+                                   args.offsets.format("train"))))
+        if args.ivector_dir is not None:
+            ivectors = np.load(str(Path(args.ivector_dir,
+                                        args.ivectors.format("train"))))
+    x_dev = y_dev = None
+    if args.use_validation:
+        x_dev = np.load(str(Path(args.data_dir, args.data.format("dev"))))
+        y_dev = np.load(str(Path(args.target_dir, args.targets.format("dev"))))
+        offsets_dev = np.load(str(Path(args.offset_dir,
+                                       args.offsets.format("dev"))))
+        if args.ivector_dir is not None:
+            ivectors_dev = np.load(str(Path(args.ivector_dir,
+                                            args.ivectors.format("dev"))))
+
+    # splice -> transform -> i-vectors -> time delay (train.py:224-264)
+    splice = effective_splice(args)
+    ft = load_transform(args, splice)
+    x = prepare_features(x, args, splice, ft, ivectors)
+    if x_dev is not None:
+        x_dev = prepare_features(x_dev, args, splice, ft, ivectors_dev)
+    if args.timedelay != 0:
+        x, y, offsets = apply_time_delay(x, y, offsets, args.timedelay)
+        if x_dev is not None:
+            x_dev, y_dev, offsets_dev = apply_time_delay(
+                x_dev, y_dev, offsets_dev, args.timedelay)
+
+    # ---- model + stages ----------------------------------------------
+    stages = build_stages(args.epoch, args.optimizer, args.batch_size,
+                          args.lr, args.early_stopping)
+    config = TrainConfig(stages=stages, bprop_len=args.bproplen,
+                         seed=args.seed,
+                         use_validation=args.use_validation
+                         and x_dev is not None,
+                         log=print,
+                         snapshot_path=str(Path(args.out) / "snapshot.npz"),
+                         resume_snapshot=bool(args.resume),
+                         compute_dtype=args.dtype,
+                         shuffle_sequences=args.shuffle_sequences)
+    net = build_network(args, num_classes, x.shape[1], device)
+    if args.resume and args.resume != "auto":
+        config.snapshot_path = args.resume
+
+    result = train_network(net, x, y, config, offsets=offsets,
+                           x_dev=x_dev, y_dev=y_dev, device=device)
+
+    # ---- save (train.py:393-395) --------------------------------------
+    Path(args.out).mkdir(exist_ok=True, parents=True)
+    save_pytree(str(Path(args.out) / "model"), result.params)
+    if args.train_fold is not None:
+        fold_file = Path(args.fold_model_dir,
+                         args.fold_network_pattern.format(args.train_fold))
+        fold_file.parent.mkdir(exist_ok=True, parents=True)
+        shutil.copy(Path(args.out) / "model.npz", fold_file)
+    with open(Path(args.out) / "log.json", "w") as f:
+        json.dump(result.history, f, indent=1)
+    if args.plot:
+        _write_plots(result.history, args.out)
+    return result
+
+
+def _write_plots(history, out_dir):
+    """loss.png / accuracy.png training curves (the reference's
+    PlotReport extension, train.py:348-355), when matplotlib imports."""
+    try:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        return
+    if not history:
+        return
+    epochs = range(1, len(history) + 1)
+    for metric, fname in [("loss", "loss.png"), ("accuracy", "accuracy.png")]:
+        fig, ax = plt.subplots(figsize=(6, 4))
+        ax.plot(epochs, [h[f"main/{metric}"] for h in history],
+                label=f"main/{metric}")
+        if f"validation/main/{metric}" in history[0]:
+            ax.plot(epochs, [h.get(f"validation/main/{metric}")
+                             for h in history],
+                    label=f"validation/main/{metric}")
+        ax.set_xlabel("epoch")
+        ax.set_ylabel(metric)
+        ax.legend()
+        fig.tight_layout()
+        fig.savefig(str(Path(out_dir) / fname), dpi=80)
+        plt.close(fig)
+
+
+if __name__ == "__main__":
+    main()

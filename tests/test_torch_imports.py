@@ -18,8 +18,13 @@ import nnacousticmodeling_tpu_torch as port
 from nnacousticmodeling_tpu_torch.decoder.image import make_synthetic_image
 from nnacousticmodeling_tpu_torch.decoder.viterbi import ViterbiDecoder
 from nnacousticmodeling_tpu_torch.models import get_network
-from nnacousticmodeling_tpu_torch.pipeline import evaluate
-from nnacousticmodeling_tpu_torch.train import load_jax_params
+from nnacousticmodeling_tpu_torch.pipeline import evaluate, train_cli
+from nnacousticmodeling_tpu_torch.train import (
+    TrainConfig,
+    TrainStage,
+    load_jax_params,
+    train_network,
+)
 from nnacousticmodeling_tpu_torch.utils.device import resolve_device
 
 REPO = Path(__file__).resolve().parent.parent
@@ -48,6 +53,10 @@ def test_port_files_found():
     names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
     assert "nnacousticmodeling_tpu_torch/ops/rnn_cuda.py" in names
     assert "nnacousticmodeling_tpu_torch/decoder/viterbi_collapsed.py" in names
+    for mod in ("train/engine.py", "train/stages.py", "train/streams.py",
+                "train/optimizers.py", "models/precision.py",
+                "ops/timedelay.py", "pipeline/train_cli.py"):
+        assert f"nnacousticmodeling_tpu_torch/{mod}" in names
     assert (REPO / "chip_smoke.py").is_file()
 
 
@@ -71,12 +80,21 @@ def _entry_points(tmp_path):
         "evaluate.main": lambda: evaluate.main(
             ["-n", "lstm", "--recog-dir", str(tmp_path),
              "--data-dir", str(tmp_path)]),
+        "train_cli.main": lambda: train_cli.main(
+            ["-n", "lstm", "--data-dir", str(tmp_path),
+             "--out", str(tmp_path / "out")]),
+        "train_network": lambda: train_network(
+            get_network("lstm", 1, [4], 5, in_dim=3, device="cpu"),
+            np.zeros((8, 3), np.float32), np.zeros(8, np.int32),
+            TrainConfig(stages=[TrainStage(1, "sgd", 2, 0.1, False)],
+                        log=None)),
     }
 
 
 @pytest.mark.parametrize("name", ["resolve_device", "get_network",
                                   "ViterbiDecoder", "load_jax_params",
-                                  "evaluate.main"])
+                                  "evaluate.main", "train_cli.main",
+                                  "train_network"])
 def test_default_device_is_cuda(tmp_path, name):
     call = _entry_points(tmp_path)[name]
     if torch.cuda.is_available():
