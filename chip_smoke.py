@@ -39,7 +39,28 @@ Phases (each one that fails ends the run with a non-zero exit):
 10. 3 updates through ``train_network`` with the kernels against the
     same 3 updates with the plain versions (per-update losses within the
     stated tolerance), then one ``--dtype bfloat16`` epoch;
-11. a profiled repeat of 3 updates: device busy share and top ops.
+11. a profiled repeat of 3 updates: device busy share and top ops;
+12. the gated kernels against their plain versions, for each kind (gru,
+    mgru_r, mgru): ``gated_scan`` at the serving shapes (T=512, B=128,
+    H=1024), ``gated_train_forward`` (bit-equal to ``gated_scan``),
+    ``gated_train_backward`` and its dW kernel ``gated_train_dw`` at the
+    training shapes (T=20), f32 and bf16 proj, with cuDNN ``nn.GRU``
+    bf16 timed beside them as a yardstick of like work (it applies r
+    after the product, so it is not the same function);
+13. the GRU serving slice: phase 5's corpus and decoder, a GRU 4x1024
+    -> 1909 with numpy-seeded weights, ``rnn_log_posteriors``,
+    ``decode_corpus``, MLF, PER; ``gated_scan`` and the Viterbi kernel
+    must be launched, the posteriors agree with the plain GRU's and the
+    plain Viterbi gives identical segments and PER;
+14. the GRU training slice: ``train_cli.main`` with ``-n gru -l 4 -u
+    1024 --timedelay 5 -d 0.2`` (TBPTT b128 L20, momentumsgd lr 1e-2, 2
+    epochs) on phase 9's corpus tree; the gated training kernels and
+    the validation's ``gated_scan`` must be launched, every loss finite,
+    epoch 2's train loss below epoch 1's, ``model.npz`` must load into
+    the serving GRU;
+15. 3 kernel updates against 3 plain ones through ``train_network`` for
+    each of gru, mgrurelu and mgrurelur at 4x1024;
+16. a profiled repeat of 3 GRU updates: device busy share and top ops.
 
 Output: progress lines, then the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -86,6 +107,14 @@ BWD_RTOL = 1e-2
 DW_RTOL = 3e-3
 E2E_LOSS_RTOL = 1e-3
 T_TRAIN = 20
+# gated kernels: the LSTM's reasoning (bf16 rounding flips after sums in
+# another order) with every tolerance taken relative to the largest value
+# of the plain version's tensor, since the relu candidate of MGRU is
+# unbounded: |kernel - plain| <= GATED_ATOL * max(1, max|plain|). The
+# training kernels use RES_RTOL, BWD_RTOL and DW_RTOL as the LSTM's do.
+GATED_ATOL = 5e-3
+GATED = {"gru": (3, "tanh", "gru"), "mgru_r": (3, "relu", "mgrurelur"),
+         "mgru": (2, "relu", "mgrurelu")}
 
 T_MAIN, B_MAIN, H_MAIN, LAYERS, CLASSES, DIM = 512, 128, 1024, 4, 1909, 40
 PHONES = 48
@@ -102,10 +131,12 @@ def log(msg):
     print(msg, flush=True)
 
 
-def cuda_ms(torch, fn, reps):
+def cuda_ms(torch, fn, reps, warm=True):
     """Mean milliseconds per call of ``fn`` on the card (CUDA events,
-    one warm-up call first)."""
-    fn()
+    one warm-up call first unless ``warm`` is false: the plain versions
+    are timed right after the call that checked them)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -144,6 +175,49 @@ def numpy_lstm_params(seed):
                  ).astype(np.float32),
            "b": np.zeros(CLASSES, np.float32)}
     return {"cells": cells, "out": out}
+
+
+def per_of(corpus, results, out_path, ref):
+    """Write the decoded MLF of the test set and score it (NIST PER)."""
+    from nnacousticmodeling_tpu_torch.decoder import compute_per
+    from nnacousticmodeling_tpu_torch.io import write_mlf
+    from nnacousticmodeling_tpu_torch.io.mlf import MlfEntry
+    test_mlf, entries = {}, []
+    for i, (utt, res) in enumerate(zip(corpus.test.utt_names, results)):
+        test_mlf[utt] = MlfEntry(words=res.phones, orig_id=i)
+        entries.append((utt, res.segments))
+    write_mlf(str(out_path), entries)
+    return compute_per(test_mlf, ref, nist=True)
+
+
+def numpy_gated_params(network, seed):
+    """GRU / MGRU 4x1024 -> 1909 weights in the JAX package's pytree
+    layout (cells.py:159-168, :213-227), drawn from a numpy seed."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    h = H_MAIN
+
+    def w(n_in, n_out):
+        return (rng.standard_normal((n_in, n_out)) / np.sqrt(n_in)
+                ).astype(np.float32)
+
+    cells = []
+    d = DIM
+    for _ in range(LAYERS):
+        if network == "gru":
+            cell = {"wx": w(d, 3 * h), "bx": np.zeros(3 * h, np.float32),
+                    "wh_rz": w(h, 2 * h), "wh_c": w(h, h)}
+        else:
+            cell = {"w_z": w(d, h), "u_z": w(h, h), "w": w(d, h),
+                    "u": w(h, h), "b_z": np.zeros(h, np.float32),
+                    "b": np.zeros(h, np.float32)}
+            if network == "mgrurelur":
+                cell.update(w_r=w(d, h), u_r=w(h, h),
+                            b_r=np.zeros(h, np.float32))
+        cells.append(cell)
+        d = h
+    return {"cells": cells, "out": {"w": w(h, CLASSES),
+                                    "b": np.zeros(CLASSES, np.float32)}}
 
 
 def device_profile(torch, fn):
@@ -458,6 +532,460 @@ def train_phases(torch, np, dev, card, corpus, report):
          "bound_by": dw_by, "library_ms": dw_lib_ms},
     ]
 
+def gated_kernel_phase(torch, np, dev, card, report):
+    """Phase 12: each gated kernel against its plain version at the
+    paths' shapes, for each kind. Returns per-kind measurements."""
+    from nnacousticmodeling_tpu_torch import kernels
+    from nnacousticmodeling_tpu_torch.ops import rnn_cuda
+
+    B, H = B_MAIN, H_MAIN
+    out = {}
+
+    def rel_err(got, want):
+        return float((got.float() - want.float()).abs().max()) / max(
+            1.0, float(want.float().abs().max()))
+
+    for kind, (gp, act, _) in GATED.items():
+        g = torch.Generator().manual_seed(20 + gp)
+        has_w2 = kind != "mgru"
+        w1 = (torch.randn(H, 2 * H, generator=g) / H ** 0.5).to(dev)
+        w2 = ((torch.randn(H, H, generator=g) / H ** 0.5).to(dev)
+              if has_w2 else None)
+        k = dict(kind=kind, activation=act)
+        # ---- inference at the serving shapes
+        T = T_MAIN
+        proj = torch.randn(T, B, gp * H, generator=g).to(dev)
+        h0 = torch.zeros(B, H, device=dev)
+        ht_k, hs_k = rnn_cuda.gated_scan(proj, w1, w2, h0, **k)
+        ht_r, hs_r = rnn_cuda.gated_scan_reference(proj, w1, w2, h0, **k)
+        torch.cuda.synchronize()
+        scan_err = max(rel_err(hs_k, hs_r), rel_err(ht_k, ht_r))
+        if not (np.isfinite(scan_err) and scan_err <= GATED_ATOL):
+            fail(f"gated_scan ({kind}) differs from its plain version by "
+                 f"{scan_err} of max(1, max|plain|) (tolerance "
+                 f"{GATED_ATOL})")
+        scan_ms = cuda_ms(torch, lambda: rnn_cuda.gated_scan(
+            proj, w1, w2, h0, **k), 3)
+        scan_plain_ms = cuda_ms(torch, lambda: rnn_cuda.gated_scan_reference(
+            proj, w1, w2, h0, **k), 1, warm=False)
+        n_cols = 3 * H if has_w2 else 2 * H
+        w_bytes = H * n_cols * 4
+        scan_bytes = (proj.numel() * 4 + w_bytes + 2 * B * H * 4
+                      + T * B * H * 4)
+        scan_bound, scan_by = bound(scan_bytes, 2 * T * B * H * n_cols,
+                                    BF16_TENSOR_FLOPS)
+        # cuDNN nn.GRU bf16 at the same shapes: like work, not the same
+        # function (it applies r after the product)
+        cudnn = torch.nn.GRU(H, H, device=dev, dtype=torch.bfloat16)
+        x_lib = torch.randn(T, B, H, generator=g).to(dev, torch.bfloat16)
+        with torch.inference_mode():
+            scan_lib_ms = cuda_ms(torch, lambda: cudnn(x_lib), 3)
+        log(f"[gated_scan {kind}] T={T} B={B} H={H} f32 proj: max |kernel - "
+            f"plain| {scan_err:.3e} of max(1, max|plain|) (tolerance "
+            f"{GATED_ATOL}), max|hs| {float(hs_r.abs().max()):.3g}; kernel "
+            f"{scan_ms:.3f} ms, plain {scan_plain_ms:.3f} ms, bound "
+            f"{scan_bound:.3f} ms ({scan_by}); cuDNN nn.GRU bf16 yardstick "
+            f"{scan_lib_ms:.3f} ms [{card}]")
+        del proj, hs_k, hs_r, x_lib
+
+        # ---- training kernels at the training shapes
+        T = T_TRAIN
+        TBH = T * B * H
+        proj = torch.randn(T, B, gp * H, generator=g).to(dev)
+        h0 = (torch.randn(B, H, generator=g) * 0.1).to(dev)
+        fwd = {}
+        for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            p = proj.to(dt)
+            hs_k, res_k, ht_k = rnn_cuda.gated_train_forward(p, w1, w2, h0,
+                                                             **k)
+            ht_s, hs_s = rnn_cuda.gated_scan(p, w1, w2, h0, **k)
+            hs_r, res_r, ht_r = rnn_cuda.gated_train_forward_reference(
+                p, w1, w2, h0, **k)
+            torch.cuda.synchronize()
+            if not (torch.equal(hs_k, hs_s) and torch.equal(ht_k, ht_s)):
+                fail(f"gated_train_forward ({kind}, {tag}) is not bit-equal "
+                     f"to gated_scan")
+            scale = max(1.0, float(hs_r.float().abs().max()))
+            err = max(rel_err(hs_k, hs_r), rel_err(ht_k, ht_r))
+            hs_over = float(((hs_k.float() - hs_r.float()).abs()
+                             - RES_RTOL * hs_r.float().abs()).max()) / scale
+            res_d = (res_k.float() - res_r.float()).abs()
+            res_over = float((res_d - RES_RTOL * res_r.float().abs()).max()
+                             ) / scale
+            hs_ok = (hs_over if dt == torch.bfloat16 else err) <= GATED_ATOL
+            if not (hs_ok and rel_err(ht_k, ht_r) <= GATED_ATOL
+                    and res_over <= GATED_ATOL):
+                fail(f"gated_train_forward ({kind}, {tag}) differs from its "
+                     f"plain version: {err} of max(1, max|plain|) (tolerance"
+                     f" {GATED_ATOL}; bf16 hs beyond one ulp {hs_over}), "
+                     f"residuals beyond {RES_RTOL} relative by {res_over}")
+            fwd[tag] = dict(err=err, res_err=float(res_d.max()),
+                            res_over=res_over)
+        fwd_ms = cuda_ms(torch, lambda: rnn_cuda.gated_train_forward(
+            proj, w1, w2, h0, **k), 10)
+        fwd_plain_ms = cuda_ms(
+            torch, lambda: rnn_cuda.gated_train_forward_reference(
+                proj, w1, w2, h0, **k), 3)
+        fwd_bytes = (proj.numel() * 4 + w_bytes + B * H * 4 + TBH * 4
+                     + TBH * 4 * 2 + B * H * 4)
+        fwd_bound, fwd_by = bound(fwd_bytes, 2 * TBH * n_cols,
+                                  BF16_TENSOR_FLOPS)
+
+        g2 = torch.Generator().manual_seed(30 + gp)
+        dhs = torch.randn(T, B, H, generator=g2).to(dev)
+        dht = torch.randn(B, H, generator=g2).to(dev)
+        _, res, _ = rnn_cuda.gated_train_forward(proj, w1, w2, h0, **k)
+        got = rnn_cuda.gated_train_backward(res, w1, w2, dhs, dht,
+                                            torch.float32, **k)
+        want = rnn_cuda.gated_train_backward_reference(res, w1, w2, dhs, dht,
+                                                       torch.float32, **k)
+        torch.cuda.synchronize()
+        names = ("dproj", "dW1", "dW2", "dh0")
+        errs = {}
+        for n, gk, wr in zip(names, got, want):
+            if wr is None:
+                continue
+            sc = float(wr.abs().max())
+            errs[n] = (float((gk - wr).abs().max()), sc)
+        rel = {n: e / sc for n, (e, sc) in errs.items()}
+        bwd_rel = max(rel["dproj"], rel["dh0"])
+        dw_rel = max(rel[n] for n in ("dW1", "dW2") if n in rel)
+        detail = ", ".join(f"{n} {e:.3e} of max {sc:.3e} ({rel[n]:.2e})"
+                           for n, (e, sc) in errs.items())
+        if not (bwd_rel <= BWD_RTOL and dw_rel <= DW_RTOL):
+            fail(f"gated_train_backward ({kind}) differs from its plain "
+                 f"version: {detail} (tolerances {BWD_RTOL} of max for "
+                 f"dproj/dh0, {DW_RTOL} of max |dW|)")
+        # the dW kernel alone, on the plain version's bf16 pair and dcpre
+        dproj_b = want[0].to(torch.bfloat16)
+        dc_col = {"gru": 2, "mgru_r": 1, "mgru": None}[kind]
+        if kind == "gru":          # pair [r | z] = dproj columns 0, 1
+            pair = dproj_b[..., :2 * H].contiguous()
+        elif kind == "mgru_r":     # pair [z | r] = dproj columns 0, 2
+            pair = torch.cat([dproj_b[..., :H], dproj_b[..., 2 * H:]], -1)
+        else:                      # pair [z | c] = dproj columns 0, 1
+            pair = dproj_b.contiguous()
+        dc = (None if dc_col is None else
+              dproj_b[..., dc_col * H:(dc_col + 1) * H].contiguous())
+        dw_k = rnn_cuda.gated_train_dw(res, pair, dc)
+        dw_r = rnn_cuda.gated_train_dw_reference(res, pair, dc)
+        torch.cuda.synchronize()
+        dw_alone = [(float((a - b).abs().max()), float(b.abs().max()))
+                    for a, b in zip(dw_k, dw_r) if b is not None]
+        dw_alone_abs = max(e for e, _ in dw_alone)
+        dw_alone_scale = max(sc for _, sc in dw_alone)
+        dw_alone_err = max(e / sc for e, sc in dw_alone)
+        if not dw_alone_err <= DW_RTOL:
+            fail(f"gated_train_dw ({kind}) differs from its plain version by"
+                 f" {dw_alone_err} of max |dW| (tolerance {DW_RTOL})")
+        bwd_ms = cuda_ms(torch, lambda: rnn_cuda.gated_train_backward(
+            res, w1, w2, dhs, dht, torch.float32, **k), 10)
+        bwd_plain_ms = cuda_ms(
+            torch, lambda: rnn_cuda.gated_train_backward_reference(
+                res, w1, w2, dhs, dht, torch.float32, **k), 3)
+        dw_ms = cuda_ms(torch, lambda: rnn_cuda.gated_train_dw(
+            res, pair, dc), 10)
+        dw_plain_ms = cuda_ms(torch, lambda: rnn_cuda.gated_train_dw_reference(
+            res, pair, dc), 10)
+        # bytes: residuals, weights, dhs, dh_T in; dproj, dW, dh0 out
+        bwd_bytes = (TBH * 4 * 2 + w_bytes + TBH * 4 + B * H * 4
+                     + T * B * gp * H * 4 + w_bytes + B * H * 4)
+        bwd_bound, bwd_by = bound(bwd_bytes, 2 * 2 * TBH * n_cols,
+                                  BF16_TENSOR_FLOPS)
+        # the dW kernels read r and h_prev of the residuals, pair, dcpre
+        dw_bytes = (TBH * 2 * (2 if has_w2 else 1) + TBH * 2 * 2
+                    + (TBH * 2 if has_w2 else 0) + w_bytes)
+        dw_bound, dw_by = bound(dw_bytes, 2 * TBH * n_cols,
+                                BF16_TENSOR_FLOPS)
+        # cuDNN nn.GRU bf16 forward and backward at T=20: the yardstick
+        x_lib = torch.randn(T, B, H, generator=g).to(dev, torch.bfloat16)
+        x_lib.requires_grad_()
+        fwd_lib_ms = cuda_ms(torch, lambda: cudnn(x_lib), 10)
+        out_lib, _ = cudnn(x_lib)
+        gout = torch.randn_like(out_lib)
+        lib_inputs = [x_lib] + list(cudnn.parameters())
+        bwd_lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            out_lib, lib_inputs, gout, retain_graph=True), 10)
+        log(f"[gated train {kind}] T={T} B={B} H={H}: forward bit-equal to "
+            f"gated_scan; vs plain f32 {fwd['f32']['err']:.3e}, bf16 "
+            f"{fwd['bf16']['err']:.3e} of max(1, max|plain|) (tolerance "
+            f"{GATED_ATOL}), residuals beyond {RES_RTOL:.4f} relative "
+            f"{max(f['res_over'] for f in fwd.values()):.3e}; backward: "
+            f"{detail} (tolerances {BWD_RTOL} / {DW_RTOL}); dW kernel alone "
+            f"{dw_alone_err:.3e} of max |dW|")
+        log(f"[gated train {kind}] forward {fwd_ms:.3f} ms (plain "
+            f"{fwd_plain_ms:.3f}, bound {fwd_bound:.4f} {fwd_by}), backward "
+            f"with dW {bwd_ms:.3f} ms (plain {bwd_plain_ms:.3f}, bound "
+            f"{bwd_bound:.4f} {bwd_by}), dW {dw_ms:.3f} ms (plain "
+            f"{dw_plain_ms:.3f}, bound {dw_bound:.4f} {dw_by}); cuDNN nn.GRU "
+            f"bf16 yardstick forward {fwd_lib_ms:.3f} ms, backward "
+            f"{bwd_lib_ms:.3f} ms [{card}]")
+        out[kind] = dict(
+            scan_err=scan_err, scan_ms=scan_ms, scan_plain_ms=scan_plain_ms,
+            scan_bound=scan_bound, scan_by=scan_by, scan_lib_ms=scan_lib_ms,
+            fwd=fwd, fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain_ms,
+            fwd_bound=fwd_bound, fwd_by=fwd_by, fwd_lib_ms=fwd_lib_ms,
+            bwd_errs=errs, bwd_rel=bwd_rel, bwd_abs=max(
+                errs[n][0] for n in ("dproj", "dh0")),
+            bwd_tol=BWD_RTOL * max(errs[n][1] for n in ("dproj", "dh0")),
+            bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms, bwd_bound=bwd_bound,
+            bwd_by=bwd_by, bwd_lib_ms=bwd_lib_ms, dw_rel=dw_rel,
+            dw_alone_abs=dw_alone_abs, dw_alone_err=dw_alone_err,
+            dw_tol=DW_RTOL * dw_alone_scale, dw_ms=dw_ms,
+            dw_plain_ms=dw_plain_ms, dw_bound=dw_bound, dw_by=dw_by)
+        del proj, res, got, want, dproj_b, pair, dc, dw_k, dw_r, cudnn
+        del x_lib, out_lib, gout, lib_inputs
+    report["gated_kernels"] = out
+    return out
+
+
+def gated_phases(torch, np, dev, card, corpus, dec, report):
+    """Phases 12-16: the gated kernels against their plain versions, the
+    GRU serving and training slices, kernel against plain end to end for
+    the three gated nets, and a profile. Returns the gated kernels'
+    entries of the ``{"kernels": [...]}`` line."""
+    from nnacousticmodeling_tpu_torch import kernels
+    from nnacousticmodeling_tpu_torch.decoder import viterbi_collapsed as vc
+    from nnacousticmodeling_tpu_torch.decoder.corpus_decode import (
+        decode_corpus)
+    from nnacousticmodeling_tpu_torch.infer import rnn_log_posteriors
+    from nnacousticmodeling_tpu_torch.io import load_mlf, write_mlf
+    from nnacousticmodeling_tpu_torch.models import get_network, networks
+    from nnacousticmodeling_tpu_torch.ops import rnn_cuda
+    from nnacousticmodeling_tpu_torch.pipeline import train_cli
+    from nnacousticmodeling_tpu_torch.train import (
+        TrainConfig, TrainStage, load_jax_params, train_network)
+    from nnacousticmodeling_tpu_torch.utils.synthetic import (
+        write_corpus_tree)
+
+    phase_s = {}
+    t_phase = time.perf_counter()
+
+    def phase_done(n):
+        nonlocal t_phase
+        now = time.perf_counter()
+        phase_s[n] = now - t_phase
+        log(f"[phase {n}] {phase_s[n]:.1f} s")
+        t_phase = now
+
+    # ---- 12. the gated kernels against their plain versions ------------
+    kin = gated_kernel_phase(torch, np, dev, card, report)
+    phase_done(12)
+
+    # ---- 13. the GRU serving slice -------------------------------------
+    x, offsets = corpus.test.data, corpus.test.offsets
+    lengths = np.diff(offsets)
+    audio_s = float(lengths.sum()) / 100.0
+    ap = corpus.log_priors
+    net = get_network("gru", LAYERS, [H_MAIN], CLASSES, in_dim=DIM,
+                      scan_impl="pallas", device=dev)
+    net.load_state_dict(load_jax_params(numpy_gated_params("gru", 0),
+                                        device=dev))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gru_") as tmp:
+        ref_path = Path(tmp, "test_ref.mlf")
+        write_mlf(str(ref_path), corpus.ref_mlf["test"])
+        ref = load_mlf(str(ref_path))
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lp = rnn_log_posteriors(net, x, offsets, ap=ap, batch=B_MAIN)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        results = decode_corpus(dec, lp, offsets, batch=B_MAIN)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        per = per_of(corpus, results, Path(tmp, "kernel.mlf"), ref)
+        t3 = time.perf_counter()
+        serve_launches = dict(kernels.launches)
+        log(f"[gru slice] main-path launches: {serve_launches}")
+        for name in ("gated_scan", "collapsed_viterbi_forward"):
+            if serve_launches.get(name, 0) <= 0:
+                fail(f"the GRU serving path did not launch {name}")
+        if lp.shape != (lengths.sum(), CLASSES) or not np.isfinite(lp).all():
+            fail(f"GRU posteriors malformed: shape {lp.shape}")
+        if not all(r.segments for r in results):
+            fail("an utterance decoded to no segments (GRU slice)")
+        stages = {"posteriors_ms": (t1 - t0) * 1e3,
+                  "decode_ms": (t2 - t1) * 1e3,
+                  "mlf_per_ms": (t3 - t2) * 1e3}
+        tput = audio_s / (t3 - t0)
+        log(f"[gru slice] GRU {LAYERS}x{H_MAIN} -> {CLASSES}: PER {per:.2f} "
+            f"%, {tput:.1f} audio-s/s; "
+            + ", ".join(f"{k} {v:.1f}" for k, v in stages.items())
+            + f" [{card}]")
+        with mock.patch.object(networks, "gated_scan",
+                               rnn_cuda.gated_scan_reference):
+            lp_plain = rnn_log_posteriors(net, x, offsets, ap=ap,
+                                          batch=B_MAIN)
+        post_err = float(np.abs(lp - lp_plain).max())
+        if not post_err <= POSTERIOR_ATOL:
+            fail(f"GRU posteriors differ from the plain GRU's by {post_err}"
+                 f" (tolerance {POSTERIOR_ATOL})")
+        with mock.patch.object(vc, "collapsed_viterbi_forward",
+                               vc.collapsed_viterbi_reference):
+            results_plain = decode_corpus(dec, lp, offsets, batch=B_MAIN)
+        per_plain = per_of(corpus, results_plain, Path(tmp, "plain.mlf"),
+                           ref)
+        same = sum(a.segments == b.segments
+                   for a, b in zip(results, results_plain))
+        if same != len(results) or per_plain != per:
+            fail(f"GRU slice: plain decode differs: {len(results) - same} "
+                 f"utterances, PER {per_plain} vs {per}")
+        log(f"[gru slice] plain GRU posteriors within {post_err:.3e} "
+            f"(tolerance {POSTERIOR_ATOL}); plain Viterbi: segments of all "
+            f"{same} utterances and PER identical")
+    del net, lp, lp_plain
+    phase_done(13)
+
+    # ---- 14. the GRU training slice through train_cli ------------------
+    B, T = B_MAIN, T_TRAIN
+    delay = 5
+    n_train = int(corpus.train.data.shape[0]
+                  + delay * (len(corpus.train.offsets) - 1))
+    steps = n_train // (B * T)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gru_train_") as tmp:
+        write_corpus_tree(corpus, tmp)
+        argv = ["-n", "gru", "-l", str(LAYERS), "-u", str(H_MAIN),
+                "--timedelay", str(delay), "-d", "0.2",
+                "--num-classes", str(CLASSES), "-b", str(B),
+                "--bproplen", str(T), "-o", "momentumsgd", "--lr", "0.01",
+                "--early-stopping", "false", "--noplot", "-e", "2",
+                "--data-dir", f"{tmp}/data", "--offset-dir", f"{tmp}/data",
+                "--target-dir", f"{tmp}/data", "--out", f"{tmp}/gru"]
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = train_cli.main(argv)
+        torch.cuda.synchronize()
+        train_wall_s = time.perf_counter() - t0
+        train_launches = dict(kernels.launches)
+        log(f"[gru train] main-path launches: {train_launches}")
+        for name in ("gated_train_forward", "gated_train_backward",
+                     "gated_train_dw", "gated_scan"):
+            if train_launches.get(name, 0) <= 0:
+                fail(f"the GRU training path did not launch {name}")
+        hist = result.history
+        losses = [h[k] for h in hist for k in
+                  ("main/loss", "validation/main/loss")]
+        if len(hist) != 2 or not np.isfinite(losses).all():
+            fail(f"GRU training history malformed: {hist}")
+        if not hist[1]["main/loss"] < hist[0]["main/loss"]:
+            fail(f"GRU train loss did not fall: {hist[0]['main/loss']} -> "
+                 f"{hist[1]['main/loss']}")
+        serving = get_network("gru", LAYERS, [H_MAIN], CLASSES, in_dim=DIM,
+                              scan_impl="pallas", device=dev)
+        serving.load_state_dict(load_jax_params(f"{tmp}/gru/model.npz",
+                                                device=dev))
+        update_ms = hist[1]["elapsed_time"] / steps * 1e3
+        frames_per_s = steps * B * T / hist[1]["elapsed_time"]
+        log(f"[gru train] GRU {LAYERS}x{H_MAIN} -> {CLASSES}, TBPTT b{B} "
+            f"L{T}, timedelay {delay}, dropout 0.2, {n_train} frames, "
+            f"{steps} updates an epoch: epoch times "
+            + ", ".join(f"{h['elapsed_time']:.3f} s" for h in hist)
+            + f"; epoch 2: {update_ms:.2f} ms per update, "
+            f"{frames_per_s:.0f} train frames/s; losses "
+            + ", ".join(f"{h['main/loss']:.4f} (val "
+                        f"{h['validation/main/loss']:.4f})" for h in hist)
+            + f"; whole call {train_wall_s:.1f} s; model.npz loads into the "
+            f"serving GRU [{card}]")
+        del serving
+    phase_done(14)
+
+    # ---- 15. kernel against plain, end to end, for each gated net ------
+    n3 = B * T
+    x3, y3 = corpus.train.data[:n3], corpus.train.targets[:n3]
+    cfg3 = TrainConfig(
+        stages=[TrainStage(epoch=3, optimizer="momentumsgd", batch_size=B,
+                           lr=0.01, early_stopping=False)],
+        bprop_len=T, seed=0, log=None, use_validation=False)
+
+    def three_updates(name, init):
+        net3 = get_network(name, LAYERS, [H_MAIN], CLASSES, in_dim=DIM,
+                           scan_impl="pallas", device=dev)
+        return train_network(net3, x3, y3, cfg3,
+                             init_params=load_jax_params(init, device=dev),
+                             device=dev)
+
+    e2e, inits = {}, {}
+    for kind, (_, _, name) in GATED.items():
+        init = inits[name] = numpy_gated_params(name, 1)
+        before = dict(kernels.launches)
+        k_hist = [h["main/loss"] for h in three_updates(name, init).history]
+        if dict(kernels.launches) == before:
+            fail(f"the {name} kernel run launched no kernel")
+        before = dict(kernels.launches)
+        with mock.patch.multiple(
+                rnn_cuda,
+                gated_train_forward=rnn_cuda.gated_train_forward_reference,
+                gated_train_backward=rnn_cuda.gated_train_backward_reference):
+            p_hist = [h["main/loss"] for h in
+                      three_updates(name, init).history]
+        if dict(kernels.launches) != before:
+            fail(f"the plain {name} run launched a kernel")
+        err = max(abs(a - b) / abs(b) for a, b in zip(k_hist, p_hist))
+        if not (len(k_hist) == 3 and np.isfinite(k_hist).all()
+                and err <= E2E_LOSS_RTOL):
+            fail(f"3 kernel updates of {name} {k_hist} differ from 3 plain "
+                 f"ones {p_hist} (tolerance {E2E_LOSS_RTOL} relative)")
+        e2e[name] = dict(kernel=k_hist, plain=p_hist, err=err)
+        log(f"[gated e2e {name}] 3 updates, kernel losses {k_hist}, plain "
+            f"{p_hist}: max relative difference {err:.3e} (tolerance "
+            f"{E2E_LOSS_RTOL})")
+
+    phase_done(15)
+
+    # ---- 16. where the time goes: 3 GRU updates, profiled --------------
+    net_p = get_network("gru", LAYERS, [H_MAIN], CLASSES, in_dim=DIM,
+                        scan_impl="pallas", device=dev)
+    init_p = load_jax_params(inits["gru"], device=dev)
+    wall_ms, busy_ms, top = device_profile(torch, lambda: train_network(
+        net_p, x3, y3, cfg3, init_params=init_p, device=dev))
+    log_profile("gru train profile", wall_ms, busy_ms, top, card)
+    phase_done(16)
+
+    report["gated"] = dict(
+        slice=dict(per=per, audio_s=audio_s, audio_s_per_s=tput,
+                   posterior_err=post_err, launches=serve_launches,
+                   **stages),
+        train=dict(history=hist, update_ms=update_ms,
+                   frames_per_s=frames_per_s, launches=train_launches,
+                   wall_s=train_wall_s),
+        e2e=e2e, profile=dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                              top_device_ms=top), phase_s=phase_s)
+    gru = kin["gru"]
+    scan_src = "nnacousticmodeling_tpu_torch/csrc/gated_scan.cu"
+    train_src = "nnacousticmodeling_tpu_torch/csrc/gated_train.cu"
+    return [
+        {"name": "gated_scan", "route": "cuda", "source": scan_src,
+         "replaces": "nnacousticmodeling_tpu/ops/rnn_pallas.py:197",
+         "launches": serve_launches["gated_scan"],
+         "max_abs_err": gru["scan_err"], "tolerance": GATED_ATOL,
+         "ms": gru["scan_ms"], "plain_ms": gru["scan_plain_ms"],
+         "bound_ms": gru["scan_bound"], "bound_by": gru["scan_by"],
+         "library_ms": None},
+        {"name": "gated_train_forward", "route": "cuda", "source": train_src,
+         "replaces": "nnacousticmodeling_tpu/ops/rnn_pallas.py:684",
+         "launches": train_launches["gated_train_forward"],
+         "max_abs_err": gru["fwd"]["f32"]["err"], "tolerance": GATED_ATOL,
+         "ms": gru["fwd_ms"], "plain_ms": gru["fwd_plain_ms"],
+         "bound_ms": gru["fwd_bound"], "bound_by": gru["fwd_by"],
+         "library_ms": None},
+        {"name": "gated_train_backward", "route": "cuda", "source": train_src,
+         "replaces": "nnacousticmodeling_tpu/ops/rnn_pallas.py:785",
+         "launches": train_launches["gated_train_backward"],
+         "max_abs_err": gru["bwd_abs"], "tolerance": gru["bwd_tol"],
+         "ms": gru["bwd_ms"], "plain_ms": gru["bwd_plain_ms"],
+         "bound_ms": gru["bwd_bound"], "bound_by": gru["bwd_by"],
+         "library_ms": None},
+        {"name": "gated_train_dw", "route": "cuda", "source": train_src,
+         "replaces": "nnacousticmodeling_tpu/ops/rnn_pallas.py:886",
+         "launches": train_launches["gated_train_dw"],
+         "max_abs_err": gru["dw_alone_abs"], "tolerance": gru["dw_tol"],
+         "ms": gru["dw_ms"], "plain_ms": gru["dw_plain_ms"],
+         "bound_ms": gru["dw_bound"], "bound_by": gru["dw_by"],
+         "library_ms": None},
+    ]
+
 
 def main():
     t_start = time.perf_counter()
@@ -471,7 +999,6 @@ def main():
     import numpy as np
 
     from nnacousticmodeling_tpu_torch import kernels
-    from nnacousticmodeling_tpu_torch.decoder import compute_per
     from nnacousticmodeling_tpu_torch.decoder import viterbi_collapsed as vc
     from nnacousticmodeling_tpu_torch.decoder.corpus_decode import (
         decode_corpus)
@@ -480,7 +1007,6 @@ def main():
     from nnacousticmodeling_tpu_torch.decoder.viterbi import ViterbiDecoder
     from nnacousticmodeling_tpu_torch.infer import rnn_log_posteriors
     from nnacousticmodeling_tpu_torch.io import load_mlf, write_mlf
-    from nnacousticmodeling_tpu_torch.io.mlf import MlfEntry
     from nnacousticmodeling_tpu_torch.models import get_network
     from nnacousticmodeling_tpu_torch.models import networks
     from nnacousticmodeling_tpu_torch.ops.rnn_cuda import (
@@ -534,7 +1060,7 @@ def main():
              f"(tolerance {LSTM_ATOL})")
     lstm_ms = cuda_ms(torch, lambda: lstm_scan(proj, wh, c0, h0), 3)
     lstm_plain_ms = cuda_ms(
-        torch, lambda: lstm_scan_reference(proj, wh, c0, h0), 3)
+        torch, lambda: lstm_scan_reference(proj, wh, c0, h0), 1, warm=False)
     cudnn = torch.nn.LSTM(H_MAIN, H_MAIN, device=dev, dtype=torch.bfloat16)
     x_lib = torch.randn(T_MAIN, B_MAIN, H_MAIN, generator=g).to(
         dev, torch.bfloat16)
@@ -585,7 +1111,7 @@ def main():
         ms = cuda_ms(torch, lambda: vc.collapsed_viterbi_forward(
             ckd, lp_rand, lens), 3)
         plain_ms = cuda_ms(torch, lambda: vc.collapsed_viterbi_reference(
-            ckd, lp_rand, lens), 1)
+            ckd, lp_rand, lens), 1, warm=False)
         vit[tag] = dict(ms=ms, plain_ms=plain_ms, err=err)
         log(f"[viterbi {tag}] U={B_MAIN} T={T_MAIN} frames={int(lens.sum())}"
             f": bit-equal within lengths; kernel {ms:.3f} ms, plain "
@@ -620,14 +1146,6 @@ def main():
         f"{lengths.max()}), {audio_s:.2f} audio-s; set-up "
         f"{time.perf_counter() - t0:.1f} s")
 
-    def per_of(results, out_path, ref):
-        test_mlf, entries = {}, []
-        for i, (utt, res) in enumerate(zip(corpus.test.utt_names, results)):
-            test_mlf[utt] = MlfEntry(words=res.phones, orig_id=i)
-            entries.append((utt, res.segments))
-        write_mlf(str(out_path), entries)
-        return compute_per(test_mlf, ref, nist=True)
-
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         ref_path = Path(tmp, "test_ref.mlf")
         write_mlf(str(ref_path), corpus.ref_mlf["test"])
@@ -642,7 +1160,7 @@ def main():
         results = decode_corpus(dec, lp, offsets, batch=B_MAIN)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        per = per_of(results, Path(tmp, "kernel.mlf"), ref)
+        per = per_of(corpus, results, Path(tmp, "kernel.mlf"), ref)
         t3 = time.perf_counter()
         launches = dict(kernels.launches)
         log(f"[slice] main-path launches: {launches}")
@@ -674,7 +1192,8 @@ def main():
         with mock.patch.object(vc, "collapsed_viterbi_forward",
                                vc.collapsed_viterbi_reference):
             results_plain = decode_corpus(dec, lp, offsets, batch=B_MAIN)
-        per_plain = per_of(results_plain, Path(tmp, "plain.mlf"), ref)
+        per_plain = per_of(corpus, results_plain, Path(tmp, "plain.mlf"),
+                           ref)
         same = sum(a.segments == b.segments
                    for a, b in zip(results, results_plain))
         if same != len(results) or per_plain != per:
@@ -693,9 +1212,10 @@ def main():
     report["profile"] = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                              top_device_ms=top)
     log_profile("profile", wall_ms, busy_ms, top, card)
-    del net, dec, dec_beam
+    del net, dec_beam
 
     train_kernels = train_phases(torch, np, dev, card, corpus, report)
+    gated_kernels = gated_phases(torch, np, dev, card, corpus, dec, report)
 
     report.update(
         lstm=dict(err=lstm_err, ms=lstm_ms, plain_ms=lstm_plain_ms,
@@ -720,7 +1240,7 @@ def main():
          "max_abs_err": vit["exact"]["err"], "tolerance": 0.0,
          "ms": vit["exact"]["ms"], "plain_ms": vit["exact"]["plain_ms"],
          "bound_ms": vit_bound, "bound_by": vit_by, "library_ms": None},
-    ] + train_kernels}
+    ] + train_kernels + gated_kernels}
     report["kernels"] = kernels_line["kernels"]
     report["total_s"] = time.perf_counter() - t_start
     print(f"[report] {json.dumps(report)}", file=sys.stderr)

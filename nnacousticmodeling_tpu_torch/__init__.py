@@ -9,9 +9,11 @@ modules.
 Subpackages
 -----------
 io        artifact I/O: .npy corpora, MLF, Kaldi files, phone maps
-ops       splice, numerics, time delay, and the hand-written LSTM
-          recurrence kernels (inference; training forward, backward, dW)
-models    LSTM cells, the LSTM stack as an ``nn.Module``, bf16 compute
+ops       splice, numerics, time delay, and the hand-written LSTM and
+          GRU / minimal-GRU recurrence kernels (inference; training
+          forward, backward, dW)
+models    LSTM, GRU and MGRU cells and stacks as ``nn.Module``s, bf16
+          compute
 train     staged TBPTT engine, optimizers, schedules, stream layout, and
           ``.npz`` checkpoints under the JAX package's keys
 infer     bucketed posterior inference

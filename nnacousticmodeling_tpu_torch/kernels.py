@@ -3,10 +3,10 @@
 Each source is compiled by ``nvcc`` into a shared library with a plain C
 interface and loaded through ``ctypes``; nothing includes PyTorch's
 headers, so a build takes seconds. Libraries go to ``build/kernels/``
-at the repository root (ignored by git), named by a hash of the source
-and the flags, so an edited source is rebuilt and never confused with a
-stale library. Builds happen at first use or through ``build()``, never
-at import.
+at the repository root (ignored by git), named by a hash of the source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source
+or header is rebuilt and never confused with a stale library. Builds
+happen at first use or through ``build()``, never at import.
 
 ``launches`` counts, per kernel name, the wrapper calls that launched
 the kernel on the card. Calls that took the plain PyTorch version (CPU
@@ -27,6 +27,8 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = {
+    "gated_scan": "gated_scan.cu",
+    "gated_train": "gated_train.cu",
     "lstm_scan": "lstm_scan.cu",
     "lstm_train": "lstm_train.cu",
     "viterbi_collapsed": "viterbi_collapsed.cu",
@@ -59,9 +61,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest = digest.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

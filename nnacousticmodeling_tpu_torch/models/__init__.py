@@ -1,5 +1,5 @@
-from .networks import LSTM, get_network, is_recurrent
+from .networks import GRU, LSTM, MGRUNet, get_network, is_recurrent
 from .precision import HalfPrecisionNet, cast_params
 
-__all__ = ["HalfPrecisionNet", "LSTM", "cast_params", "get_network",
-           "is_recurrent"]
+__all__ = ["GRU", "HalfPrecisionNet", "LSTM", "MGRUNet", "cast_params",
+           "get_network", "is_recurrent"]

@@ -1,10 +1,12 @@
-"""LSTM cell as plain functions on tensors.
+"""LSTM, GRU and MGRU cells as plain functions on tensors.
 
-Counterpart of ``nnacousticmodeling_tpu/models/cells.py`` (LSTM part):
-Chainer ``L.LSTM`` gate order a, i, f, o with forget-gate bias 1 at
-init, dense ``(in, out)`` weight matrices. The input projection of a
-whole sequence is hoisted out of the recurrence by the stack in
-``networks.py``; only ``h @ W_h`` runs per step.
+Counterpart of ``nnacousticmodeling_tpu/models/cells.py`` (the LSTM, GRU
+and MGRU parts): Chainer ``L.LSTM`` gate order a, i, f, o with
+forget-gate bias 1 at init, the gated cells with the JAX package's
+parameter names and proj packing, dense ``(in, out)`` weight matrices.
+The input projection of a whole sequence is hoisted out of the
+recurrence by the stacks in ``networks.py``; only the recurrent products
+run per step.
 """
 
 from __future__ import annotations
@@ -65,3 +67,103 @@ def lstm_init_state(batch: int, units: int, dtype=torch.float32,
                     device=None):
     z = torch.zeros(batch, units, dtype=dtype, device=device)
     return (z, z)
+
+
+# ---------------------------------------------------------------------------
+# GRU (Chainer L.GRU / StatefulGRU twin, cells.py:159-201): h' = z*h_bar +
+# (1-z)*h -- Chainer's z gates the CANDIDATE. The carry is (h, fresh):
+# ``fresh`` (B, 1) is 1.0 until the first step has run and gates the U-side
+# biases of converted checkpoints (params key "bu"), which Chainer skips
+# while ``h is None``; natively initialised params have none.
+# ---------------------------------------------------------------------------
+
+def gru_init(in_dim: int, units: int, generator: torch.Generator
+             ) -> Dict[str, torch.Tensor]:
+    """Packed input projection [r, z, c]; recurrent [r, z] and the
+    candidate's U (it multiplies r*h) separate."""
+    return {
+        "wx": torch.randn(in_dim, 3 * units, generator=generator)
+        / math.sqrt(in_dim),
+        "bx": torch.zeros(3 * units),
+        "wh_rz": torch.randn(units, 2 * units, generator=generator)
+        / math.sqrt(units),
+        "wh_c": torch.randn(units, units, generator=generator)
+        / math.sqrt(units),
+    }
+
+
+def gru_input_proj(params, x: torch.Tensor) -> torch.Tensor:
+    return x @ params["wx"] + params["bx"]
+
+
+def gru_init_state(batch: int, units: int, dtype=torch.float32, device=None):
+    return (torch.zeros(batch, units, dtype=dtype, device=device),
+            torch.ones(batch, 1, dtype=dtype, device=device))
+
+
+def gru_step(params, carry, x_proj: torch.Tensor):
+    h, fresh = carry
+    units = h.shape[-1]
+    rz = x_proj[:, :2 * units] + h @ params["wh_rz"]
+    c_in = x_proj[:, 2 * units:]
+    if "bu" in params:           # converted checkpoints: U biases, gated
+        live = 1.0 - fresh
+        rz = rz + live * params["bu"][:2 * units]
+        c_in = c_in + live * params["bu"][2 * units:]
+    r = torch.sigmoid(rz[:, :units])
+    z = torch.sigmoid(rz[:, units:])
+    h_bar = torch.tanh(c_in + (r * h) @ params["wh_c"])
+    h_new = z * h_bar + (1.0 - z) * h
+    return (h_new, torch.zeros_like(fresh)), h_new
+
+
+# ---------------------------------------------------------------------------
+# MGRU, the reference's minimal GRU (cells.py:213-256, MGRU.py:67-85):
+#   z     = sigmoid(W_z x + U_z h)
+#   h_bar = act(W x + U (r*h))          (r only with the reset gate)
+#   h'    = z*h_bar + (1-z)*h
+# Proj packing [z, c] or, with the reset gate, [z, c, r].
+# ---------------------------------------------------------------------------
+
+def mgru_init(in_dim: int, units: int, use_reset_gate: bool,
+              generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    def w(n_in):
+        return torch.randn(n_in, units, generator=generator) / math.sqrt(n_in)
+
+    params = {"w_z": w(in_dim), "u_z": w(units), "w": w(in_dim),
+              "u": w(units), "b_z": torch.zeros(units),
+              "b": torch.zeros(units)}
+    if use_reset_gate:
+        params.update(w_r=w(in_dim), u_r=w(units), b_r=torch.zeros(units))
+    return params
+
+
+def mgru_input_proj(params, x: torch.Tensor, use_reset_gate: bool
+                    ) -> torch.Tensor:
+    proj = [x @ params["w_z"] + params["b_z"], x @ params["w"] + params["b"]]
+    if use_reset_gate:
+        proj.append(x @ params["w_r"] + params["b_r"])
+    return torch.cat(proj, dim=-1)
+
+
+def mgru_step(params, carry, x_proj: torch.Tensor, *, use_reset_gate: bool,
+              activation):
+    h, fresh = carry
+    units = h.shape[-1]
+    z_in = x_proj[:, :units]
+    c_in = x_proj[:, units:2 * units]
+    if "bu_z" in params:
+        live = 1.0 - fresh
+        z_in = z_in + live * params["bu_z"]
+        c_in = c_in + live * params["bu"]
+    z = torch.sigmoid(z_in + h @ params["u_z"])
+    if use_reset_gate:
+        r_in = x_proj[:, 2 * units:]
+        if "bu_r" in params:
+            r_in = r_in + (1.0 - fresh) * params["bu_r"]
+        r = torch.sigmoid(r_in + h @ params["u_r"])
+        h_bar = activation(c_in + (r * h) @ params["u"])
+    else:
+        h_bar = activation(c_in + h @ params["u"])
+    h_new = z * h_bar + (1.0 - z) * h
+    return (h_new, torch.zeros_like(fresh)), h_new

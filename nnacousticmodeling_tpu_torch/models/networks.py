@@ -1,16 +1,24 @@
 """Acoustic model stacks as ``nn.Module``s.
 
-Counterpart of ``nnacousticmodeling_tpu/models/networks.py``. This slice
-ports the LSTM stack (``networks.py:172-328``): each layer hoists its
-input projection over all timesteps into one ``(B*T, D) @ (D, 4H)``
-matmul, and only the recurrence runs per step, either as the float32
-step loop (``scan_impl="xla"``, the twin of the JAX ``lax.scan`` path)
-or through the CUDA recurrence kernels (``scan_impl="pallas"``, the twin
-of the JAX Pallas path: ``ops.rnn_cuda.lstm_scan`` for inference and the
-differentiable ``lstm_scan_train`` when training, as
-``networks.py:268-271`` picks ``lstm_scan_pallas_train``; the CUDA
-kernels for CUDA tensors, their plain bf16-operand versions for CPU
+Counterpart of ``nnacousticmodeling_tpu/models/networks.py``. Ported: the
+LSTM stack (``networks.py:298-328``), the GRU stack (``:412-456``) and the
+minimal-GRU stack with and without its reset gate (``MGRUNet``,
+``:459-531``). Each layer hoists its input projection over all timesteps
+into one ``(B*T, D) @ (D, G*H)`` matmul, and only the recurrence runs per
+step, either as the float32 step loop (``scan_impl="xla"``, the twin of
+the JAX ``lax.scan`` path) or through the CUDA recurrence kernels
+(``scan_impl="pallas"``, the twin of the JAX Pallas path:
+``ops.rnn_cuda.lstm_scan`` / ``gated_scan`` for inference and the
+differentiable ``lstm_scan_train`` / ``gated_scan_train`` when training,
+as ``networks.py:268-271`` picks the ``*_pallas_train`` kernels; the
+CUDA kernels for CUDA tensors, their plain bf16-operand versions for CPU
 tensors).
+
+The gated stacks carry ``(h, fresh)`` per layer (``cells.gru_init_state``).
+On the kernel route the converted-checkpoint U biases (``bu``, ``bu_z``,
+``bu_r``), when the loaded params carry them, are folded into proj and
+gated off at a fresh step 0 (``networks.py:437-443``, ``:491-497``), and
+``fresh`` comes back as zeros.
 
 Dropout is the JAX package's placement (``networks.py:42-47``, the
 reference's): inverted dropout ``x / (1 - rate)`` on the input and after
@@ -30,7 +38,13 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ..ops.rnn_cuda import lstm_scan, lstm_scan_train
+from ..ops.rnn_cuda import (
+    ACTIVATIONS,
+    gated_scan,
+    gated_scan_train,
+    lstm_scan,
+    lstm_scan_train,
+)
 from ..utils.device import resolve_device
 from . import cells
 
@@ -54,16 +68,48 @@ class _Dense(nn.Module):
         self.b = nn.Parameter(params["b"])
 
 
-class _LSTMLayer(nn.Module):
+class _Layer(nn.Module):
+    """One recurrent layer's parameters under their JAX names.
+
+    The converted-checkpoint U biases (``OPTIONAL``) are registered when
+    a loaded state dict carries them, so ``load_state_dict`` takes the
+    params the JAX network would take."""
+
+    OPTIONAL = ("bu", "bu_z", "bu_r")
+
     def __init__(self, params):
         super().__init__()
-        self.wx = nn.Parameter(params["wx"])
-        self.wh = nn.Parameter(params["wh"])
-        self.b = nn.Parameter(params["b"])
+        for name, value in params.items():
+            self.register_parameter(name, nn.Parameter(value))
+
+    def params(self):
+        """name -> tensor, read through the attributes (so
+        ``torch.func.functional_call`` substitutes its own)."""
+        return {name: getattr(self, name) for name, _ in
+                self.named_parameters(recurse=False)}
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        like = next(iter(self.parameters()))
+        for name in self.OPTIONAL:
+            value = state_dict.get(prefix + name)
+            if value is not None and name not in self._parameters:
+                self.register_parameter(name, nn.Parameter(torch.empty(
+                    value.shape, dtype=like.dtype, device=like.device)))
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
 
-class LSTM(nn.Module):
-    """LSTM stack twin (chainer_networks.py:44-62).
+def _fold_u_bias(proj: torch.Tensor, bu: torch.Tensor,
+                 fresh: torch.Tensor) -> torch.Tensor:
+    """Add the U-side biases of a converted checkpoint to every step of
+    proj (T, B, G*H), gated off at step 0 of the rows that start fresh
+    (Chainer skips the whole U term while ``h is None``)."""
+    proj = proj + bu
+    return torch.cat([proj[:1] - fresh[None] * bu, proj[1:]])
+
+
+class _RecurrentStack(nn.Module):
+    """Shared machinery of the stacked recurrent nets (the JAX
+    ``_RecurrentStack``). Subclasses give the cell hooks below.
 
     ``in_dim`` is the feature width (the JAX ``init``'s argument).
     Weights are drawn from ``seed`` with a ``torch.Generator`` (they do
@@ -72,9 +118,9 @@ class LSTM(nn.Module):
 
     is_recurrent = True
 
-    def __init__(self, units: int, num_classes: int, layers: int = 2,
-                 dropout: float = 0.0, *, in_dim: int,
-                 scan_impl: str = "xla", device="cuda", seed: int = 0):
+    def __init__(self, units: int, num_classes: int, layers: int,
+                 dropout: float, *, in_dim: int, scan_impl: str, device,
+                 seed: int):
         super().__init__()
         if scan_impl not in ("xla", "pallas"):
             raise ValueError(f"scan_impl must be 'xla' or 'pallas', got "
@@ -87,30 +133,45 @@ class LSTM(nn.Module):
         layer_list = []
         d = in_dim
         for _ in range(layers):
-            layer_list.append(_LSTMLayer(cells.lstm_init(d, units, gen)))
+            layer_list.append(_Layer(self._cell_init(d, gen)))
             d = units
         self.cells = nn.ModuleList(layer_list)
         self.out = _Dense(cells.dense_init(d, num_classes, gen))
         self.to(dev)
 
+    # cell hooks --------------------------------------------------------
+    def _cell_init(self, in_dim: int, gen: torch.Generator):
+        raise NotImplementedError
+
+    def _cell_input_proj(self, p, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _cell_step(self, p, carry, x_proj: torch.Tensor):
+        raise NotImplementedError
+
+    def _cell_state(self, batch: int):
+        raise NotImplementedError
+
+    def _cell_scan(self, p, carry, proj: torch.Tensor, train: bool):
+        """The whole-sequence kernel route: (carry, (T, B, G*H) proj) ->
+        (carry', (T, B, H) hiddens)."""
+        raise NotImplementedError
+
+    # ------------------------------------------------------------------
     @property
     def device(self) -> torch.device:
         return self.out.w.device
 
     def init_state(self, batch: int):
-        return [cells.lstm_init_state(batch, self.units, device=self.device)
-                for _ in range(self.layers)]
-
-    def _params(self, l: int):
-        layer = self.cells[l]
-        return {"wx": layer.wx, "wh": layer.wh, "b": layer.b}
+        return [self._cell_state(batch) for _ in range(self.layers)]
 
     def step(self, state, x: torch.Tensor):
         """One timestep (B, D) -> (new_state, (B, C) logits), float32."""
         new_state = []
         for l in range(self.layers):
-            p = self._params(l)
-            carry, x = cells.lstm_step(p, state[l], cells.lstm_input_proj(p, x))
+            p = self.cells[l].params()
+            carry, x = self._cell_step(p, state[l],
+                                       self._cell_input_proj(p, x))
             new_state.append(carry)
         return new_state, cells.dense({"w": self.out.w, "b": self.out.b}, x)
 
@@ -121,25 +182,23 @@ class LSTM(nn.Module):
 
         ``train`` turns dropout on (masks from ``generator``) and, with
         ``scan_impl="pallas"``, routes the recurrence through the
-        differentiable ``lstm_scan_train``."""
+        differentiable kernels."""
         b, t, _ = xs.shape
         if state is None:
             state = self.init_state(b)
         xs = dropout(xs, self.dropout, train, generator)
         new_state = []
         for l in range(self.layers):
-            p = self._params(l)
-            proj = cells.lstm_input_proj(p, xs.reshape(b * t, -1))
+            p = self.cells[l].params()
+            proj = self._cell_input_proj(p, xs.reshape(b * t, -1))
             proj = proj.reshape(b, t, -1).transpose(0, 1).contiguous()
             if self.scan_impl == "pallas":
-                c, h = state[l]
-                scan = lstm_scan_train if train else lstm_scan
-                carry, hs = scan(proj, p["wh"], c, h)
+                carry, hs = self._cell_scan(p, state[l], proj, train)
             else:
                 carry = state[l]
                 steps = []
                 for k in range(t):
-                    carry, h = cells.lstm_step(p, carry, proj[k])
+                    carry, h = self._cell_step(p, carry, proj[k])
                     steps.append(h)
                 hs = torch.stack(steps)
             new_state.append(carry)
@@ -160,8 +219,112 @@ class LSTM(nn.Module):
     forward = apply_sequence
 
 
-_LATER = {"ff", "tdnn", "zoneoutlstm", "zoneoutdropoutlstm", "peepholelstm",
-          "gru", "mgrurelu", "mgrurelur"}
+class LSTM(_RecurrentStack):
+    """LSTM stack twin (chainer_networks.py:44-62)."""
+
+    def __init__(self, units: int, num_classes: int, layers: int = 2,
+                 dropout: float = 0.0, *, in_dim: int,
+                 scan_impl: str = "xla", device="cuda", seed: int = 0):
+        super().__init__(units, num_classes, layers, dropout, in_dim=in_dim,
+                         scan_impl=scan_impl, device=device, seed=seed)
+
+    def _cell_init(self, in_dim, gen):
+        return cells.lstm_init(in_dim, self.units, gen)
+
+    def _cell_input_proj(self, p, x):
+        return cells.lstm_input_proj(p, x)
+
+    def _cell_step(self, p, carry, x_proj):
+        return cells.lstm_step(p, carry, x_proj)
+
+    def _cell_state(self, batch):
+        return cells.lstm_init_state(batch, self.units, device=self.device)
+
+    def _cell_scan(self, p, carry, proj, train):
+        c, h = carry
+        scan = lstm_scan_train if train else lstm_scan
+        return scan(proj, p["wh"], c, h)
+
+
+class GRU(_RecurrentStack):
+    """GRU stack twin (chainer_networks.py:123-141)."""
+
+    def __init__(self, units: int, num_classes: int, layers: int = 2,
+                 dropout: float = 0.0, *, in_dim: int,
+                 scan_impl: str = "xla", device="cuda", seed: int = 0):
+        super().__init__(units, num_classes, layers, dropout, in_dim=in_dim,
+                         scan_impl=scan_impl, device=device, seed=seed)
+
+    def _cell_init(self, in_dim, gen):
+        return cells.gru_init(in_dim, self.units, gen)
+
+    def _cell_input_proj(self, p, x):
+        return cells.gru_input_proj(p, x)
+
+    def _cell_step(self, p, carry, x_proj):
+        return cells.gru_step(p, carry, x_proj)
+
+    def _cell_state(self, batch):
+        return cells.gru_init_state(batch, self.units, device=self.device)
+
+    def _cell_scan(self, p, carry, proj, train):
+        h, fresh = carry
+        if "bu" in p:
+            proj = _fold_u_bias(proj, p["bu"], fresh)
+        scan = gated_scan_train if train else gated_scan
+        h_t, hs = scan(proj, p["wh_rz"], p["wh_c"], h, kind="gru")
+        return (h_t, torch.zeros_like(fresh)), hs
+
+
+class MGRUNet(_RecurrentStack):
+    """Minimal-GRU stack twin (chainer_networks.py:143-161, MGRU.py)."""
+
+    def __init__(self, units: int, num_classes: int, layers: int = 2,
+                 dropout: float = 0.0, use_reset_gate: bool = False,
+                 activation: str = "relu", *, in_dim: int,
+                 scan_impl: str = "xla", device="cuda", seed: int = 0):
+        if activation not in ACTIVATIONS:
+            raise ValueError(f"unknown activation {activation!r}")
+        self.use_reset_gate = use_reset_gate
+        self.activation = activation
+        super().__init__(units, num_classes, layers, dropout, in_dim=in_dim,
+                         scan_impl=scan_impl, device=device, seed=seed)
+
+    def _cell_init(self, in_dim, gen):
+        return cells.mgru_init(in_dim, self.units, self.use_reset_gate, gen)
+
+    def _cell_input_proj(self, p, x):
+        return cells.mgru_input_proj(p, x, self.use_reset_gate)
+
+    def _cell_step(self, p, carry, x_proj):
+        return cells.mgru_step(p, carry, x_proj,
+                               use_reset_gate=self.use_reset_gate,
+                               activation=ACTIVATIONS[self.activation])
+
+    def _cell_state(self, batch):
+        return cells.gru_init_state(batch, self.units, device=self.device)
+
+    def _cell_scan(self, p, carry, proj, train):
+        h, fresh = carry
+        if "bu_z" in p or "bu_r" in p:
+            zero = torch.zeros_like(p["b"])
+            bu = torch.cat([p.get("bu_z", zero), p.get("bu", zero)]
+                           + ([p.get("bu_r", zero)] if self.use_reset_gate
+                              else []))
+            proj = _fold_u_bias(proj, bu, fresh)
+        scan = gated_scan_train if train else gated_scan
+        if self.use_reset_gate:
+            w1 = torch.cat([p["u_z"], p["u_r"]], dim=1)
+            h_t, hs = scan(proj, w1, p["u"], h, kind="mgru_r",
+                           activation=self.activation)
+        else:
+            w1 = torch.cat([p["u_z"], p["u"]], dim=1)
+            h_t, hs = scan(proj, w1, None, h, kind="mgru",
+                           activation=self.activation)
+        return (h_t, torch.zeros_like(fresh)), hs
+
+
+_LATER = {"ff", "tdnn", "zoneoutlstm", "zoneoutdropoutlstm", "peepholelstm"}
 
 
 def get_network(network: str, layers: int, units: Sequence[int],
@@ -169,15 +332,24 @@ def get_network(network: str, layers: int, units: Sequence[int],
                 tdnn_ksize: Sequence[int] = (5,),
                 dropout: Sequence[float] = (0.0,), *, in_dim: int,
                 scan_impl: str = "xla", device="cuda", seed: int = 0):
-    """Twin of get_nn (chainer_networks.py:163-187). This slice builds
-    ``"lstm"``; the rest of the zoo is ROADMAP Queue 1 item 8 (and MLP /
-    TDNN item 2)."""
+    """Twin of get_nn (chainer_networks.py:163-187). This port builds
+    ``"lstm"``, ``"gru"``, ``"mgrurelu"`` and ``"mgrurelur"``; the rest
+    of the zoo is ROADMAP Queue 1 item 8 (and MLP / TDNN item 2). As in
+    the JAX package, the MGRU nets keep their default relu candidate and
+    ignore ``activation``."""
     dropout = (list(dropout) if not isinstance(dropout, (int, float))
                else [dropout])
+    kw = dict(in_dim=in_dim, scan_impl=scan_impl, device=device, seed=seed)
     if network == "lstm":
         return LSTM(units=units[0], num_classes=num_classes, layers=layers,
-                    dropout=dropout[0], in_dim=in_dim, scan_impl=scan_impl,
-                    device=device, seed=seed)
+                    dropout=dropout[0], **kw)
+    if network == "gru":
+        return GRU(units=units[0], num_classes=num_classes, layers=layers,
+                   dropout=dropout[0], **kw)
+    if network in ("mgrurelu", "mgrurelur"):
+        return MGRUNet(units=units[0], num_classes=num_classes, layers=layers,
+                       dropout=dropout[0],
+                       use_reset_gate=network == "mgrurelur", **kw)
     if network in _LATER:
         raise NotImplementedError(
             f"network {network!r} is not ported yet (ROADMAP Queue 1: "

@@ -1,8 +1,10 @@
 from .numerics import log_softmax
-from .rnn_cuda import lstm_scan, lstm_scan_reference, lstm_scan_train
+from .rnn_cuda import (gated_scan, gated_scan_reference, gated_scan_train,
+                       lstm_scan, lstm_scan_reference, lstm_scan_train)
 from .splice import splice_flat, splice_utts
 from .timedelay import apply_time_delay
 
-__all__ = ["apply_time_delay", "log_softmax", "lstm_scan",
+__all__ = ["apply_time_delay", "gated_scan", "gated_scan_reference",
+           "gated_scan_train", "log_softmax", "lstm_scan",
            "lstm_scan_reference", "lstm_scan_train", "splice_flat",
            "splice_utts"]

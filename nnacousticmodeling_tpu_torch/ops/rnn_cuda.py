@@ -1,5 +1,6 @@
-"""LSTM recurrence over a hoisted input projection: CUDA kernel wrappers
-and their plain PyTorch versions, for inference and for training.
+"""Recurrences over a hoisted input projection -- the LSTM and the gated
+family (GRU, minimal GRU with and without its reset gate): CUDA kernel
+wrappers and their plain PyTorch versions, for inference and training.
 
 Counterpart of ``nnacousticmodeling_tpu/ops/rnn_pallas.py``:
 
@@ -9,16 +10,26 @@ Counterpart of ``nnacousticmodeling_tpu/ops/rnn_pallas.py``:
   ``torch.autograd.Function`` over ``lstm_train_forward``
   (<- ``_lstm_train_fwd_impl``) and ``lstm_train_backward``
   (<- ``_lstm_train_bwd_impl``, with its dW contraction
-  ``lstm_train_dw``), kernels ``csrc/lstm_train.cu``.
+  ``lstm_train_dw``), kernels ``csrc/lstm_train.cu``;
+- ``gated_scan`` <- ``gated_scan_pallas`` (twin
+  ``gated_scan_mixed_reference``), kernel ``csrc/gated_scan.cu``;
+  inference only;
+- ``gated_scan_train`` <- ``gated_scan_pallas_train``, a
+  ``torch.autograd.Function`` over ``gated_train_forward``
+  (<- ``_gated_train_fwd_impl``) and ``gated_train_backward``
+  (<- ``_gated_train_bwd_impl``, with its dW1 / dW2 contractions
+  ``gated_train_dw``), kernels ``csrc/gated_train.cu``.
 
 The sources say what bounds the kernels and how they are laid out.
 Precision contract (the TPU kernels'): ``proj`` rounded to bf16 even
-when it is float32, bf16 operands for ``h @ W_h`` with float32
-accumulation, float32 gates and carry, ``hs`` in proj's dtype, the
-final carry in ``c0``'s dtype. Training stores the residuals
-``[a | i | f | o | tanh c_t | c_{t-1} | h_{t-1}]`` in bf16; ``dproj``
-takes the unrounded float32 ``dz`` in proj's dtype, while ``dh`` and
-``dW`` take ``bf16(dz)``.
+when it is float32, bf16 operands for the recurrent products with
+float32 accumulation, float32 gates and carry, ``hs`` in proj's dtype,
+the final carry in the initial carry's dtype. The gated kernels also
+round the operand ``r*h`` of the product with w2 to bf16. Training
+stores the residuals in bf16 (LSTM ``[a | i | f | o | tanh c_t | c_{t-1}
+| h_{t-1}]``, gated ``[r | z | hb | h_prev]``); ``dproj`` takes the
+unrounded float32 pre-activation gradients in proj's dtype, while the
+products (dh, dW) take their bf16 roundings.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes
 its plain version only for CPU tensors.
@@ -371,3 +382,427 @@ def lstm_scan_train(proj, wh, c0, h0):
     residuals, as from the JAX custom VJP."""
     c_t, h_t, hs = _LSTMScanTrain.apply(proj, wh, c0, h0)
     return (c_t, h_t), hs
+
+
+# ---------------------------------------------------------------------------
+# gated recurrences (GRU, minimal GRU with and without the reset gate)
+# ---------------------------------------------------------------------------
+
+#: kind -> (kernel code, gates packed in proj)
+_GATED_KINDS = {"gru": (0, 3), "mgru_r": (1, 3), "mgru": (2, 2)}
+#: the candidate nonlinearities by name (the JAX ``networks.ACTIVATIONS``)
+ACTIVATIONS = {"relu": torch.relu, "sigmoid": torch.sigmoid,
+               "tanh": torch.tanh}
+_ACT_CODES = {"tanh": 0, "relu": 1, "sigmoid": 2}
+
+_GATED_SCAN_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                        + [ctypes.c_void_p])
+_GATED_FWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
+_GATED_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
+_GATED_DW_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                      + [ctypes.c_void_p])
+
+
+def _gated_scan_lib():
+    lib = kernels.load("gated_scan")
+    for fn in (lib.gated_scan_f32, lib.gated_scan_bf16):
+        fn.argtypes = _GATED_SCAN_ARGTYPES
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _gated_train_lib():
+    lib = kernels.load("gated_train")
+    for fns, argtypes in (((lib.gated_train_fwd_f32, lib.gated_train_fwd_bf16),
+                           _GATED_FWD_ARGTYPES),
+                          ((lib.gated_train_bwd_f32, lib.gated_train_bwd_bf16),
+                           _GATED_BWD_ARGTYPES),
+                          ((lib.gated_train_dw,), _GATED_DW_ARGTYPES)):
+        for fn in fns:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _gated_act(kind, activation):
+    """The candidate's activation name: always tanh for ``gru``, the
+    given one for the ``mgru`` kinds."""
+    if kind not in _GATED_KINDS:
+        raise ValueError(f"unknown kind {kind!r}")
+    act = "tanh" if kind == "gru" else activation
+    if act not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {act!r}")
+    return act
+
+
+def _check_gated_args(name, proj, w1, w2, h0, kind):
+    if kind not in _GATED_KINDS:
+        raise ValueError(f"{name}: unknown kind {kind!r}")
+    t, b, g = proj.shape
+    h_dim = w1.shape[0]
+    gp = _GATED_KINDS[kind][1]
+    if g != gp * h_dim or w1.shape != (h_dim, 2 * h_dim):
+        raise ValueError(f"{name}: proj gate dim {g} / w1 {tuple(w1.shape)} "
+                         f"do not match {gp}*H / (H, 2H) for kind {kind!r}")
+    if (w2 is None) != (kind == "mgru") or (
+            w2 is not None and w2.shape != (h_dim, h_dim)):
+        raise ValueError(f"{name}: kind {kind!r} takes "
+                         + ("no w2" if kind == "mgru" else "w2 (H, H)"))
+    if h0.shape != (b, h_dim):
+        raise ValueError(f"{name}: h0 must be (B, H)")
+    if t < 1:
+        raise ValueError(f"{name}: needs at least one timestep")
+
+
+def _gated_step(kind, act, p, m1, h, mm2):
+    """One float32 step (rnn_pallas.py:250-264): r, z, hb and h' from the
+    proj row ``p``, ``m1 = h @ w1`` and ``mm2(x) = x @ w2``."""
+    h_dim = h.shape[1]
+    act_fn = ACTIVATIONS[act]
+    if kind == "gru":
+        r = torch.sigmoid(p[:, :h_dim] + m1[:, :h_dim])
+        z = torch.sigmoid(p[:, h_dim:2 * h_dim] + m1[:, h_dim:])
+        hb = act_fn(p[:, 2 * h_dim:] + mm2(r * h))
+    elif kind == "mgru_r":
+        z = torch.sigmoid(p[:, :h_dim] + m1[:, :h_dim])
+        r = torch.sigmoid(p[:, 2 * h_dim:] + m1[:, h_dim:])
+        hb = act_fn(p[:, h_dim:2 * h_dim] + mm2(r * h))
+    else:
+        z = torch.sigmoid(p[:, :h_dim] + m1[:, :h_dim])
+        r = torch.zeros_like(z)
+        hb = act_fn(p[:, h_dim:2 * h_dim] + m1[:, h_dim:])
+    return r, z, hb, z * hb + (1.0 - z) * h
+
+
+def _gated_forward_loop(proj, w1, w2, h0, kind, act, with_res):
+    """The plain step loop of the forward kernels with their bf16
+    roundings. Returns ``hs, res (or None), h_T`` (h_T float32)."""
+    h_dim = w1.shape[0]
+    t_len, b = proj.shape[:2]
+    projf = _bf16f(proj)
+    w1f = _bf16f(w1)
+    w2f = None if w2 is None else _bf16f(w2)
+
+    def mm2(x):
+        return _bf16f(x) @ w2f
+
+    h = h0.float()
+    hs = torch.empty((t_len, b, h_dim), dtype=proj.dtype, device=proj.device)
+    res = (torch.empty((t_len, b, 4 * h_dim), dtype=torch.bfloat16,
+                       device=proj.device) if with_res else None)
+    for t in range(t_len):
+        r, z, hb, h_new = _gated_step(kind, act, projf[t], _bf16f(h) @ w1f,
+                                      h, mm2)
+        if with_res:
+            res[t] = torch.cat([r, z, hb, h], dim=1).to(torch.bfloat16)
+        h = h_new
+        hs[t] = h.to(proj.dtype)
+    return hs, res, h
+
+
+def _gated_forward_launch(name, fn, proj, w1, w2, h0, kind, act, with_res):
+    """Launch a gated forward kernel (``gated_scan_*`` or
+    ``gated_train_fwd_*``). Returns ``hs, res (or None), h_T``."""
+    stream = _check_cuda(name, proj, w1, h0, *([] if w2 is None else [w2]))
+    if not proj.is_contiguous():
+        raise ValueError(f"{name}: proj must be contiguous")
+    t, b, _ = proj.shape
+    h_dim = w1.shape[0]
+    dev = proj.device
+    w1b = w1.detach().to(torch.bfloat16).contiguous()
+    w2b = None if w2 is None else w2.detach().to(torch.bfloat16).contiguous()
+    h_a = h0.detach().float().contiguous().clone()
+    h_b = torch.empty_like(h_a)
+    scratch = kind != "mgru"
+    rh = (torch.empty((b, h_dim), dtype=torch.bfloat16, device=dev)
+          if scratch else None)
+    zbuf = torch.empty_like(h_a) if scratch else None
+    hs = torch.empty((t, b, h_dim), dtype=proj.dtype, device=dev)
+    res = (torch.empty((t, b, 4 * h_dim), dtype=torch.bfloat16, device=dev)
+           if with_res else None)
+    args = [proj.data_ptr(), w1b.data_ptr(), _ptr(w2b), h_a.data_ptr(),
+            h_b.data_ptr(), _ptr(rh), _ptr(zbuf), hs.data_ptr()]
+    if with_res:
+        args.append(res.data_ptr())
+    kernels.check(fn(*args, t, b, h_dim, _GATED_KINDS[kind][0],
+                     _ACT_CODES[act], stream), name)
+    kernels.launches[name] += 1
+    return hs, res, (h_a if t % 2 == 0 else h_b)
+
+
+def gated_scan_reference(proj, w1, w2, h0, *, kind, activation="tanh"):
+    """Plain PyTorch version of ``gated_scan``, same contract: the twin
+    of ``gated_scan_mixed_reference`` (rnn_pallas.py:320-353), the
+    operands rounded to bf16 and multiplied in float32."""
+    act = _gated_act(kind, activation)
+    hs, _, h = _gated_forward_loop(proj, w1, w2, h0, kind, act, False)
+    return h.to(h0.dtype), hs
+
+
+def gated_scan(proj, w1, w2, h0, *, kind, activation="tanh"):
+    """Run a gated recurrence (``kind`` "gru", "mgru_r" or "mgru").
+
+    proj (T, B, gp*H) packed as ``rnn_pallas.py:211-216`` says (gp = 3,
+    or 2 for ``mgru``), w1 (H, 2H), w2 (H, H) or None for ``mgru``, h0
+    (B, H); ``activation`` names the ``mgru`` kinds' candidate
+    nonlinearity ("tanh", "relu", "sigmoid"; ``gru`` is always tanh).
+    Returns ``h_T, hs`` with hs (T, B, H) in proj's dtype and h_T in
+    h0's.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take
+    ``gated_scan_reference``. The kernel has no backward: on the card a
+    tensor that requires grad under grad mode raises, and training goes
+    through ``gated_scan_train``.
+    """
+    _check_gated_args("gated_scan", proj, w1, w2, h0, kind)
+    act = _gated_act(kind, activation)
+    if proj.device.type == "cpu":
+        return gated_scan_reference(proj, w1, w2, h0, kind=kind,
+                                    activation=act)
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in (proj, w1, w2, h0)):
+        raise RuntimeError(
+            "gated_scan: the inference kernel has no backward, and its "
+            "outputs would carry no gradient; train through "
+            "gated_scan_train, or run under torch.no_grad() / "
+            "torch.inference_mode()")
+    fn = getattr(_gated_scan_lib(), "gated_scan_" + _dtype_suffix(
+        "gated_scan", proj.dtype))
+    hs, _, h_t = _gated_forward_launch("gated_scan", fn, proj, w1, w2, h0,
+                                       kind, act, False)
+    return h_t.to(h0.dtype), hs
+
+
+def gated_train_forward_reference(proj, w1, w2, h0, *, kind,
+                                  activation="tanh"):
+    """Plain version of ``gated_train_forward``: the step loop of
+    ``_gated_train_fwd_impl`` (rnn_pallas.py:722-747) with its bf16
+    roundings. Returns ``hs, res, h_T`` (h_T float32)."""
+    act = _gated_act(kind, activation)
+    return _gated_forward_loop(proj, w1, w2, h0, kind, act, True)
+
+
+def gated_train_forward(proj, w1, w2, h0, *, kind, activation="tanh"):
+    """Forward of the trainable gated recurrence, ``gated_scan``'s
+    arguments. Returns ``hs`` (T, B, H) in proj's dtype, the residuals
+    ``res`` (T, B, 4H) bf16 ``[r | z | hb | h_prev]`` (r = 0 for
+    ``mgru``), and ``h_T`` float32. hs and h_T equal ``gated_scan``'s on
+    the same inputs."""
+    _check_gated_args("gated_train_forward", proj, w1, w2, h0, kind)
+    act = _gated_act(kind, activation)
+    if proj.device.type == "cpu":
+        return gated_train_forward_reference(proj, w1, w2, h0, kind=kind,
+                                             activation=act)
+    fn = getattr(_gated_train_lib(), "gated_train_fwd_" + _dtype_suffix(
+        "gated_train_forward", proj.dtype))
+    return _gated_forward_launch("gated_train_forward", fn, proj, w1, w2, h0,
+                                 kind, act, True)
+
+
+def gated_train_dw_reference(res, pair, dc):
+    """Plain version of ``gated_train_dw``: float32 products of the bf16
+    ``h_prev`` rows of ``res`` with the bf16 pair rows, and of
+    ``bf16(r * h_prev)`` with the bf16 ``dcpre`` rows."""
+    h_dim = res.shape[-1] // 4
+    hp = res[..., 3 * h_dim:].reshape(-1, h_dim).float()
+    dw1 = hp.T @ pair.reshape(-1, 2 * h_dim).float()
+    if dc is None:
+        return dw1, None
+    rh = _bf16f(res[..., :h_dim].float() * res[..., 3 * h_dim:].float())
+    return dw1, rh.reshape(-1, h_dim).T @ dc.reshape(-1, h_dim).float()
+
+
+def gated_train_dw(res, pair, dc):
+    """``dW1 = sum_t h_prev^T bf16(pair)`` and, when ``dc`` is given,
+    ``dW2 = sum_t bf16(r * h_prev)^T bf16(dcpre)``, in float32, from the
+    residuals res (T, B, 4H), pair (T, B, 2H) and dc (T, B, H), all
+    bf16 -> ``(dW1 (H, 2H), dW2 (H, H) or None)``."""
+    t, b, four_h = res.shape
+    h_dim = four_h // 4
+    if (four_h != 4 * h_dim or pair.shape != (t, b, 2 * h_dim)
+            or (dc is not None and dc.shape != (t, b, h_dim))
+            or any(x is not None and x.dtype != torch.bfloat16
+                   for x in (res, pair, dc))):
+        raise ValueError("gated_train_dw: res (T, B, 4H), pair (T, B, 2H) "
+                         "and dc (T, B, H) must be bf16")
+    if res.device.type == "cpu":
+        return gated_train_dw_reference(res, pair, dc)
+    stream = _check_cuda("gated_train_dw", res, pair,
+                         *([] if dc is None else [dc]))
+    if not all(x is None or x.is_contiguous() for x in (res, pair, dc)):
+        raise ValueError("gated_train_dw: res, pair and dc must be "
+                         "contiguous")
+    dw1 = torch.empty((h_dim, 2 * h_dim), dtype=torch.float32,
+                      device=res.device)
+    dw2 = (None if dc is None else
+           torch.empty((h_dim, h_dim), dtype=torch.float32,
+                       device=res.device))
+    kernels.check(_gated_train_lib().gated_train_dw(
+        res.data_ptr(), pair.data_ptr(), _ptr(dc), dw1.data_ptr(), _ptr(dw2),
+        t * b, h_dim, int(dc is not None), stream), "gated_train_dw")
+    kernels.launches["gated_train_dw"] += 1
+    return dw1, dw2
+
+
+def _act_grad(act, hb):
+    """d activation / d pre-activation through the output ``hb``
+    (rnn_pallas.py:673-681)."""
+    if act == "tanh":
+        return 1.0 - hb * hb
+    if act == "relu":
+        return (hb > 0.0).float()
+    return hb * (1.0 - hb)
+
+
+def _check_gated_bwd_args(name, res, w1, w2, dhs, dh_T, kind):
+    if kind not in _GATED_KINDS:
+        raise ValueError(f"{name}: unknown kind {kind!r}")
+    t, b, four_h = res.shape
+    h_dim = four_h // 4
+    if (four_h != 4 * h_dim or w1.shape != (h_dim, 2 * h_dim)
+            or (w2 is None) != (kind == "mgru")
+            or (w2 is not None and w2.shape != (h_dim, h_dim))
+            or dhs.shape != (t, b, h_dim) or dh_T.shape != (b, h_dim)
+            or res.dtype != torch.bfloat16):
+        raise ValueError(f"{name}: shapes do not match res (T, B, 4H) bf16 "
+                         f"for kind {kind!r}")
+    if t < 1:
+        raise ValueError(f"{name}: needs at least one timestep")
+
+
+def gated_train_backward_reference(res, w1, w2, dhs, dh_T, proj_dtype, *,
+                                   kind, activation="tanh"):
+    """Plain version of ``gated_train_backward``: the reverse step loop
+    of ``_gated_train_bwd_impl`` (rnn_pallas.py:824-881) with its bf16
+    roundings, then ``gated_train_dw_reference``."""
+    act = _gated_act(kind, activation)
+    t_len, b, four_h = res.shape
+    h_dim = four_h // 4
+    gp = _GATED_KINDS[kind][1]
+    has_w2 = w2 is not None
+    w1f = _bf16f(w1)
+    w2f = _bf16f(w2) if has_w2 else None
+    dh = dh_T.float()
+    dproj = torch.empty((t_len, b, gp * h_dim), dtype=proj_dtype,
+                        device=res.device)
+    pair = torch.empty((t_len, b, 2 * h_dim), dtype=torch.bfloat16,
+                       device=res.device)
+    dc = (torch.empty((t_len, b, h_dim), dtype=torch.bfloat16,
+                      device=res.device) if has_w2 else None)
+    for t in range(t_len - 1, -1, -1):
+        r, z, hb, h_prev = res[t].float().split(h_dim, dim=1)
+        dh_tot = dhs[t].float() + dh
+        dz = dh_tot * (hb - h_prev)
+        dhb = dh_tot * z
+        dh_new = dh_tot * (1.0 - z)
+        dzpre = dz * z * (1.0 - z)
+        dcpre = dhb * _act_grad(act, hb)
+        if has_w2:
+            dc[t] = dcpre.to(torch.bfloat16)
+            drh = dc[t].float() @ w2f.T
+            dr = drh * h_prev
+            dh_new = dh_new + drh * r
+            drpre = dr * r * (1.0 - r)
+        if kind == "gru":            # proj [r, z, c], w1 [r | z]
+            cols, pa, pb = (drpre, dzpre, dcpre), drpre, dzpre
+        elif kind == "mgru_r":       # proj [z, c, r], w1 [z | r]
+            cols, pa, pb = (dzpre, dcpre, drpre), dzpre, drpre
+        else:                        # proj [z, c], w1 [z | c]
+            cols, pa, pb = (dzpre, dcpre), dzpre, dcpre
+        dproj[t] = torch.cat(cols, dim=1).to(proj_dtype)
+        pair[t] = torch.cat([pa, pb], dim=1).to(torch.bfloat16)
+        dh = dh_new + pair[t].float() @ w1f.T
+    dw1, dw2 = gated_train_dw_reference(res, pair, dc)
+    return (dproj, dw1.to(w1.dtype), None if dw2 is None else dw2.to(w2.dtype),
+            dh)
+
+
+def gated_train_backward(res, w1, w2, dhs, dh_T, proj_dtype, *, kind,
+                         activation="tanh"):
+    """Backward of the trainable gated recurrence from its residuals.
+
+    res (T, B, 4H) bf16, w1 (H, 2H), w2 (H, H) or None for ``mgru``,
+    dhs (T, B, H), dh_T (B, H). Returns ``dproj`` (T, B, gp*H) in
+    ``proj_dtype`` and proj's packing order, ``dW1`` in w1's dtype,
+    ``dW2`` in w2's (None for ``mgru``) and ``dh0`` float32.
+    """
+    _check_gated_bwd_args("gated_train_backward", res, w1, w2, dhs, dh_T,
+                          kind)
+    act = _gated_act(kind, activation)
+    if res.device.type == "cpu":
+        return gated_train_backward_reference(res, w1, w2, dhs, dh_T,
+                                              proj_dtype, kind=kind,
+                                              activation=act)
+    stream = _check_cuda("gated_train_backward", res, w1, dhs, dh_T,
+                         *([] if w2 is None else [w2]))
+    fn = getattr(_gated_train_lib(), "gated_train_bwd_" + _dtype_suffix(
+        "gated_train_backward", proj_dtype))
+    if not res.is_contiguous():
+        raise ValueError("gated_train_backward: res must be contiguous")
+    t, b, four_h = res.shape
+    h_dim = four_h // 4
+    dev = res.device
+    has_w2 = w2 is not None
+    w1b = w1.detach().to(torch.bfloat16).contiguous()
+    w2b = w2.detach().to(torch.bfloat16).contiguous() if has_w2 else None
+    dhs_f = dhs.float().contiguous()
+    dh_t = dh_T.float().contiguous()
+    partial = torch.empty((b, h_dim), dtype=torch.float32, device=dev)
+    dproj = torch.empty((t, b, _GATED_KINDS[kind][1] * h_dim),
+                        dtype=proj_dtype, device=dev)
+    pair = torch.empty((t, b, 2 * h_dim), dtype=torch.bfloat16, device=dev)
+    dc = (torch.empty((t, b, h_dim), dtype=torch.bfloat16, device=dev)
+          if has_w2 else None)
+    dh0 = torch.empty((b, h_dim), dtype=torch.float32, device=dev)
+    kernels.check(fn(res.data_ptr(), w1b.data_ptr(), _ptr(w2b),
+                     dhs_f.data_ptr(), dh_t.data_ptr(), partial.data_ptr(),
+                     dproj.data_ptr(), pair.data_ptr(), _ptr(dc),
+                     dh0.data_ptr(), t, b, h_dim, _GATED_KINDS[kind][0],
+                     _ACT_CODES[act], stream), "gated_train_backward")
+    kernels.launches["gated_train_backward"] += 1
+    dw1, dw2 = gated_train_dw(res, pair, dc)
+    return (dproj, dw1.to(w1.dtype), None if dw2 is None else dw2.to(w2.dtype),
+            dh0)
+
+
+class _GatedScanTrain(torch.autograd.Function):
+    """Custom backward of the gated recurrence: the twin of the JAX
+    ``_gated_train`` custom VJP (rnn_pallas.py:945-974).
+    ``gated_train_forward`` / ``gated_train_backward`` are looked up at
+    call time, so a caller can swap in the plain versions."""
+
+    @staticmethod
+    def forward(ctx, proj, w1, w2, h0, kind, activation):
+        hs, res, h_t = gated_train_forward(proj, w1, w2, h0, kind=kind,
+                                           activation=activation)
+        ctx.save_for_backward(res, w1, w2)
+        ctx.proj_dtype = proj.dtype
+        ctx.kind, ctx.activation = kind, activation
+        # TBPTT reads no h_T cotangent: it arrives as zeros
+        ctx.set_materialize_grads(True)
+        return h_t.to(h0.dtype), hs
+
+    @staticmethod
+    def backward(ctx, dh_t, dhs):
+        res, w1, w2 = ctx.saved_tensors
+        dproj, dw1, dw2, dh0 = gated_train_backward(
+            res, w1, w2, dhs, dh_t, ctx.proj_dtype, kind=ctx.kind,
+            activation=ctx.activation)
+        return dproj, dw1, dw2, dh0.to(dh_t.dtype), None, None
+
+
+def gated_scan_train(proj, w1, w2, h0, *, kind, activation="tanh"):
+    """Differentiable gated recurrence for training, ``gated_scan``'s
+    signature and forward values: ``h_T, hs``. Gradients come from the
+    reverse-time kernel (``gated_train_backward``) with bf16 residuals,
+    as from the JAX custom VJP; ``mgru`` has no w2 and gets no w2
+    gradient."""
+    _check_gated_args("gated_scan_train", proj, w1, w2, h0, kind)
+    return _GatedScanTrain.apply(proj, w1, w2, h0, kind,
+                                 _gated_act(kind, activation))

@@ -31,7 +31,8 @@ def add_network_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--network", "-n", default="ff",
                         help='Network type: ff, tdnn, lstm, zoneoutlstm, '
                              'zoneoutdropoutlstm, peepholelstm, gru, '
-                             'mgrurelu, mgrurelur (this port: lstm)')
+                             'mgrurelu, mgrurelur (this port: lstm, gru, '
+                             'mgrurelu, mgrurelur)')
     parser.add_argument("--units", "-u", type=int, nargs="+", default=[1024])
     parser.add_argument("--layers", "-l", type=int, default=2)
     parser.add_argument("--activation", "-a", default="relu")
@@ -50,9 +51,10 @@ def add_network_args(parser: argparse.ArgumentParser) -> None:
                         choices=("auto", "xla", "pallas"),
                         help="recurrent sequence runner: 'xla' (float32 "
                              "step loop, the lax.scan twin) or 'pallas' "
-                             "(the hand-written CUDA recurrence kernel, bf16 "
-                             "matmul operands; its plain version on the "
-                             "CPU). 'auto' = pallas on CUDA, xla elsewhere")
+                             "(the hand-written CUDA recurrence kernels, "
+                             "bf16 matmul operands; their plain versions on "
+                             "the CPU). 'auto' = pallas on CUDA, xla "
+                             "elsewhere")
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on (default cuda; pass "
                              "cpu to run without a card)")

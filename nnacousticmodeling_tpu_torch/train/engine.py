@@ -10,7 +10,8 @@ as it is there:
   update one device gather and ``bprop_len`` steps; the recurrent state
   is carried across updates and epochs within a stage as a constant
   (detached after every update; JAX differentiates w.r.t. the params
-  only) and reset at stage starts;
+  only) and reset at stage starts; a layer's state is ``(c, h)`` for the
+  LSTM and ``(h, fresh)`` for the gated nets, two leaves either way;
 * loss: per-frame softmax cross-entropy, mean over the batch, summed
   over the ``bprop_len`` steps (Chainer's BPTTUpdater), reported / L;
 * per-stage optimizer rebuild (sgd / momentumsgd / adam), early stopping
@@ -19,7 +20,8 @@ as it is there:
   the last;
 * validation on the dev set in ``bs`` in-order streams over a fresh
   state, without dropout and under ``torch.inference_mode`` (so the
-  ``pallas`` route runs the ``lstm_scan`` inference kernel);
+  ``pallas`` route runs the ``lstm_scan`` / ``gated_scan`` inference
+  kernels);
 * per-epoch snapshots (atomic tmp + rename) and bit-exact resume, mid-
   stage and at a stage boundary.
 

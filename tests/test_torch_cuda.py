@@ -11,6 +11,9 @@ recurrence tolerance, so they may differ by that plus one bf16 ulp
 (rtol 2**-7). The backward, given the same residuals, differs from its
 plain version only by the order of its float32 sums (and the bf16
 roundings of dz those may flip): 1e-3 of each tensor's largest value.
+The gated kernels are held to the same tolerances, each relative to the
+largest value of its tensor (the relu candidate of MGRU is unbounded);
+their training forward is bit-equal to the ``gated_scan`` kernel.
 """
 
 import numpy as np
@@ -24,6 +27,13 @@ from nnacousticmodeling_tpu_torch.decoder.viterbi_collapsed import (
     collapsed_viterbi_reference,
 )
 from nnacousticmodeling_tpu_torch.ops.rnn_cuda import (
+    gated_scan,
+    gated_scan_reference,
+    gated_scan_train,
+    gated_train_backward,
+    gated_train_backward_reference,
+    gated_train_forward,
+    gated_train_forward_reference,
     lstm_scan,
     lstm_scan_reference,
     lstm_scan_train,
@@ -172,3 +182,123 @@ def test_lstm_scan_refuses_grad_on_card(cuda):
         lstm_scan(proj, wh, c0, h0)
     with torch.no_grad():
         lstm_scan(proj, wh, c0, h0)
+
+
+# ---- the gated recurrences (GRU, MGRU with and without the reset gate) ---
+
+GATED = {"gru": (3, "tanh"), "mgru_r": (3, "relu"), "mgru": (2, "relu")}
+
+
+def _gated_case(kind, t, b, h, dtype, device):
+    g = torch.Generator().manual_seed(t * 1000 + b * 10 + h)
+    gp = GATED[kind][0]
+    proj = (torch.randn(t, b, gp * h, generator=g) * 0.5).to(dtype)
+    w1 = torch.randn(h, 2 * h, generator=g) * 0.2
+    w2 = None if kind == "mgru" else torch.randn(h, h, generator=g) * 0.2
+    h0 = torch.randn(b, h, generator=g) * 0.1
+    return [None if x is None else x.to(device) for x in (proj, w1, w2, h0)]
+
+
+def _close_rel(got, want, rtol, msg=""):
+    scale = max(float(want.float().abs().max()), 1.0)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=rtol * scale, msg=msg)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,b,h", [(5, 4, 32), (13, 33, 40), (8, 3, 64)])
+@pytest.mark.parametrize("kind", sorted(GATED))
+def test_gated_scan_kernel_matches_plain(cuda, kind, t, b, h, dtype):
+    args = _gated_case(kind, t, b, h, dtype, cuda)
+    act = GATED[kind][1]
+    before = kernels.launches["gated_scan"]
+    hk, hsk = gated_scan(*args, kind=kind, activation=act)
+    torch.cuda.synchronize()
+    assert kernels.launches["gated_scan"] == before + 1
+    hr, hsr = gated_scan_reference(*args, kind=kind, activation=act)
+    assert hsk.dtype == dtype and hsk.shape == (t, b, h)
+    _close_rel(hsk, hsr, BF16_ATOL)
+    _close_rel(hk, hr, BF16_ATOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,b,h", [(5, 4, 32), (13, 33, 40)])
+@pytest.mark.parametrize("kind", sorted(GATED))
+def test_gated_train_forward_kernel(cuda, kind, t, b, h, dtype):
+    args = _gated_case(kind, t, b, h, dtype, cuda)
+    act = GATED[kind][1]
+    before = kernels.launches["gated_train_forward"]
+    hs, res, ht = gated_train_forward(*args, kind=kind, activation=act)
+    torch.cuda.synchronize()
+    assert kernels.launches["gated_train_forward"] == before + 1
+    ht_s, hs_s = gated_scan(*args, kind=kind, activation=act)
+    assert torch.equal(hs, hs_s) and torch.equal(ht, ht_s)
+    hs_r, res_r, ht_r = gated_train_forward_reference(*args, kind=kind,
+                                                      activation=act)
+    _close_rel(hs, hs_r, BF16_ATOL)
+    _close_rel(ht, ht_r, BF16_ATOL)
+    scale = max(float(res_r.float().abs().max()), 1.0)
+    torch.testing.assert_close(res.float(), res_r.float(), rtol=RES_RTOL,
+                               atol=BF16_ATOL * scale)
+
+
+@pytest.mark.parametrize("proj_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,b,h", [(5, 3, 32), (13, 33, 40)])
+@pytest.mark.parametrize("kind", sorted(GATED))
+def test_gated_train_backward_kernel(cuda, kind, t, b, h, proj_dtype):
+    args = _gated_case(kind, t, b, h, proj_dtype, cuda)
+    act = GATED[kind][1]
+    _, res, _ = gated_train_forward_reference(*args, kind=kind,
+                                              activation=act)
+    g = torch.Generator().manual_seed(7)
+    dhs = torch.randn(t, b, h, generator=g).to(cuda, proj_dtype)
+    dht = torch.randn(b, h, generator=g).to(cuda)
+    before = dict(kernels.launches)
+    got = gated_train_backward(res, args[1], args[2], dhs, dht, proj_dtype,
+                               kind=kind, activation=act)
+    torch.cuda.synchronize()
+    assert kernels.launches["gated_train_backward"] == \
+        before.get("gated_train_backward", 0) + 1
+    assert kernels.launches["gated_train_dw"] == \
+        before.get("gated_train_dw", 0) + 1
+    want = gated_train_backward_reference(res, args[1], args[2], dhs, dht,
+                                          proj_dtype, kind=kind,
+                                          activation=act)
+    for k, w, name in zip(got, want, ["dproj", "dw1", "dw2", "dh0"]):
+        if w is None:
+            assert k is None and kind == "mgru", name
+            continue
+        assert k.dtype == w.dtype and k.shape == w.shape, name
+        scale = float(w.float().abs().max())
+        torch.testing.assert_close(k.float(), w.float(), rtol=0,
+                                   atol=BWD_RTOL * scale, msg=name)
+
+
+@pytest.mark.parametrize("kind", sorted(GATED))
+def test_gated_scan_train_autograd_on_card(cuda, kind):
+    args = [None if x is None else x.requires_grad_()
+            for x in _gated_case(kind, 6, 8, 32, torch.float32, cuda)]
+    act = GATED[kind][1]
+    ht, hs = gated_scan_train(*args, kind=kind, activation=act)
+    (hs.square().sum() + ht.sum()).backward()
+    got = [None if x is None else x.grad for x in args]
+    cpu = [None if x is None else x.detach().cpu().requires_grad_()
+           for x in args]
+    ht, hs = gated_scan_train(*cpu, kind=kind, activation=act)
+    (hs.square().sum() + ht.sum()).backward()
+    for k, w in zip(got, cpu):
+        if w is None:
+            assert k is None
+            continue
+        scale = float(w.grad.abs().max())
+        torch.testing.assert_close(k.cpu(), w.grad, rtol=0,
+                                   atol=1e-2 * scale)
+
+
+def test_gated_scan_refuses_grad_on_card(cuda):
+    proj, w1, w2, h0 = _gated_case("gru", 4, 4, 32, torch.float32, cuda)
+    w1.requires_grad_()
+    with pytest.raises(RuntimeError, match="gated_scan_train"):
+        gated_scan(proj, w1, w2, h0, kind="gru")
+    with torch.no_grad():
+        gated_scan(proj, w1, w2, h0, kind="gru")

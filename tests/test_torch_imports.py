@@ -55,8 +55,11 @@ def test_port_files_found():
     assert "nnacousticmodeling_tpu_torch/decoder/viterbi_collapsed.py" in names
     for mod in ("train/engine.py", "train/stages.py", "train/streams.py",
                 "train/optimizers.py", "models/precision.py",
+                "models/cells.py", "models/networks.py",
                 "ops/timedelay.py", "pipeline/train_cli.py"):
         assert f"nnacousticmodeling_tpu_torch/{mod}" in names
+    for src in ("gated_step.cuh", "gated_scan.cu", "gated_train.cu"):
+        assert (REPO / "nnacousticmodeling_tpu_torch" / "csrc" / src).is_file()
     assert (REPO / "chip_smoke.py").is_file()
 
 
@@ -75,6 +78,9 @@ def _entry_points(tmp_path):
     return {
         "resolve_device": lambda: resolve_device(),
         "get_network": lambda: get_network("lstm", 1, [4], 5, in_dim=3),
+        "get_network gru": lambda: get_network("gru", 1, [4], 5, in_dim=3),
+        "get_network mgrurelur": lambda: get_network("mgrurelur", 1, [4], 5,
+                                                     in_dim=3),
         "ViterbiDecoder": lambda: ViterbiDecoder(img),
         "load_jax_params": lambda: load_jax_params(tmp_path / "m.npz"),
         "evaluate.main": lambda: evaluate.main(
@@ -92,6 +98,7 @@ def _entry_points(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["resolve_device", "get_network",
+                                  "get_network gru", "get_network mgrurelur",
                                   "ViterbiDecoder", "load_jax_params",
                                   "evaluate.main", "train_cli.main",
                                   "train_network"])
@@ -105,7 +112,8 @@ def test_default_device_is_cuda(tmp_path, name):
 
 def test_cpu_on_request():
     assert resolve_device("cpu").type == "cpu"
-    net = get_network("lstm", 1, [4], 5, in_dim=3, device="cpu")
-    assert net.device.type == "cpu"
+    for name in ("lstm", "gru", "mgrurelu", "mgrurelur"):
+        net = get_network(name, 1, [4], 5, in_dim=3, device="cpu")
+        assert net.device.type == "cpu"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_network("gru", 1, [4], 5, in_dim=3, device="cpu")
+        get_network("peepholelstm", 1, [4], 5, in_dim=3, device="cpu")

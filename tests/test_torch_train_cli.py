@@ -5,7 +5,8 @@ corpus tree (the kernel route, ``--scan-impl pallas``, through the
 kernels' plain versions), writes ``model.npz`` under the JAX keys,
 ``log.json`` and ``args.txt``; the JAX package's ``load_pytree`` reads
 the model, and JAX ``evaluate --scan-impl pallas`` and the port's
-``evaluate --device cpu`` decode it to byte-identical MLFs.
+``evaluate --device cpu`` decode it to byte-identical MLFs. The same
+holds for a GRU trained with ``-n gru --timedelay 2 -d 0.2``.
 """
 
 import json
@@ -143,3 +144,50 @@ def test_train_fold_and_resume(tree, tmp_path):
     assert again.history == []
     for k, v in first.params.items():
         np.testing.assert_array_equal(again.params[k].numpy(), v.numpy())
+
+
+# ---- the GRU (the networks of specom2018.sh / slsp2018.sh) ---------------
+
+def _gru_args(root, out):
+    args = _train_args(root, out)
+    args[args.index("-n") + 1] = "gru"
+    return args + ["--timedelay", "2", "-d", "0.2"]
+
+
+@pytest.fixture(scope="module")
+def trained_gru(tree):
+    out = tree / "port_gru"
+    result = train_cli.main(_gru_args(tree, out)
+                            + ["--scan-impl", "pallas", "--device", "cpu"])
+    return out, result
+
+
+def test_gru_train_cli_writes_a_model_jax_reads(trained_gru):
+    out, result = trained_gru
+    log = json.loads((out / "log.json").read_text())
+    assert [h["epoch"] for h in log] == [1, 2]
+    assert all(np.isfinite(h["main/loss"]) for h in log)
+    template = j_get_network("gru", 2, [32], NUM_CLASSES).init(
+        jax.random.PRNGKey(0), DIM)
+    params = j_load_pytree(str(out / "model.npz"), template)
+    for key in ("wx", "bx", "wh_rz", "wh_c"):
+        np.testing.assert_array_equal(
+            np.asarray(params["cells"][1][key]),
+            result.params[f"cells.1.{key}"].numpy())
+
+
+def test_gru_trained_model_decodes_identically(tree, trained_gru, tmp_path):
+    out, _ = trained_gru
+    args = ["-n", "gru", "-l", "2", "-u", "32",
+            "--num-classes", str(NUM_CLASSES), "--scan-impl", "pallas",
+            "--model", f"{out}/model",
+            "--data-dir", f"{tree}/data", "--offset-dir", f"{tree}/data",
+            "--utt-list-dir", f"{tree}/data", "--recog-dir", f"{tree}/recog",
+            "--PIP", "5", "--test-or-dev", "test"]
+    per_j = j_evaluate.main(args + ["--out-mlf", tmp_path / "j.mlf"])
+    per_t = evaluate.main(args + ["--device", "cpu",
+                                  "--out-mlf", tmp_path / "t.mlf"])
+    text = (tmp_path / "j.mlf").read_text()
+    assert text.count('"*/') == 4
+    assert (tmp_path / "t.mlf").read_text() == text
+    assert per_t == per_j
