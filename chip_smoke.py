@@ -49,9 +49,9 @@ Phases (each one that fails ends the run with a non-zero exit):
     after the product, so it is not the same function);
 13. the GRU serving slice: phase 5's corpus and decoder, a GRU 4x1024
     -> 1909 with numpy-seeded weights, ``rnn_log_posteriors``,
-    ``decode_corpus``, MLF, PER; ``gated_scan`` and the Viterbi kernel
-    must be launched, the posteriors agree with the plain GRU's and the
-    plain Viterbi gives identical segments and PER;
+    ``decode_corpus``, MLF, PER; ``gated_scan`` must be launched once a
+    layer and the Viterbi kernel launched, the posteriors agree with the
+    plain GRU's and the plain Viterbi gives identical segments and PER;
 14. the GRU training slice: ``train_cli.main`` with ``-n gru -l 4 -u
     1024 --timedelay 5 -d 0.2`` (TBPTT b128 L20, momentumsgd lr 1e-2, 2
     epochs) on phase 9's corpus tree; the gated training kernels and
@@ -60,7 +60,35 @@ Phases (each one that fails ends the run with a non-zero exit):
     the serving GRU;
 15. 3 kernel updates against 3 plain ones through ``train_network`` for
     each of gru, mgrurelu and mgrurelur at 4x1024;
-16. a profiled repeat of 3 GRU updates: device busy share and top ops.
+16. a profiled repeat of 3 GRU updates: device busy share and top ops;
+17. the peephole kernels against their plain versions:
+    ``peephole_scan`` at the serving shapes (T=512, B=128, H=1024), f32
+    and bf16 proj; ``peephole_train_forward`` at T=20 (bit-equal to
+    ``peephole_scan``), ``peephole_train_backward`` and its dW kernel
+    ``peephole_train_dw`` on the same residuals, with cuDNN ``nn.LSTM``
+    bf16 timed beside them as a yardstick of like work (cuDNN has no
+    peephole LSTM);
+18. the PeepholeLSTM serving slice: phase 5's corpus and decoder, a
+    PeepholeLSTM 4x1024 -> 1909 with numpy-seeded weights carried in
+    through ``load_jax_params``; ``peephole_scan`` must be launched once
+    a layer and the Viterbi kernel launched, the posteriors agree with
+    the plain net's and the plain Viterbi gives identical segments and
+    PER;
+19. the PeepholeLSTM training slice: ``train_cli.main -n peepholelstm -l
+    4 -u 1024`` with phase 9's configuration on phase 9's corpus tree;
+    the three training kernels and the validation's ``peephole_scan``
+    must be launched, every loss finite, epoch 2's train loss below
+    epoch 1's, ``model.npz`` must load into the serving net; then 3
+    kernel updates against 3 plain ones;
+20. ZoneoutLSTM with the SPECOM configuration (``-n zoneoutlstm -l 4 -u
+    1024 --timedelay 5 -d 0.2``): its serving posteriors go through
+    ``lstm_scan`` and equal phase 5's LSTM posteriors on the same weights
+    bit for bit; two ``train_cli`` epochs launch no training kernel (the
+    JAX package has none for it either), the validation launches
+    ``lstm_scan``, the loss is finite and falls; then 3 of its updates
+    profiled (device busy share);
+21. a profiled repeat of 3 PeepholeLSTM updates: device busy share and
+    top ops.
 
 Output: progress lines, then the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -115,6 +143,10 @@ T_TRAIN = 20
 GATED_ATOL = 5e-3
 GATED = {"gru": (3, "tanh", "gru"), "mgru_r": (3, "relu", "mgrurelur"),
          "mgru": (2, "relu", "mgrurelu")}
+# peephole kernels: the LSTM's reasoning, each tolerance relative to
+# max(1, max|plain|) as the gated kernels' are (the cell state is not
+# bounded by 1); the training kernels use RES_RTOL, BWD_RTOL and DW_RTOL.
+PEEP_ATOL = 5e-3
 
 T_MAIN, B_MAIN, H_MAIN, LAYERS, CLASSES, DIM = 512, 128, 1024, 4, 1909, 40
 PHONES = 48
@@ -256,6 +288,238 @@ def log_profile(tag, wall_ms, busy_ms, top, card):
             f"(the profiler recorded none)")
 
 
+def rel_err(got, want):
+    """max |got - want| over max(1, max |want|)."""
+    return float((got.float() - want.float()).abs().max()) / max(
+        1.0, float(want.float().abs().max()))
+
+
+def phase_timer(phase_s):
+    """``done(n)``: record in ``phase_s`` and log the seconds since the
+    previous call (or since this one)."""
+    last = [time.perf_counter()]
+
+    def done(n):
+        now = time.perf_counter()
+        phase_s[n] = now - last[0]
+        log(f"[phase {n}] {phase_s[n]:.1f} s")
+        last[0] = now
+
+    return done
+
+
+def serving_slice(torch, np, net, name, scan_name, plain_scan, corpus, dec,
+                  card):
+    """A serving slice on phase 5's corpus and decoder (phases 13, 18):
+    ``net``'s prior-subtracted posteriors of the test set, their decode,
+    MLF and PER. The run must launch the recurrence kernel ``scan_name``
+    once a layer and the Viterbi kernel; the posteriors of the plain
+    recurrence (``networks.<scan_name>`` patched to ``plain_scan``) must
+    agree within POSTERIOR_ATOL, and the plain Viterbi's decode of the
+    kernel run's posteriors must give identical segments and PER."""
+    from nnacousticmodeling_tpu_torch import kernels
+    from nnacousticmodeling_tpu_torch.decoder import viterbi_collapsed as vc
+    from nnacousticmodeling_tpu_torch.decoder.corpus_decode import (
+        decode_corpus)
+    from nnacousticmodeling_tpu_torch.infer import rnn_log_posteriors
+    from nnacousticmodeling_tpu_torch.io import load_mlf, write_mlf
+    from nnacousticmodeling_tpu_torch.models import networks
+
+    x, offsets = corpus.test.data, corpus.test.offsets
+    lengths = np.diff(offsets)
+    audio_s = float(lengths.sum()) / 100.0
+    ap = corpus.log_priors
+    label = f"{type(net).__name__} {LAYERS}x{H_MAIN} -> {CLASSES}"
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{name}_") as tmp:
+        ref_path = Path(tmp, "test_ref.mlf")
+        write_mlf(str(ref_path), corpus.ref_mlf["test"])
+        ref = load_mlf(str(ref_path))
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lp = rnn_log_posteriors(net, x, offsets, ap=ap, batch=B_MAIN)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        results = decode_corpus(dec, lp, offsets, batch=B_MAIN)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        per = per_of(corpus, results, Path(tmp, "kernel.mlf"), ref)
+        t3 = time.perf_counter()
+        launches = dict(kernels.launches)
+        log(f"[{name} slice] main-path launches: {launches}")
+        if launches.get(scan_name, 0) != LAYERS:
+            fail(f"the {name} serving path launched {scan_name} "
+                 f"{launches.get(scan_name, 0)} times, not once a layer "
+                 f"({LAYERS})")
+        if launches.get("collapsed_viterbi_forward", 0) <= 0:
+            fail(f"the {name} serving path did not launch "
+                 f"collapsed_viterbi_forward")
+        if lp.shape != (lengths.sum(), CLASSES) or not np.isfinite(lp).all():
+            fail(f"{name} posteriors malformed: shape {lp.shape}")
+        if not all(r.segments for r in results):
+            fail(f"an utterance decoded to no segments ({name} slice)")
+        stages = {"posteriors_ms": (t1 - t0) * 1e3,
+                  "decode_ms": (t2 - t1) * 1e3,
+                  "mlf_per_ms": (t3 - t2) * 1e3}
+        tput = audio_s / (t3 - t0)
+        log(f"[{name} slice] {label}: PER {per:.2f} %, {tput:.1f} "
+            f"audio-s/s; " + ", ".join(f"{k} {v:.1f}"
+                                       for k, v in stages.items())
+            + f" [{card}]")
+        with mock.patch.object(networks, scan_name, plain_scan):
+            lp_plain = rnn_log_posteriors(net, x, offsets, ap=ap,
+                                          batch=B_MAIN)
+        post_err = float(np.abs(lp - lp_plain).max())
+        if not post_err <= POSTERIOR_ATOL:
+            fail(f"{name} posteriors differ from the plain net's by "
+                 f"{post_err} (tolerance {POSTERIOR_ATOL})")
+        with mock.patch.object(vc, "collapsed_viterbi_forward",
+                               vc.collapsed_viterbi_reference):
+            results_plain = decode_corpus(dec, lp, offsets, batch=B_MAIN)
+        per_plain = per_of(corpus, results_plain, Path(tmp, "plain.mlf"),
+                           ref)
+        same = sum(a.segments == b.segments
+                   for a, b in zip(results, results_plain))
+        if same != len(results) or per_plain != per:
+            fail(f"{name} slice: plain decode differs: "
+                 f"{len(results) - same} utterances, PER {per_plain} vs "
+                 f"{per}")
+        log(f"[{name} slice] plain {name} posteriors within {post_err:.3e} "
+            f"(tolerance {POSTERIOR_ATOL}); plain Viterbi: segments of all "
+            f"{same} utterances and PER identical")
+    return dict(per=per, audio_s=audio_s, audio_s_per_s=tput,
+                posterior_err=post_err, launches=launches, **stages)
+
+
+def train_slice(torch, np, dev, corpus, tree, name, extra, kernel_names,
+                card):
+    """A training slice through ``train_cli.main`` (phases 14, 19, 20):
+    ``name`` 4x1024 -> 1909, TBPTT b128 L20, momentumsgd lr 1e-2, 2
+    epochs, plus the ``extra`` arguments, on the corpus tree ``tree``. The
+    run must launch each of ``kernel_names``, every loss must be finite,
+    epoch 2's train loss below epoch 1's, and ``model.npz`` must load into
+    the serving net."""
+    from nnacousticmodeling_tpu_torch import kernels
+    from nnacousticmodeling_tpu_torch.models import get_network
+    from nnacousticmodeling_tpu_torch.pipeline import train_cli
+    from nnacousticmodeling_tpu_torch.train import load_jax_params
+
+    B, T = B_MAIN, T_TRAIN
+    delay = int(extra[extra.index("--timedelay") + 1]) \
+        if "--timedelay" in extra else 0
+    frames = int(corpus.train.data.shape[0]
+                 + delay * (len(corpus.train.offsets) - 1))
+    steps = frames // (B * T)
+    argv = ["-n", name, "-l", str(LAYERS), "-u", str(H_MAIN),
+            "--num-classes", str(CLASSES), "-b", str(B), "--bproplen",
+            str(T), "-o", "momentumsgd", "--lr", "0.01", "--early-stopping",
+            "false", "--noplot", "-e", "2", "--data-dir", f"{tree}/data",
+            "--offset-dir", f"{tree}/data", "--target-dir", f"{tree}/data",
+            "--out", f"{tree}/{name}"] + extra
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = train_cli.main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    log(f"[{name} train] main-path launches: {launches}")
+    for kernel in kernel_names:
+        if launches.get(kernel, 0) <= 0:
+            fail(f"the {name} training path did not launch {kernel}")
+    hist = result.history
+    losses = [h[k] for h in hist for k in ("main/loss",
+                                           "validation/main/loss")]
+    if len(hist) != 2 or not np.isfinite(losses).all():
+        fail(f"{name} training history malformed: {hist}")
+    if not hist[1]["main/loss"] < hist[0]["main/loss"]:
+        fail(f"{name} train loss did not fall: {hist[0]['main/loss']} -> "
+             f"{hist[1]['main/loss']}")
+    serving = get_network(name, LAYERS, [H_MAIN], CLASSES, in_dim=DIM,
+                          scan_impl="pallas", device=dev)
+    serving.load_state_dict(load_jax_params(f"{tree}/{name}/model.npz",
+                                            device=dev))
+    update_ms = hist[1]["elapsed_time"] / steps * 1e3
+    frames_per_s = steps * B * T / hist[1]["elapsed_time"]
+    log(f"[{name} train] {type(serving).__name__} {LAYERS}x{H_MAIN} -> "
+        f"{CLASSES}, {' '.join([f'TBPTT b{B} L{T}'] + extra)}, {frames} "
+        f"frames, "
+        f"{steps} updates an epoch: epoch times "
+        + ", ".join(f"{h['elapsed_time']:.3f} s" for h in hist)
+        + f"; epoch 2: {update_ms:.2f} ms per update, {frames_per_s:.0f} "
+        f"train frames/s; losses "
+        + ", ".join(f"{h['main/loss']:.4f} (val "
+                    f"{h['validation/main/loss']:.4f})" for h in hist)
+        + f"; whole call {wall_s:.1f} s; model.npz loads into the serving "
+        f"net [{card}]")
+    return dict(history=hist, update_ms=update_ms,
+                frames_per_s=frames_per_s, launches=launches, wall_s=wall_s)
+
+
+def update_runs(torch, dev, corpus, name, init):
+    """3 updates through ``train_network`` of the ``name`` 4x1024 net from
+    the weights ``init`` (TBPTT b128 L20 on the first 2,560 training
+    frames, no validation). Returns ``losses()``, which runs them and
+    returns the per-update losses, and ``profiled()``, which profiles a
+    run whose net is built beforehand."""
+    from nnacousticmodeling_tpu_torch.models import get_network
+    from nnacousticmodeling_tpu_torch.train import (
+        TrainConfig, TrainStage, load_jax_params, train_network)
+
+    n3 = B_MAIN * T_TRAIN
+    x3, y3 = corpus.train.data[:n3], corpus.train.targets[:n3]
+    cfg3 = TrainConfig(
+        stages=[TrainStage(epoch=3, optimizer="momentumsgd",
+                           batch_size=B_MAIN, lr=0.01, early_stopping=False)],
+        bprop_len=T_TRAIN, seed=0, log=None, use_validation=False)
+
+    def net_and_init():
+        return (get_network(name, LAYERS, [H_MAIN], CLASSES, in_dim=DIM,
+                            scan_impl="pallas", device=dev),
+                load_jax_params(init, device=dev))
+
+    def losses():
+        net3, init3 = net_and_init()
+        return [h["main/loss"] for h in train_network(
+            net3, x3, y3, cfg3, init_params=init3, device=dev).history]
+
+    def profiled():
+        net_p, init_p = net_and_init()
+        return device_profile(torch, lambda: train_network(
+            net_p, x3, y3, cfg3, init_params=init_p, device=dev))
+
+    return losses, profiled
+
+
+def e2e_updates(torch, np, dev, corpus, name, init, plain, tag):
+    """Phases 10, 15, 19: ``update_runs`` with the kernels, then with the
+    plain versions (``plain``: ``rnn_cuda`` name -> plain function,
+    patched in; that run must launch no kernel). The per-update losses
+    must agree within E2E_LOSS_RTOL. Returns the losses and
+    ``profiled``."""
+    from nnacousticmodeling_tpu_torch import kernels
+    from nnacousticmodeling_tpu_torch.ops import rnn_cuda
+
+    losses, profiled = update_runs(torch, dev, corpus, name, init)
+    before = dict(kernels.launches)
+    k_hist = losses()
+    if dict(kernels.launches) == before:
+        fail(f"the {name} kernel run launched no kernel")
+    before = dict(kernels.launches)
+    with mock.patch.multiple(rnn_cuda, **plain):
+        p_hist = losses()
+    if dict(kernels.launches) != before:
+        fail(f"the plain {name} run launched a kernel")
+    err = max(abs(a - b) / abs(b) for a, b in zip(k_hist, p_hist))
+    if not (len(k_hist) == 3 and np.isfinite(k_hist).all()
+            and err <= E2E_LOSS_RTOL):
+        fail(f"3 kernel updates of {name} {k_hist} differ from 3 plain ones "
+             f"{p_hist} (tolerance {E2E_LOSS_RTOL} relative)")
+    log(f"[{tag}] 3 updates, kernel losses {k_hist}, plain {p_hist}: max "
+        f"relative difference {err:.3e} (tolerance {E2E_LOSS_RTOL})")
+    return dict(kernel=k_hist, plain=p_hist, err=err), profiled
+
+
 def train_phases(torch, np, dev, card, corpus, report):
     """Phases 7-11: the training kernels against their plain versions,
     the training slice through ``train_cli``, kernel against plain end
@@ -265,8 +529,7 @@ def train_phases(torch, np, dev, card, corpus, report):
     from nnacousticmodeling_tpu_torch.models import get_network
     from nnacousticmodeling_tpu_torch.ops import rnn_cuda
     from nnacousticmodeling_tpu_torch.pipeline import train_cli
-    from nnacousticmodeling_tpu_torch.train import (
-        TrainConfig, TrainStage, load_jax_params, train_network)
+    from nnacousticmodeling_tpu_torch.train import load_jax_params
     from nnacousticmodeling_tpu_torch.utils.synthetic import (
         write_corpus_tree)
 
@@ -440,37 +703,11 @@ def train_phases(torch, np, dev, card, corpus, report):
             f"serving network [{card}]")
 
         # ---- 10. kernel against plain, end to end; the bf16 epoch ------
-        n3 = B * T
-        x3, y3 = corpus.train.data[:n3], corpus.train.targets[:n3]
-        init = numpy_lstm_params(1)
-        cfg3 = TrainConfig(
-            stages=[TrainStage(epoch=3, optimizer="momentumsgd",
-                               batch_size=B, lr=0.01, early_stopping=False)],
-            bprop_len=T, seed=0, log=None, use_validation=False)
-
-        def three_updates():
-            net3 = get_network("lstm", LAYERS, [H], CLASSES, in_dim=DIM,
-                               scan_impl="pallas", device=dev)
-            return train_network(net3, x3, y3, cfg3,
-                                 init_params=load_jax_params(init, device=dev),
-                                 device=dev)
-
-        k_hist = [h["main/loss"] for h in three_updates().history]
-        before = dict(kernels.launches)
-        with mock.patch.multiple(
-                rnn_cuda,
-                lstm_train_forward=rnn_cuda.lstm_train_forward_reference,
-                lstm_train_backward=rnn_cuda.lstm_train_backward_reference):
-            p_hist = [h["main/loss"] for h in three_updates().history]
-        if dict(kernels.launches) != before:
-            fail("the plain run launched a kernel")
-        e2e_err = max(abs(a - b) / abs(b) for a, b in zip(k_hist, p_hist))
-        if not (len(k_hist) == 3 and e2e_err <= E2E_LOSS_RTOL):
-            fail(f"3 kernel updates {k_hist} differ from 3 plain ones "
-                 f"{p_hist} (tolerance {E2E_LOSS_RTOL} relative)")
-        log(f"[train e2e] 3 updates, kernel losses {k_hist}, plain {p_hist}:"
-            f" max relative difference {e2e_err:.3e} (tolerance "
-            f"{E2E_LOSS_RTOL})")
+        e2e, profiled = e2e_updates(
+            torch, np, dev, corpus, "lstm", numpy_lstm_params(1),
+            dict(lstm_train_forward=rnn_cuda.lstm_train_forward_reference,
+                 lstm_train_backward=rnn_cuda.lstm_train_backward_reference),
+            "train e2e")
 
         kernels.reset_launches()
         bf = train_cli.main(common + ["-e", "1", "--dtype", "bfloat16",
@@ -489,11 +726,7 @@ def train_phases(torch, np, dev, card, corpus, report):
             f"warm-up included) [{card}]")
 
     # ---- 11. where the time goes: 3 updates, profiled ------------------
-    net_p = get_network("lstm", LAYERS, [H], CLASSES, in_dim=DIM,
-                        scan_impl="pallas", device=dev)
-    init_p = load_jax_params(init, device=dev)
-    wall_ms, busy_ms, top = device_profile(torch, lambda: train_network(
-        net_p, x3, y3, cfg3, init_params=init_p, device=dev))
+    wall_ms, busy_ms, top = profiled()
     log_profile("train profile", wall_ms, busy_ms, top, card)
 
     report["train"] = dict(
@@ -504,7 +737,7 @@ def train_phases(torch, np, dev, card, corpus, report):
         bwd_lib_ms=bwd_lib_ms, dw_ms=dw_ms, dw_plain_ms=dw_plain_ms,
         dw_lib_ms=dw_lib_ms, history=hist, update_ms=update_ms,
         frames_per_s=frames_per_s, launches=train_launches,
-        e2e=dict(kernel=k_hist, plain=p_hist, err=e2e_err),
+        e2e=e2e,
         bf16=dict(history=bf.history, launches=bf_launches,
                   update_ms=bf_update_ms),
         profile=dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
@@ -535,15 +768,10 @@ def train_phases(torch, np, dev, card, corpus, report):
 def gated_kernel_phase(torch, np, dev, card, report):
     """Phase 12: each gated kernel against its plain version at the
     paths' shapes, for each kind. Returns per-kind measurements."""
-    from nnacousticmodeling_tpu_torch import kernels
     from nnacousticmodeling_tpu_torch.ops import rnn_cuda
 
     B, H = B_MAIN, H_MAIN
     out = {}
-
-    def rel_err(got, want):
-        return float((got.float() - want.float()).abs().max()) / max(
-            1.0, float(want.float().abs().max()))
 
     for kind, (gp, act, _) in GATED.items():
         g = torch.Generator().manual_seed(20 + gp)
@@ -744,245 +972,430 @@ def gated_phases(torch, np, dev, card, corpus, dec, report):
     GRU serving and training slices, kernel against plain end to end for
     the three gated nets, and a profile. Returns the gated kernels'
     entries of the ``{"kernels": [...]}`` line."""
-    from nnacousticmodeling_tpu_torch import kernels
-    from nnacousticmodeling_tpu_torch.decoder import viterbi_collapsed as vc
-    from nnacousticmodeling_tpu_torch.decoder.corpus_decode import (
-        decode_corpus)
-    from nnacousticmodeling_tpu_torch.infer import rnn_log_posteriors
-    from nnacousticmodeling_tpu_torch.io import load_mlf, write_mlf
-    from nnacousticmodeling_tpu_torch.models import get_network, networks
+    from nnacousticmodeling_tpu_torch.models import get_network
     from nnacousticmodeling_tpu_torch.ops import rnn_cuda
-    from nnacousticmodeling_tpu_torch.pipeline import train_cli
-    from nnacousticmodeling_tpu_torch.train import (
-        TrainConfig, TrainStage, load_jax_params, train_network)
+    from nnacousticmodeling_tpu_torch.train import load_jax_params
     from nnacousticmodeling_tpu_torch.utils.synthetic import (
         write_corpus_tree)
 
     phase_s = {}
-    t_phase = time.perf_counter()
-
-    def phase_done(n):
-        nonlocal t_phase
-        now = time.perf_counter()
-        phase_s[n] = now - t_phase
-        log(f"[phase {n}] {phase_s[n]:.1f} s")
-        t_phase = now
+    phase_done = phase_timer(phase_s)
 
     # ---- 12. the gated kernels against their plain versions ------------
     kin = gated_kernel_phase(torch, np, dev, card, report)
     phase_done(12)
 
     # ---- 13. the GRU serving slice -------------------------------------
-    x, offsets = corpus.test.data, corpus.test.offsets
-    lengths = np.diff(offsets)
-    audio_s = float(lengths.sum()) / 100.0
-    ap = corpus.log_priors
     net = get_network("gru", LAYERS, [H_MAIN], CLASSES, in_dim=DIM,
                       scan_impl="pallas", device=dev)
     net.load_state_dict(load_jax_params(numpy_gated_params("gru", 0),
                                         device=dev))
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_gru_") as tmp:
-        ref_path = Path(tmp, "test_ref.mlf")
-        write_mlf(str(ref_path), corpus.ref_mlf["test"])
-        ref = load_mlf(str(ref_path))
-        kernels.reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        lp = rnn_log_posteriors(net, x, offsets, ap=ap, batch=B_MAIN)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        results = decode_corpus(dec, lp, offsets, batch=B_MAIN)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        per = per_of(corpus, results, Path(tmp, "kernel.mlf"), ref)
-        t3 = time.perf_counter()
-        serve_launches = dict(kernels.launches)
-        log(f"[gru slice] main-path launches: {serve_launches}")
-        for name in ("gated_scan", "collapsed_viterbi_forward"):
-            if serve_launches.get(name, 0) <= 0:
-                fail(f"the GRU serving path did not launch {name}")
-        if lp.shape != (lengths.sum(), CLASSES) or not np.isfinite(lp).all():
-            fail(f"GRU posteriors malformed: shape {lp.shape}")
-        if not all(r.segments for r in results):
-            fail("an utterance decoded to no segments (GRU slice)")
-        stages = {"posteriors_ms": (t1 - t0) * 1e3,
-                  "decode_ms": (t2 - t1) * 1e3,
-                  "mlf_per_ms": (t3 - t2) * 1e3}
-        tput = audio_s / (t3 - t0)
-        log(f"[gru slice] GRU {LAYERS}x{H_MAIN} -> {CLASSES}: PER {per:.2f} "
-            f"%, {tput:.1f} audio-s/s; "
-            + ", ".join(f"{k} {v:.1f}" for k, v in stages.items())
-            + f" [{card}]")
-        with mock.patch.object(networks, "gated_scan",
-                               rnn_cuda.gated_scan_reference):
-            lp_plain = rnn_log_posteriors(net, x, offsets, ap=ap,
-                                          batch=B_MAIN)
-        post_err = float(np.abs(lp - lp_plain).max())
-        if not post_err <= POSTERIOR_ATOL:
-            fail(f"GRU posteriors differ from the plain GRU's by {post_err}"
-                 f" (tolerance {POSTERIOR_ATOL})")
-        with mock.patch.object(vc, "collapsed_viterbi_forward",
-                               vc.collapsed_viterbi_reference):
-            results_plain = decode_corpus(dec, lp, offsets, batch=B_MAIN)
-        per_plain = per_of(corpus, results_plain, Path(tmp, "plain.mlf"),
-                           ref)
-        same = sum(a.segments == b.segments
-                   for a, b in zip(results, results_plain))
-        if same != len(results) or per_plain != per:
-            fail(f"GRU slice: plain decode differs: {len(results) - same} "
-                 f"utterances, PER {per_plain} vs {per}")
-        log(f"[gru slice] plain GRU posteriors within {post_err:.3e} "
-            f"(tolerance {POSTERIOR_ATOL}); plain Viterbi: segments of all "
-            f"{same} utterances and PER identical")
-    del net, lp, lp_plain
+    serve = serving_slice(torch, np, net, "gru", "gated_scan",
+                          rnn_cuda.gated_scan_reference, corpus, dec, card)
+    del net
     phase_done(13)
 
     # ---- 14. the GRU training slice through train_cli ------------------
-    B, T = B_MAIN, T_TRAIN
-    delay = 5
-    n_train = int(corpus.train.data.shape[0]
-                  + delay * (len(corpus.train.offsets) - 1))
-    steps = n_train // (B * T)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_gru_train_") as tmp:
         write_corpus_tree(corpus, tmp)
-        argv = ["-n", "gru", "-l", str(LAYERS), "-u", str(H_MAIN),
-                "--timedelay", str(delay), "-d", "0.2",
-                "--num-classes", str(CLASSES), "-b", str(B),
-                "--bproplen", str(T), "-o", "momentumsgd", "--lr", "0.01",
-                "--early-stopping", "false", "--noplot", "-e", "2",
-                "--data-dir", f"{tmp}/data", "--offset-dir", f"{tmp}/data",
-                "--target-dir", f"{tmp}/data", "--out", f"{tmp}/gru"]
-        kernels.reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        result = train_cli.main(argv)
-        torch.cuda.synchronize()
-        train_wall_s = time.perf_counter() - t0
-        train_launches = dict(kernels.launches)
-        log(f"[gru train] main-path launches: {train_launches}")
-        for name in ("gated_train_forward", "gated_train_backward",
-                     "gated_train_dw", "gated_scan"):
-            if train_launches.get(name, 0) <= 0:
-                fail(f"the GRU training path did not launch {name}")
-        hist = result.history
-        losses = [h[k] for h in hist for k in
-                  ("main/loss", "validation/main/loss")]
-        if len(hist) != 2 or not np.isfinite(losses).all():
-            fail(f"GRU training history malformed: {hist}")
-        if not hist[1]["main/loss"] < hist[0]["main/loss"]:
-            fail(f"GRU train loss did not fall: {hist[0]['main/loss']} -> "
-                 f"{hist[1]['main/loss']}")
-        serving = get_network("gru", LAYERS, [H_MAIN], CLASSES, in_dim=DIM,
-                              scan_impl="pallas", device=dev)
-        serving.load_state_dict(load_jax_params(f"{tmp}/gru/model.npz",
-                                                device=dev))
-        update_ms = hist[1]["elapsed_time"] / steps * 1e3
-        frames_per_s = steps * B * T / hist[1]["elapsed_time"]
-        log(f"[gru train] GRU {LAYERS}x{H_MAIN} -> {CLASSES}, TBPTT b{B} "
-            f"L{T}, timedelay {delay}, dropout 0.2, {n_train} frames, "
-            f"{steps} updates an epoch: epoch times "
-            + ", ".join(f"{h['elapsed_time']:.3f} s" for h in hist)
-            + f"; epoch 2: {update_ms:.2f} ms per update, "
-            f"{frames_per_s:.0f} train frames/s; losses "
-            + ", ".join(f"{h['main/loss']:.4f} (val "
-                        f"{h['validation/main/loss']:.4f})" for h in hist)
-            + f"; whole call {train_wall_s:.1f} s; model.npz loads into the "
-            f"serving GRU [{card}]")
-        del serving
+        train = train_slice(
+            torch, np, dev, corpus, tmp, "gru",
+            ["--timedelay", "5", "-d", "0.2"],
+            ("gated_train_forward", "gated_train_backward", "gated_train_dw",
+             "gated_scan"), card)
     phase_done(14)
 
     # ---- 15. kernel against plain, end to end, for each gated net ------
-    n3 = B * T
-    x3, y3 = corpus.train.data[:n3], corpus.train.targets[:n3]
-    cfg3 = TrainConfig(
-        stages=[TrainStage(epoch=3, optimizer="momentumsgd", batch_size=B,
-                           lr=0.01, early_stopping=False)],
-        bprop_len=T, seed=0, log=None, use_validation=False)
-
-    def three_updates(name, init):
-        net3 = get_network(name, LAYERS, [H_MAIN], CLASSES, in_dim=DIM,
-                           scan_impl="pallas", device=dev)
-        return train_network(net3, x3, y3, cfg3,
-                             init_params=load_jax_params(init, device=dev),
-                             device=dev)
-
-    e2e, inits = {}, {}
-    for kind, (_, _, name) in GATED.items():
-        init = inits[name] = numpy_gated_params(name, 1)
-        before = dict(kernels.launches)
-        k_hist = [h["main/loss"] for h in three_updates(name, init).history]
-        if dict(kernels.launches) == before:
-            fail(f"the {name} kernel run launched no kernel")
-        before = dict(kernels.launches)
-        with mock.patch.multiple(
-                rnn_cuda,
-                gated_train_forward=rnn_cuda.gated_train_forward_reference,
-                gated_train_backward=rnn_cuda.gated_train_backward_reference):
-            p_hist = [h["main/loss"] for h in
-                      three_updates(name, init).history]
-        if dict(kernels.launches) != before:
-            fail(f"the plain {name} run launched a kernel")
-        err = max(abs(a - b) / abs(b) for a, b in zip(k_hist, p_hist))
-        if not (len(k_hist) == 3 and np.isfinite(k_hist).all()
-                and err <= E2E_LOSS_RTOL):
-            fail(f"3 kernel updates of {name} {k_hist} differ from 3 plain "
-                 f"ones {p_hist} (tolerance {E2E_LOSS_RTOL} relative)")
-        e2e[name] = dict(kernel=k_hist, plain=p_hist, err=err)
-        log(f"[gated e2e {name}] 3 updates, kernel losses {k_hist}, plain "
-            f"{p_hist}: max relative difference {err:.3e} (tolerance "
-            f"{E2E_LOSS_RTOL})")
-
+    plain = dict(gated_train_forward=rnn_cuda.gated_train_forward_reference,
+                 gated_train_backward=rnn_cuda.gated_train_backward_reference)
+    e2e, profiled = {}, {}
+    for _, _, name in GATED.values():
+        e2e[name], profiled[name] = e2e_updates(
+            torch, np, dev, corpus, name, numpy_gated_params(name, 1), plain,
+            f"gated e2e {name}")
     phase_done(15)
 
     # ---- 16. where the time goes: 3 GRU updates, profiled --------------
-    net_p = get_network("gru", LAYERS, [H_MAIN], CLASSES, in_dim=DIM,
-                        scan_impl="pallas", device=dev)
-    init_p = load_jax_params(inits["gru"], device=dev)
-    wall_ms, busy_ms, top = device_profile(torch, lambda: train_network(
-        net_p, x3, y3, cfg3, init_params=init_p, device=dev))
+    wall_ms, busy_ms, top = profiled["gru"]()
     log_profile("gru train profile", wall_ms, busy_ms, top, card)
     phase_done(16)
 
     report["gated"] = dict(
-        slice=dict(per=per, audio_s=audio_s, audio_s_per_s=tput,
-                   posterior_err=post_err, launches=serve_launches,
-                   **stages),
-        train=dict(history=hist, update_ms=update_ms,
-                   frames_per_s=frames_per_s, launches=train_launches,
-                   wall_s=train_wall_s),
-        e2e=e2e, profile=dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
-                              top_device_ms=top), phase_s=phase_s)
+        slice=serve, train=train, e2e=e2e,
+        profile=dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                     top_device_ms=top), phase_s=phase_s)
     gru = kin["gru"]
     scan_src = "nnacousticmodeling_tpu_torch/csrc/gated_scan.cu"
     train_src = "nnacousticmodeling_tpu_torch/csrc/gated_train.cu"
     return [
         {"name": "gated_scan", "route": "cuda", "source": scan_src,
          "replaces": "nnacousticmodeling_tpu/ops/rnn_pallas.py:197",
-         "launches": serve_launches["gated_scan"],
+         "launches": serve["launches"]["gated_scan"],
          "max_abs_err": gru["scan_err"], "tolerance": GATED_ATOL,
          "ms": gru["scan_ms"], "plain_ms": gru["scan_plain_ms"],
          "bound_ms": gru["scan_bound"], "bound_by": gru["scan_by"],
          "library_ms": None},
         {"name": "gated_train_forward", "route": "cuda", "source": train_src,
          "replaces": "nnacousticmodeling_tpu/ops/rnn_pallas.py:684",
-         "launches": train_launches["gated_train_forward"],
+         "launches": train["launches"]["gated_train_forward"],
          "max_abs_err": gru["fwd"]["f32"]["err"], "tolerance": GATED_ATOL,
          "ms": gru["fwd_ms"], "plain_ms": gru["fwd_plain_ms"],
          "bound_ms": gru["fwd_bound"], "bound_by": gru["fwd_by"],
          "library_ms": None},
         {"name": "gated_train_backward", "route": "cuda", "source": train_src,
          "replaces": "nnacousticmodeling_tpu/ops/rnn_pallas.py:785",
-         "launches": train_launches["gated_train_backward"],
+         "launches": train["launches"]["gated_train_backward"],
          "max_abs_err": gru["bwd_abs"], "tolerance": gru["bwd_tol"],
          "ms": gru["bwd_ms"], "plain_ms": gru["bwd_plain_ms"],
          "bound_ms": gru["bwd_bound"], "bound_by": gru["bwd_by"],
          "library_ms": None},
         {"name": "gated_train_dw", "route": "cuda", "source": train_src,
          "replaces": "nnacousticmodeling_tpu/ops/rnn_pallas.py:886",
-         "launches": train_launches["gated_train_dw"],
+         "launches": train["launches"]["gated_train_dw"],
          "max_abs_err": gru["dw_alone_abs"], "tolerance": gru["dw_tol"],
          "ms": gru["dw_ms"], "plain_ms": gru["dw_plain_ms"],
          "bound_ms": gru["dw_bound"], "bound_by": gru["dw_by"],
+         "library_ms": None},
+    ]
+
+
+def numpy_peephole_params(seed):
+    """PeepholeLSTM 4x1024 -> 1909 weights in the JAX package's pytree
+    layout (cells.py:124-136: zero bias, full (H, H) peephole matrices),
+    drawn from a numpy seed."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    h = H_MAIN
+
+    def w(n_in, n_out):
+        return (rng.standard_normal((n_in, n_out)) / np.sqrt(n_in)
+                ).astype(np.float32)
+
+    cells = []
+    d = DIM
+    for _ in range(LAYERS):
+        cells.append({"wx": w(d, 4 * h), "wh": w(h, 4 * h),
+                      "b": np.zeros(4 * h, np.float32), "peep_i": w(h, h),
+                      "peep_f": w(h, h), "peep_o": w(h, h)})
+        d = h
+    return {"cells": cells, "out": {"w": w(h, CLASSES),
+                                    "b": np.zeros(CLASSES, np.float32)}}
+
+
+def peephole_kernel_phase(torch, np, dev, card):
+    """Phase 17: each peephole kernel against its plain version at the
+    paths' shapes. Returns the measurements."""
+    from nnacousticmodeling_tpu_torch.ops import rnn_cuda
+
+    B, H = B_MAIN, H_MAIN
+    g = torch.Generator().manual_seed(40)
+    wh = (torch.randn(H, 4 * H, generator=g) / H ** 0.5).to(dev)
+    peeps = [(torch.randn(H, H, generator=g) / H ** 0.5).to(dev)
+             for _ in range(3)]
+    w_bytes = H * 7 * H * 4
+    out = {}
+
+    # ---- inference at the serving shapes, f32 and bf16 proj
+    T = T_MAIN
+    proj = torch.randn(T, B, 4 * H, generator=g).to(dev)
+    c0 = torch.zeros(B, H, device=dev)
+    h0 = torch.zeros(B, H, device=dev)
+    scan = {}
+    for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        args = (proj.to(dt), wh, *peeps, c0, h0)
+        (ck, hk), hs_k = rnn_cuda.peephole_scan(*args)
+        (cr, hr), hs_r = rnn_cuda.peephole_scan_reference(*args)
+        torch.cuda.synchronize()
+        err = max(rel_err(hs_k, hs_r), rel_err(ck, cr), rel_err(hk, hr))
+        abs_err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in ((hs_k, hs_r), (ck, cr), (hk, hr)))
+        if not (np.isfinite(err) and err <= PEEP_ATOL):
+            fail(f"peephole_scan ({tag}) differs from its plain version by "
+                 f"{err} of max(1, max|plain|) (tolerance {PEEP_ATOL})")
+        scan[tag] = dict(err=err, abs_err=abs_err,
+                         c_max=float(cr.abs().max()))
+    args = (proj, wh, *peeps, c0, h0)
+    scan_ms = cuda_ms(torch, lambda: rnn_cuda.peephole_scan(*args), 3)
+    scan_plain_ms = cuda_ms(
+        torch, lambda: rnn_cuda.peephole_scan_reference(*args), 1,
+        warm=False)
+    scan_bytes = (proj.numel() * 4 + w_bytes + 2 * B * H * 4
+                  + T * B * H * 4 + 2 * B * H * 4)
+    scan_bound, scan_by = bound(scan_bytes, 2 * T * B * H * 7 * H,
+                                BF16_TENSOR_FLOPS)
+    cudnn = torch.nn.LSTM(H, H, device=dev, dtype=torch.bfloat16)
+    x_lib = torch.randn(T, B, H, generator=g).to(dev, torch.bfloat16)
+    with torch.inference_mode():
+        scan_lib_ms = cuda_ms(torch, lambda: cudnn(x_lib), 3)
+    log(f"[peephole_scan] T={T} B={B} H={H}: max |kernel - plain| f32 proj "
+        f"{scan['f32']['err']:.3e}, bf16 proj {scan['bf16']['err']:.3e} of "
+        f"max(1, max|plain|) (tolerance {PEEP_ATOL}; max|c_T| "
+        f"{scan['f32']['c_max']:.3g}); kernel {scan_ms:.3f} ms, plain "
+        f"{scan_plain_ms:.3f} ms, bound {scan_bound:.3f} ms ({scan_by}); "
+        f"cuDNN nn.LSTM bf16 yardstick {scan_lib_ms:.3f} ms [{card}]")
+    out.update(scan=scan, scan_ms=scan_ms, scan_plain_ms=scan_plain_ms,
+               scan_bound=scan_bound, scan_by=scan_by,
+               scan_lib_ms=scan_lib_ms)
+    del proj, hs_k, hs_r, x_lib
+
+    # ---- training kernels at the training shapes
+    T = T_TRAIN
+    TBH = T * B * H
+    proj = torch.randn(T, B, 4 * H, generator=g).to(dev)
+    c0 = (torch.randn(B, H, generator=g) * 0.1).to(dev)
+    h0 = (torch.randn(B, H, generator=g) * 0.1).to(dev)
+    fwd = {}
+    for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        args = (proj.to(dt), wh, *peeps, c0, h0)
+        hs_k, res_k, ct_k, ht_k = rnn_cuda.peephole_train_forward(*args)
+        (c_s, h_s), hs_s = rnn_cuda.peephole_scan(*args)
+        hs_r, res_r, ct_r, ht_r = rnn_cuda.peephole_train_forward_reference(
+            *args)
+        torch.cuda.synchronize()
+        if not (torch.equal(hs_k, hs_s) and torch.equal(ct_k, c_s)
+                and torch.equal(ht_k, h_s)):
+            fail(f"peephole_train_forward ({tag}) is not bit-equal to "
+                 f"peephole_scan")
+        scale = max(1.0, float(hs_r.float().abs().max()))
+        err = max(rel_err(hs_k, hs_r), rel_err(ct_k, ct_r),
+                  rel_err(ht_k, ht_r))
+        hs_over = float(((hs_k.float() - hs_r.float()).abs()
+                         - RES_RTOL * hs_r.float().abs()).max()) / scale
+        res_d = (res_k.float() - res_r.float()).abs()
+        res_scale = max(1.0, float(res_r.float().abs().max()))
+        res_over = float((res_d - RES_RTOL * res_r.float().abs()).max()
+                         ) / res_scale
+        c_err = max(rel_err(ct_k, ct_r), rel_err(ht_k, ht_r))
+        hs_ok = (hs_over if dt == torch.bfloat16 else err) <= PEEP_ATOL
+        if not (hs_ok and c_err <= PEEP_ATOL and res_over <= PEEP_ATOL):
+            fail(f"peephole_train_forward ({tag}) differs from its plain "
+                 f"version: {err} of max(1, max|plain|) (tolerance "
+                 f"{PEEP_ATOL}; bf16 hs beyond one ulp {hs_over}), residuals "
+                 f"beyond {RES_RTOL} relative by {res_over}")
+        fwd[tag] = dict(err=err, abs_err=float((hs_k.float()
+                                                - hs_r.float()).abs().max()),
+                        res_err=float(res_d.max()), res_over=res_over)
+    args = (proj, wh, *peeps, c0, h0)
+    fwd_ms = cuda_ms(torch, lambda: rnn_cuda.peephole_train_forward(*args),
+                     10)
+    fwd_plain_ms = cuda_ms(
+        torch, lambda: rnn_cuda.peephole_train_forward_reference(*args), 3)
+    fwd_bytes = (proj.numel() * 4 + w_bytes + 2 * B * H * 4 + TBH * 4
+                 + TBH * 8 * 2 + 2 * B * H * 4)
+    fwd_bound, fwd_by = bound(fwd_bytes, 2 * TBH * 7 * H, BF16_TENSOR_FLOPS)
+
+    g2 = torch.Generator().manual_seed(41)
+    dhs = torch.randn(T, B, H, generator=g2).to(dev)
+    dct = torch.randn(B, H, generator=g2).to(dev)
+    dht = torch.randn(B, H, generator=g2).to(dev)
+    _, res, _, _ = rnn_cuda.peephole_train_forward(*args)
+    bargs = (res, wh, *peeps, dhs, dct, dht, torch.float32)
+    got = rnn_cuda.peephole_train_backward(*bargs)
+    want = rnn_cuda.peephole_train_backward_reference(*bargs)
+    torch.cuda.synchronize()
+    names = ("dproj", "dW_h", "dP_i", "dP_f", "dP_o", "dc0", "dh0")
+    errs = {n: (float((k - w).abs().max()), float(w.abs().max()))
+            for n, k, w in zip(names, got, want)}
+    rel = {n: e / sc for n, (e, sc) in errs.items()}
+    bwd_rel = max(rel[n] for n in ("dproj", "dc0", "dh0"))
+    dw_rel = max(rel[n] for n in ("dW_h", "dP_i", "dP_f", "dP_o"))
+    detail = ", ".join(f"{n} {e:.3e} of max {sc:.3e} ({rel[n]:.2e})"
+                       for n, (e, sc) in errs.items())
+    if not (bwd_rel <= BWD_RTOL and dw_rel <= DW_RTOL):
+        fail(f"peephole_train_backward differs from its plain version: "
+             f"{detail} (tolerances {BWD_RTOL} of max for dproj/dc0/dh0, "
+             f"{DW_RTOL} of max |dW|)")
+    dz = want[0].to(torch.bfloat16)        # the plain version's bf16(dz)
+    dw_k = rnn_cuda.peephole_train_dw(res, dz)
+    dw_r = rnn_cuda.peephole_train_dw_reference(res, dz)
+    torch.cuda.synchronize()
+    dw_alone = [(float((a - b).abs().max()), float(b.abs().max()))
+                for a, b in zip(dw_k, dw_r)]
+    dw_alone_abs = max(e for e, _ in dw_alone)
+    dw_alone_scale = max(sc for _, sc in dw_alone)
+    dw_alone_err = max(e / sc for e, sc in dw_alone)
+    if not dw_alone_err <= DW_RTOL:
+        fail(f"peephole_train_dw differs from its plain version by "
+             f"{dw_alone_err} of max |dW| (tolerance {DW_RTOL})")
+    bwd_ms = cuda_ms(torch, lambda: rnn_cuda.peephole_train_backward(*bargs),
+                     10)
+    bwd_plain_ms = cuda_ms(
+        torch, lambda: rnn_cuda.peephole_train_backward_reference(*bargs), 3)
+    dw_ms = cuda_ms(torch, lambda: rnn_cuda.peephole_train_dw(res, dz), 10)
+    dw_plain_ms = cuda_ms(
+        torch, lambda: rnn_cuda.peephole_train_dw_reference(res, dz), 10)
+    # bytes: residuals, weights, dhs, dc_T, dh_T in; dproj, dW, dc0, dh0 out
+    bwd_bytes = (TBH * 8 * 2 + w_bytes + TBH * 4 + 2 * B * H * 4
+                 + T * B * 4 * H * 4 + w_bytes + 2 * B * H * 4)
+    bwd_bound, bwd_by = bound(bwd_bytes, 2 * 2 * TBH * 7 * H,
+                              BF16_TENSOR_FLOPS)
+    # dW reads the h_{t-1}, c_{t-1} and c_t rows of res and dz
+    dw_bytes = TBH * 3 * 2 + T * B * 4 * H * 2 + w_bytes
+    dw_bound, dw_by = bound(dw_bytes, 2 * TBH * 7 * H, BF16_TENSOR_FLOPS)
+    x_lib = torch.randn(T, B, H, generator=g).to(dev, torch.bfloat16)
+    x_lib.requires_grad_()
+    fwd_lib_ms = cuda_ms(torch, lambda: cudnn(x_lib), 10)
+    out_lib, _ = cudnn(x_lib)
+    gout = torch.randn_like(out_lib)
+    lib_inputs = [x_lib] + list(cudnn.parameters())
+    bwd_lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        out_lib, lib_inputs, gout, retain_graph=True), 10)
+    log(f"[peephole train] T={T} B={B} H={H}: forward bit-equal to "
+        f"peephole_scan; vs plain f32 {fwd['f32']['err']:.3e}, bf16 "
+        f"{fwd['bf16']['err']:.3e} of max(1, max|plain|) (tolerance "
+        f"{PEEP_ATOL}), residuals beyond {RES_RTOL:.4f} relative "
+        f"{max(f['res_over'] for f in fwd.values()):.3e}; backward: "
+        f"{detail} (tolerances {BWD_RTOL} / {DW_RTOL}); dW kernel alone "
+        f"{dw_alone_err:.3e} of max |dW|")
+    log(f"[peephole train] forward {fwd_ms:.3f} ms (plain {fwd_plain_ms:.3f}"
+        f", bound {fwd_bound:.4f} {fwd_by}), backward with dW {bwd_ms:.3f} "
+        f"ms (plain {bwd_plain_ms:.3f}, bound {bwd_bound:.4f} {bwd_by}), dW "
+        f"{dw_ms:.3f} ms (plain {dw_plain_ms:.3f}, bound {dw_bound:.4f} "
+        f"{dw_by}); cuDNN nn.LSTM bf16 yardstick forward {fwd_lib_ms:.3f} "
+        f"ms, backward {bwd_lib_ms:.3f} ms [{card}]")
+    out.update(
+        fwd=fwd, fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain_ms,
+        fwd_bound=fwd_bound, fwd_by=fwd_by, fwd_lib_ms=fwd_lib_ms,
+        bwd_errs=errs, bwd_rel=bwd_rel, dw_rel=dw_rel,
+        bwd_abs=max(errs[n][0] for n in ("dproj", "dc0", "dh0")),
+        bwd_tol=BWD_RTOL * max(errs[n][1] for n in ("dproj", "dc0", "dh0")),
+        bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms, bwd_bound=bwd_bound,
+        bwd_by=bwd_by, bwd_lib_ms=bwd_lib_ms, dw_alone_abs=dw_alone_abs,
+        dw_alone_err=dw_alone_err, dw_tol=DW_RTOL * dw_alone_scale,
+        dw_ms=dw_ms, dw_plain_ms=dw_plain_ms, dw_bound=dw_bound,
+        dw_by=dw_by)
+    return out
+
+
+def peephole_phases(torch, np, dev, card, corpus, dec, lp_lstm, report):
+    """Phases 17-21: the peephole kernels against their plain versions,
+    the PeepholeLSTM serving and training slices, the ZoneoutLSTM of the
+    SPECOM grid, and a profile. ``lp_lstm`` is phase 5's LSTM posteriors.
+    Returns the peephole kernels' entries of the ``{"kernels": [...]}``
+    line."""
+    from nnacousticmodeling_tpu_torch import kernels
+    from nnacousticmodeling_tpu_torch.infer import rnn_log_posteriors
+    from nnacousticmodeling_tpu_torch.models import get_network
+    from nnacousticmodeling_tpu_torch.ops import rnn_cuda
+    from nnacousticmodeling_tpu_torch.train import load_jax_params
+    from nnacousticmodeling_tpu_torch.utils.synthetic import (
+        write_corpus_tree)
+
+    phase_s = {}
+    phase_done = phase_timer(phase_s)
+
+    # ---- 17. the peephole kernels against their plain versions ---------
+    kin = peephole_kernel_phase(torch, np, dev, card)
+    phase_done(17)
+
+    # ---- 18. the PeepholeLSTM serving slice ----------------------------
+    net = get_network("peepholelstm", LAYERS, [H_MAIN], CLASSES, in_dim=DIM,
+                      scan_impl="pallas", device=dev)
+    net.load_state_dict(load_jax_params(numpy_peephole_params(0),
+                                        device=dev))
+    serve = serving_slice(torch, np, net, "peepholelstm", "peephole_scan",
+                          rnn_cuda.peephole_scan_reference, corpus, dec,
+                          card)
+    del net
+    phase_done(18)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_peep_train_") as tmp:
+        write_corpus_tree(corpus, tmp)
+        # ---- 19. the PeepholeLSTM training slice, kernel against plain -
+        train = train_slice(
+            torch, np, dev, corpus, tmp, "peepholelstm", [],
+            ("peephole_train_forward", "peephole_train_backward",
+             "peephole_train_dw", "peephole_scan"), card)
+        e2e, profiled = e2e_updates(
+            torch, np, dev, corpus, "peepholelstm", numpy_peephole_params(1),
+            dict(peephole_train_forward=(
+                rnn_cuda.peephole_train_forward_reference),
+                 peephole_train_backward=(
+                     rnn_cuda.peephole_train_backward_reference)),
+            "peephole e2e")
+        phase_done(19)
+
+        # ---- 20. ZoneoutLSTM, the SPECOM configuration -----------------
+        zo_net = get_network("zoneoutlstm", LAYERS, [H_MAIN], CLASSES,
+                             dropout=[0.2], in_dim=DIM, scan_impl="pallas",
+                             device=dev)
+        zo_net.load_state_dict(load_jax_params(numpy_lstm_params(0),
+                                               device=dev))
+        kernels.reset_launches()
+        lp_zo = rnn_log_posteriors(zo_net, corpus.test.data,
+                                   corpus.test.offsets, ap=corpus.log_priors,
+                                   batch=B_MAIN)
+        zo_serve_launches = dict(kernels.launches)
+        if zo_serve_launches != {"lstm_scan": LAYERS}:
+            fail(f"the ZoneoutLSTM serving path launched {zo_serve_launches}"
+                 f", not lstm_scan once a layer")
+        if not np.array_equal(lp_zo, lp_lstm):
+            fail(f"ZoneoutLSTM posteriors differ from the LSTM's on the same "
+                 f"weights by {float(np.abs(lp_zo - lp_lstm).max())}")
+        del zo_net, lp_zo
+        zo_train = train_slice(torch, np, dev, corpus, tmp, "zoneoutlstm",
+                               ["--timedelay", "5", "-d", "0.2"],
+                               ("lstm_scan",), card)
+        if set(zo_train["launches"]) != {"lstm_scan"}:
+            fail(f"ZoneoutLSTM training launched {zo_train['launches']}: it "
+                 f"has no training kernel, and only its validation runs "
+                 f"lstm_scan")
+        _, zo_profiled = update_runs(torch, dev, corpus, "zoneoutlstm",
+                                     numpy_lstm_params(1))
+    zo_prof = zo_profiled()
+    log_profile("zoneout train profile", *zo_prof, card)
+    log(f"[zoneout] ZoneoutLSTM {LAYERS}x{H_MAIN} (c_ratio 0.2, h_ratio 0.5)"
+        f": serving launches {zo_serve_launches}, posteriors equal to the "
+        f"LSTM's bit for bit; training {zo_train['update_ms']:.2f} ms per "
+        f"update through its step loop, no kernel [{card}]")
+    phase_done(20)
+
+    # ---- 21. where the time goes: 3 PeepholeLSTM updates, profiled ------
+    wall_ms, busy_ms, top = profiled()
+    log_profile("peephole train profile", wall_ms, busy_ms, top, card)
+    phase_done(21)
+
+    report["peephole"] = dict(
+        kernels=kin, slice=serve, train=train, e2e=e2e,
+        zoneout=dict(serve_launches=zo_serve_launches, train=zo_train,
+                     profile=dict(wall_ms=zo_prof[0],
+                                  device_busy_ms=zo_prof[1],
+                                  top_device_ms=zo_prof[2])),
+        profile=dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                     top_device_ms=top), phase_s=phase_s)
+    scan_src = "nnacousticmodeling_tpu_torch/csrc/peephole_scan.cu"
+    train_src = "nnacousticmodeling_tpu_torch/csrc/peephole_train.cu"
+    return [
+        {"name": "peephole_scan", "route": "cuda", "source": scan_src,
+         "replaces": "nnacousticmodeling_tpu/ops/rnn_pallas.py:1306",
+         "launches": serve["launches"]["peephole_scan"],
+         "max_abs_err": kin["scan"]["f32"]["abs_err"],
+         "tolerance": PEEP_ATOL * max(1.0, kin["scan"]["f32"]["c_max"]),
+         "ms": kin["scan_ms"], "plain_ms": kin["scan_plain_ms"],
+         "bound_ms": kin["scan_bound"], "bound_by": kin["scan_by"],
+         "library_ms": None},
+        {"name": "peephole_train_forward", "route": "cuda",
+         "source": train_src,
+         "replaces": "nnacousticmodeling_tpu/ops/rnn_pallas.py:992",
+         "launches": train["launches"]["peephole_train_forward"],
+         "max_abs_err": kin["fwd"]["f32"]["abs_err"],
+         "tolerance": PEEP_ATOL, "ms": kin["fwd_ms"],
+         "plain_ms": kin["fwd_plain_ms"], "bound_ms": kin["fwd_bound"],
+         "bound_by": kin["fwd_by"], "library_ms": None},
+        {"name": "peephole_train_backward", "route": "cuda",
+         "source": train_src,
+         "replaces": "nnacousticmodeling_tpu/ops/rnn_pallas.py:1101",
+         "launches": train["launches"]["peephole_train_backward"],
+         "max_abs_err": kin["bwd_abs"], "tolerance": kin["bwd_tol"],
+         "ms": kin["bwd_ms"], "plain_ms": kin["bwd_plain_ms"],
+         "bound_ms": kin["bwd_bound"], "bound_by": kin["bwd_by"],
+         "library_ms": None},
+        {"name": "peephole_train_dw", "route": "cuda", "source": train_src,
+         "replaces": "nnacousticmodeling_tpu/ops/rnn_pallas.py:1205",
+         "launches": train["launches"]["peephole_train_dw"],
+         "max_abs_err": kin["dw_alone_abs"], "tolerance": kin["dw_tol"],
+         "ms": kin["dw_ms"], "plain_ms": kin["dw_plain_ms"],
+         "bound_ms": kin["dw_bound"], "bound_by": kin["dw_by"],
          "library_ms": None},
     ]
 
@@ -1216,6 +1629,8 @@ def main():
 
     train_kernels = train_phases(torch, np, dev, card, corpus, report)
     gated_kernels = gated_phases(torch, np, dev, card, corpus, dec, report)
+    peephole_kernels = peephole_phases(torch, np, dev, card, corpus, dec, lp,
+                                       report)
 
     report.update(
         lstm=dict(err=lstm_err, ms=lstm_ms, plain_ms=lstm_plain_ms,
@@ -1240,7 +1655,7 @@ def main():
          "max_abs_err": vit["exact"]["err"], "tolerance": 0.0,
          "ms": vit["exact"]["ms"], "plain_ms": vit["exact"]["plain_ms"],
          "bound_ms": vit_bound, "bound_by": vit_by, "library_ms": None},
-    ] + train_kernels + gated_kernels}
+    ] + train_kernels + gated_kernels + peephole_kernels}
     report["kernels"] = kernels_line["kernels"]
     report["total_s"] = time.perf_counter() - t_start
     print(f"[report] {json.dumps(report)}", file=sys.stderr)

@@ -16,6 +16,10 @@
 //
 // Residual row (training only), bf16 (B, 4H): [r | z | hb | h_prev],
 // r = 0 for mgru, as _gated_train_fwd_impl writes it.
+//
+// The tile sizes, the rounding helpers and the two product loops
+// (fwd_product, bwd_product) are also the peephole kernels'
+// (peephole_step.cuh, peephole_train.cu).
 
 #pragma once
 
@@ -108,6 +112,47 @@ __device__ __forceinline__ void fwd_product(
         acc[1][0][g] = fmaf(a1, wv.x, acc[1][0][g]);
         acc[1][1][g] = fmaf(a1, wv.y, acc[1][1][g]);
       }
+    }
+    __syncthreads();
+  }
+}
+
+// acc[r][u] += sum_{n<N} a[(b0 + tr + r) * lda + n] * w[(k0u + tu + u) * N
+// + n] for a (B, lda) bf16 (its first N columns read) and w (H, N) bf16:
+// the product with w^T, reading w by rows, as the backward kernels
+// (gated_train.cu, peephole_train.cu) form their dh tiles.
+__device__ __forceinline__ void bwd_product(
+    const __nv_bfloat16* __restrict__ a, int lda,
+    const __nv_bfloat16* __restrict__ w, int N, int B, int H, int b0,
+    int k0u, float (*a_sm)[KC + 1], float (*w_sm)[KC + 1],
+    float (&acc)[2][2]) {
+  const int tid = threadIdx.x;
+  const int tu = (tid % 16) * 2;
+  const int tr = (tid / 16) * 2;
+  for (int n0 = 0; n0 < N; n0 += KC) {
+    for (int e = tid; e < TB * KC; e += THREADS) {
+      const int r = e / KC, n = e % KC;
+      const int b = b0 + r, nn = n0 + n;
+      a_sm[r][n] = (b < B && nn < N)
+          ? __bfloat162float(a[(size_t)b * lda + nn]) : 0.0f;
+    }
+    for (int e = tid; e < TJ * KC; e += THREADS) {
+      const int u = e / KC, n = e % KC;
+      const int k = k0u + u, nn = n0 + n;
+      w_sm[u][n] = (k < H && nn < N)
+          ? __bfloat162float(w[(size_t)k * N + nn]) : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int n = 0; n < KC; ++n) {
+      const float d0 = a_sm[tr][n];
+      const float d1 = a_sm[tr + 1][n];
+      const float w0 = w_sm[tu][n];
+      const float w1 = w_sm[tu + 1][n];
+      acc[0][0] = fmaf(d0, w0, acc[0][0]);
+      acc[0][1] = fmaf(d0, w1, acc[0][1]);
+      acc[1][0] = fmaf(d1, w0, acc[1][0]);
+      acc[1][1] = fmaf(d1, w1, acc[1][1]);
     }
     __syncthreads();
   }

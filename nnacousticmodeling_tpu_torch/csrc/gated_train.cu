@@ -65,44 +65,6 @@ __device__ __forceinline__ float act_grad(int act, float hb) {
   return 1.0f - hb * hb;
 }
 
-// acc[r][u] = sum_{n<N} a[b0 + tr + r, n] * w[k0u + tu + u, n] for a (B, N)
-// and w (H, N), both bf16: the product with w^T, reading w by rows.
-__device__ __forceinline__ void bwd_product(
-    const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ w,
-    int N, int B, int H, int b0, int k0u, float (*a_sm)[KC + 1],
-    float (*w_sm)[KC + 1], float (&acc)[2][2]) {
-  const int tid = threadIdx.x;
-  const int tu = (tid % 16) * 2;
-  const int tr = (tid / 16) * 2;
-  for (int n0 = 0; n0 < N; n0 += KC) {
-    for (int e = tid; e < TB * KC; e += THREADS) {
-      const int r = e / KC, n = e % KC;
-      const int b = b0 + r, nn = n0 + n;
-      a_sm[r][n] = (b < B && nn < N)
-          ? __bfloat162float(a[(size_t)b * N + nn]) : 0.0f;
-    }
-    for (int e = tid; e < TJ * KC; e += THREADS) {
-      const int u = e / KC, n = e % KC;
-      const int k = k0u + u, nn = n0 + n;
-      w_sm[u][n] = (k < H && nn < N)
-          ? __bfloat162float(w[(size_t)k * N + nn]) : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int n = 0; n < KC; ++n) {
-      const float d0 = a_sm[tr][n];
-      const float d1 = a_sm[tr + 1][n];
-      const float w0 = w_sm[tu][n];
-      const float w1 = w_sm[tu + 1][n];
-      acc[0][0] = fmaf(d0, w0, acc[0][0]);
-      acc[0][1] = fmaf(d0, w1, acc[0][1]);
-      acc[1][0] = fmaf(d1, w0, acc[1][0]);
-      acc[1][1] = fmaf(d1, w1, acc[1][1]);
-    }
-    __syncthreads();
-  }
-}
-
 // First launch of reverse step t: dh_t = partial + pair_next @ w1^T
 // (dh_init when pair_next is null, i.e. t = T-1), then the z / candidate
 // part of step t. res_t null: no step left, dh goes to dh_out (dh0).
@@ -128,7 +90,8 @@ gated_bwd_gate(const __nv_bfloat16* __restrict__ pair_next,  // (B, 2H)
   const int tr = (tid / 16) * 2;
   float acc[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
   if (pair_next != nullptr)
-    bwd_product(pair_next, w1, 2 * H, B, H, b0, k0u, a_sm, w_sm, acc);
+    bwd_product(pair_next, 2 * H, w1, 2 * H, B, H, b0, k0u, a_sm, w_sm,
+                acc);
 
   // dproj columns of z and the candidate, and z's column in the pair
   const bool gru = kind == KIND_GRU;
@@ -191,7 +154,7 @@ gated_bwd_reset(const __nv_bfloat16* __restrict__ dc_t,    // (B, H)
   const int tu = (tid % 16) * 2;
   const int tr = (tid / 16) * 2;
   float acc[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
-  bwd_product(dc_t, w2, H, B, H, b0, k0u, a_sm, w_sm, acc);
+  bwd_product(dc_t, H, w2, H, B, H, b0, k0u, a_sm, w_sm, acc);
 
   // r's dproj column and pair column: gru [r, z, c] / [r | z];
   // mgru_r [z, c, r] / [z | r]

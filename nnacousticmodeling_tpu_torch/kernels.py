@@ -31,6 +31,8 @@ SOURCES = {
     "gated_train": "gated_train.cu",
     "lstm_scan": "lstm_scan.cu",
     "lstm_train": "lstm_train.cu",
+    "peephole_scan": "peephole_scan.cu",
+    "peephole_train": "peephole_train.cu",
     "viterbi_collapsed": "viterbi_collapsed.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",

@@ -1,9 +1,11 @@
-"""LSTM, GRU and MGRU cells as plain functions on tensors.
+"""The recurrent cells (LSTM, zoneout LSTM, peephole LSTM, GRU, MGRU) as
+plain functions on tensors.
 
-Counterpart of ``nnacousticmodeling_tpu/models/cells.py`` (the LSTM, GRU
-and MGRU parts): Chainer ``L.LSTM`` gate order a, i, f, o with
-forget-gate bias 1 at init, the gated cells with the JAX package's
-parameter names and proj packing, dense ``(in, out)`` weight matrices.
+Counterpart of ``nnacousticmodeling_tpu/models/cells.py``: Chainer
+``L.LSTM`` gate order a, i, f, o with forget-gate bias 1 at init, the
+peephole LSTM's zero bias and full (H, H) peephole matrices, the gated
+cells with the JAX package's parameter names and proj packing, dense
+``(in, out)`` weight matrices.
 The input projection of a whole sequence is hoisted out of the
 recurrence by the stacks in ``networks.py``; only the recurrent products
 run per step.
@@ -67,6 +69,65 @@ def lstm_init_state(batch: int, units: int, dtype=torch.float32,
                     device=None):
     z = torch.zeros(batch, units, dtype=dtype, device=device)
     return (z, z)
+
+
+# ---------------------------------------------------------------------------
+# Zoneout LSTM (Chainer L.StatefulZoneoutLSTM twin, cells.py:97-117)
+# ---------------------------------------------------------------------------
+
+def zoneout(ratio: float, prev: torch.Tensor, new: torch.Tensor, train: bool,
+            generator) -> torch.Tensor:
+    """Keep the previous state element-wise with probability ``ratio``
+    when training (Chainer ``F.zoneout``), the mask drawn from
+    ``generator``; pass the new state through at eval, at ratio 0 and
+    without a generator (as ``networks.dropout`` does)."""
+    if not train or ratio == 0.0 or generator is None:
+        return new
+    keep = torch.rand(new.shape, generator=generator,
+                      device=new.device) < ratio
+    return torch.where(keep, prev, new)
+
+
+def zoneout_lstm_step(params, carry, x_proj: torch.Tensor, *,
+                      c_ratio: float, h_ratio: float, train: bool,
+                      generator):
+    """``lstm_step`` with zoneout on c, then on h (the masks drawn in that
+    order); at eval exactly ``lstm_step``."""
+    c, h = carry
+    (c_cand, h_cand), _ = lstm_step(params, carry, x_proj)
+    c_new = zoneout(c_ratio, c, c_cand, train, generator)
+    h_new = zoneout(h_ratio, h, h_cand, train, generator)
+    return (c_new, h_new), h_new
+
+
+# ---------------------------------------------------------------------------
+# Peephole LSTM (Chainer L.StatefulPeepholeLSTM twin, cells.py:124-149): the
+# upward bias is zero (no forget bias of 1), and the peephole connections
+# are full (H, H) matrices, i and f on c_{t-1}, o on c_t.
+# ---------------------------------------------------------------------------
+
+def peephole_lstm_init(in_dim: int, units: int, generator: torch.Generator
+                       ) -> Dict[str, torch.Tensor]:
+    def w(n_in, n_out):
+        return torch.randn(n_in, n_out, generator=generator) / math.sqrt(n_in)
+
+    return {"wx": w(in_dim, 4 * units), "wh": w(units, 4 * units),
+            "b": torch.zeros(4 * units), "peep_i": w(units, units),
+            "peep_f": w(units, units), "peep_o": w(units, units)}
+
+
+def peephole_lstm_step(params, carry, x_proj: torch.Tensor):
+    """One float32 peephole LSTM step on a precomputed input projection."""
+    c, h = carry
+    units = c.shape[-1]
+    z = x_proj + h @ params["wh"]
+    a = torch.tanh(z[:, 0 * units:1 * units])
+    i = torch.sigmoid(z[:, 1 * units:2 * units] + c @ params["peep_i"])
+    f = torch.sigmoid(z[:, 2 * units:3 * units] + c @ params["peep_f"])
+    c_new = f * c + i * a
+    o = torch.sigmoid(z[:, 3 * units:4 * units] + c_new @ params["peep_o"])
+    h_new = o * torch.tanh(c_new)
+    return (c_new, h_new), h_new
 
 
 # ---------------------------------------------------------------------------

@@ -1,18 +1,26 @@
 """Acoustic model stacks as ``nn.Module``s.
 
 Counterpart of ``nnacousticmodeling_tpu/models/networks.py``. Ported: the
-LSTM stack (``networks.py:298-328``), the GRU stack (``:412-456``) and the
-minimal-GRU stack with and without its reset gate (``MGRUNet``,
-``:459-531``). Each layer hoists its input projection over all timesteps
-into one ``(B*T, D) @ (D, G*H)`` matmul, and only the recurrence runs per
-step, either as the float32 step loop (``scan_impl="xla"``, the twin of
-the JAX ``lax.scan`` path) or through the CUDA recurrence kernels
+LSTM stack (``networks.py:298-328``), the zoneout LSTM stacks without and
+with dropout (``:331-372``), the peephole LSTM stack (``:375-409``), the
+GRU stack (``:412-456``) and the minimal-GRU stack with and without its
+reset gate (``MGRUNet``, ``:459-531``): every recurrent net of the zoo.
+Each layer hoists its input projection over all timesteps into one
+``(B*T, D) @ (D, G*H)`` matmul, and only the recurrence runs per step,
+either as the float32 step loop (``scan_impl="xla"``, the twin of the JAX
+``lax.scan`` path) or through the CUDA recurrence kernels
 (``scan_impl="pallas"``, the twin of the JAX Pallas path:
-``ops.rnn_cuda.lstm_scan`` / ``gated_scan`` for inference and the
-differentiable ``lstm_scan_train`` / ``gated_scan_train`` when training,
-as ``networks.py:268-271`` picks the ``*_pallas_train`` kernels; the
-CUDA kernels for CUDA tensors, their plain bf16-operand versions for CPU
-tensors).
+``ops.rnn_cuda.lstm_scan`` / ``gated_scan`` / ``peephole_scan`` for
+inference and the differentiable ``lstm_scan_train`` /
+``gated_scan_train`` / ``peephole_scan_train`` when training, as
+``networks.py:268-271`` picks the ``*_pallas_train`` kernels; the CUDA
+kernels for CUDA tensors, their plain bf16-operand versions for CPU
+tensors). A cell with no kernel for a mode takes the step loop on that
+route too, as the JAX runner falls back to ``lax.scan``
+(``networks.py:267-284``): the zoneout LSTMs serve through
+``lstm_scan`` (zoneout is the identity at eval) and train through their
+float32 step loop with zoneout masks, on the card as well, with no
+kernel.
 
 The gated stacks carry ``(h, fresh)`` per layer (``cells.gru_init_state``).
 On the kernel route the converted-checkpoint U biases (``bu``, ``bu_z``,
@@ -23,7 +31,8 @@ gated off at a fresh step 0 (``networks.py:437-443``, ``:491-497``), and
 Dropout is the JAX package's placement (``networks.py:42-47``, the
 reference's): inverted dropout ``x / (1 - rate)`` on the input and after
 every layer, only when training, its masks drawn from the
-``torch.Generator`` the caller passes.
+``torch.Generator`` the caller passes; the zoneout masks come from the
+same generator. ``ZoneoutLSTM`` has no dropout at all.
 
 Parameter names follow the JAX pytree paths with ``.`` for ``/``
 (``cells.0.wx``, ``out.w``), so ``train.checkpoint.load_jax_params``
@@ -44,6 +53,8 @@ from ..ops.rnn_cuda import (
     gated_scan_train,
     lstm_scan,
     lstm_scan_train,
+    peephole_scan,
+    peephole_scan_train,
 )
 from ..utils.device import resolve_device
 from . import cells
@@ -146,7 +157,8 @@ class _RecurrentStack(nn.Module):
     def _cell_input_proj(self, p, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
-    def _cell_step(self, p, carry, x_proj: torch.Tensor):
+    def _cell_step(self, p, carry, x_proj: torch.Tensor, train: bool = False,
+                   generator: Optional[torch.Generator] = None):
         raise NotImplementedError
 
     def _cell_state(self, batch: int):
@@ -154,8 +166,10 @@ class _RecurrentStack(nn.Module):
 
     def _cell_scan(self, p, carry, proj: torch.Tensor, train: bool):
         """The whole-sequence kernel route: (carry, (T, B, G*H) proj) ->
-        (carry', (T, B, H) hiddens)."""
-        raise NotImplementedError
+        (carry', (T, B, H) hiddens), or None where the cell has no kernel
+        for this mode, and the runner takes the step loop (the JAX
+        ``_cell_scan_pallas*`` hooks' None, ``networks.py:195-204``)."""
+        return None
 
     # ------------------------------------------------------------------
     @property
@@ -180,9 +194,9 @@ class _RecurrentStack(nn.Module):
                         generator: Optional[torch.Generator] = None):
         """(B, T, D) -> ((B, T, H) last-layer hiddens, state).
 
-        ``train`` turns dropout on (masks from ``generator``) and, with
-        ``scan_impl="pallas"``, routes the recurrence through the
-        differentiable kernels."""
+        ``train`` turns dropout and zoneout on (masks from
+        ``generator``) and, with ``scan_impl="pallas"``, routes the
+        recurrence through the differentiable kernels."""
         b, t, _ = xs.shape
         if state is None:
             state = self.init_state(b)
@@ -192,13 +206,16 @@ class _RecurrentStack(nn.Module):
             p = self.cells[l].params()
             proj = self._cell_input_proj(p, xs.reshape(b * t, -1))
             proj = proj.reshape(b, t, -1).transpose(0, 1).contiguous()
-            if self.scan_impl == "pallas":
-                carry, hs = self._cell_scan(p, state[l], proj, train)
+            scanned = (self._cell_scan(p, state[l], proj, train)
+                       if self.scan_impl == "pallas" else None)
+            if scanned is not None:
+                carry, hs = scanned
             else:
                 carry = state[l]
                 steps = []
                 for k in range(t):
-                    carry, h = self._cell_step(p, carry, proj[k])
+                    carry, h = self._cell_step(p, carry, proj[k], train,
+                                               generator)
                     steps.append(h)
                 hs = torch.stack(steps)
             new_state.append(carry)
@@ -234,7 +251,7 @@ class LSTM(_RecurrentStack):
     def _cell_input_proj(self, p, x):
         return cells.lstm_input_proj(p, x)
 
-    def _cell_step(self, p, carry, x_proj):
+    def _cell_step(self, p, carry, x_proj, train=False, generator=None):
         return cells.lstm_step(p, carry, x_proj)
 
     def _cell_state(self, batch):
@@ -244,6 +261,71 @@ class LSTM(_RecurrentStack):
         c, h = carry
         scan = lstm_scan_train if train else lstm_scan
         return scan(proj, p["wh"], c, h)
+
+
+class ZoneoutLSTM(LSTM):
+    """Zoneout LSTM stack twin (chainer_networks.py:64-81): the LSTM's
+    cell with zoneout on c and h (``c_ratio`` / ``h_ratio``), no dropout
+    anywhere. Zoneout passes the new state through at eval, so it serves
+    through ``lstm_scan`` on the kernel route; it trains through its step
+    loop, with no kernel, on either route (networks.py:352-357)."""
+
+    def __init__(self, units: int, num_classes: int, layers: int = 2,
+                 c_ratio: float = 0.5, h_ratio: float = 0.5, *, in_dim: int,
+                 scan_impl: str = "xla", device="cuda", seed: int = 0):
+        self.c_ratio, self.h_ratio = c_ratio, h_ratio
+        super().__init__(units, num_classes, layers, 0.0, in_dim=in_dim,
+                         scan_impl=scan_impl, device=device, seed=seed)
+
+    def _cell_step(self, p, carry, x_proj, train=False, generator=None):
+        return cells.zoneout_lstm_step(p, carry, x_proj, c_ratio=self.c_ratio,
+                                       h_ratio=self.h_ratio, train=train,
+                                       generator=generator)
+
+    def _cell_scan(self, p, carry, proj, train):
+        return None if train else super()._cell_scan(p, carry, proj, train)
+
+
+class ZoneoutDropoutLSTM(ZoneoutLSTM):
+    """Zoneout LSTM with dropout on the input and after every layer
+    (chainer_networks.py:83-101)."""
+
+    def __init__(self, units: int, num_classes: int, layers: int = 2,
+                 dropout: float = 0.0, c_ratio: float = 0.5,
+                 h_ratio: float = 0.5, *, in_dim: int, scan_impl: str = "xla",
+                 device="cuda", seed: int = 0):
+        super().__init__(units, num_classes, layers, c_ratio, h_ratio,
+                         in_dim=in_dim, scan_impl=scan_impl, device=device,
+                         seed=seed)
+        self.dropout = dropout
+
+
+class PeepholeLSTM(_RecurrentStack):
+    """Peephole LSTM stack twin (chainer_networks.py:103-121)."""
+
+    def __init__(self, units: int, num_classes: int, layers: int = 2,
+                 dropout: float = 0.0, *, in_dim: int,
+                 scan_impl: str = "xla", device="cuda", seed: int = 0):
+        super().__init__(units, num_classes, layers, dropout, in_dim=in_dim,
+                         scan_impl=scan_impl, device=device, seed=seed)
+
+    def _cell_init(self, in_dim, gen):
+        return cells.peephole_lstm_init(in_dim, self.units, gen)
+
+    def _cell_input_proj(self, p, x):
+        return cells.lstm_input_proj(p, x)
+
+    def _cell_step(self, p, carry, x_proj, train=False, generator=None):
+        return cells.peephole_lstm_step(p, carry, x_proj)
+
+    def _cell_state(self, batch):
+        return cells.lstm_init_state(batch, self.units, device=self.device)
+
+    def _cell_scan(self, p, carry, proj, train):
+        c, h = carry
+        scan = peephole_scan_train if train else peephole_scan
+        return scan(proj, p["wh"], p["peep_i"], p["peep_f"], p["peep_o"], c,
+                    h)
 
 
 class GRU(_RecurrentStack):
@@ -261,7 +343,7 @@ class GRU(_RecurrentStack):
     def _cell_input_proj(self, p, x):
         return cells.gru_input_proj(p, x)
 
-    def _cell_step(self, p, carry, x_proj):
+    def _cell_step(self, p, carry, x_proj, train=False, generator=None):
         return cells.gru_step(p, carry, x_proj)
 
     def _cell_state(self, batch):
@@ -296,7 +378,7 @@ class MGRUNet(_RecurrentStack):
     def _cell_input_proj(self, p, x):
         return cells.mgru_input_proj(p, x, self.use_reset_gate)
 
-    def _cell_step(self, p, carry, x_proj):
+    def _cell_step(self, p, carry, x_proj, train=False, generator=None):
         return cells.mgru_step(p, carry, x_proj,
                                use_reset_gate=self.use_reset_gate,
                                activation=ACTIVATIONS[self.activation])
@@ -324,7 +406,7 @@ class MGRUNet(_RecurrentStack):
         return (h_t, torch.zeros_like(fresh)), hs
 
 
-_LATER = {"ff", "tdnn", "zoneoutlstm", "zoneoutdropoutlstm", "peepholelstm"}
+_LATER = {"ff", "tdnn"}
 
 
 def get_network(network: str, layers: int, units: Sequence[int],
@@ -333,16 +415,36 @@ def get_network(network: str, layers: int, units: Sequence[int],
                 dropout: Sequence[float] = (0.0,), *, in_dim: int,
                 scan_impl: str = "xla", device="cuda", seed: int = 0):
     """Twin of get_nn (chainer_networks.py:163-187). This port builds
-    ``"lstm"``, ``"gru"``, ``"mgrurelu"`` and ``"mgrurelur"``; the rest
-    of the zoo is ROADMAP Queue 1 item 8 (and MLP / TDNN item 2). As in
-    the JAX package, the MGRU nets keep their default relu candidate and
-    ignore ``activation``."""
+    every recurrent net: ``"lstm"``, ``"zoneoutlstm"``,
+    ``"zoneoutdropoutlstm"``, ``"peepholelstm"``, ``"gru"``,
+    ``"mgrurelu"`` and ``"mgrurelur"``; ``"ff"`` and ``"tdnn"`` are
+    ROADMAP Queue 1 item 2. As in the JAX package, the MGRU nets keep
+    their default relu candidate and ignore ``activation``, and the
+    dropout list maps positionally (``networks.py:553-568``): onto
+    ``(c_ratio, h_ratio)`` for ``zoneoutlstm`` and onto ``(dropout,
+    c_ratio, h_ratio)`` for ``zoneoutdropoutlstm``, the ratios 0.5 where
+    the list is shorter."""
     dropout = (list(dropout) if not isinstance(dropout, (int, float))
                else [dropout])
     kw = dict(in_dim=in_dim, scan_impl=scan_impl, device=device, seed=seed)
     if network == "lstm":
         return LSTM(units=units[0], num_classes=num_classes, layers=layers,
                     dropout=dropout[0], **kw)
+    if network == "zoneoutlstm":
+        return ZoneoutLSTM(units=units[0], num_classes=num_classes,
+                           layers=layers,
+                           c_ratio=dropout[0] if len(dropout) >= 1 else 0.5,
+                           h_ratio=dropout[1] if len(dropout) >= 2 else 0.5,
+                           **kw)
+    if network == "zoneoutdropoutlstm":
+        return ZoneoutDropoutLSTM(
+            units=units[0], num_classes=num_classes, layers=layers,
+            dropout=dropout[0] if len(dropout) >= 1 else 0.0,
+            c_ratio=dropout[1] if len(dropout) >= 2 else 0.5,
+            h_ratio=dropout[2] if len(dropout) >= 3 else 0.5, **kw)
+    if network == "peepholelstm":
+        return PeepholeLSTM(units=units[0], num_classes=num_classes,
+                            layers=layers, dropout=dropout[0], **kw)
     if network == "gru":
         return GRU(units=units[0], num_classes=num_classes, layers=layers,
                    dropout=dropout[0], **kw)
@@ -352,8 +454,8 @@ def get_network(network: str, layers: int, units: Sequence[int],
                        use_reset_gate=network == "mgrurelur", **kw)
     if network in _LATER:
         raise NotImplementedError(
-            f"network {network!r} is not ported yet (ROADMAP Queue 1: "
-            f"MLP/TDNN item 2, the recurrent zoo item 8)")
+            f"network {network!r} is not ported yet (ROADMAP Queue 1 "
+            f"item 2: MLP / TDNN)")
     raise ValueError(f"unknown network type: {network}")
 
 

@@ -1,10 +1,13 @@
 from .numerics import log_softmax
 from .rnn_cuda import (gated_scan, gated_scan_reference, gated_scan_train,
-                       lstm_scan, lstm_scan_reference, lstm_scan_train)
+                       lstm_scan, lstm_scan_reference, lstm_scan_train,
+                       peephole_scan, peephole_scan_reference,
+                       peephole_scan_train)
 from .splice import splice_flat, splice_utts
 from .timedelay import apply_time_delay
 
 __all__ = ["apply_time_delay", "gated_scan", "gated_scan_reference",
            "gated_scan_train", "log_softmax", "lstm_scan",
-           "lstm_scan_reference", "lstm_scan_train", "splice_flat",
+           "lstm_scan_reference", "lstm_scan_train", "peephole_scan",
+           "peephole_scan_reference", "peephole_scan_train", "splice_flat",
            "splice_utts"]

@@ -1,6 +1,7 @@
-"""Recurrences over a hoisted input projection -- the LSTM and the gated
-family (GRU, minimal GRU with and without its reset gate): CUDA kernel
-wrappers and their plain PyTorch versions, for inference and training.
+"""Recurrences over a hoisted input projection -- the LSTM, the gated
+family (GRU, minimal GRU with and without its reset gate) and the
+peephole LSTM: CUDA kernel wrappers and their plain PyTorch versions,
+for inference and training.
 
 Counterpart of ``nnacousticmodeling_tpu/ops/rnn_pallas.py``:
 
@@ -18,18 +19,29 @@ Counterpart of ``nnacousticmodeling_tpu/ops/rnn_pallas.py``:
   ``torch.autograd.Function`` over ``gated_train_forward``
   (<- ``_gated_train_fwd_impl``) and ``gated_train_backward``
   (<- ``_gated_train_bwd_impl``, with its dW1 / dW2 contractions
-  ``gated_train_dw``), kernels ``csrc/gated_train.cu``.
+  ``gated_train_dw``), kernels ``csrc/gated_train.cu``;
+- ``peephole_scan`` <- ``peephole_scan_pallas`` (twin
+  ``peephole_scan_mixed_reference``), kernel ``csrc/peephole_scan.cu``;
+  inference only;
+- ``peephole_scan_train`` <- ``peephole_scan_pallas_train``, a
+  ``torch.autograd.Function`` over ``peephole_train_forward``
+  (<- ``_peep_train_fwd_impl``) and ``peephole_train_backward``
+  (<- ``_peep_train_bwd_impl``, with its dW_h / dP_i / dP_f / dP_o
+  contractions ``peephole_train_dw``), kernels
+  ``csrc/peephole_train.cu``.
 
 The sources say what bounds the kernels and how they are laid out.
 Precision contract (the TPU kernels'): ``proj`` rounded to bf16 even
 when it is float32, bf16 operands for the recurrent products with
 float32 accumulation, float32 gates and carry, ``hs`` in proj's dtype,
 the final carry in the initial carry's dtype. The gated kernels also
-round the operand ``r*h`` of the product with w2 to bf16. Training
+round the operand ``r*h`` of the product with w2 to bf16, the peephole
+kernels the cell states ``c_{t-1}`` and ``c_t`` of theirs. Training
 stores the residuals in bf16 (LSTM ``[a | i | f | o | tanh c_t | c_{t-1}
-| h_{t-1}]``, gated ``[r | z | hb | h_prev]``); ``dproj`` takes the
-unrounded float32 pre-activation gradients in proj's dtype, while the
-products (dh, dW) take their bf16 roundings.
+| h_{t-1}]``, gated ``[r | z | hb | h_prev]``, peephole the LSTM's row
+and ``c_t``); ``dproj`` takes the unrounded float32 pre-activation
+gradients in proj's dtype, while the products (dh, dc, dW) take their
+bf16 roundings.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes
 its plain version only for CPU tensors.
@@ -806,3 +818,339 @@ def gated_scan_train(proj, w1, w2, h0, *, kind, activation="tanh"):
     _check_gated_args("gated_scan_train", proj, w1, w2, h0, kind)
     return _GatedScanTrain.apply(proj, w1, w2, h0, kind,
                                  _gated_act(kind, activation))
+
+
+# ---------------------------------------------------------------------------
+# peephole LSTM (full (H, H) peephole matrices on the cell state)
+# ---------------------------------------------------------------------------
+
+_PEEP_SCAN_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
+_PEEP_FWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
+                      + [ctypes.c_void_p])
+_PEEP_BWD_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 3
+                      + [ctypes.c_void_p])
+_PEEP_DW_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+                     + [ctypes.c_void_p])
+
+
+def _peep_scan_lib():
+    lib = kernels.load("peephole_scan")
+    for fn in (lib.peephole_scan_f32, lib.peephole_scan_bf16):
+        fn.argtypes = _PEEP_SCAN_ARGTYPES
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _peep_train_lib():
+    lib = kernels.load("peephole_train")
+    for fns, argtypes in (((lib.peephole_train_fwd_f32,
+                            lib.peephole_train_fwd_bf16), _PEEP_FWD_ARGTYPES),
+                          ((lib.peephole_train_bwd_f32,
+                            lib.peephole_train_bwd_bf16), _PEEP_BWD_ARGTYPES),
+                          ((lib.peephole_train_dw,), _PEEP_DW_ARGTYPES)):
+        for fn in fns:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _peep_operands(wh, pi, pf, po):
+    """The kernels' bf16 weight operands: W_h, [P_i | P_f] (one product
+    serves both gates) and P_o, contiguous."""
+    pif = torch.cat([pi.detach(), pf.detach()], dim=1)
+    return [w.detach().to(torch.bfloat16).contiguous() for w in (wh, pif, po)]
+
+
+def _check_peep_args(name, proj, wh, pi, pf, po, c0, h0):
+    _check_scan_args(name, proj, wh, c0, h0)
+    h_dim = wh.shape[0]
+    if any(p.shape != (h_dim, h_dim) for p in (pi, pf, po)):
+        raise ValueError(f"{name}: the peephole matrices must be (H, H)")
+
+
+def _peep_forward_loop(proj, wh, pi, pf, po, c0, h0, with_res):
+    """The plain step loop of the forward kernels with their bf16
+    roundings (rnn_pallas.py:1356-1369, :1031-1053). Returns ``hs, res
+    (or None), c_T, h_T`` (carries float32)."""
+    h_dim = wh.shape[0]
+    t_len, b = proj.shape[:2]
+    projf = _bf16f(proj)
+    whf, pif, pff, pof = (_bf16f(w) for w in (wh, pi, pf, po))
+    c = c0.float()
+    h = h0.float()
+    hs = torch.empty((t_len, b, h_dim), dtype=proj.dtype, device=proj.device)
+    res = (torch.empty((t_len, b, 8 * h_dim), dtype=torch.bfloat16,
+                       device=proj.device) if with_res else None)
+    for t in range(t_len):
+        z = projf[t] + _bf16f(h) @ whf
+        cb = _bf16f(c)
+        a = torch.tanh(z[:, :h_dim])
+        ig = torch.sigmoid(z[:, h_dim:2 * h_dim] + cb @ pif)
+        f = torch.sigmoid(z[:, 2 * h_dim:3 * h_dim] + cb @ pff)
+        c_new = f * c + ig * a
+        o = torch.sigmoid(z[:, 3 * h_dim:] + _bf16f(c_new) @ pof)
+        tc = torch.tanh(c_new)
+        h_new = o * tc
+        if with_res:
+            res[t] = torch.cat([a, ig, f, o, tc, c, h, c_new],
+                               dim=1).to(torch.bfloat16)
+        c, h = c_new, h_new
+        hs[t] = h.to(proj.dtype)
+    return hs, res, c, h
+
+
+def _peep_forward_launch(name, fn, proj, wh, pi, pf, po, c0, h0, with_res):
+    """Launch a peephole forward kernel (``peephole_scan_*`` or
+    ``peephole_train_fwd_*``). Returns ``hs, res (or None), c_T, h_T``."""
+    stream = _check_cuda(name, proj, wh, pi, pf, po, c0, h0)
+    if not proj.is_contiguous():
+        raise ValueError(f"{name}: proj must be contiguous")
+    t, b, _ = proj.shape
+    h_dim = wh.shape[0]
+    dev = proj.device
+    whb, pifb, pob = _peep_operands(wh, pi, pf, po)
+    h_a = h0.detach().float().contiguous().clone()
+    h_b = torch.empty_like(h_a)
+    c_a = c0.detach().float().contiguous().clone()
+    c_b = torch.empty_like(c_a)
+    zo = torch.empty_like(h_a)
+    hs = torch.empty((t, b, h_dim), dtype=proj.dtype, device=dev)
+    res = (torch.empty((t, b, 8 * h_dim), dtype=torch.bfloat16, device=dev)
+           if with_res else None)
+    args = [proj.data_ptr(), whb.data_ptr(), pifb.data_ptr(), pob.data_ptr(),
+            h_a.data_ptr(), h_b.data_ptr(), c_a.data_ptr(), c_b.data_ptr(),
+            zo.data_ptr(), hs.data_ptr()]
+    if with_res:
+        args.append(res.data_ptr())
+    kernels.check(fn(*args, t, b, h_dim, stream), name)
+    kernels.launches[name] += 1
+    if t % 2 == 0:
+        return hs, res, c_a, h_a
+    return hs, res, c_b, h_b
+
+
+def peephole_scan_reference(proj, wh, pi, pf, po, c0, h0):
+    """Plain PyTorch version of ``peephole_scan``, same contract: the twin
+    of ``peephole_scan_mixed_reference`` (rnn_pallas.py:1413-1439), the
+    operands rounded to bf16 and multiplied in float32."""
+    hs, _, c, h = _peep_forward_loop(proj, wh, pi, pf, po, c0, h0, False)
+    return (c.to(c0.dtype), h.to(c0.dtype)), hs
+
+
+def peephole_scan(proj, wh, pi, pf, po, c0, h0):
+    """Run the peephole LSTM recurrence. proj (T, B, 4H) packed a, i, f,
+    o; wh (H, 4H); the peephole matrices pi, pf (on c_{t-1}) and po (on
+    c_t), each (H, H); c0/h0 (B, H). Returns ``(c_T, h_T), hs`` with hs
+    (T, B, H) in proj's dtype and the carry in c0's.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take
+    ``peephole_scan_reference``. The kernel has no backward: on the card
+    a tensor that requires grad under grad mode raises, and training goes
+    through ``peephole_scan_train``.
+    """
+    _check_peep_args("peephole_scan", proj, wh, pi, pf, po, c0, h0)
+    if proj.device.type == "cpu":
+        return peephole_scan_reference(proj, wh, pi, pf, po, c0, h0)
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (proj, wh, pi, pf, po, c0, h0)):
+        raise RuntimeError(
+            "peephole_scan: the inference kernel has no backward, and its "
+            "outputs would carry no gradient; train through "
+            "peephole_scan_train, or run under torch.no_grad() / "
+            "torch.inference_mode()")
+    fn = getattr(_peep_scan_lib(), "peephole_scan_" + _dtype_suffix(
+        "peephole_scan", proj.dtype))
+    hs, _, c_t, h_t = _peep_forward_launch("peephole_scan", fn, proj, wh, pi,
+                                           pf, po, c0, h0, False)
+    return (c_t.to(c0.dtype), h_t.to(c0.dtype)), hs
+
+
+def peephole_train_forward_reference(proj, wh, pi, pf, po, c0, h0):
+    """Plain version of ``peephole_train_forward``: the step loop of
+    ``_peep_train_fwd_impl`` (rnn_pallas.py:1031-1054) with its bf16
+    roundings. Returns ``hs, res, c_T, h_T`` (carries in float32)."""
+    return _peep_forward_loop(proj, wh, pi, pf, po, c0, h0, True)
+
+
+def peephole_train_forward(proj, wh, pi, pf, po, c0, h0):
+    """Forward of the trainable peephole recurrence, ``peephole_scan``'s
+    arguments. Returns ``hs`` (T, B, H) in proj's dtype, the residuals
+    ``res`` (T, B, 8H) bf16 ``[a | i | f | o | tanh c_t | c_{t-1} |
+    h_{t-1} | c_t]``, and ``c_T``, ``h_T`` float32. hs, c_T and h_T equal
+    ``peephole_scan``'s on the same inputs."""
+    _check_peep_args("peephole_train_forward", proj, wh, pi, pf, po, c0, h0)
+    if proj.device.type == "cpu":
+        return peephole_train_forward_reference(proj, wh, pi, pf, po, c0, h0)
+    fn = getattr(_peep_train_lib(), "peephole_train_fwd_" + _dtype_suffix(
+        "peephole_train_forward", proj.dtype))
+    return _peep_forward_launch("peephole_train_forward", fn, proj, wh, pi,
+                                pf, po, c0, h0, True)
+
+
+def peephole_train_dw_reference(res, dz):
+    """Plain version of ``peephole_train_dw``: float32 products of the
+    bf16 ``h_{t-1}``, ``c_{t-1}`` and ``c_t`` rows of ``res`` with the
+    bf16 ``dz`` rows (rnn_pallas.py:1195-1208)."""
+    h_dim = res.shape[-1] // 8
+    r = res.reshape(-1, 8 * h_dim).float()
+    d = dz.reshape(-1, 4 * h_dim).float()
+    c_prev = r[:, 5 * h_dim:6 * h_dim]
+    return (r[:, 6 * h_dim:7 * h_dim].T @ d,
+            c_prev.T @ d[:, h_dim:2 * h_dim],
+            c_prev.T @ d[:, 2 * h_dim:3 * h_dim],
+            r[:, 7 * h_dim:].T @ d[:, 3 * h_dim:])
+
+
+def peephole_train_dw(res, dz):
+    """``dW_h = sum_t h_{t-1}^T dz``, ``dP_i = sum_t c_{t-1}^T dz_i``,
+    ``dP_f = sum_t c_{t-1}^T dz_f`` and ``dP_o = sum_t c_t^T dz_o`` in
+    float32 from the residuals res (T, B, 8H) and dz (T, B, 4H), both
+    bf16 -> ``(dW_h (H, 4H), dP_i, dP_f, dP_o (H, H))``."""
+    t, b, eight_h = res.shape
+    h_dim = eight_h // 8
+    if (eight_h != 8 * h_dim or dz.shape != (t, b, 4 * h_dim)
+            or res.dtype != torch.bfloat16 or dz.dtype != torch.bfloat16):
+        raise ValueError("peephole_train_dw: res (T, B, 8H) and dz "
+                         "(T, B, 4H) must be bf16")
+    if res.device.type == "cpu":
+        return peephole_train_dw_reference(res, dz)
+    stream = _check_cuda("peephole_train_dw", res, dz)
+    if not (res.is_contiguous() and dz.is_contiguous()):
+        raise ValueError("peephole_train_dw: res and dz must be contiguous")
+    dwh = torch.empty((h_dim, 4 * h_dim), dtype=torch.float32,
+                      device=res.device)
+    dp = [torch.empty((h_dim, h_dim), dtype=torch.float32, device=res.device)
+          for _ in range(3)]
+    kernels.check(_peep_train_lib().peephole_train_dw(
+        res.data_ptr(), dz.data_ptr(), dwh.data_ptr(),
+        *(p.data_ptr() for p in dp), t * b, h_dim, stream),
+        "peephole_train_dw")
+    kernels.launches["peephole_train_dw"] += 1
+    return (dwh, *dp)
+
+
+def _check_peep_bwd_args(name, res, wh, pi, pf, po, dhs, dc_T, dh_T):
+    t, b, eight_h = res.shape
+    h_dim = eight_h // 8
+    if (eight_h != 8 * h_dim or wh.shape != (h_dim, 4 * h_dim)
+            or any(p.shape != (h_dim, h_dim) for p in (pi, pf, po))
+            or dhs.shape != (t, b, h_dim) or dc_T.shape != (b, h_dim)
+            or dh_T.shape != (b, h_dim) or res.dtype != torch.bfloat16):
+        raise ValueError(f"{name}: shapes do not match res (T, B, 8H) bf16")
+    if t < 1:
+        raise ValueError(f"{name}: needs at least one timestep")
+
+
+def peephole_train_backward_reference(res, wh, pi, pf, po, dhs, dc_T, dh_T,
+                                      proj_dtype):
+    """Plain version of ``peephole_train_backward``: the reverse step loop
+    of ``_peep_train_bwd_impl`` (rnn_pallas.py:1147-1191) with its bf16
+    roundings, then ``peephole_train_dw_reference``."""
+    t_len, b, eight_h = res.shape
+    h_dim = eight_h // 8
+    whf, pif, pff, pof = (_bf16f(w) for w in (wh, pi, pf, po))
+    dc = dc_T.float()
+    dh = dh_T.float()
+    dproj = torch.empty((t_len, b, 4 * h_dim), dtype=proj_dtype,
+                        device=res.device)
+    dzb = torch.empty((t_len, b, 4 * h_dim), dtype=torch.bfloat16,
+                      device=res.device)
+    for t in range(t_len - 1, -1, -1):
+        a, ig, f, o, tc, c_prev = res[t, :, :6 * h_dim].float().split(
+            h_dim, dim=1)
+        dh_tot = dhs[t].float() + dh
+        dz_o = (dh_tot * tc) * o * (1.0 - o)
+        # c feeds h (through o's peephole) and the o-gate pre-activation
+        dc = (dc + dh_tot * o * (1.0 - tc * tc)
+              + _bf16f(dz_o) @ pof.T)
+        dz = torch.cat([dc * ig * (1.0 - a * a), dc * a * ig * (1.0 - ig),
+                        dc * c_prev * f * (1.0 - f), dz_o], dim=1)
+        dproj[t] = dz.to(proj_dtype)
+        dzb[t] = dz.to(torch.bfloat16)
+        dzf = dzb[t].float()
+        dc = (dc * f + dzf[:, h_dim:2 * h_dim] @ pif.T
+              + dzf[:, 2 * h_dim:3 * h_dim] @ pff.T)
+        dh = dzf @ whf.T
+    dwh, dpi, dpf, dpo = peephole_train_dw_reference(res, dzb)
+    return (dproj, dwh.to(wh.dtype), dpi.to(pi.dtype), dpf.to(pf.dtype),
+            dpo.to(po.dtype), dc, dh)
+
+
+def peephole_train_backward(res, wh, pi, pf, po, dhs, dc_T, dh_T,
+                            proj_dtype):
+    """Backward of the trainable peephole recurrence from its residuals.
+
+    res (T, B, 8H) bf16, wh (H, 4H), pi/pf/po (H, H), dhs (T, B, H),
+    dc_T/dh_T (B, H). Returns ``dproj`` (T, B, 4H) in ``proj_dtype``,
+    ``dW_h``, ``dP_i``, ``dP_f``, ``dP_o`` each in its weight's dtype, and
+    ``dc0``, ``dh0`` float32.
+    """
+    _check_peep_bwd_args("peephole_train_backward", res, wh, pi, pf, po,
+                         dhs, dc_T, dh_T)
+    if res.device.type == "cpu":
+        return peephole_train_backward_reference(res, wh, pi, pf, po, dhs,
+                                                 dc_T, dh_T, proj_dtype)
+    stream = _check_cuda("peephole_train_backward", res, wh, pi, pf, po, dhs,
+                         dc_T, dh_T)
+    fn = getattr(_peep_train_lib(), "peephole_train_bwd_" + _dtype_suffix(
+        "peephole_train_backward", proj_dtype))
+    if not res.is_contiguous():
+        raise ValueError("peephole_train_backward: res must be contiguous")
+    t, b, eight_h = res.shape
+    h_dim = eight_h // 8
+    dev = res.device
+    whb, pifb, pob = _peep_operands(wh, pi, pf, po)
+    dhs_f = dhs.float().contiguous()
+    dh_t = dh_T.float().contiguous()
+    dc_t = dc_T.float().contiguous()
+    dcbuf = torch.empty((b, h_dim), dtype=torch.float32, device=dev)
+    dproj = torch.empty((t, b, 4 * h_dim), dtype=proj_dtype, device=dev)
+    dz = torch.empty((t, b, 4 * h_dim), dtype=torch.bfloat16, device=dev)
+    dh0 = torch.empty((b, h_dim), dtype=torch.float32, device=dev)
+    dc0 = torch.empty_like(dh0)
+    kernels.check(fn(res.data_ptr(), whb.data_ptr(), pifb.data_ptr(),
+                     pob.data_ptr(), dhs_f.data_ptr(), dh_t.data_ptr(),
+                     dc_t.data_ptr(), dcbuf.data_ptr(), dproj.data_ptr(),
+                     dz.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), t, b,
+                     h_dim, stream), "peephole_train_backward")
+    kernels.launches["peephole_train_backward"] += 1
+    dwh, dpi, dpf, dpo = peephole_train_dw(res, dz)
+    return (dproj, dwh.to(wh.dtype), dpi.to(pi.dtype), dpf.to(pf.dtype),
+            dpo.to(po.dtype), dc0, dh0)
+
+
+class _PeepholeScanTrain(torch.autograd.Function):
+    """Custom backward of the peephole recurrence: the twin of the JAX
+    ``peephole_scan_pallas_train`` custom VJP (rnn_pallas.py:1270-1303).
+    ``peephole_train_forward`` / ``peephole_train_backward`` are looked up
+    at call time, so a caller can swap in the plain versions."""
+
+    @staticmethod
+    def forward(ctx, proj, wh, pi, pf, po, c0, h0):
+        hs, res, c_t, h_t = peephole_train_forward(proj, wh, pi, pf, po, c0,
+                                                   h0)
+        ctx.save_for_backward(res, wh, pi, pf, po)
+        ctx.proj_dtype = proj.dtype
+        # TBPTT reads no c_T / h_T cotangent: they arrive as zeros
+        ctx.set_materialize_grads(True)
+        return c_t.to(c0.dtype), h_t.to(c0.dtype), hs
+
+    @staticmethod
+    def backward(ctx, dc_t, dh_t, dhs):
+        res, wh, pi, pf, po = ctx.saved_tensors
+        dproj, dwh, dpi, dpf, dpo, dc0, dh0 = peephole_train_backward(
+            res, wh, pi, pf, po, dhs, dc_t, dh_t, ctx.proj_dtype)
+        return (dproj, dwh, dpi, dpf, dpo, dc0.to(dc_t.dtype),
+                dh0.to(dh_t.dtype))
+
+
+def peephole_scan_train(proj, wh, pi, pf, po, c0, h0):
+    """Differentiable peephole recurrence for training, ``peephole_scan``'s
+    signature and forward values: ``(c_T, h_T), hs``. Gradients (dproj,
+    dW_h, dP_i, dP_f, dP_o, dc0, dh0) come from the reverse-time kernel
+    (``peephole_train_backward``) with bf16 residuals, as from the JAX
+    custom VJP."""
+    _check_peep_args("peephole_scan_train", proj, wh, pi, pf, po, c0, h0)
+    c_t, h_t, hs = _PeepholeScanTrain.apply(proj, wh, pi, pf, po, c0, h0)
+    return (c_t, h_t), hs

@@ -13,7 +13,9 @@ plain version only by the order of its float32 sums (and the bf16
 roundings of dz those may flip): 1e-3 of each tensor's largest value.
 The gated kernels are held to the same tolerances, each relative to the
 largest value of its tensor (the relu candidate of MGRU is unbounded);
-their training forward is bit-equal to the ``gated_scan`` kernel.
+their training forward is bit-equal to the ``gated_scan`` kernel. So are
+the peephole kernels, whose training forward is bit-equal to the
+``peephole_scan`` kernel.
 """
 
 import numpy as np
@@ -41,6 +43,15 @@ from nnacousticmodeling_tpu_torch.ops.rnn_cuda import (
     lstm_train_backward_reference,
     lstm_train_forward,
     lstm_train_forward_reference,
+    peephole_scan,
+    peephole_scan_reference,
+    peephole_scan_train,
+    peephole_train_backward,
+    peephole_train_backward_reference,
+    peephole_train_dw,
+    peephole_train_dw_reference,
+    peephole_train_forward,
+    peephole_train_forward_reference,
 )
 
 pytestmark = pytest.mark.cuda
@@ -302,3 +313,138 @@ def test_gated_scan_refuses_grad_on_card(cuda):
         gated_scan(proj, w1, w2, h0, kind="gru")
     with torch.no_grad():
         gated_scan(proj, w1, w2, h0, kind="gru")
+
+
+# ---- the peephole LSTM ---------------------------------------------------
+
+def _peep_case(t, b, h, dtype, device):
+    g = torch.Generator().manual_seed(t * 1000 + b * 10 + h)
+    proj = (torch.randn(t, b, 4 * h, generator=g) * 0.5).to(dtype)
+    wh = torch.randn(h, 4 * h, generator=g) * 0.1
+    peeps = [torch.randn(h, h, generator=g) * 0.2 for _ in range(3)]
+    c0 = torch.randn(b, h, generator=g) * 0.1
+    h0 = torch.randn(b, h, generator=g) * 0.1
+    return [x.to(device) for x in (proj, wh, *peeps, c0, h0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,b,h", [(5, 4, 32), (13, 33, 40), (8, 3, 64)])
+def test_peephole_scan_kernel_matches_plain(cuda, t, b, h, dtype):
+    args = _peep_case(t, b, h, dtype, cuda)
+    before = kernels.launches["peephole_scan"]
+    (ck, hk), hsk = peephole_scan(*args)
+    torch.cuda.synchronize()
+    assert kernels.launches["peephole_scan"] == before + 1
+    (cr, hr), hsr = peephole_scan_reference(*args)
+    assert hsk.dtype == dtype and hsk.shape == (t, b, h)
+    _close_rel(hsk, hsr, BF16_ATOL)
+    _close_rel(ck, cr, BF16_ATOL)
+    _close_rel(hk, hr, BF16_ATOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,b,h", [(5, 4, 32), (13, 33, 40)])
+def test_peephole_train_forward_kernel(cuda, t, b, h, dtype):
+    args = _peep_case(t, b, h, dtype, cuda)
+    before = kernels.launches["peephole_train_forward"]
+    hs, res, ct, ht = peephole_train_forward(*args)
+    torch.cuda.synchronize()
+    assert kernels.launches["peephole_train_forward"] == before + 1
+    (cs, hs_c), hs_s = peephole_scan(*args)
+    assert torch.equal(hs, hs_s) and torch.equal(ct, cs)
+    assert torch.equal(ht, hs_c)
+    hs_r, res_r, ct_r, ht_r = peephole_train_forward_reference(*args)
+    _close_rel(hs, hs_r, BF16_ATOL)
+    _close_rel(ct, ct_r, BF16_ATOL)
+    _close_rel(ht, ht_r, BF16_ATOL)
+    scale = max(float(res_r.float().abs().max()), 1.0)
+    torch.testing.assert_close(res.float(), res_r.float(), rtol=RES_RTOL,
+                               atol=BF16_ATOL * scale)
+
+
+@pytest.mark.parametrize("proj_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,b,h", [(5, 3, 32), (13, 33, 40), (5, 33, 40)])
+def test_peephole_train_backward_kernel(cuda, t, b, h, proj_dtype):
+    args = _peep_case(t, b, h, proj_dtype, cuda)
+    _, res, _, _ = peephole_train_forward_reference(*args)
+    g = torch.Generator().manual_seed(7)
+    dhs = torch.randn(t, b, h, generator=g).to(cuda, proj_dtype)
+    dct = torch.randn(b, h, generator=g).to(cuda)
+    dht = torch.randn(b, h, generator=g).to(cuda)
+    before = dict(kernels.launches)
+    got = peephole_train_backward(res, *args[1:5], dhs, dct, dht,
+                                  proj_dtype)
+    torch.cuda.synchronize()
+    for name in ("peephole_train_backward", "peephole_train_dw"):
+        assert kernels.launches[name] == before.get(name, 0) + 1, name
+    want = peephole_train_backward_reference(res, *args[1:5], dhs, dct, dht,
+                                             proj_dtype)
+    for k, w, name in zip(got, want, ["dproj", "dwh", "dpi", "dpf", "dpo",
+                                      "dc0", "dh0"]):
+        assert k.dtype == w.dtype and k.shape == w.shape, name
+        scale = float(w.float().abs().max())
+        torch.testing.assert_close(k.float(), w.float(), rtol=0,
+                                   atol=BWD_RTOL * scale, msg=name)
+
+
+def test_peephole_train_dw_kernel(cuda):
+    args = _peep_case(9, 33, 40, torch.float32, cuda)
+    _, res, _, _ = peephole_train_forward_reference(*args)
+    g = torch.Generator().manual_seed(8)
+    dz = torch.randn(9, 33, 160, generator=g).to(cuda, torch.bfloat16)
+    got = peephole_train_dw(res, dz)
+    torch.cuda.synchronize()
+    for k, w in zip(got, peephole_train_dw_reference(res, dz)):
+        assert k.shape == w.shape
+        torch.testing.assert_close(k, w, rtol=0,
+                                   atol=1e-5 * float(w.abs().max()))
+
+
+def test_peephole_scan_train_autograd_on_card(cuda):
+    args = [x.requires_grad_() for x in _peep_case(6, 8, 32, torch.float32,
+                                                   cuda)]
+    (ct, ht), hs = peephole_scan_train(*args)
+    (hs.square().sum() + ct.sum() + ht.sum()).backward()
+    got = [x.grad for x in args]
+    cpu = [x.detach().cpu().requires_grad_() for x in args]
+    (ct, ht), hs = peephole_scan_train(*cpu)
+    (hs.square().sum() + ct.sum() + ht.sum()).backward()
+    for k, w in zip(got, cpu):
+        scale = float(w.grad.abs().max())
+        torch.testing.assert_close(k.cpu(), w.grad, rtol=0,
+                                   atol=1e-2 * scale)
+
+
+def test_peephole_scan_refuses_grad_on_card(cuda):
+    args = _peep_case(4, 4, 32, torch.float32, cuda)
+    args[2].requires_grad_()
+    with pytest.raises(RuntimeError, match="peephole_scan_train"):
+        peephole_scan(*args)
+    with torch.no_grad():
+        peephole_scan(*args)
+
+
+def test_zoneout_lstm_on_card_serves_through_lstm_scan_and_trains_without(
+        cuda):
+    """The zoneout LSTM's eval route is ``lstm_scan`` (bit-equal to the
+    LSTM's on the same weights); its training launches no kernel."""
+    from nnacousticmodeling_tpu_torch.models import get_network
+    net = get_network("zoneoutlstm", 2, [32], 7, dropout=[0.2], in_dim=5,
+                      scan_impl="pallas", device=cuda)
+    lstm = get_network("lstm", 2, [32], 7, in_dim=5, scan_impl="pallas",
+                       device=cuda)
+    lstm.load_state_dict(net.state_dict())
+    xs = torch.randn(3, 9, 5, device=cuda)
+    before = dict(kernels.launches)
+    with torch.inference_mode():
+        y, _ = net.apply_sequence(xs)
+        y_l, _ = lstm.apply_sequence(xs)
+    assert torch.equal(y, y_l)
+    assert kernels.launches["lstm_scan"] == before.get("lstm_scan", 0) + 4
+    before = dict(kernels.launches)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    y, _ = net.apply_sequence(xs, train=True, generator=gen)
+    y.sum().backward()
+    torch.cuda.synchronize()
+    assert dict(kernels.launches) == before
+    assert net.cells[0].wh.grad is not None

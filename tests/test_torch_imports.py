@@ -58,7 +58,8 @@ def test_port_files_found():
                 "models/cells.py", "models/networks.py",
                 "ops/timedelay.py", "pipeline/train_cli.py"):
         assert f"nnacousticmodeling_tpu_torch/{mod}" in names
-    for src in ("gated_step.cuh", "gated_scan.cu", "gated_train.cu"):
+    for src in ("gated_step.cuh", "gated_scan.cu", "gated_train.cu",
+                "peephole_step.cuh", "peephole_scan.cu", "peephole_train.cu"):
         assert (REPO / "nnacousticmodeling_tpu_torch" / "csrc" / src).is_file()
     assert (REPO / "chip_smoke.py").is_file()
 
@@ -81,6 +82,12 @@ def _entry_points(tmp_path):
         "get_network gru": lambda: get_network("gru", 1, [4], 5, in_dim=3),
         "get_network mgrurelur": lambda: get_network("mgrurelur", 1, [4], 5,
                                                      in_dim=3),
+        "get_network peepholelstm": lambda: get_network(
+            "peepholelstm", 1, [4], 5, in_dim=3),
+        "get_network zoneoutlstm": lambda: get_network(
+            "zoneoutlstm", 1, [4], 5, in_dim=3),
+        "get_network zoneoutdropoutlstm": lambda: get_network(
+            "zoneoutdropoutlstm", 1, [4], 5, in_dim=3),
         "ViterbiDecoder": lambda: ViterbiDecoder(img),
         "load_jax_params": lambda: load_jax_params(tmp_path / "m.npz"),
         "evaluate.main": lambda: evaluate.main(
@@ -99,6 +106,9 @@ def _entry_points(tmp_path):
 
 @pytest.mark.parametrize("name", ["resolve_device", "get_network",
                                   "get_network gru", "get_network mgrurelur",
+                                  "get_network peepholelstm",
+                                  "get_network zoneoutlstm",
+                                  "get_network zoneoutdropoutlstm",
                                   "ViterbiDecoder", "load_jax_params",
                                   "evaluate.main", "train_cli.main",
                                   "train_network"])
@@ -112,8 +122,9 @@ def test_default_device_is_cuda(tmp_path, name):
 
 def test_cpu_on_request():
     assert resolve_device("cpu").type == "cpu"
-    for name in ("lstm", "gru", "mgrurelu", "mgrurelur"):
+    for name in ("lstm", "gru", "mgrurelu", "mgrurelur", "peepholelstm",
+                 "zoneoutlstm", "zoneoutdropoutlstm"):
         net = get_network(name, 1, [4], 5, in_dim=3, device="cpu")
         assert net.device.type == "cpu"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_network("peepholelstm", 1, [4], 5, in_dim=3, device="cpu")
+        get_network("ff", 1, [4], 5, in_dim=3, device="cpu")
