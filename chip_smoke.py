@@ -88,7 +88,31 @@ Phases (each one that fails ends the run with a non-zero exit):
     ``lstm_scan``, the loss is finite and falls; then 3 of its updates
     profiled (device busy share);
 21. a profiled repeat of 3 PeepholeLSTM updates: device busy share and
-    top ops.
+    top ops;
+22. ``cube_viterbi_forward`` against its plain version on phase 4's
+    image and on a copy whose ends are (p, (p+1) mod P), which the
+    collapsed kernel refuses, at phase 4's shapes, exact and with the
+    beam: packed rows and end scores bit-equal within lengths;
+23. the decoder's backends on phase 5's LSTM posteriors: ``pallas``
+    launches the cube kernel and not the collapsed one, ``xla`` launches
+    no Viterbi kernel, and both give phase 5's segments and PER;
+    ``auto`` picks ``pallas`` on the irregular-end copy and ``xla`` on an
+    untied-transition 48-phone 1909-pdf image, which decodes every
+    utterance; decode-stage ms and audio-s/s of each route; on that
+    untied image and phase 4's inputs the cube scan twin and the general
+    one give the same bits, and each is timed;
+24. the ``fbank`` kernel against its plain version on one seeded
+    waveform as long as the test set's audio, with both mel conventions,
+    within 1e-3 in the log domain;
+25. the raw-audio serving slice: 128 seeded waveforms whose frame counts
+    are the test utterances' lengths -> ``fbank_cuda`` -> ``cmn`` -> LSTM
+    4x1024 posteriors -> ``decode_corpus`` with ``backend="pallas"`` ->
+    MLF -> PER. ``fbank``, ``lstm_scan`` and ``cube_viterbi_forward``
+    must be launched; each utterance's ``fbank_cuda`` output must be
+    within 1e-3 of the plain ``fbank`` before CMN, the plain route (plain
+    fbank, plain LSTM) must give posteriors within POSTERIOR_ATOL, and the
+    plain cube Viterbi on the kernel run's posteriors identical segments
+    and PER.
 
 Output: progress lines, then the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -1400,6 +1424,325 @@ def peephole_phases(torch, np, dev, card, corpus, dec, lp_lstm, report):
     ]
 
 
+def irregular_ends(img):
+    """``img`` with the end biphone of phone p at (p, (p+1) mod P): no
+    common end right context, so the collapsed kernel refuses it."""
+    import dataclasses
+    import numpy as np
+    P = img.num_phones
+    ends = np.array([p * P + (p + 1) % P for p in range(P)], np.int32)
+    return dataclasses.replace(img, end_idxs=ends).validate()
+
+
+def timed_decode(torch, dec, lp, offsets):
+    """``decode_corpus`` of the test set through ``dec``: (results, ms,
+    launches)."""
+    from nnacousticmodeling_tpu_torch import kernels
+    from nnacousticmodeling_tpu_torch.decoder.corpus_decode import (
+        decode_corpus)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = decode_corpus(dec, lp, offsets, batch=B_MAIN)
+    torch.cuda.synchronize()
+    return results, (time.perf_counter() - t0) * 1e3, dict(kernels.launches)
+
+
+def decoder_audio_phases(torch, np, dev, card, img, corpus, lp_rand, lens,
+                         lp, results, per, decode_ms, report):
+    """Phases 22-25: the cube kernel against its plain version, the
+    decoder's backends, the fbank kernel against its plain version, and
+    the raw-audio serving slice. ``lp_rand``/``lens`` are phase 4's
+    inputs, ``lp``/``results``/``per``/``decode_ms`` phase 5's LSTM
+    posteriors, collapsed decode, PER and decode-stage ms. Returns the
+    two kernels' entries of the ``{"kernels": [...]}`` line."""
+    from nnacousticmodeling_tpu_torch import kernels
+    from nnacousticmodeling_tpu_torch.decoder import viterbi_cube as vcube
+    from nnacousticmodeling_tpu_torch.decoder.corpus_decode import (
+        decode_corpus)
+    from nnacousticmodeling_tpu_torch.decoder.image import (
+        make_synthetic_image)
+    from nnacousticmodeling_tpu_torch.decoder.viterbi import ViterbiDecoder
+    from nnacousticmodeling_tpu_torch.infer import rnn_log_posteriors
+    from nnacousticmodeling_tpu_torch.io import load_mlf, write_mlf
+    from nnacousticmodeling_tpu_torch.models import get_network, networks
+    from nnacousticmodeling_tpu_torch.ops import features
+    from nnacousticmodeling_tpu_torch.ops.rnn_cuda import lstm_scan_reference
+    from nnacousticmodeling_tpu_torch.train import load_jax_params
+
+    phase_s = {}
+    phase_done = phase_timer(phase_s)
+    offsets = corpus.test.offsets
+    lengths = np.diff(offsets)
+    audio_s = float(lengths.sum()) / 100.0
+    irr = irregular_ends(img)
+
+    # ---- 22. cube_viterbi_forward against its plain version ------------
+    mask = (torch.arange(lp_rand.shape[1], device=dev)[None, :]
+            < lens[:, None].long())
+    cube = {}
+    decs = {}
+    for tag, im, beam in (("exact", img, None), ("beam", img, BEAM),
+                          ("irregular exact", irr, None),
+                          ("irregular beam", irr, BEAM)):
+        d = ViterbiDecoder(im, pip=20.0, lmw=1.0, beam=beam,
+                           backend="pallas", device=dev)
+        cv = d._pallas_fwd
+        decs[tag] = d
+        pk, ek = vcube.cube_viterbi_forward(cv, lp_rand, lens)
+        pr, er = vcube.cube_viterbi_reference(cv, lp_rand, lens)
+        torch.cuda.synchronize()
+        bad_packed = int((pk != pr)[mask].sum())
+        bad_end = int(((ek != er).any(dim=2))[mask].sum())
+        err = float((ek - er).abs()[mask].max())
+        if bad_packed or bad_end:
+            fail(f"cube_viterbi_forward ({tag}) not bit-equal to its plain "
+                 f"version: {bad_packed} packed and {bad_end} end rows "
+                 f"differ, max |end diff| {err}")
+        ms = cuda_ms(torch, lambda: vcube.cube_viterbi_forward(
+            cv, lp_rand, lens), 3)
+        plain_ms = cuda_ms(torch, lambda: vcube.cube_viterbi_reference(
+            cv, lp_rand, lens), 1, warm=False)
+        cube[tag] = dict(ms=ms, plain_ms=plain_ms, err=err)
+        log(f"[cube {tag}] U={lp_rand.shape[0]} T={lp_rand.shape[1]} frames"
+            f"={int(lens.sum())}: bit-equal within lengths; kernel {ms:.3f} "
+            f"ms, plain {plain_ms:.3f} ms [{card}]")
+        del pk, ek, pr, er
+    cv = decs["exact"]._pallas_fwd
+    frames = int(lens.sum())
+    cells = frames * cv.PS * cv.B
+    cube_ops = 13 * cells
+    cube_bytes = (frames * (CLASSES + cv.B + cv.P) * 4 + lens.numel() * 4
+                  + (cv.pdf.numel() + cv.tps.numel() + 3 * cv.B + cv.P) * 4)
+    cube_bound, cube_by = bound(cube_bytes, cube_ops, F32_FLOPS)
+    state_mb = lp_rand.shape[0] * 3 * cv.PS * cv.B * 8 / 1e6
+    state_bytes = frames * 3 * cv.PS * cv.B * 8 * 2
+    log(f"[cube] bound {cube_bound:.3f} ms ({cube_by}); DP state "
+        f"{state_mb:.1f} MB for {lp_rand.shape[0]} utterances, its traffic "
+        f"{state_bytes / 1e9:.1f} GB = "
+        f"{state_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at the HBM rate")
+    del mask
+    phase_done(22)
+
+    # ---- 23. the decoder's backends on phase 5's posteriors ------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_backends_") as tmp:
+        ref_path = Path(tmp, "test_ref.mlf")
+        write_mlf(str(ref_path), corpus.ref_mlf["test"])
+        ref = load_mlf(str(ref_path))
+        routes = {"collapsed": dict(decode_ms=decode_ms,
+                                    audio_s_per_s=audio_s / decode_ms * 1e3,
+                                    per=per)}
+        for backend in ("pallas", "xla"):
+            d = ViterbiDecoder(img, pip=20.0, lmw=1.0, backend=backend,
+                               device=dev)
+            if d.backend != backend:
+                fail(f"backend={backend!r} built {d.backend!r}")
+            res, ms, launches = timed_decode(torch, d, lp, offsets)
+            want = ({"cube_viterbi_forward"} if backend == "pallas"
+                    else set())
+            if {k for k, v in launches.items() if v} != want:
+                fail(f"the {backend} route launched {launches}, expected "
+                     f"{sorted(want) or 'no kernel'}")
+            per_b = per_of(corpus, res, Path(tmp, f"{backend}.mlf"), ref)
+            same = sum(a.segments == b.segments for a, b in zip(res, results))
+            if same != len(results) or per_b != per:
+                fail(f"the {backend} route differs from phase 5's collapsed "
+                     f"decode: {len(results) - same} utterances, PER "
+                     f"{per_b} vs {per}")
+            routes[backend] = dict(decode_ms=ms, audio_s_per_s=audio_s / ms
+                                   * 1e3, per=per_b, launches=launches)
+        auto_irr = ViterbiDecoder(irr, pip=20.0, lmw=1.0, device=dev)
+        if auto_irr.backend != "pallas":
+            fail(f"auto on the irregular-end image took {auto_irr.backend!r}"
+                 f", not 'pallas'")
+        untied = make_synthetic_image(num_phones=PHONES, num_states=CLASSES)
+        auto_untied = ViterbiDecoder(untied, pip=20.0, lmw=1.0, device=dev)
+        if auto_untied.backend != "xla":
+            fail(f"auto on the untied image took {auto_untied.backend!r}, "
+                 f"not 'xla'")
+        res_u, ms_u, launches_u = timed_decode(torch, auto_untied, lp,
+                                               offsets)
+        if any(launches_u.values()) or not all(r.segments for r in res_u):
+            fail(f"untied decode: launches {launches_u}, "
+                 f"{sum(not r.segments for r in res_u)} empty utterances")
+        routes["untied auto -> xla"] = dict(
+            decode_ms=ms_u, audio_s_per_s=audio_s / ms_u * 1e3,
+            segments=sum(len(r.segments) for r in res_u))
+        # the cube twin against the general twin on the same cube image
+        # and phase 4's inputs: the same bits, and each one's time
+        twins, twin_ms = {}, {}
+        for tag, order in (("cube", auto_untied._cube_order),
+                           ("general", None)):
+            with mock.patch.object(auto_untied, "_cube_order", order):
+                twins[tag] = auto_untied._forward_scan(lp_rand)
+                twin_ms[tag] = cuda_ms(
+                    torch, lambda: auto_untied._forward_scan(lp_rand), 1,
+                    warm=False)
+        if not all(torch.equal(a, b) for a, b in zip(twins["cube"],
+                                                     twins["general"])):
+            fail("the cube and general scan twins differ on the untied image")
+        del twins
+    log("[backends] phase 5's posteriors, " + "; ".join(
+        f"{k}: decode {v['decode_ms']:.1f} ms, {v['audio_s_per_s']:.1f} "
+        f"audio-s/s" for k, v in routes.items())
+        + f"; pallas and xla give phase 5's segments and PER ({per:.2f} %); "
+        f"auto picks pallas on the irregular-end image, xla on the untied "
+        f"one [{card}]")
+    log(f"[scan twins] untied image, phase 4's inputs: cube twin "
+        f"{twin_ms['cube']:.1f} ms, general twin {twin_ms['general']:.1f} "
+        f"ms, bit-equal [{card}]")
+    phase_done(23)
+
+    # ---- 24. the fbank kernel against its plain version ----------------
+    n_frames = int(lengths.sum())
+    rng = np.random.default_rng(24)
+    wave = torch.from_numpy((rng.standard_normal(
+        400 + (n_frames - 1) * 160) * 0.1).astype(np.float32)).to(dev)
+    fr = features.frame_signal(wave)
+    fb = {}
+    for kw in (False, True):
+        got = features.fbank_cuda(wave, kaldi_weights=kw)
+        want = features.fbank(wave, kaldi_weights=kw)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if got.shape != (n_frames, 40) or not err <= 1e-3:
+            fail(f"fbank kernel (kaldi_weights={kw}) differs from its plain "
+                 f"version by {err} (tolerance 1e-3), shape "
+                 f"{tuple(got.shape)}")
+        fb[kw] = err
+    fb_ms = cuda_ms(torch, lambda: features.fbank_frames(fr), 10)
+    fb_plain_ms = cuda_ms(torch, lambda: features.fbank_frames_reference(fr),
+                          10)
+    fb_full_ms = cuda_ms(torch, lambda: features.fbank_cuda(wave), 10)
+    # the least work of the function, not of the TPU kernel's dense DFT
+    # products: a 512-point real FFT (2.5 N log2 N flops), the window,
+    # the power (3 a bin), the mel bank's nonzeros (2 each) and the log
+    mel_nz = max(int(np.count_nonzero(features.mel_filterbank(
+        kaldi_weights=kw))) for kw in (False, True))
+    fb_ops = n_frames * (2.5 * 512 * 9 + 400 + 3 * 257 + 2 * mel_nz + 2 * 40)
+    fb_bytes = n_frames * (400 + 40) * 4 + (400 + 257 * 40) * 4
+    fb_bound, fb_by = bound(fb_bytes, fb_ops, F32_FLOPS)
+    log(f"[fbank] {n_frames} frames ({wave.numel() / 16000:.1f} s at 16 kHz):"
+        f" max |kernel - plain| {fb[False]:.3e} (HTK bins), {fb[True]:.3e} "
+        f"(Kaldi weights), tolerance 1e-3; kernel {fb_ms:.3f} ms (with "
+        f"framing {fb_full_ms:.3f}), plain {fb_plain_ms:.3f} ms, bound "
+        f"{fb_bound:.4f} ms ({fb_by}) [{card}]")
+    del wave, fr
+    phase_done(24)
+
+    # ---- 25. the raw-audio serving slice -------------------------------
+    waves = [(rng.standard_normal(400 + (int(t) - 1) * 160) * 0.1
+              ).astype(np.float32) for t in lengths]
+    net = get_network("lstm", LAYERS, [H_MAIN], CLASSES, in_dim=DIM,
+                      scan_impl="pallas", device=dev)
+    net.load_state_dict(load_jax_params(numpy_lstm_params(0), device=dev))
+    dec = decs["exact"]
+    ap = corpus.log_priors
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_audio_") as tmp:
+        ref_path = Path(tmp, "test_ref.mlf")
+        write_mlf(str(ref_path), corpus.ref_mlf["test"])
+        ref = load_mlf(str(ref_path))
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fbs = [features.fbank_cuda(w) for w in waves]
+        x = torch.cat([features.cmn(f) for f in fbs]).cpu().numpy()
+        t1 = time.perf_counter()
+        lp_a = rnn_log_posteriors(net, x, offsets, ap=ap, batch=B_MAIN)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        res_a = decode_corpus(dec, lp_a, offsets, batch=B_MAIN)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        per_a = per_of(corpus, res_a, Path(tmp, "kernel.mlf"), ref)
+        t4 = time.perf_counter()
+        launches = dict(kernels.launches)
+        log(f"[audio slice] main-path launches: {launches}")
+        for name in ("fbank", "lstm_scan", "cube_viterbi_forward"):
+            if launches.get(name, 0) <= 0:
+                fail(f"the raw-audio path did not launch {name}")
+        if x.shape != (n_frames, DIM) or not np.isfinite(lp_a).all():
+            fail(f"raw-audio features {x.shape} or posteriors malformed")
+        if not all(r.segments for r in res_a):
+            fail("an utterance decoded to no segments (raw-audio slice)")
+        stages = {"features_ms": (t1 - t0) * 1e3,
+                  "posteriors_ms": (t2 - t1) * 1e3,
+                  "decode_ms": (t3 - t2) * 1e3, "mlf_per_ms": (t4 - t3) * 1e3}
+        tput = audio_s / (t4 - t0)
+        log(f"[audio slice] LSTM {LAYERS}x{H_MAIN} -> {CLASSES} on fbank+CMN "
+            f"of {len(waves)} waveforms ({audio_s:.2f} audio-s): PER "
+            f"{per_a:.2f} %, {tput:.1f} audio-s/s; " + ", ".join(
+                f"{k} {v:.1f}" for k, v in stages.items()) + f" [{card}]")
+
+        # the plain route: plain fbank, plain LSTM; then the plain cube
+        # Viterbi on the kernel run's posteriors
+        before = dict(kernels.launches)
+        fbs_plain = [features.fbank(torch.from_numpy(w).to(dev))
+                     for w in waves]
+        # the kernel's own output against its plain version, before CMN
+        # (which would cancel a constant per-bin offset)
+        fb_main_err = max(float((f - g).abs().max())
+                          for f, g in zip(fbs, fbs_plain))
+        if not fb_main_err <= 1e-3:
+            fail(f"raw-audio fbank kernel differs from its plain version by "
+                 f"{fb_main_err} (tolerance 1e-3)")
+        x_plain = torch.cat([features.cmn(f) for f in fbs_plain]
+                            ).cpu().numpy()
+        del fbs, fbs_plain
+        with mock.patch.object(networks, "lstm_scan", lstm_scan_reference):
+            lp_plain = rnn_log_posteriors(net, x_plain, offsets, ap=ap,
+                                          batch=B_MAIN)
+        if dict(kernels.launches) != before:
+            fail("the plain raw-audio route launched a kernel")
+        feat_err = float(np.abs(x - x_plain).max())
+        post_err = float(np.abs(lp_a - lp_plain).max())
+        if not post_err <= POSTERIOR_ATOL:
+            fail(f"raw-audio posteriors differ from the plain route's by "
+                 f"{post_err} (tolerance {POSTERIOR_ATOL})")
+        with mock.patch.object(vcube, "cube_viterbi_forward",
+                               vcube.cube_viterbi_reference):
+            res_p = decode_corpus(dec, lp_a, offsets, batch=B_MAIN)
+        per_p = per_of(corpus, res_p, Path(tmp, "plain.mlf"), ref)
+        same = sum(a.segments == b.segments for a, b in zip(res_a, res_p))
+        if same != len(res_a) or per_p != per_a:
+            fail(f"raw-audio slice: plain cube decode differs: "
+                 f"{len(res_a) - same} utterances, PER {per_p} vs {per_a}")
+        log(f"[audio slice] plain route: fbank within {fb_main_err:.3e} "
+            f"(tolerance 1e-3), features after CMN within {feat_err:.3e}, "
+            f"posteriors within {post_err:.3e} (tolerance {POSTERIOR_ATOL});"
+            f" plain cube Viterbi: segments of all {same} utterances and PER"
+            f" identical")
+    del net
+    phase_done(25)
+
+    report["decoder_audio"] = dict(
+        cube=cube, cube_bound_ms=cube_bound, cube_state_mb=state_mb,
+        routes=routes, scan_twin_ms=twin_ms,
+        fbank=dict(err=fb, ms=fb_ms, full_ms=fb_full_ms, plain_ms=fb_plain_ms,
+                   bound_ms=fb_bound),
+        audio_slice=dict(per=per_a, audio_s=audio_s, audio_s_per_s=tput,
+                         fbank_err=fb_main_err, feature_err=feat_err,
+                         posterior_err=post_err,
+                         launches=launches, **stages),
+        phase_s=phase_s)
+    return [
+        {"name": "cube_viterbi_forward", "route": "cuda",
+         "source": "nnacousticmodeling_tpu_torch/csrc/viterbi_cube.cu",
+         "replaces": "nnacousticmodeling_tpu/decoder/viterbi_pallas.py:255",
+         "launches": launches["cube_viterbi_forward"],
+         "max_abs_err": cube["exact"]["err"], "tolerance": 0.0,
+         "ms": cube["exact"]["ms"], "plain_ms": cube["exact"]["plain_ms"],
+         "bound_ms": cube_bound, "bound_by": cube_by, "library_ms": None},
+        {"name": "fbank", "route": "cuda",
+         "source": "nnacousticmodeling_tpu_torch/csrc/fbank.cu",
+         "replaces": "nnacousticmodeling_tpu/ops/features.py:210",
+         "launches": launches["fbank"],
+         "max_abs_err": max(fb_main_err, *fb.values()),
+         "tolerance": 1e-3, "ms": fb_ms, "plain_ms": fb_plain_ms,
+         "bound_ms": fb_bound, "bound_by": fb_by, "library_ms": None},
+    ]
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -1540,7 +1883,7 @@ def main():
     log(f"[viterbi] bound {vit_bound:.3f} ms ({vit_by}); the design's DP "
         f"state traffic alone is {state_bytes / 1e9:.1f} GB = "
         f"{state_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at the HBM rate")
-    del lp_rand, mask
+    del mask
 
     # ---- 5. the slice --------------------------------------------------
     t0 = time.perf_counter()
@@ -1631,6 +1974,9 @@ def main():
     gated_kernels = gated_phases(torch, np, dev, card, corpus, dec, report)
     peephole_kernels = peephole_phases(torch, np, dev, card, corpus, dec, lp,
                                        report)
+    decoder_audio_kernels = decoder_audio_phases(
+        torch, np, dev, card, img, corpus, lp_rand, lens, lp, results, per,
+        stages["decode_ms"], report)
 
     report.update(
         lstm=dict(err=lstm_err, ms=lstm_ms, plain_ms=lstm_plain_ms,
@@ -1655,7 +2001,8 @@ def main():
          "max_abs_err": vit["exact"]["err"], "tolerance": 0.0,
          "ms": vit["exact"]["ms"], "plain_ms": vit["exact"]["plain_ms"],
          "bound_ms": vit_bound, "bound_by": vit_by, "library_ms": None},
-    ] + train_kernels + gated_kernels + peephole_kernels}
+    ] + train_kernels + gated_kernels + peephole_kernels
+        + decoder_audio_kernels}
     report["kernels"] = kernels_line["kernels"]
     report["total_s"] = time.perf_counter() - t_start
     print(f"[report] {json.dumps(report)}", file=sys.stderr)

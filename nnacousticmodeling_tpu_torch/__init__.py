@@ -9,16 +9,19 @@ modules.
 Subpackages
 -----------
 io        artifact I/O: .npy corpora, MLF, Kaldi files, phone maps
-ops       splice, numerics, time delay, and the hand-written LSTM and
-          GRU / minimal-GRU recurrence kernels (inference; training
-          forward, backward, dW)
-models    LSTM, GRU and MGRU cells and stacks as ``nn.Module``s, bf16
-          compute
+ops       splice, numerics, time delay, raw-audio features (fbank,
+          MFCC, CMN) with the hand-written fbank kernel, and the
+          hand-written recurrence kernels of the LSTM, GRU / minimal GRU
+          and peephole LSTM (inference; training forward, backward, dW)
+models    LSTM, zoneout / peephole LSTM, GRU and MGRU cells and stacks
+          as ``nn.Module``s, bf16 compute
 train     staged TBPTT engine, optimizers, schedules, stream layout, and
           ``.npz`` checkpoints under the JAX package's keys
 infer     bucketed posterior inference
-decoder   HMM image I/O, collapsed Viterbi kernel + backtrace, PER
-pipeline  single-model evaluation and training CLIs
+decoder   HMM image I/O, the collapsed and dense-cube Viterbi kernels,
+          the scan twins, the backtrace, PER
+pipeline  single-model evaluation and training CLIs, the synthetic
+          corpus generator
 
 Devices: entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; without a card and without that request they raise.

@@ -1,11 +1,20 @@
 """Batched triphone Viterbi decoding on the card.
 
 Counterpart of ``nnacousticmodeling_tpu/decoder/viterbi.py``: a twin of
-the native recognizer's token passing (phone_recog.cpp:138-254). This
-slice ports the right-context-collapsed backend, the one the JAX decoder
-takes first whenever the image allows it: the forward pass runs in
-``viterbi_collapsed`` (CUDA kernel for CUDA tensors, plain version for
-CPU tensors) and the backtrace runs on the same device, batched over
+the native recognizer's token passing (phone_recog.cpp:138-254) with the
+JAX decoder's three backends:
+
+* ``collapsed``: the right-context-collapsed forward of
+  ``viterbi_collapsed`` (CUDA kernel for CUDA tensors, plain version for
+  CPU tensors), the fastest whenever the image allows it;
+* ``pallas``: the dense-cube forward of ``viterbi_cube`` (likewise), for
+  cube images the collapsed kernel refuses;
+* ``xla``: the scan twins ``_forward_scan_cube`` (cube images) and
+  ``_forward_scan`` (any image), plain PyTorch on the device, batched
+  over utterances with a Python loop over frames. The JAX package runs
+  them in XLA, outside any kernel.
+
+Every backend's backtrace runs on the same device, batched over
 utterances, with no host round-trip per frame.
 
 Decode-relevant quirks preserved: initial mass ``lm[start_p] - log(P)``
@@ -17,6 +26,7 @@ entry times recorded as ``k-1`` (:173), segment boundaries emitted as
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -25,10 +35,12 @@ import torch
 
 from ..utils.device import resolve_device
 from .image import HmmImage
-from .viterbi_collapsed import CollapsedViterbi, UnsupportedImage
+from .viterbi_collapsed import NEG_INF, CollapsedViterbi, UnsupportedImage
+from .viterbi_cube import CubeViterbi
 
 TIME_PACK = 2048    # minimum packing: (a* or tri) * pack + (t_entry + 1);
                     # grows per decode as the next power of two > T+1
+BACKENDS = ("auto", "collapsed", "pallas", "xla")
 #: host checks for finished backtraces once per this many hops
 _BACKTRACE_SYNC_EVERY = 16
 
@@ -44,15 +56,38 @@ class DecodeResult:
         return [p for _, _, p in self.segments]
 
 
+def _first_max(x: torch.Tensor, dim: int) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """(max, index of its first occurrence) along ``dim``."""
+    mx = x.amax(dim=dim, keepdim=True)
+    n = x.shape[dim]
+    shape = [1] * x.dim()
+    shape[dim] = n
+    iota = torch.arange(n, device=x.device).reshape(shape)
+    arg = torch.where(x == mx, iota, n).amin(dim=dim)
+    return mx.squeeze(dim), arg
+
+
 class ViterbiDecoder:
     """Decodes log-posterior matrices into phone segmentations on
     ``device`` (default ``cuda``).
 
-    ``backend``: ``"auto"`` and ``"collapsed"`` both take the
-    right-context-collapsed kernel. The JAX package's other backends
-    (the dense-cube kernel and the XLA scan path) are not ported yet:
-    asking for them, or decoding an image the collapsed kernel refuses,
-    raises ``NotImplementedError`` instead of picking another path.
+    ``backend``: ``"auto"`` picks, in order, the collapsed kernel, the
+    dense-cube kernel, then the scan twin, degrading only when a
+    kernel's constructor refuses the image (``UnsupportedImage``), as
+    the JAX decoder does on a TPU. ``"collapsed"`` / ``"pallas"`` force
+    their kernel and re-raise its refusal; ``"xla"`` forces the scan
+    twin. The ``NNAM_VITERBI_BACKEND`` environment variable overrides
+    ``"auto"``. As in the JAX package, an image that is not a dense cube
+    decodes through the scan twin whatever the request. ``backend``
+    names the choice, made once from the image's structure: a kernel
+    that fails to build or launch raises, it never hands over to the
+    twin.
+
+    One deliberate difference: off the JAX package's TPU, its ``"auto"``
+    is always the scan path; here ``"auto"`` takes the same kernel on
+    the CPU as on the card, and CPU tensors run that kernel's plain
+    version.
     """
 
     def __init__(self, image: HmmImage, pip: float = 20.0, lmw: float = 1.0,
@@ -68,39 +103,67 @@ class ViterbiDecoder:
         # below (frame max - beam) clamp to NEG_INF, the native decoder's
         # rule. None/<=0 disables.
         self.beam = float(beam) if beam is not None and beam > 0 else None
-        if image.num_triphones * TIME_PACK >= 2 ** 31:
+        img = image
+        if img.num_triphones * TIME_PACK >= 2 ** 31:
             raise ValueError("image too large for packed backpointers")
-        self._end_idxs = torch.as_tensor(np.asarray(image.end_idxs),
-                                         dtype=torch.int64,
-                                         device=self.device)
-        if backend not in ("auto", "collapsed"):
-            raise NotImplementedError(
-                f"decoder backend {backend!r} is not ported yet (ROADMAP "
-                f"Queue 2: the dense-cube kernel; Queue 1 item 4: the XLA "
-                f"scan twins)")
+        self.max_frames = 2 ** 31 // img.num_triphones - 2
+
+        dev = self.device
+        as_t = lambda a, dt: torch.as_tensor(  # noqa: E731
+            np.asarray(a), dtype=dt, device=dev)
+        self._biphone_in = as_t(img.biphone_in, torch.int64)      # (T3,)
+        self._state_idxs = as_t(img.state_idxs, torch.int64)      # (T3, 3)
+        self._tp_self = as_t(img.tp_selfloop, torch.float32)      # (T3, 3)
+        self._tp_trans = as_t(img.tp_transition, torch.float32)   # (T3, 3)
+        self._lm = as_t(img.lm * np.float32(lmw), torch.float32)  # (B,)
+        fanin = img.dense_fanin()                         # (B, F), -1 pad
+        self._fanin = as_t(np.maximum(fanin, 0), torch.int64)
+        self._fanin_valid = as_t(fanin >= 0, torch.bool)
+        self._fanin_any = as_t(fanin.max(axis=1) >= 0, torch.bool)
+        self._end_idxs = as_t(img.end_idxs, torch.int64)          # (P,)
+        # initial biphone scores: lm[start_p] - log(P) on start biphones
+        p0 = np.full(img.num_biphones, NEG_INF, dtype=np.float32)
+        lmw_lm = img.lm * np.float32(lmw)
+        for p in range(img.num_phones):
+            p0[img.start_idxs[p]] = lmw_lm[img.start_idxs[p]] - np.log(
+                np.float32(img.num_phones))
+        self._p0 = as_t(p0, torch.float32)
+
         self._cube_order = self._detect_cube_order()
-        if self._cube_order is None:
-            raise NotImplementedError(
-                "image is not a dense triphone cube; the general-image XLA "
-                "scan twin (_forward_scan) is not ported yet (ROADMAP "
-                "Queue 1 item 4)")
-        try:
-            self._collapsed_fwd = CollapsedViterbi(
-                image, self._cube_order, pip=self.pip, lmw=lmw,
-                beam=self.beam, device=self.device)
-        except UnsupportedImage as e:
-            raise NotImplementedError(
-                f"the collapsed kernel refuses this image ({e}); its "
-                f"fallbacks, the dense-cube kernel and the XLA scan twin "
-                f"_forward_scan_cube, are not ported yet (ROADMAP Queue 2 "
-                f"kernel 11, Queue 1 item 4)") from e
-        self.backend = "collapsed"
+        if backend == "auto":
+            backend = os.environ.get("NNAM_VITERBI_BACKEND", "auto")
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown decoder backend {backend!r}; one of "
+                             f"{BACKENDS}")
+        self.backend = "xla"
+        self._collapsed_fwd: Optional[CollapsedViterbi] = None
+        self._pallas_fwd: Optional[CubeViterbi] = None
         self._collapsed_long: Dict[int, CollapsedViterbi] = {}
+        if backend != "xla" and self._cube_order is not None:
+            if backend in ("collapsed", "auto"):
+                try:
+                    self._collapsed_fwd = CollapsedViterbi(
+                        image, self._cube_order, pip=self.pip, lmw=lmw,
+                        beam=self.beam, device=dev)
+                    self.backend = "collapsed"
+                except UnsupportedImage:
+                    if backend == "collapsed":
+                        raise
+            if self._collapsed_fwd is None and backend in ("pallas", "auto"):
+                try:
+                    self._pallas_fwd = CubeViterbi(
+                        image, self._cube_order, pip=self.pip, lmw=lmw,
+                        beam=self.beam, device=dev)
+                    self.backend = "pallas"
+                except UnsupportedImage:
+                    if backend == "pallas":
+                        raise
 
     # ------------------------------------------------------------------
     @staticmethod
     def _grow_pack(t: int) -> int:
-        """Smallest power-of-two pack > t+1 (>= TIME_PACK)."""
+        """Smallest power-of-two pack > t+1 (>= TIME_PACK), the one
+        packing-growth rule shared by every backend."""
         pack = TIME_PACK
         while pack <= t + 1:
             pack *= 2
@@ -116,8 +179,23 @@ class ViterbiDecoder:
                 f"packed-backpointer ceiling; split the utterance")
         return pack
 
+    def _time_pack_for(self, t: int) -> int:
+        """Pack factor for a T-frame cube or scan decode: whole triphone
+        ids are packed, so the ceiling is num_triphones * pack."""
+        pack = self._grow_pack(t)
+        if self.image.num_triphones * pack >= 2 ** 31:
+            raise ValueError(
+                f"utterance of {t} frames exceeds the packed-backpointer "
+                f"ceiling ({self.max_frames} frames for this image); "
+                f"split the utterance")
+        return pack
+
     def _validate_frames(self, t: int) -> None:
-        self._collapsed_pack_for(t)
+        """Frame-count ceiling for the backend that will decode."""
+        if self._collapsed_fwd is not None:
+            self._collapsed_pack_for(t)
+        else:
+            self._time_pack_for(t)
 
     def _collapsed_for_t(self, t: int) -> CollapsedViterbi:
         """Collapsed instance whose pack factor covers ``t`` frames (the
@@ -152,30 +230,161 @@ class ViterbiDecoder:
                 return order
         return None
 
-    # ------------------------------------------------------------------
-    def _collapsed_backtrace(self, packed: torch.Tensor,
-                             end_scores: torch.Tensor,
-                             lengths: torch.Tensor):
-        """Backtrace over the collapsed per-lane ``a* * pack + t_entry +
-        1`` backpointers, all utterances at once on their device.
-
-        The walk always knows the real biphone it traces (the first hop
-        starts from an end biphone, each hop's predecessor is (a*,
-        center)), so the triphone id is rebuilt arithmetically. Returns
-        segs (U, T, 3) int32 [begin, end, triphone] filled from index 0
-        = LAST segment, and counts (U,). At most max(lengths) hops; the
-        host checks for completion once every few hops, not per hop.
-        """
+    # ---- the scan twins ---------------------------------------------
+    def _cube_obs(self, lp_k: torch.Tensor) -> torch.Tensor:
+        """(U, S) posteriors of one frame -> (U, P, P, P, 3) observation
+        cube in the image's triphone order. The JAX package expands a
+        tied-pdf table with a one-hot einsum at HIGHEST precision, which
+        is bit-equal to this gather."""
         P = self.image.num_phones
+        return lp_k[:, self._state_idxs].reshape(-1, P, P, P, 3)
+
+    def _forward_scan_cube(self, lp: torch.Tensor, order: str
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Cube twin: (U, T, S) -> packed (U, T, B) int32 ``tri * pack +
+        t_entry + 1`` in original biphone order, end scores (U, T, P).
+
+        Cube axes are [i0, i1, i2] where (left, center) come from the
+        order: 'abc' -> (i0, i1), a-axis = i0; 'bac' -> (i1, i0), a-axis
+        = i1. The export biphone is always (center, right); the first
+        max over the left-context axis is the CSR order because triphone
+        ids ascend with the left context within each (center, right).
+        It gives the general twin's bits; it exists because broadcasting
+        over the cube beats the general twin's index gathers (1.23x on a
+        48-phone cube on an H100, PERF.md).
+        """
+        U, T, _ = lp.shape
+        P = self.image.num_phones
+        pack = self._time_pack_for(T)
+        dev = lp.device
+        a_axis = 1 if order == "abc" else 2        # batch axis 0
+        cube = (U, P, P, P)
+        tp_self = self._tp_self.reshape(P, P, P, 3)
+        tp_trans = self._tp_trans.reshape(P, P, P, 3)
+        lm = self._lm.reshape(P, P)                # [center, right]
+        pip = torch.tensor(self.pip, dtype=torch.float32, device=dev)
+        iota = torch.arange(P, device=dev)
+        if order == "abc":
+            tri_rest = (iota[:, None] * P + iota[None, :]).to(torch.int32)
+        else:
+            tri_rest = (iota[:, None] * (P * P) + iota[None, :]
+                        ).to(torch.int32)
+        a_scale = P * P if order == "abc" else P
+
+        p_mat = self._p0.reshape(P, P).expand(U, P, P)   # [first, second]
+        pp = [torch.full(cube, NEG_INF, dtype=torch.float32, device=dev)
+              for _ in range(3)]
+        tt = [torch.zeros(cube, dtype=torch.int32, device=dev)
+              for _ in range(3)]
+        packed = torch.empty((U, T, P * P), dtype=torch.int32, device=dev)
+        end = torch.empty((U, T, P), dtype=torch.float32, device=dev)
+        for k in range(T):
+            # p_mat is [left, center]; broadcast over the right context
+            p_in = (p_mat if order == "abc" else p_mat.transpose(1, 2)
+                    )[..., None] + pip
+            obs = self._cube_obs(lp[:, k])
+            go = (p_in.expand(cube), pp[0] + tp_trans[..., 0],
+                  pp[1] + tp_trans[..., 1])
+            t_go = (torch.full(cube, k - 1, dtype=torch.int32, device=dev),
+                    tt[0], tt[1])
+            new_pp, new_tt = [], []
+            for s in range(3):
+                stay = pp[s] + tp_self[..., s]
+                take = go[s] > stay
+                new_pp.append(torch.where(take, go[s], stay) + obs[..., s])
+                new_tt.append(torch.where(take, t_go[s], tt[s]))
+            pp, tt = new_pp, new_tt
+
+            out_score = pp[2] + tp_trans[..., 2]
+            mx, arg_a = _first_max(out_score, a_axis)       # (U, P, P)
+            best_t = tt[2].gather(a_axis, arg_a.unsqueeze(a_axis)
+                                  ).squeeze(a_axis)
+            tri = arg_a.to(torch.int32) * a_scale + tri_rest
+            p_new = mx + lm                                 # [b, c]
+            if self.beam is not None:
+                rowmax = p_new.amax(dim=(1, 2), keepdim=True)
+                p_new = torch.where(p_new >= rowmax - self.beam, p_new,
+                                    torch.tensor(NEG_INF, device=dev))
+            packed[:, k] = (tri * pack + (best_t + 1)).reshape(U, -1)
+            end[:, k] = p_new.reshape(U, -1)[:, self._end_idxs]
+            p_mat = p_new
+        return packed, end
+
+    def _forward_scan(self, lp: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Scan twin: (U, T, S) -> packed (U, T, B) int32 ``tri * pack +
+        t_entry + 1`` and end scores (U, T, P), every frame of every
+        utterance (rows past an utterance's length are never read)."""
+        if self._cube_order is not None:
+            return self._forward_scan_cube(lp, self._cube_order)
+        U, T, _ = lp.shape
+        dev = lp.device
+        t3 = self.image.num_triphones
+        pack = self._time_pack_for(T)
+        pip = torch.tensor(self.pip, dtype=torch.float32, device=dev)
+        neg = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
+        rows = torch.arange(U, device=dev)[:, None]
+
+        p = self._p0.expand(U, -1)
+        pp = [torch.full((U, t3), NEG_INF, dtype=torch.float32, device=dev)
+              for _ in range(3)]
+        tt = [torch.zeros((U, t3), dtype=torch.int32, device=dev)
+              for _ in range(3)]
+        packed = torch.empty((U, T, self.image.num_biphones),
+                             dtype=torch.int32, device=dev)
+        end = torch.empty((U, T, self.image.num_phones), dtype=torch.float32,
+                          device=dev)
+        for k in range(T):
+            p_in = p[:, self._biphone_in] + pip                    # (U, T3)
+            obs = lp[:, k][:, self._state_idxs]                    # (U, T3, 3)
+            go = (p_in, pp[0] + self._tp_trans[:, 0],
+                  pp[1] + self._tp_trans[:, 1])
+            t_go = (torch.full((U, t3), k - 1, dtype=torch.int32,
+                               device=dev), tt[0], tt[1])
+            new_pp, new_tt = [], []
+            for s in range(3):
+                stay = pp[s] + self._tp_self[:, s]
+                take = go[s] > stay                     # strict >, C++ :181
+                new_pp.append(torch.where(take, go[s], stay) + obs[..., s])
+                new_tt.append(torch.where(take, t_go[s], tt[s]))
+            pp, tt = new_pp, new_tt
+
+            # export: max over each out-biphone's feeding triphones
+            out_score = pp[2] + self._tp_trans[:, 2]                # (U, T3)
+            gathered = torch.where(self._fanin_valid,
+                                   out_score[:, self._fanin], neg)  # (U, B, F)
+            mx, col = _first_max(gathered, 2)      # first max = CSR order
+            best_i = torch.where(
+                self._fanin_any,
+                self._fanin.expand(U, -1, -1).gather(2, col[..., None])[..., 0],
+                0)                                 # C++ default mxi = 0
+            p_new = mx + self._lm
+            if self.beam is not None:
+                rowmax = p_new.amax(dim=1, keepdim=True)
+                p_new = torch.where(p_new >= rowmax - self.beam, p_new, neg)
+            best_t = tt[2][rows, best_i]
+            packed[:, k] = best_i.to(torch.int32) * pack + (best_t + 1)
+            end[:, k] = p_new[:, self._end_idxs]
+            p = p_new
+        return packed, end
+
+    # ---- backtraces ---------------------------------------------------
+    def _walk(self, packed: torch.Tensor, end_scores: torch.Tensor,
+              lengths: torch.Tensor, end_map: torch.Tensor, lane_of, step):
+        """The backtrace loop of every backend (C++ :224-244), all
+        utterances at once on their device. The walk starts at the end
+        of ``end_map[first max of the last end row]``; each hop reads
+        ``packed[t, lane_of(cur)]`` and ``step(entry, cur)`` gives
+        (triphone, entry time, next ``cur``). Returns segs (U, T, 3)
+        int32 [begin, end, triphone] filled from index 0 = LAST segment,
+        and counts (U,). At most max(lengths) hops; the host checks for
+        completion once every few hops, not per hop."""
         U, T, _ = packed.shape
-        # the pack factor of the instance that PRODUCED these rows
-        pack = self._collapsed_for_t(T).pack
-        bi2lane = self._collapsed_fwd.bi2lane
         dev = packed.device
         lengths = lengths.to(device=dev, dtype=torch.int64)
         rows = torch.arange(U, device=dev)
         last = end_scores[rows, (lengths - 1).clamp(min=0)]      # (U, P)
-        bi = self._end_idxs[last.argmax(dim=1)]   # first max wins
+        cur = end_map[last.argmax(dim=1)]                # first max wins
         t = lengths - 1
         k = torch.zeros(U, dtype=torch.int64, device=dev)
         segs = torch.zeros((U, T, 3), dtype=torch.int32, device=dev)
@@ -184,24 +393,68 @@ class ViterbiDecoder:
             if hop % _BACKTRACE_SYNC_EVERY == 0 and not bool((t >= 0).any()):
                 break
             active = t >= 0
-            entry = packed[rows, t.clamp(min=0), bi2lane[bi]].long()
+            entry = packed[rows, t.clamp(min=0), lane_of(cur)].long()
+            tri, t_new, nxt = step(entry, cur)
+            row = torch.stack([t_new + 1, t + 1, tri], dim=1).to(torch.int32)
+            slot = k.clamp(max=T - 1)
+            segs[rows, slot] = torch.where(active[:, None], row,
+                                           segs[rows, slot])
+            cur = torch.where(active, nxt, cur)
+            k = k + active.long()
+            # degenerate guard: the native decoder loops forever when no
+            # complete path exists (< 3 frames); this walk stops instead
+            t = torch.where(active, torch.where(t_new >= t, minus1, t_new), t)
+        return segs, k
+
+    def _device_backtrace(self, packed, end_scores, lengths, end_map=None,
+                          bi_map=None):
+        """Backtrace over ``tri * pack + t_entry + 1`` rows. ``end_map``
+        / ``bi_map`` translate (end phone -> packed lane) and (triphone
+        -> predecessor lane); they default to the original biphone
+        indexing of the scan twins, and the cube kernel supplies its
+        right-major lane maps."""
+        pack = self._time_pack_for(packed.shape[1])
+        bi_map = self._biphone_in if bi_map is None else bi_map
+        end_map = self._end_idxs if end_map is None else end_map
+
+        def step(entry, cur):
+            tri = torch.div(entry, pack, rounding_mode="floor")
+            return tri, torch.remainder(entry, pack) - 1, bi_map[tri]
+
+        return self._walk(packed, end_scores, lengths, end_map,
+                          lambda cur: cur, step)
+
+    def _pallas_backtrace(self, packed, end_scores, lengths):
+        """Backtrace over the cube kernel's right-major packed rows."""
+        return self._device_backtrace(
+            packed, end_scores, lengths, end_map=self._pallas_fwd.end_lane,
+            bi_map=self._pallas_fwd.bi_in_lane)
+
+    def _collapsed_backtrace(self, packed, end_scores, lengths):
+        """Backtrace over the collapsed per-lane ``a* * pack + t_entry +
+        1`` rows. The collapsed lane loses the right context, but the
+        walk always knows the real biphone it traces (the first hop
+        starts from an end biphone, each hop's predecessor is (a*,
+        center)), so the triphone id is rebuilt arithmetically."""
+        P = self.image.num_phones
+        # the pack factor of the instance that PRODUCED these rows
+        pack = self._collapsed_for_t(packed.shape[1]).pack
+        bi2lane = self._collapsed_fwd.bi2lane
+
+        def step(entry, bi):
             a = torch.div(entry, pack, rounding_mode="floor")
-            t_new = torch.remainder(entry, pack) - 1
             b = torch.div(bi, P, rounding_mode="floor")
             cc = torch.remainder(bi, P)
             if self._cube_order == "bac":
                 tri = b * (P * P) + a * P + cc
             else:
                 tri = a * (P * P) + b * P + cc
-            row = torch.stack([t_new + 1, t + 1, tri], dim=1).to(torch.int32)
-            slot = k.clamp(max=T - 1)
-            segs[rows, slot] = torch.where(active[:, None], row,
-                                           segs[rows, slot])
-            bi = torch.where(active, a * P + b, bi)
-            k = k + active.long()
-            t = torch.where(active, torch.where(t_new >= t, minus1, t_new), t)
-        return segs, k
+            return tri, torch.remainder(entry, pack) - 1, a * P + b
 
+        return self._walk(packed, end_scores, lengths, self._end_idxs,
+                          lambda bi: bi2lane[bi], step)
+
+    # ------------------------------------------------------------------
     def _to_results(self, segs: np.ndarray, counts: np.ndarray
                     ) -> List[DecodeResult]:
         names = self.image.phone_names
@@ -214,10 +467,20 @@ class ViterbiDecoder:
         return out
 
     def _decode_arrays(self, lp: torch.Tensor, lengths: torch.Tensor):
-        """Forward + backtrace on the device -> (segs, counts) tensors."""
-        ck = self._collapsed_for_t(lp.shape[1])
-        packed, end_scores = ck.forward(lp, lengths)
-        return self._collapsed_backtrace(packed, end_scores, lengths)
+        """Forward + backtrace on the device -> (segs, counts) tensors.
+        The collapsed kernel covers any length through per-pack
+        instances; the cube kernel packs whole triphone ids at the fixed
+        minimum factor, so longer utterances take the scan twin, as in
+        the JAX package."""
+        if self._collapsed_fwd is not None:
+            ck = self._collapsed_for_t(lp.shape[1])
+            packed, end_scores = ck.forward(lp, lengths)
+            return self._collapsed_backtrace(packed, end_scores, lengths)
+        if self._pallas_fwd is not None and lp.shape[1] < TIME_PACK - 1:
+            packed, end_scores = self._pallas_fwd.forward(lp, lengths)
+            return self._pallas_backtrace(packed, end_scores, lengths)
+        packed, end_scores = self._forward_scan(lp)
+        return self._device_backtrace(packed, end_scores, lengths)
 
     def _as_input(self, log_probs, lengths):
         lp = torch.as_tensor(log_probs, dtype=torch.float32,

@@ -46,7 +46,8 @@ CAP = 8
 
 
 class UnsupportedImage(ValueError):
-    """The image lacks the structure the collapsed kernel relies on."""
+    """The image lacks the structure a Viterbi kernel relies on (raised by
+    both the collapsed and the dense-cube kernel's constructors)."""
 
 
 def _ceil(x: int, m: int) -> int:

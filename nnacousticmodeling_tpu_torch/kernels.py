@@ -27,6 +27,7 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = {
+    "fbank": "fbank.cu",
     "gated_scan": "gated_scan.cu",
     "gated_train": "gated_train.cu",
     "lstm_scan": "lstm_scan.cu",
@@ -34,6 +35,7 @@ SOURCES = {
     "peephole_scan": "peephole_scan.cu",
     "peephole_train": "peephole_train.cu",
     "viterbi_collapsed": "viterbi_collapsed.cu",
+    "viterbi_cube": "viterbi_cube.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]

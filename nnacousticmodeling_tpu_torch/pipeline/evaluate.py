@@ -83,10 +83,12 @@ def main(arg_list=None):
                                   "(ROADMAP Queue 1 item 7)")
     if args.decoder == "native":
         raise NotImplementedError("--decoder native is not ported yet "
-                                  "(ROADMAP Queue 1 item 4)")
+                                  "(ROADMAP, \"Left out so far\": the "
+                                  "native decoder)")
     if args.lm_from_mlf:
         raise NotImplementedError("--lm-from-mlf needs decoder/graph.py, "
-                                  "not ported yet (ROADMAP Queue 1 item 4)")
+                                  "not ported yet (ROADMAP, \"Left out so "
+                                  "far\": the native decoder)")
     device = resolve_device(args.device)
     num_classes = num_classes_for(args)
     split = args.test_or_dev

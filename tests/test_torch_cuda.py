@@ -15,7 +15,9 @@ The gated kernels are held to the same tolerances, each relative to the
 largest value of its tensor (the relu candidate of MGRU is unbounded);
 their training forward is bit-equal to the ``gated_scan`` kernel. So are
 the peephole kernels, whose training forward is bit-equal to the
-``peephole_scan`` kernel.
+``peephole_scan`` kernel. The dense-cube Viterbi forward is bit-equal to
+its plain version; the fbank kernel is within 1e-3 of the plain
+``fbank`` in the log domain (float32 sums in another order).
 """
 
 import numpy as np
@@ -28,6 +30,11 @@ from nnacousticmodeling_tpu_torch.decoder.viterbi import ViterbiDecoder
 from nnacousticmodeling_tpu_torch.decoder.viterbi_collapsed import (
     collapsed_viterbi_reference,
 )
+from nnacousticmodeling_tpu_torch.decoder.viterbi_cube import (
+    cube_viterbi_forward,
+    cube_viterbi_reference,
+)
+from nnacousticmodeling_tpu_torch.ops import features
 from nnacousticmodeling_tpu_torch.ops.rnn_cuda import (
     gated_scan,
     gated_scan_reference,
@@ -114,6 +121,87 @@ def test_collapsed_viterbi_kernel_bit_equal(cuda, num_phones, beam):
     cpu = ViterbiDecoder(img, pip=5.0, lmw=1.5, beam=beam, device="cpu")
     assert [r.segments for r in dec.decode_batch(lp, lens)] == \
         [r.segments for r in cpu.decode_batch(lp, lens)]
+
+
+@pytest.mark.parametrize("beam", [None, 2.0])
+@pytest.mark.parametrize("ends", ["regular", "irregular"])
+def test_cube_viterbi_kernel_bit_equal(cuda, ends, beam):
+    import dataclasses
+    rng = np.random.default_rng(11)
+    P = 9
+    img = make_synthetic_image(num_phones=P, num_states=3 * P + 2, seed=11,
+                               pdf_tied_transitions=True)
+    if ends == "irregular":
+        img = dataclasses.replace(img, end_idxs=np.array(
+            [p * P + (p + 1) % P for p in range(P)], np.int32))
+    lens = np.array([23, 7, 16], np.int32)
+    lp = np.log(rng.dirichlet(np.ones(img.num_states),
+                              size=(3, 23))).astype(np.float32)
+    dec = ViterbiDecoder(img, pip=5.0, lmw=1.5, beam=beam, backend="pallas",
+                         device=cuda)
+    cv = dec._pallas_fwd
+    lp_t = torch.from_numpy(lp).to(cuda)
+    lens_t = torch.from_numpy(lens).to(cuda)
+    before = dict(kernels.launches)
+    packed, end = cv.forward(lp_t, lens_t)
+    torch.cuda.synchronize()
+    assert kernels.launches["cube_viterbi_forward"] == \
+        before.get("cube_viterbi_forward", 0) + 1
+    want_packed, want_end = cube_viterbi_reference(cv, lp_t, lens_t)
+    for u, l in enumerate(lens):
+        assert torch.equal(packed[u, :l], want_packed[u, :l])
+        assert torch.equal(end[u, :l], want_end[u, :l])
+    cpu = ViterbiDecoder(img, pip=5.0, lmw=1.5, beam=beam, backend="pallas",
+                         device="cpu")
+    assert [r.segments for r in dec.decode_batch(lp, lens)] == \
+        [r.segments for r in cpu.decode_batch(lp, lens)]
+    xla = ViterbiDecoder(img, pip=5.0, lmw=1.5, beam=beam, backend="xla",
+                         device=cuda)
+    before = dict(kernels.launches)
+    assert [r.segments for r in xla.decode_batch(lp, lens)] == \
+        [r.segments for r in cpu.decode_batch(lp, lens)]
+    assert dict(kernels.launches) == before
+
+
+@pytest.mark.parametrize("kaldi_weights", [False, True])
+@pytest.mark.parametrize("n", [400, 12000, 160 * 37 + 240])
+def test_fbank_kernel_matches_plain(cuda, n, kaldi_weights):
+    x = (np.random.default_rng(n).standard_normal(n) * 0.1
+         ).astype(np.float32)
+    before = kernels.launches["fbank"]
+    got = features.fbank_cuda(x, kaldi_weights=kaldi_weights)
+    torch.cuda.synchronize()
+    assert kernels.launches["fbank"] == before + 1
+    want = features.fbank(torch.from_numpy(x).to(cuda),
+                          kaldi_weights=kaldi_weights)
+    assert got.shape == want.shape == (features.num_frames(n), 40)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+    m = features.mfcc(x, kaldi_weights=kaldi_weights)
+    assert kernels.launches["fbank"] == before + 2
+    assert m.device.type == "cuda" and m.shape == (got.shape[0], 13)
+
+
+def test_new_wrappers_raise_and_never_fall_back(cuda):
+    img = make_synthetic_image(num_phones=3, seed=0,
+                               pdf_tied_transitions=True)
+    cv = ViterbiDecoder(img, backend="pallas", device=cuda)._pallas_fwd
+    lens = torch.full((1,), 4, dtype=torch.int32)
+    lp = torch.zeros((1, 4, img.num_states))
+    with pytest.raises(ValueError, match="CUDA"):
+        cube_viterbi_forward(cv, lp, lens)
+    with pytest.raises(ValueError, match="float32"):
+        cube_viterbi_forward(cv, lp.double().to(cuda), lens.to(cuda))
+    with pytest.raises(ValueError, match="2047"):
+        cube_viterbi_forward(cv, torch.zeros((1, 2047, img.num_states),
+                                             device=cuda), lens.to(cuda))
+    with pytest.raises(ValueError, match="CUDA"):
+        features.fbank_frames(torch.zeros(3, 400))
+    with pytest.raises(ValueError, match="float32"):
+        features.fbank_frames(torch.zeros(3, 400, dtype=torch.float64,
+                                          device=cuda))
+    before = dict(kernels.launches)
+    features.fbank_cuda(np.zeros(800, np.float32), device="cpu")
+    assert dict(kernels.launches) == before
 
 
 def _train_case(t, b, h, dtype, device):

@@ -17,7 +17,9 @@ import torch
 import nnacousticmodeling_tpu_torch as port
 from nnacousticmodeling_tpu_torch.decoder.image import make_synthetic_image
 from nnacousticmodeling_tpu_torch.decoder.viterbi import ViterbiDecoder
+from nnacousticmodeling_tpu_torch.decoder.viterbi_cube import CubeViterbi
 from nnacousticmodeling_tpu_torch.models import get_network
+from nnacousticmodeling_tpu_torch.ops.features import fbank, fbank_cuda, mfcc
 from nnacousticmodeling_tpu_torch.pipeline import evaluate, train_cli
 from nnacousticmodeling_tpu_torch.train import (
     TrainConfig,
@@ -56,10 +58,13 @@ def test_port_files_found():
     for mod in ("train/engine.py", "train/stages.py", "train/streams.py",
                 "train/optimizers.py", "models/precision.py",
                 "models/cells.py", "models/networks.py",
-                "ops/timedelay.py", "pipeline/train_cli.py"):
+                "ops/timedelay.py", "pipeline/train_cli.py",
+                "decoder/viterbi_cube.py", "ops/features.py",
+                "pipeline/synth_data.py"):
         assert f"nnacousticmodeling_tpu_torch/{mod}" in names
     for src in ("gated_step.cuh", "gated_scan.cu", "gated_train.cu",
-                "peephole_step.cuh", "peephole_scan.cu", "peephole_train.cu"):
+                "peephole_step.cuh", "peephole_scan.cu", "peephole_train.cu",
+                "viterbi_cube.cu", "fbank.cu"):
         assert (REPO / "nnacousticmodeling_tpu_torch" / "csrc" / src).is_file()
     assert (REPO / "chip_smoke.py").is_file()
 
@@ -89,6 +94,12 @@ def _entry_points(tmp_path):
         "get_network zoneoutdropoutlstm": lambda: get_network(
             "zoneoutdropoutlstm", 1, [4], 5, in_dim=3),
         "ViterbiDecoder": lambda: ViterbiDecoder(img),
+        "ViterbiDecoder pallas": lambda: ViterbiDecoder(img,
+                                                        backend="pallas"),
+        "CubeViterbi": lambda: CubeViterbi(img, "abc", pip=-5.0, lmw=1.0),
+        "fbank": lambda: fbank(np.zeros(800, np.float32)),
+        "fbank_cuda": lambda: fbank_cuda(np.zeros(800, np.float32)),
+        "mfcc": lambda: mfcc(np.zeros(800, np.float32)),
         "load_jax_params": lambda: load_jax_params(tmp_path / "m.npz"),
         "evaluate.main": lambda: evaluate.main(
             ["-n", "lstm", "--recog-dir", str(tmp_path),
@@ -109,7 +120,9 @@ def _entry_points(tmp_path):
                                   "get_network peepholelstm",
                                   "get_network zoneoutlstm",
                                   "get_network zoneoutdropoutlstm",
-                                  "ViterbiDecoder", "load_jax_params",
+                                  "ViterbiDecoder", "ViterbiDecoder pallas",
+                                  "CubeViterbi", "fbank", "fbank_cuda",
+                                  "mfcc", "load_jax_params",
                                   "evaluate.main", "train_cli.main",
                                   "train_network"])
 def test_default_device_is_cuda(tmp_path, name):

@@ -8,6 +8,8 @@ the JAX collapsed Pallas kernel run in interpret mode; decoded segments
 must equal the JAX ``ViterbiDecoder``'s on the same posteriors.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -44,6 +46,15 @@ def _to_bac(img: HmmImage) -> HmmImage:
         tp_transition=img.tp_transition[old], out_offsets=offsets,
         out_values=values, lm=img.lm,
         phone_names=[img.phone_names[i] for i in old]).validate()
+
+
+def _irregular_ends(img: HmmImage) -> HmmImage:
+    """End biphone of phone p at (p, (p+1) mod P): no common end right
+    context, so the collapsed kernel refuses the image and the JAX cube
+    kernel takes its one-hot ``E_end`` path."""
+    P = img.num_phones
+    ends = np.array([p * P + (p + 1) % P for p in range(P)], np.int32)
+    return dataclasses.replace(img, end_idxs=ends).validate()
 
 
 def _posteriors(rng, utts, tmax, num_states):
@@ -120,15 +131,23 @@ def test_long_utterance_grows_pack():
     assert all(got[i][1] == got[i + 1][0] for i in range(len(got) - 1))
 
 
-def test_unported_paths_raise():
-    untied = make_synthetic_image(num_phones=4, seed=0)   # untied tps
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ViterbiDecoder(untied, device="cpu")
-    tied = make_synthetic_image(num_phones=4, seed=0,
-                                pdf_tied_transitions=True)
-    for backend in ("xla", "pallas"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ViterbiDecoder(tied, backend=backend, device="cpu")
-    partial = make_synthetic_image(num_phones=3, seed=2, full_context=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ViterbiDecoder(partial, device="cpu")
+@pytest.mark.parametrize("case,backend,expected", [
+    ("untied", "auto", "xla"),         # untied transitions: twin
+    ("tied", "xla", "xla"),
+    ("tied", "pallas", "pallas"),      # the dense-cube kernel
+    ("partial", "auto", "xla"),        # not a cube: general twin
+])
+def test_former_unported_paths_decode_to_jax_segments(case, backend,
+                                                      expected):
+    img = {"untied": lambda: make_synthetic_image(num_phones=4, seed=0),
+           "tied": lambda: make_synthetic_image(
+               num_phones=4, seed=0, pdf_tied_transitions=True),
+           "partial": lambda: make_synthetic_image(
+               num_phones=3, seed=2, full_context=False)}[case]()
+    rng = np.random.default_rng(3)
+    lp, lens = _posteriors(rng, 3, 12, img.num_states)
+    port = ViterbiDecoder(img, pip=5.0, backend=backend, device="cpu")
+    assert port.backend == expected
+    want = JaxDecoder(img, pip=5.0, backend="xla").decode_batch(lp, lens)
+    assert [r.segments for r in port.decode_batch(lp, lens)] == \
+        [r.segments for r in want]
