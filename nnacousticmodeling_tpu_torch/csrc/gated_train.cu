@@ -37,7 +37,7 @@
 // serial recurrence, whose reverse step holds two dependent products
 // (w2^T needs dcpre of every unit, w1^T needs the whole pair), and the
 // weights (6 MB bf16) fit in no SM's shared memory, so the TPU design
-// (W1^T, W2^T and the f32 dW accumulators resident in VMEM for all T)
+// (W1^T and W2^T resident in VMEM for all T)
 // does not carry over.
 //
 // What this design does about it. Launch boundaries are the barriers.
@@ -50,11 +50,13 @@
 // buffer updated in place; bf16(pair) and bf16(dcpre) go to (T, B, .)
 // scratch that the dW contractions read after the loop. So a gru /
 // mgru_r layer takes 2T+1 backward launches and mgru T+1, plus one dW
-// call. All products run on the CUDA cores as f32 FMAs of bf16 operands
-// from shared-memory tiles; tensor cores, a persistent grid and fewer
-// launches are later work.
+// launch (dw_gemm.cuh, on the tensor cores: dW1 and dW2 as two problems
+// of one grid, bf16(r * h_prev) formed as its tile lands in shared
+// memory). The step products run on the CUDA cores as f32 FMAs of bf16
+// operands from shared-memory tiles.
 
 #include "gated_step.cuh"
+#include "dw_gemm.cuh"
 
 namespace gated {
 namespace {
@@ -217,84 +219,6 @@ int run_gated_bwd(const __nv_bfloat16* res, const __nv_bfloat16* w1,
   return (int)cudaGetLastError();
 }
 
-// dW (H, N) = sum over the M = T*B rows of A(m, k) * Bm(m, n), with A
-// read from the residuals -- h_prev (a_mode 0) or bf16(r * h_prev)
-// (a_mode 1) -- and Bm (M, N) bf16. A block owns a 64 x 64 tile of the
-// result, each thread 4 x 4; 16 rows at a time are staged in shared
-// memory (lstm_train.cu's dW kernel).
-constexpr int DW_TILE = 64;
-constexpr int DW_ROWS = 16;
-
-__global__ void __launch_bounds__(THREADS)
-gated_dw_kernel(const __nv_bfloat16* __restrict__ res,   // (M, 4H)
-                const __nv_bfloat16* __restrict__ bm,    // (M, N)
-                float* __restrict__ dw,                  // (H, N)
-                int M, int H, int N, int a_mode) {
-  __shared__ __align__(16) float a_sm[DW_ROWS][DW_TILE];   // [m][k]
-  __shared__ __align__(16) float b_sm[DW_ROWS][DW_TILE];   // [m][n]
-
-  const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * DW_TILE;
-  const int k0 = blockIdx.y * DW_TILE;
-  const int tx = tid % 16, ty = tid / 16;
-  const size_t R = (size_t)4 * H;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int m0 = 0; m0 < M; m0 += DW_ROWS) {
-    for (int e = tid; e < DW_ROWS * DW_TILE; e += THREADS) {
-      const int m = e / DW_TILE, x = e % DW_TILE;
-      const int mm = m0 + m, k = k0 + x, n = n0 + x;
-      float av = 0.0f;
-      if (mm < M && k < H) {
-        const __nv_bfloat16* row = res + (size_t)mm * R;
-        const float hp = __bfloat162float(row[3 * (size_t)H + k]);
-        av = (a_mode == 0)
-            ? hp : bf16_round(__fmul_rn(__bfloat162float(row[k]), hp));
-      }
-      a_sm[m][x] = av;
-      b_sm[m][x] = (mm < M && n < N)
-          ? __bfloat162float(bm[(size_t)mm * N + n]) : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int m = 0; m < DW_ROWS; ++m) {
-      const float4 av = *reinterpret_cast<const float4*>(&a_sm[m][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&b_sm[m][tx * 4]);
-      const float a4[4] = {av.x, av.y, av.z, av.w};
-      const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a4[i], b4[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + ty * 4 + i;
-    if (k >= H) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < N) dw[(size_t)k * N + n] = acc[i][j];
-    }
-  }
-}
-
-int launch_dw(const __nv_bfloat16* res, const __nv_bfloat16* bm, float* dw,
-              int M, int H, int N, int a_mode, cudaStream_t stream) {
-  const dim3 grid((N + DW_TILE - 1) / DW_TILE, (H + DW_TILE - 1) / DW_TILE);
-  gated_dw_kernel<<<grid, THREADS, 0, stream>>>(res, bm, dw, M, H, N,
-                                                a_mode);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 }  // namespace gated
 
@@ -365,17 +289,13 @@ extern "C" int gated_train_bwd_bf16(const void* res, const void* w1,
       kind, act, static_cast<cudaStream_t>(stream));
 }
 
-// res (M, 4H) bf16 (M = T*B rows), pair (M, 2H) bf16, dc (M, H) bf16;
-// dw1 (H, 2H) f32 out; dw2 (H, H) f32 out when has_w2 (dc and dw2 may be
-// null otherwise).
-extern "C" int gated_train_dw(const void* res, const void* pair,
-                              const void* dc, void* dw1, void* dw2, int M,
-                              int H, int has_w2, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* r = static_cast<const __nv_bfloat16*>(res);
-  int err = gated::launch_dw(r, static_cast<const __nv_bfloat16*>(pair),
-                             static_cast<float*>(dw1), M, H, 2 * H, 0, st);
-  if (err != 0 || !has_w2) return err;
-  return gated::launch_dw(r, static_cast<const __nv_bfloat16*>(dc),
-                          static_cast<float*>(dw2), M, H, H, 1, st);
+// dW1 (H, 2H) f32 = sum over the M = T*B rows of h_prev^T pair and, for gru
+// / mgru_r, dW2 (H, H) f32 = sum of bf16(r * h_prev)^T dcpre, from the
+// residuals (M, 4H), pair (M, 2H) and dc (M, H), all bf16: one launch of
+// dw_gemm.cuh over the 1 or 2 problems in desc (see dw_gemm::launch) with
+// the tiling that ops/rnn_cuda.py dw_plan("gated", H, has_w2) picks.
+extern "C" int gated_train_dw(const long long* desc, int count, int M, int H,
+                              int bn, int bk, int stages, void* stream) {
+  return dw_gemm::launch(desc, count, M, H, bn, bk, stages,
+                         static_cast<cudaStream_t>(stream));
 }

@@ -9,8 +9,9 @@
 //   lstm_train_bwd_*  <- _lstm_train_bwd_impl (:485, pallas_call :590),
 //   lstm_train_dw        its dW contraction (:575-580)
 //
-// Forward, per step (the math of lstm_scan.cu, same code and FMA order,
-// so hs, c_T and h_T are bit-equal to that kernel's):
+// Forward, per step (the math of lstm_scan.cu; that kernel now sums the
+// product on the tensor cores in another order, so the two agree within
+// the recurrence tolerance, not bit for bit):
 //
 //     z = bf16(proj[t]) + bf16(h) @ bf16(W_h)     (f32 accumulation)
 //     a, i, f, o = tanh, sigmoid, sigmoid, sigmoid of z's four H-blocks
@@ -26,7 +27,7 @@
 //     dh = dzb @ bf16(W_h)^T (f32 accumulation);  dc = dc * f
 //
 // and dW = sum_t bf16(h_{t-1})^T dzb_t in f32, as one contraction over
-// the T*B rows after the reverse loop.
+// the T*B rows after the reverse loop (dw_gemm.cuh, on the tensor cores).
 //
 // What bounds them on this card. At T=20, B=128, H=1024 the forward
 // does 2*T*B*H*4H = 21.5 GFLOP (0.022 ms at the bf16 tensor rate)
@@ -34,8 +35,9 @@
 // backward 43 GFLOP against ~140 MB. Both bounds sit far below the
 // floor of the serial recurrence: T dependent steps, each a grid-wide
 // barrier, and W_h (8 MB in bf16) fits in no SM's 227 KB of shared
-// memory, so the TPU kernels' design (W_h and the f32 dW accumulator
-// resident for the whole sequence) does not carry over.
+// memory, so the TPU kernels' design (W_h resident for the whole
+// sequence) does not carry over here yet: lstm_scan.cu's persistent grid
+// is the design these step kernels are to take next.
 //
 // What this design does about it. One launch per step on the caller's
 // stream; the launch boundary is the barrier. The forward block is
@@ -47,16 +49,17 @@
 // part for its own units, whose dh, dc and residuals are all local to
 // it, as the forward's cell update is. dc is one (B, H) f32 buffer
 // updated in place; dzb goes to a (T, B, 4H) bf16 scratch. dW is not on
-// the serial path: one tiled kernel after the loop contracts the T*B
-// rows of h_{t-1} (read from the residuals) against dzb. All products
-// run on the CUDA cores as f32 FMAs of bf16-rounded operands (exact
-// products, f32 sums) from shared-memory tiles. Tensor cores (mma /
-// wgmma), W_h split across a persistent grid and fewer launches are
-// later work.
+// the serial path: dw_gemm.cuh's tensor-core GEMM, launched once after
+// the loop, contracts the T*B rows of h_{t-1} (read from the residuals)
+// against dzb. The step products run on the CUDA cores as f32 FMAs of
+// bf16-rounded operands (exact products, f32 sums) from shared-memory
+// tiles.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "dw_gemm.cuh"
 
 namespace {
 
@@ -328,72 +331,6 @@ int run_bwd(const __nv_bfloat16* res, const __nv_bfloat16* wh,
   return (int)cudaGetLastError();
 }
 
-// ---- dW = sum over the M = T*B rows of bf16(h_{t-1})^T dzb ------------
-//
-// A block owns a 64 x 64 tile of the (H, 4H) result, each thread 4 x 4;
-// 16 rows at a time are staged in shared memory (h_{t-1} from the
-// residuals' last H columns, dzb from the scratch).
-
-constexpr int DW_TILE = 64;
-constexpr int DW_ROWS = 16;
-
-__global__ void __launch_bounds__(THREADS)
-lstm_train_dw_kernel(const __nv_bfloat16* __restrict__ res,   // (M, 7H)
-                     const __nv_bfloat16* __restrict__ dz,    // (M, 4H)
-                     float* __restrict__ dw,                  // (H, 4H)
-                     int M, int H) {
-  __shared__ __align__(16) float a_sm[DW_ROWS][DW_TILE];   // [m][k]
-  __shared__ __align__(16) float b_sm[DW_ROWS][DW_TILE];   // [m][n]
-
-  const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * DW_TILE;
-  const int k0 = blockIdx.y * DW_TILE;
-  const int tx = tid % 16, ty = tid / 16;
-  const int G = 4 * H;
-  const size_t R = (size_t)7 * H;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int m0 = 0; m0 < M; m0 += DW_ROWS) {
-    for (int e = tid; e < DW_ROWS * DW_TILE; e += THREADS) {
-      const int m = e / DW_TILE, x = e % DW_TILE;
-      const int mm = m0 + m, k = k0 + x, n = n0 + x;
-      a_sm[m][x] = (mm < M && k < H)
-          ? __bfloat162float(res[(size_t)mm * R + 6 * (size_t)H + k]) : 0.0f;
-      b_sm[m][x] = (mm < M && n < G)
-          ? __bfloat162float(dz[(size_t)mm * G + n]) : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int m = 0; m < DW_ROWS; ++m) {
-      const float4 av = *reinterpret_cast<const float4*>(&a_sm[m][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&b_sm[m][tx * 4]);
-      const float a4[4] = {av.x, av.y, av.z, av.w};
-      const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a4[i], b4[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + ty * 4 + i;
-    if (k >= H) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < G) dw[(size_t)k * G + n] = acc[i][j];
-    }
-  }
-}
-
 }  // namespace
 
 // proj (T, B, 4H), wh (H, 4H) bf16, h_a (B, H) holding h0, h_b (B, H)
@@ -452,15 +389,12 @@ extern "C" int lstm_train_bwd_bf16(const void* res, const void* wh,
       static_cast<float*>(dh0), T, B, H, static_cast<cudaStream_t>(stream));
 }
 
-// res (M, 7H) bf16 (M = T*B rows; h_{t-1} in the last H columns), dz
-// (M, 4H) bf16, dw (H, 4H) f32 out.
-extern "C" int lstm_train_dw(const void* res, const void* dz, void* dw, int M,
-                             int H, void* stream) {
-  const dim3 grid((4 * H + DW_TILE - 1) / DW_TILE,
-                  (H + DW_TILE - 1) / DW_TILE);
-  lstm_train_dw_kernel<<<grid, THREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(res),
-      static_cast<const __nv_bfloat16*>(dz), static_cast<float*>(dw), M, H);
-  return (int)cudaGetLastError();
+// dW_h (H, 4H) f32 = sum over the M = T*B rows of h_{t-1}^T dz, from the
+// residuals (M, 7H) bf16 (h_{t-1} in the last H columns) and dz (M, 4H)
+// bf16: one problem of dw_gemm.cuh, described by desc (see dw_gemm::launch)
+// with the tiling that ops/rnn_cuda.py dw_plan("lstm", H) picks.
+extern "C" int lstm_train_dw(const long long* desc, int count, int M, int H,
+                             int bn, int bk, int stages, void* stream) {
+  return dw_gemm::launch(desc, count, M, H, bn, bk, stages,
+                         static_cast<cudaStream_t>(stream));
 }

@@ -37,8 +37,8 @@
 // products each way (the o-gate's peephole needs c_t of every unit; in
 // reverse, dc needs bf16(dz_o) @ P_o^T of every unit before dz_i and
 // dz_f exist), and the weights (14 MB bf16) fit in no SM's shared memory,
-// so the TPU design (W_h^T, the three peephole transposes and the four
-// f32 dW accumulators resident in VMEM for all T) does not carry over.
+// so the TPU design (W_h^T and the three peephole transposes resident
+// in VMEM for all T) does not carry over.
 //
 // What this design does about it. Launch boundaries are the barriers.
 // The backward block owns 32 hidden units k x 32 batch rows. Its first
@@ -49,12 +49,13 @@
 // forms dz_a, dz_i, dz_f and leaves dc * f in dcbuf, one (B, H) f32
 // buffer carried from launch to launch. bf16(dz) goes to a (T, B, 4H)
 // scratch that the dW contractions read after the loop. So a layer takes
-// 2T+1 backward launches plus one dW call (four tiled launches). All
+// 2T+1 backward launches plus one dW launch (dw_gemm.cuh, on the tensor
+// cores, the four contractions as four problems of one grid). The step
 // products run on the CUDA cores as f32 FMAs of bf16 operands from
-// shared-memory tiles; tensor cores, a persistent grid and fewer
-// launches are later work.
+// shared-memory tiles.
 
 #include "peephole_step.cuh"
+#include "dw_gemm.cuh"
 
 namespace peep {
 namespace {
@@ -207,75 +208,6 @@ int run_peep_bwd(const __nv_bfloat16* res, const __nv_bfloat16* wh,
   return (int)cudaGetLastError();
 }
 
-// dw (H, N) = sum over the M = T*B rows of a(m, k) * bm(m, n), a read at
-// a + m * lda + k and bm at bm + m * ldb + n, both bf16. A block owns a
-// 64 x 64 tile of the result, each thread 4 x 4; 16 rows at a time are
-// staged in shared memory (gated_train.cu's dW kernel, with the operands'
-// row strides as arguments).
-constexpr int DW_TILE = 64;
-constexpr int DW_ROWS = 16;
-
-__global__ void __launch_bounds__(THREADS)
-peep_dw_kernel(const __nv_bfloat16* __restrict__ a, int lda,
-               const __nv_bfloat16* __restrict__ bm, int ldb,
-               float* __restrict__ dw, int M, int H, int N) {
-  __shared__ __align__(16) float a_sm[DW_ROWS][DW_TILE];   // [m][k]
-  __shared__ __align__(16) float b_sm[DW_ROWS][DW_TILE];   // [m][n]
-
-  const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * DW_TILE;
-  const int k0 = blockIdx.y * DW_TILE;
-  const int tx = tid % 16, ty = tid / 16;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int m0 = 0; m0 < M; m0 += DW_ROWS) {
-    for (int e = tid; e < DW_ROWS * DW_TILE; e += THREADS) {
-      const int m = e / DW_TILE, x = e % DW_TILE;
-      const int mm = m0 + m, k = k0 + x, n = n0 + x;
-      a_sm[m][x] = (mm < M && k < H)
-          ? __bfloat162float(a[(size_t)mm * lda + k]) : 0.0f;
-      b_sm[m][x] = (mm < M && n < N)
-          ? __bfloat162float(bm[(size_t)mm * ldb + n]) : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int m = 0; m < DW_ROWS; ++m) {
-      const float4 av = *reinterpret_cast<const float4*>(&a_sm[m][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&b_sm[m][tx * 4]);
-      const float a4[4] = {av.x, av.y, av.z, av.w};
-      const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a4[i], b4[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + ty * 4 + i;
-    if (k >= H) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < N) dw[(size_t)k * N + n] = acc[i][j];
-    }
-  }
-}
-
-int launch_dw(const __nv_bfloat16* a, int lda, const __nv_bfloat16* bm,
-              int ldb, float* dw, int M, int H, int N, cudaStream_t stream) {
-  const dim3 grid((N + DW_TILE - 1) / DW_TILE, (H + DW_TILE - 1) / DW_TILE);
-  peep_dw_kernel<<<grid, THREADS, 0, stream>>>(a, lda, bm, ldb, dw, M, H, N);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 }  // namespace peep
 
@@ -354,26 +286,14 @@ extern "C" int peephole_train_bwd_bf16(const void* res, const void* wh,
       static_cast<float*>(dc0), T, B, H, static_cast<cudaStream_t>(stream));
 }
 
-// res (M, 8H) bf16 (M = T*B rows), dz (M, 4H) bf16; dwh (H, 4H), dpi,
-// dpf and dpo (H, H) f32 out: h_{t-1}^T dz, c_{t-1}^T dz_i, c_{t-1}^T
-// dz_f and c_t^T dz_o.
-extern "C" int peephole_train_dw(const void* res, const void* dz, void* dwh,
-                                 void* dpi, void* dpf, void* dpo, int M,
-                                 int H, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* r = static_cast<const __nv_bfloat16*>(res);
-  const __nv_bfloat16* d = static_cast<const __nv_bfloat16*>(dz);
-  const size_t h = (size_t)H;
-  const int R = 8 * H, G = 4 * H;
-  int err = peep::launch_dw(r + 6 * h, R, d, G, static_cast<float*>(dwh), M,
-                            H, G, st);
-  if (err != 0) return err;
-  err = peep::launch_dw(r + 5 * h, R, d + h, G, static_cast<float*>(dpi), M,
-                        H, H, st);
-  if (err != 0) return err;
-  err = peep::launch_dw(r + 5 * h, R, d + 2 * h, G, static_cast<float*>(dpf),
-                        M, H, H, st);
-  if (err != 0) return err;
-  return peep::launch_dw(r + 7 * h, R, d + 3 * h, G,
-                         static_cast<float*>(dpo), M, H, H, st);
+// dW_h (H, 4H) = h_{t-1}^T dz, dP_i = c_{t-1}^T dz_i, dP_f = c_{t-1}^T dz_f
+// and dP_o = c_t^T dz_o (each (H, H)), f32 sums over the M = T*B rows of
+// the residuals (M, 8H) and dz (M, 4H), both bf16: one launch of
+// dw_gemm.cuh over the four problems in desc (see dw_gemm::launch) with the
+// tiling that ops/rnn_cuda.py dw_plan("peephole", H) picks.
+extern "C" int peephole_train_dw(const long long* desc, int count, int M,
+                                 int H, int bn, int bk, int stages,
+                                 void* stream) {
+  return dw_gemm::launch(desc, count, M, H, bn, bk, stages,
+                         static_cast<cudaStream_t>(stream));
 }

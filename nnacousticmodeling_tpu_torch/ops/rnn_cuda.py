@@ -44,21 +44,220 @@ gradients in proj's dtype, while the products (dh, dc, dW) take their
 bf16 roundings.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes
-its plain version only for CPU tensors.
+its plain version only for CPU tensors. ``lstm_scan_plan`` and
+``dw_plan`` are the host-side layouts of the persistent scan
+(``csrc/lstm_scan.cu``) and of the tensor-core dW GEMM shared by the
+three training backwards (``csrc/dw_gemm.cuh``): plain Python, so the
+CPU tests check what the kernels are handed.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from .. import kernels
 
-_SCAN_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_SCAN_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                  + [ctypes.c_void_p])
 _FWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-_DW_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+# the three dW entry points: descriptors, their count, M, H, the tiling
+# (tile width, operand rows a stage, ring stages), stream
+_DW_ARGTYPES = ([ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 6
+                + [ctypes.c_void_p])
+
+#: shared memory one block may use on the card (227 KB)
+SMEM_LIMIT = 232448
+
+
+# ---------------------------------------------------------------------------
+# host-side layouts of the persistent scan and the dW GEMM
+# ---------------------------------------------------------------------------
+
+#: csrc/lstm_scan.cu: hidden units and batch rows a block owns, the
+#: reduction chunk of one stage of its cp.async ring, and the ring depth
+#: beside a resident W_h slice / with W_h streamed
+SCAN_UNITS = 16
+SCAN_ROWS = 64
+SCAN_KC = 64
+SCAN_STAGES = {True: 8, False: 4}
+
+
+def scan_smem_bytes(h_dim: int, resident: bool) -> int:
+    """Shared memory of one scan block: the W_h^T slice (4U rows of the
+    reduction extent, padded by 8) when resident, the ring of h tiles
+    (and of W tiles when streamed), and the f32 pre-activations."""
+    ldk = SCAN_KC + 8
+    extent = -(-h_dim // SCAN_KC) * SCAN_KC
+    cols = 4 * SCAN_UNITS
+    ring = (SCAN_STAGES[resident] * (SCAN_ROWS + (0 if resident else cols))
+            * ldk * 2)
+    w = cols * (extent + 8) * 2 if resident else 0
+    return w + ring + SCAN_ROWS * (cols + 4) * 4
+
+
+def scan_w_resident(h_dim: int) -> bool:
+    """Whether a block's W_h slice stays in shared memory for all T (else
+    the kernel streams it from L2 each step)."""
+    return scan_smem_bytes(h_dim, True) <= SMEM_LIMIT
+
+
+@dataclass(frozen=True)
+class ScanPlan:
+    """One ``lstm_scan`` call: W_h resident or streamed, each block's
+    shared memory, the grid's blocks along H, and the row chunks of the
+    batch, one cooperative launch each (``(row0, nrows)``; the grid of a
+    launch is ``unit_blocks`` x ceil(nrows / SCAN_ROWS))."""
+    resident: bool
+    smem_bytes: int
+    unit_blocks: int
+    launches: Tuple[Tuple[int, int], ...]
+
+    def grid(self, nrows: int) -> Tuple[int, int]:
+        return self.unit_blocks, -(-nrows // SCAN_ROWS)
+
+
+def lstm_scan_plan(h_dim: int, batch: int, max_blocks: int) -> ScanPlan:
+    """Lay out ``lstm_scan`` over a grid of at most ``max_blocks``
+    co-resident blocks (the card's count for this H, from
+    ``lstm_scan_capacity``). Every block of a launch covers SCAN_UNITS
+    units, all four of their gate columns, and SCAN_ROWS rows; a batch
+    that needs more row tiles than one grid holds is cut into chunks."""
+    resident = scan_w_resident(h_dim)
+    smem = scan_smem_bytes(h_dim, resident)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"lstm_scan: H={h_dim} needs {smem} bytes of "
+                         f"shared memory a block")
+    unit_blocks = -(-h_dim // SCAN_UNITS)
+    tiles = max_blocks // unit_blocks
+    if tiles < 1:
+        raise ValueError(f"lstm_scan: H={h_dim} needs {unit_blocks} "
+                         f"co-resident blocks, the card holds {max_blocks}")
+    rows = tiles * SCAN_ROWS
+    launches = tuple((r0, min(rows, batch - r0))
+                     for r0 in range(0, batch, rows))
+    return ScanPlan(resident, smem, unit_blocks, launches)
+
+
+#: csrc/dw_gemm.cuh: the rows of dW a block owns, and the tilings it is
+#: built for: (columns of dW a block owns, operand rows of one stage of
+#: its ring, ring stages)
+DW_TILE_M = 128
+DW_CONFIGS = ((128, 64, 4), (256, 64, 3), (256, 64, 4))
+#: wide tiles read 3/4 of the operand bytes of narrow ones for the same
+#: work, so they are taken while they still give this many blocks (3/4 of
+#: an H100's 132 SMs, one block an SM)
+DW_WIDE_MIN_TILES = 96
+DW_MAX_PROBLEMS = 4
+
+
+@dataclass(frozen=True)
+class DwProblem:
+    """One contraction ``dW (H, n) = sum_m A[m]^T B[m]`` over the T*B rows:
+    A is the residuals' columns ``[a_col, a_col + H)`` (row stride
+    ``lda``) -- times ``[r_col, r_col + H)``, rounded to bf16, when
+    ``r_col`` is set (the gated dW2) -- and B the columns ``[b_col, b_col
+    + n)`` of operand ``b`` (row stride ``ldb``). Its output tiles start
+    at flat tile ``tile0`` of the launch."""
+    a_col: int
+    r_col: Optional[int]
+    lda: int
+    b: str
+    b_col: int
+    ldb: int
+    n: int
+    tile0: int
+
+
+@dataclass(frozen=True)
+class DwPlan:
+    """One dW launch: its problems, its tiling (``tile_n`` columns of dW
+    a tile, ``rows`` operand rows a stage, a ``stages``-deep ring), the
+    tiles (one block each) and each block's shared memory."""
+    problems: Tuple[DwProblem, ...]
+    tile_n: int
+    rows: int
+    stages: int
+    tiles: int
+    smem_bytes: int
+
+
+def dw_tiles(h_dim: int, n: int, tile_n: int) -> int:
+    return -(-h_dim // DW_TILE_M) * -(-n // tile_n)
+
+
+def dw_smem_bytes(tile_n: int, rows: int, stages: int, has_r: bool) -> int:
+    """The ring (A, r when set, B; bf16) and 1 KB to align it."""
+    return (stages * rows * ((2 if has_r else 1) * DW_TILE_M + tile_n) * 2
+            + 1024)
+
+
+@functools.lru_cache(maxsize=None)
+def dw_plan(family: str, h_dim: int, has_w2: bool = True,
+            config: Optional[Tuple[int, int, int]] = None) -> DwPlan:
+    """The problems of one dW launch: ``lstm`` (dW_h from h_{t-1} and dz),
+    ``gated`` (dW1 from h_prev and pair; dW2 from bf16(r * h_prev) and dc
+    when ``has_w2``) or ``peephole`` (dW_h, dP_i, dP_f, dP_o from h_{t-1},
+    c_{t-1}, c_{t-1}, c_t and the four blocks of dz), in the order of the
+    wrapper's outputs. The tiling: 256 columns a tile when that gives at
+    least DW_WIDE_MIN_TILES tiles, else 128; 64 operand rows a stage; a
+    4-deep ring, 3-deep when the gated r operand takes a third of it.
+    ``config`` (tile_n, rows, stages), one of DW_CONFIGS, overrides it."""
+    h = h_dim
+    if family == "lstm":          # res [a | i | f | o | tanh c | c | h]
+        specs = [(6 * h, None, 7 * h, "dz", 0, 4 * h, 4 * h)]
+    elif family == "gated":       # res [r | z | hb | h_prev]
+        specs = [(3 * h, None, 4 * h, "pair", 0, 2 * h, 2 * h)]
+        if has_w2:
+            specs.append((3 * h, 0, 4 * h, "dc", 0, h, h))
+    elif family == "peephole":    # the LSTM's row and c_t
+        specs = [(6 * h, None, 8 * h, "dz", 0, 4 * h, 4 * h),
+                 (5 * h, None, 8 * h, "dz", h, 4 * h, h),
+                 (5 * h, None, 8 * h, "dz", 2 * h, 4 * h, h),
+                 (7 * h, None, 8 * h, "dz", 3 * h, 4 * h, h)]
+    else:
+        raise ValueError(f"dw_plan: unknown family {family!r}")
+    has_r = any(r_col is not None for _, r_col, *_ in specs)
+    if config is None:
+        wide = sum(dw_tiles(h, n, 256) for *_, n in specs)
+        config = ((256, 64, 3 if has_r else 4) if wide >= DW_WIDE_MIN_TILES
+                  else (128, 64, 4))
+    tile_n, rows, stages = config
+    if (tile_n, rows, stages) not in DW_CONFIGS:
+        raise ValueError(f"dw_plan: tiling {(tile_n, rows, stages)} is not "
+                         f"one of {DW_CONFIGS}")
+    problems, tile0 = [], 0
+    for a_col, r_col, lda, b, b_col, ldb, n in specs:
+        problems.append(DwProblem(a_col, r_col, lda, b, b_col, ldb, n, tile0))
+        tile0 += dw_tiles(h, n, tile_n)
+    return DwPlan(tuple(problems), tile_n, rows, stages, tile0,
+                  dw_smem_bytes(tile_n, rows, stages, has_r))
+
+
+def _dw_launch(name, fn, plan, h_dim, res, operands, outs, stream):
+    """Launch one dW entry point on ``plan`` with the residuals ``res``
+    (T, B, .), the B operands by name and the f32 outputs, in plan order:
+    one grid for all problems."""
+    base = res.data_ptr()
+    words = []
+    for p, out in zip(plan.problems, outs):
+        words += [base + 2 * p.a_col, p.lda,
+                  0 if p.r_col is None else base + 2 * p.r_col,
+                  operands[p.b].data_ptr() + 2 * p.b_col, p.ldb,
+                  out.data_ptr(), p.n, p.tile0]
+    desc = (ctypes.c_longlong * len(words))(*words)
+    m_rows = res.shape[0] * res.shape[1]
+    kernels.check(fn(desc, len(plan.problems), m_rows, h_dim, plan.tile_n,
+                     plan.rows, plan.stages, stream), name)
+    kernels.launches[name] += 1
+
+
+_SCAN_CAPACITY: Dict[Tuple[int, int, bool], int] = {}
 
 
 def _lib():
@@ -66,7 +265,23 @@ def _lib():
     for fn in (lib.lstm_scan_f32, lib.lstm_scan_bf16):
         fn.argtypes = _SCAN_ARGTYPES
         fn.restype = ctypes.c_int
+    lib.lstm_scan_capacity.argtypes = [ctypes.c_int, ctypes.c_int,
+                                       ctypes.POINTER(ctypes.c_int)]
+    lib.lstm_scan_capacity.restype = ctypes.c_int
     return lib
+
+
+def _scan_capacity(lib, device, h_dim, resident):
+    """Co-resident blocks of the scan kernel on ``device`` at this H."""
+    key = (device.index, h_dim, resident)
+    if key not in _SCAN_CAPACITY:
+        n = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            kernels.check(lib.lstm_scan_capacity(h_dim, int(resident),
+                                                 ctypes.byref(n)),
+                          "lstm_scan")
+        _SCAN_CAPACITY[key] = n.value
+    return _SCAN_CAPACITY[key]
 
 
 def _train_lib():
@@ -162,9 +377,11 @@ def lstm_scan(proj, wh, c0, h0):
     (B, H). Returns ``(c_T, h_T), hs`` with hs (T, B, H).
 
     CUDA tensors launch the kernel (or raise); CPU tensors take
-    ``lstm_scan_reference``. The kernel has no backward: on the card a
-    tensor that requires grad under grad mode raises, and training goes
-    through ``lstm_scan_train``.
+    ``lstm_scan_reference``. On the card the whole sequence is one
+    persistent launch per row chunk of ``lstm_scan_plan`` (one for
+    B <= 128 at H=1024). The kernel has no backward: on the card a tensor
+    that requires grad under grad mode raises, and training goes through
+    ``lstm_scan_train``.
     """
     _check_scan_args("lstm_scan", proj, wh, c0, h0)
     if proj.device.type == "cpu":
@@ -177,23 +394,28 @@ def lstm_scan(proj, wh, c0, h0):
             "outputs would carry no gradient; train through "
             "lstm_scan_train, or run under torch.no_grad() / "
             "torch.inference_mode()")
-    fn = getattr(_lib(), "lstm_scan_" + _dtype_suffix("lstm_scan",
-                                                      proj.dtype))
+    lib = _lib()
+    fn = getattr(lib, "lstm_scan_" + _dtype_suffix("lstm_scan", proj.dtype))
     if not proj.is_contiguous():
         raise ValueError("lstm_scan: proj must be contiguous")
     t, b, _ = proj.shape
     h_dim = wh.shape[0]
-    whb = wh.to(torch.bfloat16).contiguous()
-    h_a = h0.float().contiguous().clone()
-    h_b = torch.empty_like(h_a)
+    dev = proj.device
+    plan = lstm_scan_plan(h_dim, b, _scan_capacity(
+        lib, dev, h_dim, scan_w_resident(h_dim)))
+    wt = wh.to(torch.bfloat16).t().contiguous()      # W_h^T (4H, H)
+    h = h0.float().contiguous().clone()
     c = c0.float().contiguous().clone()
-    hs = torch.empty((t, b, h_dim), dtype=proj.dtype, device=proj.device)
-    kernels.check(fn(proj.data_ptr(), whb.data_ptr(), h_a.data_ptr(),
-                     h_b.data_ptr(), c.data_ptr(), hs.data_ptr(), t, b,
-                     h_dim, stream), "lstm_scan")
+    hx = torch.empty((2, b, h_dim), dtype=torch.bfloat16, device=dev)
+    hs = torch.empty((t, b, h_dim), dtype=proj.dtype, device=dev)
+    bar = torch.zeros(len(plan.launches), dtype=torch.int32, device=dev)
+    for i, (row0, nrows) in enumerate(plan.launches):
+        kernels.check(fn(proj.data_ptr(), wt.data_ptr(), h.data_ptr(),
+                         c.data_ptr(), hx.data_ptr(), hs.data_ptr(),
+                         bar.data_ptr() + 4 * i, t, b, h_dim, row0, nrows,
+                         int(plan.resident), stream), "lstm_scan")
     kernels.launches["lstm_scan"] += 1
-    h_t = h_a if t % 2 == 0 else h_b
-    return (c.to(c0.dtype), h_t.to(c0.dtype)), hs
+    return (c.to(c0.dtype), h.to(c0.dtype)), hs
 
 
 # ---------------------------------------------------------------------------
@@ -227,7 +449,9 @@ def lstm_train_forward(proj, wh, c0, h0):
     c0/h0 (B, H). Returns ``hs`` (T, B, H) in proj's dtype, the
     residuals ``res`` (T, B, 7H) bf16, and ``c_T``, ``h_T`` float32.
 
-    hs, c_T and h_T equal ``lstm_scan``'s on the same inputs.
+    hs, c_T and h_T agree with ``lstm_scan``'s within the recurrence
+    tolerance, not bit for bit: the scan kernel sums each step's product
+    on the tensor cores, in another order than this kernel's FMAs.
     """
     _check_scan_args("lstm_train_forward", proj, wh, c0, h0)
     if proj.device.type == "cpu":
@@ -282,10 +506,8 @@ def lstm_train_dw(res, dz):
         raise ValueError("lstm_train_dw: res and dz must be contiguous")
     dw = torch.empty((h_dim, 4 * h_dim), dtype=torch.float32,
                      device=res.device)
-    kernels.check(_train_lib().lstm_train_dw(
-        res.data_ptr(), dz.data_ptr(), dw.data_ptr(), t * b, h_dim, stream),
-        "lstm_train_dw")
-    kernels.launches["lstm_train_dw"] += 1
+    _dw_launch("lstm_train_dw", _train_lib().lstm_train_dw,
+               dw_plan("lstm", h_dim), h_dim, res, {"dz": dz}, [dw], stream)
     return dw
 
 
@@ -413,8 +635,6 @@ _GATED_FWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
 _GATED_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
-_GATED_DW_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                      + [ctypes.c_void_p])
 
 
 def _gated_scan_lib():
@@ -431,7 +651,7 @@ def _gated_train_lib():
                            _GATED_FWD_ARGTYPES),
                           ((lib.gated_train_bwd_f32, lib.gated_train_bwd_bf16),
                            _GATED_BWD_ARGTYPES),
-                          ((lib.gated_train_dw,), _GATED_DW_ARGTYPES)):
+                          ((lib.gated_train_dw,), _DW_ARGTYPES)):
         for fn in fns:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -655,10 +875,9 @@ def gated_train_dw(res, pair, dc):
     dw2 = (None if dc is None else
            torch.empty((h_dim, h_dim), dtype=torch.float32,
                        device=res.device))
-    kernels.check(_gated_train_lib().gated_train_dw(
-        res.data_ptr(), pair.data_ptr(), _ptr(dc), dw1.data_ptr(), _ptr(dw2),
-        t * b, h_dim, int(dc is not None), stream), "gated_train_dw")
-    kernels.launches["gated_train_dw"] += 1
+    _dw_launch("gated_train_dw", _gated_train_lib().gated_train_dw,
+               dw_plan("gated", h_dim, has_w2=dc is not None), h_dim, res,
+               {"pair": pair, "dc": dc}, [dw1, dw2], stream)
     return dw1, dw2
 
 
@@ -830,8 +1049,6 @@ _PEEP_FWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
                       + [ctypes.c_void_p])
 _PEEP_BWD_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 3
                       + [ctypes.c_void_p])
-_PEEP_DW_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
-                     + [ctypes.c_void_p])
 
 
 def _peep_scan_lib():
@@ -848,7 +1065,7 @@ def _peep_train_lib():
                             lib.peephole_train_fwd_bf16), _PEEP_FWD_ARGTYPES),
                           ((lib.peephole_train_bwd_f32,
                             lib.peephole_train_bwd_bf16), _PEEP_BWD_ARGTYPES),
-                          ((lib.peephole_train_dw,), _PEEP_DW_ARGTYPES)):
+                          ((lib.peephole_train_dw,), _DW_ARGTYPES)):
         for fn in fns:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -1022,11 +1239,9 @@ def peephole_train_dw(res, dz):
                       device=res.device)
     dp = [torch.empty((h_dim, h_dim), dtype=torch.float32, device=res.device)
           for _ in range(3)]
-    kernels.check(_peep_train_lib().peephole_train_dw(
-        res.data_ptr(), dz.data_ptr(), dwh.data_ptr(),
-        *(p.data_ptr() for p in dp), t * b, h_dim, stream),
-        "peephole_train_dw")
-    kernels.launches["peephole_train_dw"] += 1
+    _dw_launch("peephole_train_dw", _peep_train_lib().peephole_train_dw,
+               dw_plan("peephole", h_dim), h_dim, res, {"dz": dz},
+               [dwh, *dp], stream)
     return (dwh, *dp)
 
 

@@ -1,0 +1,231 @@
+"""Host-side layouts of the persistent ``lstm_scan`` kernel and of the
+tensor-core dW GEMM shared by the three training backwards
+(``ops/rnn_cuda.py`` ``lstm_scan_plan`` and ``dw_plan``), on the CPU.
+
+The kernels run only on the card; what they are handed is plain Python,
+and is checked here: every (batch row, hidden unit) cell and every gate
+column of the scan is owned by exactly one thread of one block, and every
+dW output element by exactly one tile; each block's shared memory fits
+the card's 227 KB; and the dW problem descriptors (column offsets and row
+strides into the residuals and gradients) address the same columns as
+the plain versions ``lstm_train_dw_reference``, ``gated_train_dw_reference``
+and ``peephole_train_dw_reference``: running the contraction on strided
+views built from the descriptors gives the references' results.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nnacousticmodeling_tpu_torch import kernels
+from nnacousticmodeling_tpu_torch.ops import rnn_cuda
+from nnacousticmodeling_tpu_torch.ops.rnn_cuda import (
+    DW_CONFIGS,
+    DW_TILE_M,
+    SCAN_ROWS,
+    SCAN_UNITS,
+    SMEM_LIMIT,
+    dw_plan,
+    lstm_scan_plan,
+    scan_w_resident,
+)
+
+HS = [32, 40, 64, 1024, 2048]
+BS = [1, 3, 33, 128]
+#: co-resident blocks of the scan on a 132-SM H100: one block an SM with
+#: W_h resident (~218 KB of shared memory at H=1024), two streamed
+H100_BLOCKS = {True: 132, False: 264}
+THREADS = 256   # lstm_scan.cu: 16 units x 16 row groups of 4 rows
+
+
+def _scan_cells(plan, h_dim, batch):
+    """How often each (row, unit) cell and each (row, gate column) is
+    owned, following lstm_scan.cu's block and thread layout."""
+    cells = np.zeros((batch, h_dim), np.int64)
+    cols = np.zeros((batch, 4 * h_dim), np.int64)
+    tid = np.arange(THREADS)
+    u, rq = tid % SCAN_UNITS, tid // SCAN_UNITS
+    for row0, nrows in plan.launches:
+        gx, gy = plan.grid(nrows)
+        for bx in range(gx):
+            for by in range(gy):
+                for q in range(4):
+                    b = row0 + by * SCAN_ROWS + rq + 16 * q
+                    j = bx * SCAN_UNITS + u
+                    own = (j < h_dim) & (b < row0 + nrows)
+                    np.add.at(cells, (b[own], j[own]), 1)
+                    for g in range(4):
+                        np.add.at(cols, (b[own], g * h_dim + j[own]), 1)
+    return cells, cols
+
+
+@pytest.mark.parametrize("batch", BS)
+@pytest.mark.parametrize("h_dim", HS)
+def test_scan_plan_owns_every_cell_once(h_dim, batch):
+    resident = scan_w_resident(h_dim)
+    assert resident == (h_dim <= 1088)
+    plan = lstm_scan_plan(h_dim, batch, H100_BLOCKS[resident])
+    assert plan.resident == resident
+    assert plan.smem_bytes <= SMEM_LIMIT
+    for _, nrows in plan.launches:
+        gx, gy = plan.grid(nrows)
+        assert gx * gy <= H100_BLOCKS[resident]
+    assert sum(n for _, n in plan.launches) == batch
+    if h_dim == 1024 and batch <= 128:
+        assert len(plan.launches) == 1    # the serving path: one launch
+    cells, cols = _scan_cells(plan, h_dim, batch)
+    assert (cells == 1).all() and (cols == 1).all()
+
+
+@pytest.mark.parametrize("h_dim,batch", [(40, 200), (1024, 300), (2048, 3)])
+def test_scan_plan_cuts_rows_into_co_resident_launches(h_dim, batch):
+    """A grid of just the units' blocks holds one row tile a launch."""
+    unit_blocks = -(-h_dim // SCAN_UNITS)
+    plan = lstm_scan_plan(h_dim, batch, unit_blocks)
+    assert len(plan.launches) == -(-batch // SCAN_ROWS)
+    cells, cols = _scan_cells(plan, h_dim, batch)
+    assert (cells == 1).all() and (cols == 1).all()
+
+
+def test_scan_plan_refuses_a_grid_that_cannot_be_co_resident():
+    with pytest.raises(ValueError, match="co-resident"):
+        lstm_scan_plan(4096, 8, 200)
+
+
+def _families():
+    return {"lstm": ("lstm", True, 7, ("dz", 4)),
+            "gru": ("gated", True, 4, ("pair", 2), ("dc", 1)),
+            "mgru": ("gated", False, 4, ("pair", 2)),
+            "peephole": ("peephole", True, 8, ("dz", 4))}
+
+
+def _plan(name, h_dim):
+    family, has_w2 = _families()[name][:2]
+    return dw_plan(family, h_dim, has_w2)
+
+
+def _outputs(name, h_dim):
+    return {"lstm": [4 * h_dim], "gru": [2 * h_dim, h_dim],
+            "mgru": [2 * h_dim],
+            "peephole": [4 * h_dim, h_dim, h_dim, h_dim]}[name]
+
+
+@pytest.mark.parametrize("batch", BS)
+@pytest.mark.parametrize("h_dim", HS)
+@pytest.mark.parametrize("name", ["lstm", "gru", "mgru", "peephole"])
+def test_dw_plan_covers_every_output_once(name, h_dim, batch):
+    plan = _plan(name, h_dim)
+    assert (plan.tile_n, plan.rows, plan.stages) in DW_CONFIGS
+    assert plan.smem_bytes <= SMEM_LIMIT
+    assert [p.n for p in plan.problems] == _outputs(name, h_dim)
+    cover = [np.zeros((h_dim, p.n), np.int64) for p in plan.problems]
+    starts = [p.tile0 for p in plan.problems]
+    assert starts[0] == 0 and starts == sorted(starts)
+    for t in range(plan.tiles):
+        k = max(i for i, s in enumerate(starts) if s <= t)
+        p = plan.problems[k]
+        local = t - p.tile0
+        tiles_n = -(-p.n // plan.tile_n)
+        i0 = (local // tiles_n) * DW_TILE_M
+        j0 = (local % tiles_n) * plan.tile_n
+        assert i0 < h_dim and j0 < p.n
+        cover[k][i0:i0 + DW_TILE_M, j0:j0 + plan.tile_n] += 1
+    assert all((c == 1).all() for c in cover)
+
+
+def _dw_case(name, h_dim, batch, t_len=1):
+    """Residuals and bf16 gradient operands of one backward, by name."""
+    family, has_w2, width, *ops = _families()[name]
+    rng = np.random.default_rng(h_dim * 10 + batch)
+
+    def bf16(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(torch.bfloat16)
+
+    res = bf16(t_len, batch, width * h_dim)
+    return res, {op: bf16(t_len, batch, k * h_dim) for op, k in ops}
+
+
+def _contract(plan, h_dim, res, operands):
+    """dW of every problem from strided views of the flat operands, as the
+    kernel addresses them."""
+    m_rows = res.shape[0] * res.shape[1]
+    flat = res.flatten()
+    outs = []
+    for p in plan.problems:
+        a = torch.as_strided(flat, (m_rows, h_dim), (p.lda, 1),
+                             p.a_col).float()
+        if p.r_col is not None:
+            r = torch.as_strided(flat, (m_rows, h_dim), (p.lda, 1),
+                                 p.r_col).float()
+            a = (r * a).to(torch.bfloat16).float()
+        b = torch.as_strided(operands[p.b].flatten(), (m_rows, p.n),
+                             (p.ldb, 1), p.b_col).float()
+        outs.append(a.T @ b)
+    return outs
+
+
+@pytest.mark.parametrize("batch", BS)
+@pytest.mark.parametrize("h_dim", HS)
+@pytest.mark.parametrize("name", ["lstm", "gru", "mgru", "peephole"])
+def test_dw_descriptors_address_the_reference_columns(name, h_dim, batch):
+    plan = _plan(name, h_dim)
+    res, operands = _dw_case(name, h_dim, batch)
+    got = _contract(plan, h_dim, res, operands)
+    if name == "lstm":
+        want = [rnn_cuda.lstm_train_dw_reference(res, operands["dz"])]
+    elif name == "peephole":
+        want = list(rnn_cuda.peephole_train_dw_reference(res,
+                                                         operands["dz"]))
+    else:
+        want = [w for w in rnn_cuda.gated_train_dw_reference(
+            res, operands["pair"], operands.get("dc")) if w is not None]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+
+
+def test_dw_plan_takes_wide_tiles_only_where_they_fill_the_card():
+    assert _plan("lstm", 1024).tile_n == 256          # 128 wide tiles
+    assert _plan("gru", 1024).stages == 3             # r takes a third
+    assert _plan("mgru", 1024).tile_n == 128          # 64 wide: too few
+    assert _plan("peephole", 1024).tile_n == 256
+    assert all(_plan(n, 40).tile_n == 128
+               for n in ("lstm", "gru", "mgru", "peephole"))
+    with pytest.raises(ValueError, match="tiling"):
+        dw_plan("lstm", 64, True, (64, 64, 4))
+
+
+@pytest.mark.parametrize("name", ["lstm", "gru", "mgru", "peephole"])
+def test_dw_launch_packs_the_descriptors(name):
+    """The words handed to the C entry point: per problem the A, r and B
+    addresses (base + 2 bytes a column), row strides, output, n, tile0."""
+    h_dim, batch = 40, 3
+    plan = _plan(name, h_dim)
+    res, operands = _dw_case(name, h_dim, batch, t_len=2)
+    outs = [torch.empty(h_dim, p.n) for p in plan.problems]
+    seen = {}
+
+    def entry(desc, count, m_rows, h, tile_n, rows, stages, stream):
+        seen.update(words=[desc[i] for i in range(8 * count)], count=count,
+                    m=m_rows, h=h, tiling=(tile_n, rows, stages))
+        return 0
+
+    before = dict(kernels.launches)
+    try:
+        rnn_cuda._dw_launch("test_dw", entry, plan, h_dim, res, operands,
+                            outs, None)
+        assert kernels.launches["test_dw"] == before.get("test_dw", 0) + 1
+    finally:
+        kernels.launches.clear()
+        kernels.launches.update(before)
+    assert seen["count"] == len(plan.problems)
+    assert seen["m"] == 2 * batch and seen["h"] == h_dim
+    assert seen["tiling"] == (plan.tile_n, plan.rows, plan.stages)
+    base = res.data_ptr()
+    for k, (p, out) in enumerate(zip(plan.problems, outs)):
+        w = seen["words"][8 * k:8 * k + 8]
+        assert w == [base + 2 * p.a_col, p.lda,
+                     0 if p.r_col is None else base + 2 * p.r_col,
+                     operands[p.b].data_ptr() + 2 * p.b_col, p.ldb,
+                     out.data_ptr(), p.n, p.tile0]
