@@ -26,16 +26,17 @@ Phases (each one that fails ends the run with a non-zero exit):
 6. a profiled repeat of the slice: device busy share and top device ops;
    ``lstm_scan`` must have run as one device kernel a layer;
 7. ``lstm_train_forward`` against its plain version at the training
-   shapes (T=20, B=128, H=1024), f32 and bf16 proj: hs, c_T, h_T within
-   LSTM_ATOL of the ``lstm_scan`` kernel (which sums on the tensor cores
-   in another order) and within the stated tolerance of the plain
-   version, residuals within theirs;
+   shapes (T=20, B=128, H=1024), f32 and bf16 proj: hs, c_T, h_T
+   bit-equal to the ``lstm_scan`` kernel's (one kernel body) and within
+   the stated tolerance of the plain version, residuals within theirs;
+   device microseconds a step;
 8. ``lstm_train_backward`` and its dW kernel ``lstm_train_dw`` against
-   their plain versions on the same residuals, with cuDNN ``nn.LSTM``
-   bf16 forward and backward timed beside them as the yardstick; the dW
-   kernel, its plain version and a cuBLAS bf16 ``matmul`` of the same
-   operands also by device time (a dW call is shorter than the host
-   time of a Python call);
+   their plain versions on the same residuals, a second backward call
+   bit-identical, device microseconds a reverse step, with cuDNN
+   ``nn.LSTM`` bf16 forward and backward timed beside them as the
+   yardstick; the dW kernel, its plain version and a cuBLAS bf16
+   ``matmul`` of the same operands also by device time (a dW call is
+   shorter than the host time of a Python call);
 9. the training slice: ``train_cli.main`` trains LSTM 4x1024 -> 1909
    (TBPTT, batch 128, bprop 20, momentumsgd lr 1e-2, 2 epochs) on phase
    5's corpus written as a corpus tree; the training kernels and the
@@ -45,7 +46,8 @@ Phases (each one that fails ends the run with a non-zero exit):
 10. 3 updates through ``train_network`` with the kernels against the
     same 3 updates with the plain versions (per-update losses within the
     stated tolerance), then one ``--dtype bfloat16`` epoch;
-11. a profiled repeat of 3 updates: device busy share and top ops;
+11. a profiled repeat of 3 updates: device busy share and top ops; one
+    persistent forward and one backward device kernel a layer an update;
 12. the gated kernels against their plain versions, for each kind (gru,
     mgru_r, mgru): ``gated_scan`` at the serving shapes (T=512, B=128,
     H=1024), ``gated_train_forward`` (bit-equal to ``gated_scan``),
@@ -213,16 +215,28 @@ def cuda_ms(torch, fn, reps, warm=True):
     return start.elapsed_time(stop) / reps
 
 
+def profiled_calls(torch, fn, reps):
+    """Device busy ms and top device ops of ``reps`` calls of ``fn`` under
+    the profiler, after one warm-up call. A session that recorded no
+    device time (the profiler now and then drops a session's device
+    events) is repeated, up to three times in all."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        _, busy_ms, top = device_profile(
+            torch, lambda: [fn() for _ in range(reps)])
+        if busy_ms > 0:
+            return busy_ms, top
+    fail("the profiler recorded no device time in three sessions")
+
+
 def device_ms(torch, fn, reps):
     """Device milliseconds per call of ``fn``: the device time of every
     kernel it launches, summed under the profiler over ``reps`` calls
     after one warm-up call. Host time between launches does not count,
     so a call shorter than its Python overhead is timed as the card
     runs it on a busy stream."""
-    fn()
-    torch.cuda.synchronize()
-    _, busy_ms, _ = device_profile(torch, lambda: [fn() for _ in range(reps)])
-    return busy_ms / reps
+    return profiled_calls(torch, fn, reps)[0] / reps
 
 
 def bound(bytes_moved, ops, peak_ops):
@@ -301,8 +315,8 @@ def device_profile(torch, fn, launches_of=None):
     """Run ``fn`` under the profiler; returns wall ms, device busy ms and
     the top device ops (device-side events only: a host op's device time
     repeats the time of the kernels it launched), and with
-    ``launches_of`` a fourth value: how many device kernels ran whose
-    name holds that string."""
+    ``launches_of`` (a tuple of strings) a fourth value: for each string,
+    how many device kernels ran whose name holds it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -324,10 +338,18 @@ def device_profile(torch, fn, launches_of=None):
     top = {k: v / 1e3 for k, v in top}
     if launches_of is None:
         return wall_ms, busy_ms, top
-    n = sum(ev.count for ev in prof.key_averages()
-            if getattr(ev, "device_type", None) == DeviceType.CUDA
-            and launches_of in ev.key)
-    return wall_ms, busy_ms, top, n
+    counts = {name: sum(ev.count for ev in prof.key_averages()
+                        if getattr(ev, "device_type", None) == DeviceType.CUDA
+                        and name in ev.key) for name in launches_of}
+    return wall_ms, busy_ms, top, counts
+
+
+def kernel_us_per_step(torch, fn, reps, name, steps):
+    """Device microseconds a step of the kernel whose name holds ``name``:
+    its device time over ``reps`` calls of ``fn`` (after one warm-up
+    call), over ``reps * steps``."""
+    top = profiled_calls(torch, fn, reps)[1]
+    return sum(v for k, v in top.items() if name in k) * 1e3 / (reps * steps)
 
 
 def log_profile(tag, wall_ms, busy_ms, top, card):
@@ -536,10 +558,10 @@ def update_runs(torch, dev, corpus, name, init):
         return [h["main/loss"] for h in train_network(
             net3, x3, y3, cfg3, init_params=init3, device=dev).history]
 
-    def profiled():
+    def profiled(launches_of=None):
         net_p, init_p = net_and_init()
         return device_profile(torch, lambda: train_network(
-            net_p, x3, y3, cfg3, init_params=init_p, device=dev))
+            net_p, x3, y3, cfg3, init_params=init_p, device=dev), launches_of)
 
     return losses, profiled
 
@@ -604,14 +626,14 @@ def train_phases(torch, np, dev, card, corpus, report):
         hs_r, res_r, ct_r, ht_r = rnn_cuda.lstm_train_forward_reference(
             p, wh, c0, h0)
         torch.cuda.synchronize()
-        # lstm_scan sums each step on the tensor cores, this kernel with
-        # FMAs in another order: the recurrence tolerance, not bit-equality
+        # lstm_scan's kernel code plus the residual stores: the same bits
         scan_err = max(float((hs_k.float() - hs_s.float()).abs().max()),
                        float((ct_k - c_s).abs().max()),
                        float((ht_k - h_s).abs().max()))
-        if not scan_err <= LSTM_ATOL:
-            fail(f"lstm_train_forward ({tag}) differs from lstm_scan by "
-                 f"{scan_err} (tolerance {LSTM_ATOL})")
+        if not (torch.equal(hs_k, hs_s) and torch.equal(ct_k, c_s)
+                and torch.equal(ht_k, h_s)):
+            fail(f"lstm_train_forward ({tag}) is not bit-equal to lstm_scan:"
+                 f" max difference {scan_err}")
         err = max(float((hs_k.float() - hs_r.float()).abs().max()),
                   float((ct_k - ct_r).abs().max()),
                   float((ht_k - ht_r).abs().max()))
@@ -629,13 +651,18 @@ def train_phases(torch, np, dev, card, corpus, report):
                  f"{res_over} (tolerance {LSTM_ATOL})")
         fwd[tag] = dict(err=err, res_err=float(res_d.max()),
                         res_over=res_over, scan_err=scan_err)
-        log(f"[train fwd {tag}] T={T} B={B} H={H}: hs, c_T, h_T within "
-            f"{scan_err:.3e} of lstm_scan (tolerance {LSTM_ATOL}); max "
+        log(f"[train fwd {tag}] T={T} B={B} H={H}: hs, c_T, h_T bit-equal "
+            f"to lstm_scan's; max "
             f"|kernel - plain| {err:.3e} (tolerance "
             f"{LSTM_ATOL}), residuals {float(res_d.max()):.3e}, beyond "
             f"{RES_RTOL:.4f} relative {res_over:.3e} (tolerance {LSTM_ATOL})")
-    fwd_ms = cuda_ms(torch, lambda: rnn_cuda.lstm_train_forward(
-        proj, wh, c0, h0), 10)
+
+    def fwd_call():
+        return rnn_cuda.lstm_train_forward(proj, wh, c0, h0)
+
+    fwd_ms = cuda_ms(torch, fwd_call, 10)
+    fwd_step_us = kernel_us_per_step(torch, fwd_call, 10,
+                                     "lstm_train_fwd_persistent", T)
     fwd_plain_ms = cuda_ms(torch, lambda: rnn_cuda.lstm_train_forward_reference(
         proj, wh, c0, h0), 5)
     cudnn = torch.nn.LSTM(H, H, device=dev, dtype=torch.bfloat16)
@@ -651,9 +678,10 @@ def train_phases(torch, np, dev, card, corpus, report):
     fwd_bytes = (T * B * G * 4 + H * G * 4 + 2 * B * H * 4 + TBH * 4
                  + TBH * 7 * 2 + 2 * B * H * 4)
     fwd_bound, fwd_by = bound(fwd_bytes, 2 * TBH * G, BF16_TENSOR_FLOPS)
-    log(f"[train fwd] kernel {fwd_ms:.3f} ms, plain {fwd_plain_ms:.3f} ms, "
-        f"cuDNN nn.LSTM bf16 forward {fwd_lib_ms:.3f} ms, bound "
-        f"{fwd_bound:.4f} ms ({fwd_by}) [{card}]")
+    log(f"[train fwd] kernel {fwd_ms:.3f} ms ({fwd_step_us:.2f} us a step, "
+        f"device time), plain {fwd_plain_ms:.3f} ms, cuDNN nn.LSTM bf16 "
+        f"forward {fwd_lib_ms:.3f} ms, bound {fwd_bound:.4f} ms ({fwd_by}) "
+        f"[{card}]")
 
     # ---- 8. lstm_train_backward and lstm_train_dw against plain -------
     g = torch.Generator().manual_seed(3)
@@ -662,9 +690,15 @@ def train_phases(torch, np, dev, card, corpus, report):
     dht = torch.randn(B, H, generator=g).to(dev)
     _, res, _, _ = rnn_cuda.lstm_train_forward(proj, wh, c0, h0)
     got = rnn_cuda.lstm_train_backward(res, wh, dhs, dct, dht, torch.float32)
+    again = rnn_cuda.lstm_train_backward(res, wh, dhs, dct, dht,
+                                         torch.float32)
     want = rnn_cuda.lstm_train_backward_reference(res, wh, dhs, dct, dht,
                                                   torch.float32)
     torch.cuda.synchronize()
+    if not all(torch.equal(a, k) for a, k in zip(again, got)):
+        fail("lstm_train_backward: a second call on the same inputs gave "
+             "other bits")
+    del again
     names = ("dproj", "dW", "dc0", "dh0")
     scales = [float(w.abs().max()) for w in want]
     abs_errs = [float((k - w).abs().max()) for k, w in zip(got, want)]
@@ -688,8 +722,14 @@ def train_phases(torch, np, dev, card, corpus, report):
     if not dw_alone_err <= DW_RTOL:
         fail(f"lstm_train_dw differs from its plain version by "
              f"{dw_alone_err} of max |dW| (tolerance {DW_RTOL})")
-    bwd_ms = cuda_ms(torch, lambda: rnn_cuda.lstm_train_backward(
-        res, wh, dhs, dct, dht, torch.float32), 10)
+
+    def bwd_call():
+        return rnn_cuda.lstm_train_backward(res, wh, dhs, dct, dht,
+                                            torch.float32)
+
+    bwd_ms = cuda_ms(torch, bwd_call, 10)
+    bwd_step_us = kernel_us_per_step(torch, bwd_call, 10,
+                                     "lstm_train_bwd_persistent", T)
     bwd_plain_ms = cuda_ms(
         torch, lambda: rnn_cuda.lstm_train_backward_reference(
             res, wh, dhs, dct, dht, torch.float32), 5)
@@ -711,7 +751,10 @@ def train_phases(torch, np, dev, card, corpus, report):
     dw_bound, dw_by = bound(dw_bytes, 2 * TBH * G, BF16_TENSOR_FLOPS)
     log(f"[train bwd] max |kernel - plain|: {detail} (tolerances "
         f"{BWD_RTOL} of max for dproj/dc0/dh0, {DW_RTOL} for dW); dW kernel "
-        f"alone {dw_alone_err:.3e} of max |dW|")
+        f"alone {dw_alone_err:.3e} of max |dW|; a second call bit-identical")
+    log(f"[train bwd] {bwd_step_us:.2f} us a reverse step (device time; "
+        f"forward {fwd_step_us:.2f} us a step); cuDNN nn.LSTM bf16 forward "
+        f"{fwd_lib_ms:.3f} ms, backward {bwd_lib_ms:.3f} ms [{card}]")
     log(f"[train bwd] backward (with dW) {bwd_ms:.3f} ms, plain "
         f"{bwd_plain_ms:.3f} ms, cuDNN nn.LSTM bf16 backward "
         f"{bwd_lib_ms:.3f} ms, bound {bwd_bound:.4f} ms ({bwd_by}); dW "
@@ -793,8 +836,14 @@ def train_phases(torch, np, dev, card, corpus, report):
             f"warm-up included) [{card}]")
 
     # ---- 11. where the time goes: 3 updates, profiled ------------------
-    wall_ms, busy_ms, top = profiled()
+    step_kernels = ("lstm_train_fwd_persistent", "lstm_train_bwd_persistent")
+    wall_ms, busy_ms, top, train_kernels = profiled(step_kernels)
     log_profile("train profile", wall_ms, busy_ms, top, card)
+    if any(n != 3 * LAYERS for n in train_kernels.values()):
+        fail(f"3 profiled updates ran {train_kernels} device kernels, not one "
+             f"forward and one backward a layer an update ({3 * LAYERS})")
+    log(f"[train profile] device kernels in 3 updates of {LAYERS} layers: "
+        f"{train_kernels}: one forward and one backward a layer an update")
 
     report["train"] = dict(
         fwd=fwd, fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain_ms,
@@ -808,8 +857,9 @@ def train_phases(torch, np, dev, card, corpus, report):
         e2e=e2e,
         bf16=dict(history=bf.history, launches=bf_launches,
                   update_ms=bf_update_ms),
+        fwd_step_us=fwd_step_us, bwd_step_us=bwd_step_us,
         profile=dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
-                     top_device_ms=top))
+                     top_device_ms=top, kernels=train_kernels))
     src = "nnacousticmodeling_tpu_torch/csrc/lstm_train.cu"
     return [
         {"name": "lstm_train_forward", "route": "cuda", "source": src,
@@ -2052,8 +2102,9 @@ def main():
         lp_prof = rnn_log_posteriors(net, x, offsets, ap=ap, batch=B_MAIN)
         decode_corpus(dec, lp_prof, offsets, batch=B_MAIN)
 
-    wall_ms, busy_ms, top, scan_kernels = device_profile(
-        torch, serve, launches_of="lstm_scan")
+    wall_ms, busy_ms, top, counts = device_profile(
+        torch, serve, launches_of=("lstm_scan",))
+    scan_kernels = counts["lstm_scan"]
     report["profile"] = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                              top_device_ms=top, lstm_scan_kernels=scan_kernels)
     log_profile("profile", wall_ms, busy_ms, top, card)

@@ -9,14 +9,10 @@
 //   lstm_train_bwd_*  <- _lstm_train_bwd_impl (:485, pallas_call :590),
 //   lstm_train_dw        its dW contraction (:575-580)
 //
-// Forward, per step (the math of lstm_scan.cu; that kernel now sums the
-// product on the tensor cores in another order, so the two agree within
-// the recurrence tolerance, not bit for bit):
-//
-//     z = bf16(proj[t]) + bf16(h) @ bf16(W_h)     (f32 accumulation)
-//     a, i, f, o = tanh, sigmoid, sigmoid, sigmoid of z's four H-blocks
-//     c = f * c + i * a;   h = o * tanh(c)        (f32 carry)
-//     res[t] = bf16([a | i | f | o | tanh c | c_{t-1} | h_{t-1}])  (7H)
+// Forward: lstm_persistent.cuh's recurrence with the residual row
+// (RES = true), the step code of lstm_scan.cu, so hs, c_T and h_T are
+// bit-equal to lstm_scan's; per step it also writes
+// res[t] = bf16([a | i | f | o | tanh c | c_{t-1} | h_{t-1}]) (7H).
 //
 // Backward, per step in reverse time (the operation order of :532-571):
 //
@@ -32,361 +28,441 @@
 // What bounds them on this card. At T=20, B=128, H=1024 the forward
 // does 2*T*B*H*4H = 21.5 GFLOP (0.022 ms at the bf16 tensor rate)
 // against ~90 MB of proj, residuals and hs (0.027 ms at 3.35 TB/s); the
-// backward 43 GFLOP against ~140 MB. Both bounds sit far below the
-// floor of the serial recurrence: T dependent steps, each a grid-wide
-// barrier, and W_h (8 MB in bf16) fits in no SM's 227 KB of shared
-// memory, so the TPU kernels' design (W_h resident for the whole
-// sequence) does not carry over here yet: lstm_scan.cu's persistent grid
-// is the design these step kernels are to take next.
+// backward 43 GFLOP against ~140 MB. Both sit far below the floor of the
+// serial recurrence: T dependent steps, each a grid-wide exchange.
 //
-// What this design does about it. One launch per step on the caller's
-// stream; the launch boundary is the barrier. The forward block is
-// lstm_scan.cu's (32 units x 32 rows x 4 gate columns, h ping-pong, c
-// in place) and adds the residual row of its units. The backward block
-// owns 32 hidden units k x 32 batch rows: it first forms its tile of
-// dh_{t} = dzb_{t+1} @ W_h^T -- row k of the (H, 4H) W_h is contiguous,
-// so no transposed copy is needed -- and then runs step t's elementwise
-// part for its own units, whose dh, dc and residuals are all local to
-// it, as the forward's cell update is. dc is one (B, H) f32 buffer
-// updated in place; dzb goes to a (T, B, 4H) bf16 scratch. dW is not on
-// the serial path: dw_gemm.cuh's tensor-core GEMM, launched once after
-// the loop, contracts the T*B rows of h_{t-1} (read from the residuals)
-// against dzb. The step products run on the CUDA cores as f32 FMAs of
-// bf16-rounded operands (exact products, f32 sums) from shared-memory
-// tiles.
-
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+// What the designs do about it. Each is one persistent cooperative
+// launch per row chunk (ops/rnn_cuda.py lstm_scan_plan and
+// lstm_train_bwd_plan; one at B=128, H=1024) that walks all T steps with
+// one split grid barrier a step, and keeps its W_h slice in shared
+// memory for all T (streamed from L2 beside the exchange where it does
+// not fit). The backward block owns U = 16 hidden units k for RB = 64
+// batch rows: its dc stays in registers for all T, and its dh_t, dc and
+// residuals are all local to it, as the forward's cell update is. Its
+// product dh_t = dzb_{t+1} @ W_h^T reduces over 4H: the B operand is the
+// rows k0..k0+U of the (H, 4H) W_h, contiguous along the reduction (no
+// transposed copy; 128 KB at H=1024), the A operand dzb_{t+1} for the
+// block's rows, streamed from L2 in 128-wide chunks through a cp.async
+// ring. The (T, B, 4H) bf16 dz scratch that the dW GEMM reads is the
+// exchange buffer: step t writes slice t and nothing overwrites it. The
+// product is mma.sync.m16n8k16 (bf16 operands, f32 accumulation); N is
+// only 16 units, so the 8 warps split each chunk's reduction (16 columns
+// a warp) and add their partials in shared memory in one fixed order:
+// the same inputs give the same bits. Per reverse step the grid pulls
+// dzb from L2 once for every unit block, B * 4H * 2 bytes * H/U = 64 MB
+// at B=128, H=1024; yet a step takes about as long at a quarter of those
+// bytes (bench_lstm_train_steps.py): what bounds it grows with the 32
+// ring stages a step walks and the barrier, not with the stream.
 
 #include "dw_gemm.cuh"
+#include "lstm_persistent.cuh"
 
 namespace {
 
-constexpr int TB = 32;        // batch rows per block
-constexpr int TJ = 32;        // hidden units per block (x4 gate columns)
-constexpr int KC = 32;        // reduction chunk held in shared memory
-constexpr int THREADS = 256;  // 16 x 16 threads, each 2 rows x 2 units
+using lstm_persistent::grid_arrive;
+using lstm_persistent::grid_wait;
+using lstm_persistent::store_out;
+using namespace mma_ptx;
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
+// ---- forward: the shared recurrence plus the residual row -------------
 
-__device__ __forceinline__ float load_as_bf16(const float* p) {
-  return bf16_round(*p);
-}
-
-__device__ __forceinline__ float load_as_bf16(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
-
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// ---- forward: lstm_scan.cu's step kernel plus the residual row --------
-
-template <typename TP>
-__global__ void __launch_bounds__(THREADS)
-lstm_train_fwd_step(const TP* __restrict__ proj_t,           // (B, 4H)
-                    const __nv_bfloat16* __restrict__ wh,    // (H, 4H)
-                    const float* __restrict__ h_in,          // (B, H)
-                    float* __restrict__ c,                   // (B, H) in/out
-                    float* __restrict__ h_out,               // (B, H)
-                    TP* __restrict__ hs_t,                   // (B, H)
-                    __nv_bfloat16* __restrict__ res_t,       // (B, 7H)
-                    int B, int H) {
-  __shared__ float h_sm[TB][KC + 1];          // [row][k], padded
-  __shared__ __align__(8) float w_sm[KC][4 * TJ];  // [k][gate * TJ + unit]
-
-  const int tid = threadIdx.x;
-  const int j0 = blockIdx.x * TJ;
-  const int b0 = blockIdx.y * TB;
-  const int tu = (tid % 16) * 2;   // first of this thread's two units
-  const int tr = (tid / 16) * 2;   // first of this thread's two rows
-  const size_t G = (size_t)4 * H;
-
-  float acc[2][2][4];
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int u = 0; u < 2; ++u)
-#pragma unroll
-      for (int g = 0; g < 4; ++g) acc[r][u][g] = 0.0f;
-
-  for (int k0 = 0; k0 < H; k0 += KC) {
-    for (int e = tid; e < TB * KC; e += THREADS) {
-      const int r = e / KC, k = e % KC;
-      const int b = b0 + r, kk = k0 + k;
-      h_sm[r][k] = (b < B && kk < H) ? bf16_round(h_in[(size_t)b * H + kk])
-                                     : 0.0f;
-    }
-    for (int e = tid; e < KC * 4 * TJ; e += THREADS) {
-      const int k = e / (4 * TJ), col = e % (4 * TJ);
-      const int g = col / TJ, u = col % TJ;
-      const int kk = k0 + k, jj = j0 + u;
-      w_sm[k][col] = (kk < H && jj < H)
-          ? __bfloat162float(wh[(size_t)kk * G + (size_t)g * H + jj])
-          : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < KC; ++k) {
-      const float h0 = h_sm[tr][k];
-      const float h1 = h_sm[tr + 1][k];
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const float2 w = *reinterpret_cast<const float2*>(
-            &w_sm[k][g * TJ + tu]);
-        acc[0][0][g] = fmaf(h0, w.x, acc[0][0][g]);
-        acc[0][1][g] = fmaf(h0, w.y, acc[0][1][g]);
-        acc[1][0][g] = fmaf(h1, w.x, acc[1][0][g]);
-        acc[1][1][g] = fmaf(h1, w.y, acc[1][1][g]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int b = b0 + tr + r, j = j0 + tu + u;
-      if (b >= B || j >= H) continue;
-      const TP* pr = proj_t + (size_t)b * G;
-      const float za = load_as_bf16(pr + j) + acc[r][u][0];
-      const float zi = load_as_bf16(pr + H + j) + acc[r][u][1];
-      const float zf = load_as_bf16(pr + 2 * H + j) + acc[r][u][2];
-      const float zo = load_as_bf16(pr + 3 * H + j) + acc[r][u][3];
-      const float a = tanhf(za);
-      const float ig = sigmoidf(zi);
-      const float f = sigmoidf(zf);
-      const float o = sigmoidf(zo);
-      const size_t idx = (size_t)b * H + j;
-      const float cp = c[idx];
-      const float hp = h_in[idx];
-      const float cn = f * cp + ig * a;
-      const float tc = tanhf(cn);
-      const float hn = o * tc;
-      c[idx] = cn;
-      h_out[idx] = hn;
-      store_out(hs_t + idx, hn);
-      __nv_bfloat16* rr = res_t + (size_t)b * 7 * H + j;
-      rr[0] = __float2bfloat16(a);
-      rr[H] = __float2bfloat16(ig);
-      rr[2 * H] = __float2bfloat16(f);
-      rr[3 * H] = __float2bfloat16(o);
-      rr[4 * H] = __float2bfloat16(tc);
-      rr[5 * H] = __float2bfloat16(cp);
-      rr[6 * H] = __float2bfloat16(hp);
-    }
-  }
+template <typename TP, bool RESIDENT>
+__global__ void __launch_bounds__(lstm_persistent::THREADS, RESIDENT ? 1 : 2)
+lstm_train_fwd_persistent(const TP* __restrict__ proj,           // (T, B, 4H)
+                          const __nv_bfloat16* __restrict__ wt,  // (4H, H)
+                          float* __restrict__ h,      // (B, H) h0 in, h_T out
+                          float* __restrict__ c,      // (B, H) c0 in, c_T out
+                          __nv_bfloat16* hx,          // (2, B, H) exchange
+                          TP* __restrict__ hs,        // (T, B, H)
+                          __nv_bfloat16* __restrict__ res,   // (T, B, 7H)
+                          unsigned int* bar,          // zeroed barrier count
+                          int T, int B, int H, int row0, int nrows) {
+  lstm_persistent::recurrence<TP, RESIDENT, true>(
+      proj, wt, h, c, hx, hs, res, bar, T, B, H, row0, nrows);
 }
 
 template <typename TP>
-int run_fwd(const TP* proj, const __nv_bfloat16* wh, float* h_a, float* h_b,
-            float* c, TP* hs, __nv_bfloat16* res, int T, int B, int H,
-            cudaStream_t stream) {
-  const dim3 grid((H + TJ - 1) / TJ, (B + TB - 1) / TB);
-  const size_t step_in = (size_t)B * 4 * H;
-  const size_t step_out = (size_t)B * H;
-  const size_t step_res = (size_t)B * 7 * H;
-  for (int t = 0; t < T; ++t) {
-    const float* h_in = (t % 2 == 0) ? h_a : h_b;
-    float* h_out = (t % 2 == 0) ? h_b : h_a;
-    lstm_train_fwd_step<TP><<<grid, THREADS, 0, stream>>>(
-        proj + t * step_in, wh, h_in, c, h_out, hs + t * step_out,
-        res + t * step_res, B, H);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaGetLastError();
+int run_fwd(const void* proj, const void* wt, void* h, void* c, void* hx,
+            void* hs, void* res, void* bar, int T, int B, int H, int row0,
+            int nrows, int resident, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return resident
+      ? lstm_persistent::launch<TP>(lstm_train_fwd_persistent<TP, true>,
+                                    true, proj, wt, h, c, hx, hs, res, bar,
+                                    T, B, H, row0, nrows, st)
+      : lstm_persistent::launch<TP>(lstm_train_fwd_persistent<TP, false>,
+                                    false, proj, wt, h, c, hx, hs, res, bar,
+                                    T, B, H, row0, nrows, st);
 }
 
-// ---- backward: dh_t = dzb_{t+1} @ W_h^T, then step t's elementwise part --
-//
-// dz_next null: no product, dh = dh_init (the first launch, t = T-1).
-// res_t null:   no elementwise part, dh goes to dh_out (the last launch,
-//               whose product gives dh0).
+// ---- backward: one persistent launch over all reverse steps -----------
 
-template <typename TD>
-__global__ void __launch_bounds__(THREADS)
-lstm_train_bwd_step(const __nv_bfloat16* __restrict__ dz_next,  // (B, 4H)
-                    const __nv_bfloat16* __restrict__ wh,       // (H, 4H)
-                    const float* __restrict__ dh_init,          // (B, H)
-                    const float* __restrict__ dhs_t,            // (B, H)
-                    const __nv_bfloat16* __restrict__ res_t,    // (B, 7H)
-                    float* __restrict__ dc,                     // (B, H) in/out
-                    TD* __restrict__ dproj_t,                   // (B, 4H)
-                    __nv_bfloat16* __restrict__ dz_t,           // (B, 4H)
-                    float* __restrict__ dh_out,                 // (B, H)
-                    int B, int H) {
-  __shared__ float dz_sm[TB][KC + 1];   // [row][n], padded
-  __shared__ float w_sm[TJ][KC + 1];    // [unit k][n], padded
+namespace bwd {
 
-  const int tid = threadIdx.x;
-  const int k0u = blockIdx.x * TJ;
-  const int b0 = blockIdx.y * TB;
-  const int tu = (tid % 16) * 2;
-  const int tr = (tid / 16) * 2;
+constexpr int U = 16;          // hidden units per block
+constexpr int RB = 64;         // batch rows per block
+constexpr int KC = 128;        // reduction chunk of one ring stage
+constexpr int THREADS = 256;   // 8 warps, one 16-wide slice of a chunk each
+constexpr int WARPS = THREADS / 32;
+constexpr int LDK = KC + 8;    // padded row of a ring tile (elements)
+constexpr int LDP = U + 4;     // padded row of a warp's partials (floats)
+// ring depth: 5 stages beside a resident W_h slice, 4 (of dzb and W_h)
+// when W_h is streamed; both hold the warps' partials once drained
+__host__ __device__ constexpr int ring_stages(bool resident) {
+  return resident ? 5 : 4;
+}
+__host__ __device__ constexpr int stage_elems(bool resident) {
+  return (RB + (resident ? 0 : U)) * LDK;
+}
+static_assert((size_t)WARPS * RB * LDP * 4 <=
+                  (size_t)ring_stages(true) * stage_elems(true) * 2 &&
+              (size_t)WARPS * RB * LDP * 4 <=
+                  (size_t)ring_stages(false) * stage_elems(false) * 2,
+              "the drained ring holds every warp's partials");
+
+__host__ __device__ inline int reduce_extent(int H) {
+  return (4 * H + KC - 1) / KC * KC;
+}
+
+inline size_t smem_bytes(int H, bool resident) {
+  const size_t ring =
+      (size_t)ring_stages(resident) * stage_elems(resident) * 2;
+  const size_t w = resident ? (size_t)U * (reduce_extent(H) + 8) * 2 : 0;
+  return w + ring;
+}
+
+}  // namespace bwd
+
+template <typename TD, bool RESIDENT>
+__global__ void __launch_bounds__(bwd::THREADS, RESIDENT ? 1 : 2)
+lstm_train_bwd_persistent(const __nv_bfloat16* __restrict__ res,  // (T,B,7H)
+                          const __nv_bfloat16* __restrict__ wh,   // (H, 4H)
+                          const float* __restrict__ dhs,          // (T, B, H)
+                          const float* __restrict__ dh_T,         // (B, H)
+                          float* __restrict__ dc,     // (B, H) dc_T -> dc0
+                          TD* __restrict__ dproj,                 // (T,B,4H)
+                          __nv_bfloat16* dz,          // (T, B, 4H) exchange
+                          float* __restrict__ dh0,                // (B, H)
+                          unsigned int* bar,          // zeroed barrier count
+                          int T, int B, int H, int row0, int nrows) {
+  using namespace bwd;
+  extern __shared__ __align__(16) unsigned char smem[];
   const int G = 4 * H;
+  const int Kx = reduce_extent(H), NK = Kx / KC, LDW = Kx + 8;
+  constexpr int STAGES = ring_stages(RESIDENT);
+  constexpr int STAGE = stage_elems(RESIDENT);
+  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [u][n]
+  __nv_bfloat16* ring = w_s + (RESIDENT ? U * LDW : 0);
+  float* part = reinterpret_cast<float*>(ring);   // [warp][row][unit]
 
-  float acc[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
-  if (dz_next != nullptr) {
-    for (int n0 = 0; n0 < G; n0 += KC) {
-      for (int e = tid; e < TB * KC; e += THREADS) {
-        const int r = e / KC, n = e % KC;
-        const int b = b0 + r, nn = n0 + n;
-        dz_sm[r][n] = (b < B && nn < G)
-            ? __bfloat162float(dz_next[(size_t)b * G + nn]) : 0.0f;
-      }
-      for (int e = tid; e < TJ * KC; e += THREADS) {
-        const int u = e / KC, n = e % KC;
-        const int k = k0u + u, nn = n0 + n;
-        w_sm[u][n] = (k < H && nn < G)
-            ? __bfloat162float(wh[(size_t)k * G + nn]) : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int n = 0; n < KC; ++n) {
-        const float d0 = dz_sm[tr][n];
-        const float d1 = dz_sm[tr + 1][n];
-        const float w0 = w_sm[tu][n];
-        const float w1 = w_sm[tu + 1][n];
-        acc[0][0] = fmaf(d0, w0, acc[0][0]);
-        acc[0][1] = fmaf(d0, w1, acc[0][1]);
-        acc[1][0] = fmaf(d1, w0, acc[1][0]);
-        acc[1][1] = fmaf(d1, w1, acc[1][1]);
-      }
-      __syncthreads();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int k0 = blockIdx.x * U;
+  const int b0 = row0 + blockIdx.y * RB;
+  const int bend = row0 + nrows;
+  const unsigned int nblocks = gridDim.x * gridDim.y;
+  const size_t BG = (size_t)B * G, BH = (size_t)B * H;
+  const bool vec = G % 8 == 0;   // 16-byte aligned rows of dz and W_h
+
+  // U rows x kcount columns (a multiple of 8) of W_h[k0:k0+U, n0:] into
+  // dst (row stride ld); zeros past 4H and past H
+  auto load_w = [&](__nv_bfloat16* dst, int ld, int n0, int kcount) {
+    for (int e = tid; e < U * (kcount / 8); e += THREADS) {
+      const int r = e / (kcount / 8), n = (e % (kcount / 8)) * 8;
+      const int kk = k0 + r;
+      copy8(dst + r * ld + n, kk < H ? wh + (size_t)kk * G + n0 + n : wh,
+            kk < H ? G - (n0 + n) : 0, vec);
     }
+  };
+  // ring stage s <- chunk kc of dzb (RB rows x KC) and, streaming, of W_h
+  auto load_stage = [&](int s, int kc, const __nv_bfloat16* src) {
+    __nv_bfloat16* dst = ring + s * STAGE;
+    const int n0 = kc * KC;
+    for (int e = tid; e < RB * (KC / 8); e += THREADS) {
+      const int r = e / (KC / 8), n = (e % (KC / 8)) * 8;
+      const int b = b0 + r;
+      copy8(dst + r * LDK + n, b < bend ? src + (size_t)b * G + n0 + n : src,
+            b < bend ? G - (n0 + n) : 0, vec);
+    }
+    if (!RESIDENT) load_w(dst + RB * LDK, LDK, n0, KC);
+  };
+
+  if (RESIDENT) {
+    load_w(w_s, LDW, 0, Kx);
+    cp_async_commit();
+    cp_async_wait<0>();
   }
 
+  // the thread's cells: unit k, rows rq, rq + 16, rq + 32, rq + 48 of the
+  // tile. dc lives in its registers for all T; the step's residuals and
+  // dhs are loaded behind the previous step's barrier.
+  const int u = tid % U, rq = tid / U;
+  const int k = k0 + u;
+  float dc_r[4], dh_r[4], dhs_r[4];
+  __nv_bfloat162 r_r[4][3];   // (a, i), (f, o), (tanh c, c_{t-1})
+  size_t idx[4];
+  bool own[4];
+  auto load_step = [&](int t) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
+    for (int q = 0; q < 4; ++q) {
+      if (!own[q]) continue;
+      const __nv_bfloat16* rr =
+          res + ((size_t)t * B + b0 + rq + 16 * q) * 7 * H + k;
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int b = b0 + tr + r, k = k0u + tu + u;
-      if (b >= B || k >= H) continue;
-      const size_t idx = (size_t)b * H + k;
-      const float dh = (dz_next != nullptr) ? acc[r][u] : dh_init[idx];
-      if (res_t == nullptr) {
-        dh_out[idx] = dh;
-        continue;
+      for (int g = 0; g < 3; ++g)
+        r_r[q][g] = __halves2bfloat162(rr[2 * g * H], rr[(2 * g + 1) * H]);
+      dhs_r[q] = dhs[(size_t)t * BH + idx[q]];
+    }
+  };
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int b = b0 + rq + 16 * q;
+    own[q] = k < H && b < bend;
+    idx[q] = own[q] ? (size_t)b * H + k : 0;
+    dc_r[q] = own[q] ? dc[idx[q]] : 0.0f;
+    dh_r[q] = own[q] ? dh_T[idx[q]] : 0.0f;   // the last step: no product
+  }
+  load_step(T - 1);
+
+  // dh_r <- (dzb of one step, src (B, 4H)) @ W_h^T for the thread's cells
+  auto product = [&](const __nv_bfloat16* src) {
+    float acc[4][2][4];   // [16-row tile][8-unit tile][fragment]
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < NK) load_stage(s, s, src);
+      cp_async_commit();
+    }
+    const int ldb = RESIDENT ? LDW : LDK;
+    const int kk = warp * 16;   // the warp's slice of each chunk
+    for (int kc = 0; kc < NK; ++kc) {
+      const int s = kc % STAGES;
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();
+      const int nk = kc + STAGES - 1;
+      if (nk < NK) load_stage(nk % STAGES, nk, src);
+      cp_async_commit();
+      const __nv_bfloat16* a_s = ring + s * STAGE;
+      const __nv_bfloat16* b_s = RESIDENT ? w_s + kc * KC : a_s + RB * LDK;
+      // W tile [unit][n]: tiles (u 0, n 0), (u 0, n 8), (u 8, n 0),
+      // (u 8, n 8) give b0, b1 of the two 8-unit tiles
+      uint32_t bf[4];
+      ldmatrix_x4(bf, b_s + (size_t)((lane / 16) * 8 + lane % 8) * ldb + kk
+                          + ((lane / 8) % 2) * 8);
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        // dzb tile [row][n]: tiles (r 0, n 0), (r 8, n 0), (r 0, n 8),
+        // (r 8, n 8) give a0..a3
+        uint32_t af[4];
+        ldmatrix_x4(af, a_s + (mi * 16 + ((lane / 8) % 2) * 8 + lane % 8)
+                                  * LDK
+                            + kk + (lane / 16) * 8);
+        mma_bf16(acc[mi][0], af, bf[0], bf[1]);
+        mma_bf16(acc[mi][1], af, bf[2], bf[3]);
       }
-      const __nv_bfloat16* rr = res_t + (size_t)b * 7 * H + k;
-      const float a = __bfloat162float(rr[0]);
-      const float ig = __bfloat162float(rr[H]);
-      const float f = __bfloat162float(rr[2 * H]);
-      const float o = __bfloat162float(rr[3 * H]);
-      const float tc = __bfloat162float(rr[4 * H]);
-      const float cp = __bfloat162float(rr[5 * H]);
-      const float dh_tot = dhs_t[idx] + dh;
+    }
+    // the drained ring takes each warp's partials; they are added in
+    // warp order
+    cp_async_wait<0>();
+    __syncthreads();
+    const int g = lane / 4, q4 = lane % 4;
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni) {
+        float* pp = part + (warp * RB + mi * 16 + g) * LDP + ni * 8 + 2 * q4;
+        pp[0] = acc[mi][ni][0];
+        pp[1] = acc[mi][ni][1];
+        pp[8 * LDP] = acc[mi][ni][2];
+        pp[8 * LDP + 1] = acc[mi][ni][3];
+      }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w)
+        sum += part[(w * RB + rq + 16 * q) * LDP + u];
+      dh_r[q] = sum;
+    }
+  };
+
+  for (int t = T - 1;; --t) {
+    // step t's elementwise part: dzb_t (the exchange) and dproj_t
+    float dzv[4][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (!own[q]) continue;
+      const float a = __low2float(r_r[q][0]);
+      const float ig = __high2float(r_r[q][0]);
+      const float f = __low2float(r_r[q][1]);
+      const float o = __high2float(r_r[q][1]);
+      const float tc = __low2float(r_r[q][2]);
+      const float cp = __high2float(r_r[q][2]);
+      const float dh_tot = dhs_r[q] + dh_r[q];
       const float dout = dh_tot * tc;
-      const float dcv = dc[idx] + dh_tot * o * (1.0f - tc * tc);
+      const float dcv = dc_r[q] + dh_tot * o * (1.0f - tc * tc);
       const float da = dcv * ig;
       const float dig = dcv * a;
       const float df = dcv * cp;
-      dc[idx] = dcv * f;
-      const float dz4[4] = {da * (1.0f - a * a), dig * ig * (1.0f - ig),
-                            df * f * (1.0f - f), dout * o * (1.0f - o)};
-      const size_t row = (size_t)b * G + k;
+      dc_r[q] = dcv * f;
+      dzv[q][0] = da * (1.0f - a * a);
+      dzv[q][1] = dig * ig * (1.0f - ig);
+      dzv[q][2] = df * f * (1.0f - f);
+      dzv[q][3] = dout * o * (1.0f - o);
+      __nv_bfloat16* zr = dz + (size_t)t * BG
+                          + (size_t)(b0 + rq + 16 * q) * G + k;
 #pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        store_out(dproj_t + row + (size_t)g * H, dz4[g]);
-        dz_t[row + (size_t)g * H] = __float2bfloat16(dz4[g]);
-      }
+      for (int g = 0; g < 4; ++g) zr[g * H] = __float2bfloat16(dzv[q][g]);
     }
+    // arrive once dzb_t is written; dproj_t and the next step's inputs
+    // while the other blocks catch up
+    grid_arrive(bar);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (!own[q]) continue;
+      TD* pr = dproj + (size_t)t * BG + (size_t)(b0 + rq + 16 * q) * G + k;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) store_out(pr + g * H, dzv[q][g]);
+    }
+    if (t > 0) load_step(t - 1);
+    grid_wait(bar, nblocks * (unsigned int)(T - t));
+    // dh of step t - 1 (dh0 after t = 0)
+    product(dz + (size_t)t * BG);
+    if (t == 0) break;
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (!own[q]) continue;
+    dc[idx[q]] = dc_r[q];
+    dh0[idx[q]] = dh_r[q];
   }
 }
 
-template <typename TD>
-int run_bwd(const __nv_bfloat16* res, const __nv_bfloat16* wh,
-            const float* dhs, const float* dh_T, float* dc, TD* dproj,
-            __nv_bfloat16* dz, float* dh0, int T, int B, int H,
-            cudaStream_t stream) {
-  const dim3 grid((H + TJ - 1) / TJ, (B + TB - 1) / TB);
-  const size_t step_g = (size_t)B * 4 * H;
-  const size_t step_h = (size_t)B * H;
-  const size_t step_res = (size_t)B * 7 * H;
-  // launch s reads dzb of step s (none for s = T) and runs step s - 1
-  for (int s = T; s >= 0; --s) {
-    const int t = s - 1;
-    const __nv_bfloat16* dz_next = (s < T) ? dz + s * step_g : nullptr;
-    const bool elem = t >= 0;
-    lstm_train_bwd_step<TD><<<grid, THREADS, 0, stream>>>(
-        dz_next, wh, dh_T, elem ? dhs + t * step_h : nullptr,
-        elem ? res + t * step_res : nullptr, dc,
-        elem ? dproj + t * step_g : nullptr,
-        elem ? dz + t * step_g : nullptr, dh0, B, H);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
+template <typename TD, bool RESIDENT>
+int launch_bwd(const void* res, const void* wh, const void* dhs,
+               const void* dh_T, void* dc, void* dproj, void* dz, void* dh0,
+               void* bar, int T, int B, int H, int row0, int nrows,
+               cudaStream_t stream) {
+  auto kern = lstm_train_bwd_persistent<TD, RESIDENT>;
+  const size_t smem = bwd::smem_bytes(H, RESIDENT);
+  if (smem > lstm_persistent::SMEM_MAX || T < 1 || nrows < 1 || row0 < 0 ||
+      row0 + nrows > B)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const __nv_bfloat16* p_res = static_cast<const __nv_bfloat16*>(res);
+  const __nv_bfloat16* p_wh = static_cast<const __nv_bfloat16*>(wh);
+  const float* p_dhs = static_cast<const float*>(dhs);
+  const float* p_dh_T = static_cast<const float*>(dh_T);
+  float* p_dc = static_cast<float*>(dc);
+  TD* p_dproj = static_cast<TD*>(dproj);
+  __nv_bfloat16* p_dz = static_cast<__nv_bfloat16*>(dz);
+  float* p_dh0 = static_cast<float*>(dh0);
+  unsigned int* p_bar = static_cast<unsigned int*>(bar);
+  void* args[] = {&p_res, &p_wh, &p_dhs, &p_dh_T, &p_dc, &p_dproj, &p_dz,
+                  &p_dh0, &p_bar, &T, &B, &H, &row0, &nrows};
+  const dim3 grid((H + bwd::U - 1) / bwd::U, (nrows + bwd::RB - 1) / bwd::RB);
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern),
+                                    grid, dim3(bwd::THREADS), args, smem,
+                                    stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+template <typename TD>
+int run_bwd(const void* res, const void* wh, const void* dhs,
+            const void* dh_T, void* dc, void* dproj, void* dz, void* dh0,
+            void* bar, int T, int B, int H, int row0, int nrows, int resident,
+            void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return resident
+      ? launch_bwd<TD, true>(res, wh, dhs, dh_T, dc, dproj, dz, dh0, bar, T,
+                             B, H, row0, nrows, st)
+      : launch_bwd<TD, false>(res, wh, dhs, dh_T, dc, dproj, dz, dh0, bar,
+                              T, B, H, row0, nrows, st);
 }
 
 }  // namespace
 
-// proj (T, B, 4H), wh (H, 4H) bf16, h_a (B, H) holding h0, h_b (B, H)
-// scratch, c (B, H) holding c0 and updated in place, hs (T, B, H), res
-// (T, B, 7H) bf16. After the call h_T is in h_a when T is even, else in
-// h_b.
-extern "C" int lstm_train_fwd_f32(const void* proj, const void* wh, void* h_a,
-                                  void* h_b, void* c, void* hs, void* res,
-                                  int T, int B, int H, void* stream) {
-  return run_fwd<float>(static_cast<const float*>(proj),
-                        static_cast<const __nv_bfloat16*>(wh),
-                        static_cast<float*>(h_a), static_cast<float*>(h_b),
-                        static_cast<float*>(c), static_cast<float*>(hs),
-                        static_cast<__nv_bfloat16*>(res), T, B, H,
-                        static_cast<cudaStream_t>(stream));
+// How many blocks of the forward (backward = 0) or the backward kernel,
+// with W_h's slice resident or streamed, can be co-resident on the
+// current device at this H, for both dtypes: 0 when a block's shared
+// memory would exceed the card's.
+extern "C" int lstm_train_capacity(int backward, int H, int resident,
+                                   int* blocks) {
+  *blocks = 0;
+  if (H < 1) return 0;
+  using lstm_persistent::capacity;
+  if (backward) {
+    const size_t smem = bwd::smem_bytes(H, resident != 0);
+    return resident
+        ? capacity(lstm_train_bwd_persistent<float, true>,
+                   lstm_train_bwd_persistent<__nv_bfloat16, true>, smem,
+                   blocks)
+        : capacity(lstm_train_bwd_persistent<float, false>,
+                   lstm_train_bwd_persistent<__nv_bfloat16, false>, smem,
+                   blocks);
+  }
+  const size_t smem = lstm_persistent::smem_bytes(H, resident != 0);
+  return resident
+      ? capacity(lstm_train_fwd_persistent<float, true>,
+                 lstm_train_fwd_persistent<__nv_bfloat16, true>, smem,
+                 blocks)
+      : capacity(lstm_train_fwd_persistent<float, false>,
+                 lstm_train_fwd_persistent<__nv_bfloat16, false>, smem,
+                 blocks);
 }
 
-extern "C" int lstm_train_fwd_bf16(const void* proj, const void* wh,
-                                   void* h_a, void* h_b, void* c, void* hs,
-                                   void* res, int T, int B, int H,
-                                   void* stream) {
-  return run_fwd<__nv_bfloat16>(
-      static_cast<const __nv_bfloat16*>(proj),
-      static_cast<const __nv_bfloat16*>(wh), static_cast<float*>(h_a),
-      static_cast<float*>(h_b), static_cast<float*>(c),
-      static_cast<__nv_bfloat16*>(hs), static_cast<__nv_bfloat16*>(res),
-      T, B, H, static_cast<cudaStream_t>(stream));
+// proj (T, B, 4H) f32 or bf16, wt = W_h^T (4H, H) bf16, h and c (B, H)
+// f32 holding h0 / c0 and left holding h_T / c_T, hx (2, B, H) bf16
+// scratch, hs (T, B, H) in proj's dtype, res (T, B, 7H) bf16, bar one
+// zeroed uint32. Runs the rows [row0, row0 + nrows) of the batch;
+// resident: W_h's slice stays in shared memory (else streamed).
+extern "C" int lstm_train_fwd_f32(const void* proj, const void* wt, void* h,
+                                  void* c, void* hx, void* hs, void* res,
+                                  void* bar, int T, int B, int H, int row0,
+                                  int nrows, int resident, void* stream) {
+  return run_fwd<float>(proj, wt, h, c, hx, hs, res, bar, T, B, H, row0,
+                        nrows, resident, stream);
+}
+
+extern "C" int lstm_train_fwd_bf16(const void* proj, const void* wt, void* h,
+                                   void* c, void* hx, void* hs, void* res,
+                                   void* bar, int T, int B, int H, int row0,
+                                   int nrows, int resident, void* stream) {
+  return run_fwd<__nv_bfloat16>(proj, wt, h, c, hx, hs, res, bar, T, B, H,
+                                row0, nrows, resident, stream);
 }
 
 // res (T, B, 7H) bf16, wh (H, 4H) bf16, dhs (T, B, H) f32, dh_T (B, H)
 // f32, dc (B, H) f32 holding dc_T and left holding dc0, dproj (T, B, 4H)
-// in proj's dtype, dz (T, B, 4H) bf16 scratch, dh0 (B, H) f32 out.
+// in proj's dtype, dz (T, B, 4H) bf16 scratch (left holding bf16(dz) for
+// the dW contraction), dh0 (B, H) f32 out, bar one zeroed uint32. Runs
+// the rows [row0, row0 + nrows) of the batch; resident as for the
+// forward.
 extern "C" int lstm_train_bwd_f32(const void* res, const void* wh,
                                   const void* dhs, const void* dh_T, void* dc,
-                                  void* dproj, void* dz, void* dh0, int T,
-                                  int B, int H, void* stream) {
-  return run_bwd<float>(static_cast<const __nv_bfloat16*>(res),
-                        static_cast<const __nv_bfloat16*>(wh),
-                        static_cast<const float*>(dhs),
-                        static_cast<const float*>(dh_T),
-                        static_cast<float*>(dc), static_cast<float*>(dproj),
-                        static_cast<__nv_bfloat16*>(dz),
-                        static_cast<float*>(dh0), T, B, H,
-                        static_cast<cudaStream_t>(stream));
+                                  void* dproj, void* dz, void* dh0, void* bar,
+                                  int T, int B, int H, int row0, int nrows,
+                                  int resident, void* stream) {
+  return run_bwd<float>(res, wh, dhs, dh_T, dc, dproj, dz, dh0, bar, T, B, H,
+                        row0, nrows, resident, stream);
 }
 
 extern "C" int lstm_train_bwd_bf16(const void* res, const void* wh,
                                    const void* dhs, const void* dh_T,
-                                   void* dc, void* dproj, void* dz, void* dh0,
-                                   int T, int B, int H, void* stream) {
-  return run_bwd<__nv_bfloat16>(
-      static_cast<const __nv_bfloat16*>(res),
-      static_cast<const __nv_bfloat16*>(wh), static_cast<const float*>(dhs),
-      static_cast<const float*>(dh_T), static_cast<float*>(dc),
-      static_cast<__nv_bfloat16*>(dproj), static_cast<__nv_bfloat16*>(dz),
-      static_cast<float*>(dh0), T, B, H, static_cast<cudaStream_t>(stream));
+                                   void* dc, void* dproj, void* dz,
+                                   void* dh0, void* bar, int T, int B, int H,
+                                   int row0, int nrows, int resident,
+                                   void* stream) {
+  return run_bwd<__nv_bfloat16>(res, wh, dhs, dh_T, dc, dproj, dz, dh0, bar,
+                                T, B, H, row0, nrows, resident, stream);
 }
 
 // dW_h (H, 4H) f32 = sum over the M = T*B rows of h_{t-1}^T dz, from the

@@ -44,9 +44,11 @@ gradients in proj's dtype, while the products (dh, dc, dW) take their
 bf16 roundings.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes
-its plain version only for CPU tensors. ``lstm_scan_plan`` and
-``dw_plan`` are the host-side layouts of the persistent scan
-(``csrc/lstm_scan.cu``) and of the tensor-core dW GEMM shared by the
+its plain version only for CPU tensors. ``lstm_scan_plan``,
+``lstm_train_bwd_plan`` and ``dw_plan`` are the host-side layouts of the
+persistent LSTM recurrence (``csrc/lstm_persistent.cuh``: ``lstm_scan``
+and the training forward), of the persistent training backward
+(``csrc/lstm_train.cu``) and of the tensor-core dW GEMM shared by the
 three training backwards (``csrc/dw_gemm.cuh``): plain Python, so the
 CPU tests check what the kernels are handed.
 """
@@ -62,10 +64,13 @@ import torch
 
 from .. import kernels
 
+# pointers, then T, B, H, row0, nrows, resident, then the stream
 _SCAN_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                   + [ctypes.c_void_p])
-_FWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_FWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                 + [ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                 + [ctypes.c_void_p])
 # the three dW entry points: descriptors, their count, M, H, the tiling
 # (tile width, operand rows a stage, ring stages), stream
 _DW_ARGTYPES = ([ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 6
@@ -76,16 +81,21 @@ SMEM_LIMIT = 232448
 
 
 # ---------------------------------------------------------------------------
-# host-side layouts of the persistent scan and the dW GEMM
+# host-side layouts of the persistent recurrences and the dW GEMM
 # ---------------------------------------------------------------------------
 
-#: csrc/lstm_scan.cu: hidden units and batch rows a block owns, the
-#: reduction chunk of one stage of its cp.async ring, and the ring depth
-#: beside a resident W_h slice / with W_h streamed
+#: csrc/lstm_persistent.cuh (lstm_scan and the training forward): hidden
+#: units and batch rows a block owns, the reduction chunk of one stage of
+#: its cp.async ring, and the ring depth beside a resident W_h slice /
+#: with W_h streamed
 SCAN_UNITS = 16
 SCAN_ROWS = 64
 SCAN_KC = 64
 SCAN_STAGES = {True: 8, False: 4}
+#: csrc/lstm_train.cu's backward: the same units and rows a block, a
+#: 128-wide reduction chunk (over 4H) a stage, and its ring depth
+BWD_KC = 128
+BWD_STAGES = {True: 5, False: 4}
 
 
 def scan_smem_bytes(h_dim: int, resident: bool) -> int:
@@ -107,12 +117,32 @@ def scan_w_resident(h_dim: int) -> bool:
     return scan_smem_bytes(h_dim, True) <= SMEM_LIMIT
 
 
+def bwd_smem_bytes(h_dim: int, resident: bool) -> int:
+    """Shared memory of one backward block: the rows k0..k0+U of W_h (the
+    4H reduction extent, padded by 8) when resident, and the ring of dzb
+    tiles (and of W tiles when streamed), which also holds the warps'
+    partial sums once drained."""
+    ldk = BWD_KC + 8
+    extent = -(-4 * h_dim // BWD_KC) * BWD_KC
+    ring = (BWD_STAGES[resident]
+            * (SCAN_ROWS + (0 if resident else SCAN_UNITS)) * ldk * 2)
+    w = SCAN_UNITS * (extent + 8) * 2 if resident else 0
+    return w + ring
+
+
+def bwd_w_resident(h_dim: int) -> bool:
+    """Whether a backward block's W_h rows stay in shared memory for all
+    T (else the kernel streams them from L2 each reverse step)."""
+    return bwd_smem_bytes(h_dim, True) <= SMEM_LIMIT
+
+
 @dataclass(frozen=True)
 class ScanPlan:
-    """One ``lstm_scan`` call: W_h resident or streamed, each block's
-    shared memory, the grid's blocks along H, and the row chunks of the
-    batch, one cooperative launch each (``(row0, nrows)``; the grid of a
-    launch is ``unit_blocks`` x ceil(nrows / SCAN_ROWS))."""
+    """One call of a persistent recurrence kernel: W_h resident or
+    streamed, each block's shared memory, the grid's blocks along H, and
+    the row chunks of the batch, one cooperative launch each (``(row0,
+    nrows)``; the grid of a launch is ``unit_blocks`` x ceil(nrows /
+    SCAN_ROWS))."""
     resident: bool
     smem_bytes: int
     unit_blocks: int
@@ -122,26 +152,43 @@ class ScanPlan:
         return self.unit_blocks, -(-nrows // SCAN_ROWS)
 
 
-def lstm_scan_plan(h_dim: int, batch: int, max_blocks: int) -> ScanPlan:
-    """Lay out ``lstm_scan`` over a grid of at most ``max_blocks``
-    co-resident blocks (the card's count for this H, from
-    ``lstm_scan_capacity``). Every block of a launch covers SCAN_UNITS
-    units, all four of their gate columns, and SCAN_ROWS rows; a batch
-    that needs more row tiles than one grid holds is cut into chunks."""
-    resident = scan_w_resident(h_dim)
-    smem = scan_smem_bytes(h_dim, resident)
+def _row_chunks(name: str, h_dim: int, batch: int, max_blocks: int,
+                resident: bool, smem: int) -> ScanPlan:
+    """Every block of a launch covers SCAN_UNITS units and SCAN_ROWS
+    rows; a batch that needs more row tiles than one grid of at most
+    ``max_blocks`` co-resident blocks holds is cut into chunks."""
     if smem > SMEM_LIMIT:
-        raise ValueError(f"lstm_scan: H={h_dim} needs {smem} bytes of "
-                         f"shared memory a block")
+        raise ValueError(f"{name}: H={h_dim} needs {smem} bytes of shared "
+                         f"memory a block")
     unit_blocks = -(-h_dim // SCAN_UNITS)
     tiles = max_blocks // unit_blocks
     if tiles < 1:
-        raise ValueError(f"lstm_scan: H={h_dim} needs {unit_blocks} "
+        raise ValueError(f"{name}: H={h_dim} needs {unit_blocks} "
                          f"co-resident blocks, the card holds {max_blocks}")
     rows = tiles * SCAN_ROWS
     launches = tuple((r0, min(rows, batch - r0))
                      for r0 in range(0, batch, rows))
     return ScanPlan(resident, smem, unit_blocks, launches)
+
+
+def lstm_scan_plan(h_dim: int, batch: int, max_blocks: int) -> ScanPlan:
+    """Lay out ``lstm_scan`` -- and the training forward, which runs the
+    same kernel code -- over a grid of at most ``max_blocks`` co-resident
+    blocks (the card's count for this H and kernel). Each block owns all
+    four gate columns of its units."""
+    resident = scan_w_resident(h_dim)
+    return _row_chunks("lstm_scan", h_dim, batch, max_blocks, resident,
+                       scan_smem_bytes(h_dim, resident))
+
+
+def lstm_train_bwd_plan(h_dim: int, batch: int, max_blocks: int) -> ScanPlan:
+    """Lay out ``lstm_train_backward``'s reverse-time kernel over a grid of
+    at most ``max_blocks`` co-resident blocks. Each block owns the dh, dc
+    and the four dz columns of its units; its W_h rows stay in shared
+    memory where they fit (H <= 1120)."""
+    resident = bwd_w_resident(h_dim)
+    return _row_chunks("lstm_train_backward", h_dim, batch, max_blocks,
+                       resident, bwd_smem_bytes(h_dim, resident))
 
 
 #: csrc/dw_gemm.cuh: the rows of dW a block owns, and the tilings it is
@@ -257,7 +304,7 @@ def _dw_launch(name, fn, plan, h_dim, res, operands, outs, stream):
     kernels.launches[name] += 1
 
 
-_SCAN_CAPACITY: Dict[Tuple[int, int, bool], int] = {}
+_CAPACITY: Dict[Tuple[str, int, int, bool], int] = {}
 
 
 def _lib():
@@ -271,17 +318,16 @@ def _lib():
     return lib
 
 
-def _scan_capacity(lib, device, h_dim, resident):
-    """Co-resident blocks of the scan kernel on ``device`` at this H."""
-    key = (device.index, h_dim, resident)
-    if key not in _SCAN_CAPACITY:
+def _capacity(name, query, device, h_dim, resident):
+    """Co-resident blocks of the kernel ``name`` on ``device`` at this H,
+    from its C query ``query(H, resident, &blocks)``."""
+    key = (name, device.index, h_dim, resident)
+    if key not in _CAPACITY:
         n = ctypes.c_int(0)
         with torch.cuda.device(device):
-            kernels.check(lib.lstm_scan_capacity(h_dim, int(resident),
-                                                 ctypes.byref(n)),
-                          "lstm_scan")
-        _SCAN_CAPACITY[key] = n.value
-    return _SCAN_CAPACITY[key]
+            kernels.check(query(h_dim, int(resident), ctypes.byref(n)), name)
+        _CAPACITY[key] = n.value
+    return _CAPACITY[key]
 
 
 def _train_lib():
@@ -294,6 +340,9 @@ def _train_lib():
         for fn in fns:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+    lib.lstm_train_capacity.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.lstm_train_capacity.restype = ctypes.c_int
     return lib
 
 
@@ -396,26 +445,37 @@ def lstm_scan(proj, wh, c0, h0):
             "torch.inference_mode()")
     lib = _lib()
     fn = getattr(lib, "lstm_scan_" + _dtype_suffix("lstm_scan", proj.dtype))
+    hs, c, h = _persistent_recurrence(
+        "lstm_scan", fn, lib.lstm_scan_capacity, proj, wh, c0, h0, stream)
+    return (c.to(c0.dtype), h.to(c0.dtype)), hs
+
+
+def _persistent_recurrence(name, fn, query, proj, wh, c0, h0, stream,
+                           res=None):
+    """Run the persistent recurrence kernel ``fn`` (``lstm_scan``'s, or the
+    training forward's, which also writes ``res``) in the row chunks of
+    ``lstm_scan_plan`` for its co-residency ``query``. Returns ``hs`` and
+    the float32 carries ``c_T``, ``h_T``."""
     if not proj.is_contiguous():
-        raise ValueError("lstm_scan: proj must be contiguous")
+        raise ValueError(f"{name}: proj must be contiguous")
     t, b, _ = proj.shape
     h_dim = wh.shape[0]
     dev = proj.device
-    plan = lstm_scan_plan(h_dim, b, _scan_capacity(
-        lib, dev, h_dim, scan_w_resident(h_dim)))
-    wt = wh.to(torch.bfloat16).t().contiguous()      # W_h^T (4H, H)
-    h = h0.float().contiguous().clone()
-    c = c0.float().contiguous().clone()
+    plan = lstm_scan_plan(h_dim, b, _capacity(name, query, dev, h_dim,
+                                              scan_w_resident(h_dim)))
+    wt = wh.detach().to(torch.bfloat16).t().contiguous()   # W_h^T (4H, H)
+    h = h0.detach().float().contiguous().clone()
+    c = c0.detach().float().contiguous().clone()
     hx = torch.empty((2, b, h_dim), dtype=torch.bfloat16, device=dev)
     hs = torch.empty((t, b, h_dim), dtype=proj.dtype, device=dev)
     bar = torch.zeros(len(plan.launches), dtype=torch.int32, device=dev)
+    ptrs = [x.data_ptr() for x in (proj, wt, h, c, hx, hs)
+            + (() if res is None else (res,))]
     for i, (row0, nrows) in enumerate(plan.launches):
-        kernels.check(fn(proj.data_ptr(), wt.data_ptr(), h.data_ptr(),
-                         c.data_ptr(), hx.data_ptr(), hs.data_ptr(),
-                         bar.data_ptr() + 4 * i, t, b, h_dim, row0, nrows,
-                         int(plan.resident), stream), "lstm_scan")
-    kernels.launches["lstm_scan"] += 1
-    return (c.to(c0.dtype), h.to(c0.dtype)), hs
+        kernels.check(fn(*ptrs, bar.data_ptr() + 4 * i, t, b, h_dim, row0,
+                         nrows, int(plan.resident), stream), name)
+    kernels.launches[name] += 1
+    return hs, c, h
 
 
 # ---------------------------------------------------------------------------
@@ -449,33 +509,24 @@ def lstm_train_forward(proj, wh, c0, h0):
     c0/h0 (B, H). Returns ``hs`` (T, B, H) in proj's dtype, the
     residuals ``res`` (T, B, 7H) bf16, and ``c_T``, ``h_T`` float32.
 
-    hs, c_T and h_T agree with ``lstm_scan``'s within the recurrence
-    tolerance, not bit for bit: the scan kernel sums each step's product
-    on the tensor cores, in another order than this kernel's FMAs.
+    On the card: one persistent launch per row chunk of
+    ``lstm_scan_plan``, running ``lstm_scan``'s kernel code plus the
+    residual stores, so hs, c_T and h_T are bit-equal to ``lstm_scan``'s.
     """
     _check_scan_args("lstm_train_forward", proj, wh, c0, h0)
     if proj.device.type == "cpu":
         return lstm_train_forward_reference(proj, wh, c0, h0)
     stream = _check_cuda("lstm_train_forward", proj, wh, c0, h0)
-    fn = getattr(_train_lib(), "lstm_train_fwd_" + _dtype_suffix(
+    lib = _train_lib()
+    fn = getattr(lib, "lstm_train_fwd_" + _dtype_suffix(
         "lstm_train_forward", proj.dtype))
-    if not proj.is_contiguous():
-        raise ValueError("lstm_train_forward: proj must be contiguous")
     t, b, _ = proj.shape
-    h_dim = wh.shape[0]
-    whb = wh.detach().to(torch.bfloat16).contiguous()
-    h_a = h0.detach().float().contiguous().clone()
-    h_b = torch.empty_like(h_a)
-    c = c0.detach().float().contiguous().clone()
-    hs = torch.empty((t, b, h_dim), dtype=proj.dtype, device=proj.device)
-    res = torch.empty((t, b, 7 * h_dim), dtype=torch.bfloat16,
+    res = torch.empty((t, b, 7 * wh.shape[0]), dtype=torch.bfloat16,
                       device=proj.device)
-    kernels.check(fn(proj.data_ptr(), whb.data_ptr(), h_a.data_ptr(),
-                     h_b.data_ptr(), c.data_ptr(), hs.data_ptr(),
-                     res.data_ptr(), t, b, h_dim, stream),
-                  "lstm_train_forward")
-    kernels.launches["lstm_train_forward"] += 1
-    return hs, res, c, (h_a if t % 2 == 0 else h_b)
+    query = functools.partial(lib.lstm_train_capacity, 0)   # the forward
+    hs, c, h = _persistent_recurrence("lstm_train_forward", fn, query, proj,
+                                      wh, c0, h0, stream, res)
+    return hs, res, c, h
 
 
 # ---------------------------------------------------------------------------
@@ -550,6 +601,10 @@ def lstm_train_backward(res, wh, dhs, dc_T, dh_T, proj_dtype):
     res (T, B, 7H) bf16, wh (H, 4H), dhs (T, B, H), dc_T/dh_T (B, H).
     Returns ``dproj`` (T, B, 4H) in ``proj_dtype``, ``dW_h`` (H, 4H) in
     wh's dtype, and ``dc0``, ``dh0`` float32.
+
+    On the card: one persistent launch over all reverse steps per row
+    chunk of ``lstm_train_bwd_plan``, then one dW launch
+    (``lstm_train_dw``) on the bf16 dz it leaves behind.
     """
     t, b, seven_h = res.shape
     h_dim = seven_h // 7
@@ -564,23 +619,30 @@ def lstm_train_backward(res, wh, dhs, dc_T, dh_T, proj_dtype):
         return lstm_train_backward_reference(res, wh, dhs, dc_T, dh_T,
                                              proj_dtype)
     stream = _check_cuda("lstm_train_backward", res, wh, dhs, dc_T, dh_T)
-    fn = getattr(_train_lib(), "lstm_train_bwd_" + _dtype_suffix(
+    lib = _train_lib()
+    fn = getattr(lib, "lstm_train_bwd_" + _dtype_suffix(
         "lstm_train_backward", proj_dtype))
     if not res.is_contiguous():
         raise ValueError("lstm_train_backward: res must be contiguous")
+    dev = res.device
+    plan = lstm_train_bwd_plan(h_dim, b, _capacity(
+        "lstm_train_backward", functools.partial(lib.lstm_train_capacity, 1),
+        dev, h_dim, bwd_w_resident(h_dim)))
     whb = wh.detach().to(torch.bfloat16).contiguous()
     dhs_f = dhs.float().contiguous()
     dh_t = dh_T.float().contiguous()
     dc = dc_T.float().contiguous().clone()
-    dproj = torch.empty((t, b, 4 * h_dim), dtype=proj_dtype,
-                        device=res.device)
-    dz = torch.empty((t, b, 4 * h_dim), dtype=torch.bfloat16,
-                     device=res.device)
-    dh0 = torch.empty((b, h_dim), dtype=torch.float32, device=res.device)
-    kernels.check(fn(res.data_ptr(), whb.data_ptr(), dhs_f.data_ptr(),
-                     dh_t.data_ptr(), dc.data_ptr(), dproj.data_ptr(),
-                     dz.data_ptr(), dh0.data_ptr(), t, b, h_dim, stream),
-                  "lstm_train_backward")
+    dproj = torch.empty((t, b, 4 * h_dim), dtype=proj_dtype, device=dev)
+    dz = torch.empty((t, b, 4 * h_dim), dtype=torch.bfloat16, device=dev)
+    dh0 = torch.empty((b, h_dim), dtype=torch.float32, device=dev)
+    bar = torch.zeros(len(plan.launches), dtype=torch.int32, device=dev)
+    for i, (row0, nrows) in enumerate(plan.launches):
+        kernels.check(fn(res.data_ptr(), whb.data_ptr(), dhs_f.data_ptr(),
+                         dh_t.data_ptr(), dc.data_ptr(), dproj.data_ptr(),
+                         dz.data_ptr(), dh0.data_ptr(),
+                         bar.data_ptr() + 4 * i, t, b, h_dim, row0, nrows,
+                         int(plan.resident), stream),
+                      "lstm_train_backward")
     kernels.launches["lstm_train_backward"] += 1
     dwh = lstm_train_dw(res, dz).to(wh.dtype)
     return dproj, dwh, dc, dh0

@@ -1,17 +1,24 @@
-"""Host-side layouts of the persistent ``lstm_scan`` kernel and of the
-tensor-core dW GEMM shared by the three training backwards
-(``ops/rnn_cuda.py`` ``lstm_scan_plan`` and ``dw_plan``), on the CPU.
+"""Host-side layouts of the persistent LSTM kernels (``lstm_scan`` and the
+training forward, which share one kernel body, and the training
+backward) and of the tensor-core dW GEMM shared by the three training
+backwards (``ops/rnn_cuda.py`` ``lstm_scan_plan``,
+``lstm_train_bwd_plan`` and ``dw_plan``), on the CPU.
 
 The kernels run only on the card; what they are handed is plain Python,
 and is checked here: every (batch row, hidden unit) cell and every gate
-column of the scan is owned by exactly one thread of one block, and every
-dW output element by exactly one tile; each block's shared memory fits
-the card's 227 KB; and the dW problem descriptors (column offsets and row
+column of the scan and of the backward is owned by exactly one thread of
+one block, every dz column of the backward's product is reduced by
+exactly one warp, and every dW output element by exactly one tile; each
+block's shared memory fits the card's 227 KB; the training forward is
+handed ``lstm_scan``'s plan and arguments plus its residuals; and the dW
+problem descriptors (column offsets and row
 strides into the residuals and gradients) address the same columns as
 the plain versions ``lstm_train_dw_reference``, ``gated_train_dw_reference``
 and ``peephole_train_dw_reference``: running the contraction on strided
 views built from the descriptors gives the references' results.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -24,9 +31,12 @@ from nnacousticmodeling_tpu_torch.ops.rnn_cuda import (
     DW_TILE_M,
     SCAN_ROWS,
     SCAN_UNITS,
+    BWD_KC,
     SMEM_LIMIT,
+    bwd_w_resident,
     dw_plan,
     lstm_scan_plan,
+    lstm_train_bwd_plan,
     scan_w_resident,
 )
 
@@ -36,6 +46,8 @@ BS = [1, 3, 33, 128]
 #: W_h resident (~218 KB of shared memory at H=1024), two streamed
 H100_BLOCKS = {True: 132, False: 264}
 THREADS = 256   # lstm_scan.cu: 16 units x 16 row groups of 4 rows
+BWD_BS = BS + [300]
+BWD_WARPS = 8   # lstm_train.cu's backward: one 16-wide slice of a chunk each
 
 
 def _scan_cells(plan, h_dim, batch):
@@ -90,6 +102,97 @@ def test_scan_plan_cuts_rows_into_co_resident_launches(h_dim, batch):
 def test_scan_plan_refuses_a_grid_that_cannot_be_co_resident():
     with pytest.raises(ValueError, match="co-resident"):
         lstm_scan_plan(4096, 8, 200)
+
+
+@pytest.mark.parametrize("batch", BWD_BS)
+@pytest.mark.parametrize("h_dim", HS)
+def test_train_bwd_plan_owns_every_cell_and_column_once(h_dim, batch):
+    """The backward's blocks and threads own the cells as the scan's do
+    (16 units x 4 row groups a thread layout), and its warps split every
+    128-wide chunk of the 4H reduction into 16-wide slices."""
+    resident = bwd_w_resident(h_dim)
+    assert resident == (h_dim <= 1120)
+    plan = lstm_train_bwd_plan(h_dim, batch, H100_BLOCKS[resident])
+    assert plan.resident == resident
+    assert plan.smem_bytes == rnn_cuda.bwd_smem_bytes(h_dim, resident)
+    assert plan.smem_bytes <= SMEM_LIMIT
+    # the drained ring holds the 8 warps' f32 partials (64 rows x 20)
+    ring = plan.smem_bytes - (SCAN_UNITS * (-(-4 * h_dim // BWD_KC)
+                                            * BWD_KC + 8) * 2
+                              if resident else 0)
+    assert BWD_WARPS * SCAN_ROWS * (SCAN_UNITS + 4) * 4 <= ring
+    for _, nrows in plan.launches:
+        gx, gy = plan.grid(nrows)
+        assert gx * gy <= H100_BLOCKS[resident]
+    assert sum(n for _, n in plan.launches) == batch
+    if h_dim == 1024 and batch <= 128:
+        assert len(plan.launches) == 1    # the training path: one launch
+    cells, cols = _scan_cells(plan, h_dim, batch)
+    assert (cells == 1).all() and (cols == 1).all()
+    extent = -(-4 * h_dim // BWD_KC) * BWD_KC
+    reduced = np.zeros(extent, np.int64)
+    for kc in range(extent // BWD_KC):
+        for warp in range(BWD_WARPS):
+            reduced[kc * BWD_KC + warp * 16:kc * BWD_KC + warp * 16 + 16] += 1
+    assert (reduced == 1).all() and extent >= 4 * h_dim
+
+
+def test_train_bwd_plan_streams_w_exactly_where_it_does_not_fit():
+    for h_dim in range(1000, 1300, 4):
+        fits = rnn_cuda.bwd_smem_bytes(h_dim, True) <= SMEM_LIMIT
+        assert bwd_w_resident(h_dim) == fits
+        assert lstm_train_bwd_plan(h_dim, 8, 264).resident == fits
+    with pytest.raises(ValueError, match="co-resident"):
+        lstm_train_bwd_plan(4096, 8, 200)
+
+
+@pytest.mark.parametrize("h_dim,batch", [(40, 3), (1024, 128), (1024, 300),
+                                         (2048, 200)])
+def test_train_forward_is_handed_the_scan_plan(monkeypatch, h_dim, batch):
+    """lstm_scan and the training forward run one kernel body: the forward
+    gets lstm_scan_plan's chunks and the scan's arguments, plus the
+    residuals, in the order of the C entry points' argtypes."""
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda _: contextlib.nullcontext())
+    monkeypatch.setattr(rnn_cuda, "_CAPACITY", {})
+    resident = scan_w_resident(h_dim)
+    t = 3
+    proj = torch.zeros(t, batch, 4 * h_dim)
+    wh = torch.zeros(h_dim, 4 * h_dim)
+    c0 = h0 = torch.zeros(batch, h_dim)
+    calls = {}
+
+    def query(h, res_flag, blocks):
+        blocks._obj.value = H100_BLOCKS[resident]
+        return 0
+
+    def entry(name):
+        def fn(*args):
+            calls.setdefault(name, []).append(args)
+            return 0
+        return fn
+
+    before = dict(kernels.launches)
+    try:
+        res = torch.empty(t, batch, 7 * h_dim, dtype=torch.bfloat16)
+        for name, extra in (("lstm_scan", None), ("lstm_train_forward", res)):
+            hs, c, h = rnn_cuda._persistent_recurrence(
+                name, entry(name), query, proj, wh, c0, h0, None, extra)
+            assert hs.shape == (t, batch, h_dim) and c.shape == h.shape
+    finally:
+        kernels.launches.clear()
+        kernels.launches.update(before)
+    plan = lstm_scan_plan(h_dim, batch, H100_BLOCKS[resident])
+    scan, fwd = calls["lstm_scan"], calls["lstm_train_forward"]
+    assert len(scan) == len(fwd) == len(plan.launches)
+    assert len(scan[0]) == len(rnn_cuda._SCAN_ARGTYPES)
+    assert len(fwd[0]) == len(rnn_cuda._FWD_ARGTYPES)
+    for i, (row0, nrows) in enumerate(plan.launches):
+        assert fwd[i][6] == res.data_ptr()
+        assert fwd[i][-7:] == (t, batch, h_dim, row0, nrows, int(resident),
+                               None)
+        assert scan[i][-7:] == fwd[i][-7:]
+        assert fwd[i][7] - fwd[0][7] == 4 * i      # one barrier a launch
 
 
 def _families():
