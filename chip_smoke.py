@@ -73,12 +73,14 @@ Phases (each one that fails ends the run with a non-zero exit):
 16. a profiled repeat of 3 GRU updates: device busy share and top ops;
 17. the peephole kernels against their plain versions:
     ``peephole_scan`` at the serving shapes (T=512, B=128, H=1024), f32
-    and bf16 proj; ``peephole_train_forward`` at T=20 (bit-equal to
-    ``peephole_scan``), ``peephole_train_backward`` and its dW kernel
-    ``peephole_train_dw`` on the same residuals, with cuDNN ``nn.LSTM``
-    bf16 timed beside them as a yardstick of like work (cuDNN has no
-    peephole LSTM); the dW kernel against four cuBLAS bf16 ``matmul``
-    calls of the same operands by device time;
+    and bf16 proj; ``peephole_train_forward`` at T=20 (within the stated
+    tolerance of ``peephole_scan``, which sums in another order; a second
+    call bit-identical), ``peephole_train_backward`` and its dW kernel
+    ``peephole_train_dw`` on the same residuals (a second backward call
+    bit-identical), device microseconds a step of both persistent
+    kernels, with cuDNN ``nn.LSTM`` bf16 timed beside them as a yardstick
+    of like work (cuDNN has no peephole LSTM); the dW kernel against four
+    cuBLAS bf16 ``matmul`` calls of the same operands by device time;
 18. the PeepholeLSTM serving slice: phase 5's corpus and decoder, a
     PeepholeLSTM 4x1024 -> 1909 with numpy-seeded weights carried in
     through ``load_jax_params``; ``peephole_scan`` must be launched once
@@ -99,7 +101,8 @@ Phases (each one that fails ends the run with a non-zero exit):
     ``lstm_scan``, the loss is finite and falls; then 3 of its updates
     profiled (device busy share);
 21. a profiled repeat of 3 PeepholeLSTM updates: device busy share and
-    top ops;
+    top ops; one persistent forward and one backward device kernel a
+    layer an update;
 22. ``cube_viterbi_forward`` against its plain version on phase 4's
     image and on a copy whose ends are (p, (p+1) mod P), which the
     collapsed kernel refuses, at phase 4's shapes, exact and with the
@@ -1287,15 +1290,25 @@ def peephole_kernel_phase(torch, np, dev, card):
     fwd = {}
     for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         args = (proj.to(dt), wh, *peeps, c0, h0)
-        hs_k, res_k, ct_k, ht_k = rnn_cuda.peephole_train_forward(*args)
+        out_k = rnn_cuda.peephole_train_forward(*args)
+        hs_k, res_k, ct_k, ht_k = out_k
+        again = rnn_cuda.peephole_train_forward(*args)
         (c_s, h_s), hs_s = rnn_cuda.peephole_scan(*args)
         hs_r, res_r, ct_r, ht_r = rnn_cuda.peephole_train_forward_reference(
             *args)
         torch.cuda.synchronize()
-        if not (torch.equal(hs_k, hs_s) and torch.equal(ct_k, c_s)
-                and torch.equal(ht_k, h_s)):
-            fail(f"peephole_train_forward ({tag}) is not bit-equal to "
-                 f"peephole_scan")
+        if not all(torch.equal(a, k) for a, k in zip(again, out_k)):
+            fail(f"peephole_train_forward ({tag}): a second call on the same "
+                 f"inputs gave other bits")
+        del again
+        # the persistent forward sums on the tensor cores, the scan's step
+        # kernels with f32 FMAs: both within PEEP_ATOL of the plain version
+        scan_err = max(rel_err(hs_k, hs_s), rel_err(ct_k, c_s),
+                       rel_err(ht_k, h_s))
+        if not scan_err <= PEEP_ATOL:
+            fail(f"peephole_train_forward ({tag}) differs from peephole_scan "
+                 f"by {scan_err} of max(1, max|scan|) (tolerance "
+                 f"{PEEP_ATOL})")
         scale = max(1.0, float(hs_r.float().abs().max()))
         err = max(rel_err(hs_k, hs_r), rel_err(ct_k, ct_r),
                   rel_err(ht_k, ht_r))
@@ -1314,10 +1327,14 @@ def peephole_kernel_phase(torch, np, dev, card):
                  f"beyond {RES_RTOL} relative by {res_over}")
         fwd[tag] = dict(err=err, abs_err=float((hs_k.float()
                                                 - hs_r.float()).abs().max()),
-                        res_err=float(res_d.max()), res_over=res_over)
+                        res_err=float(res_d.max()), res_over=res_over,
+                        scan_err=scan_err)
     args = (proj, wh, *peeps, c0, h0)
     fwd_ms = cuda_ms(torch, lambda: rnn_cuda.peephole_train_forward(*args),
                      10)
+    fwd_step_us = kernel_us_per_step(
+        torch, lambda: rnn_cuda.peephole_train_forward(*args), 10,
+        "peephole_train_fwd_persistent", T)
     fwd_plain_ms = cuda_ms(
         torch, lambda: rnn_cuda.peephole_train_forward_reference(*args), 3)
     fwd_bytes = (proj.numel() * 4 + w_bytes + 2 * B * H * 4 + TBH * 4
@@ -1331,8 +1348,13 @@ def peephole_kernel_phase(torch, np, dev, card):
     _, res, _, _ = rnn_cuda.peephole_train_forward(*args)
     bargs = (res, wh, *peeps, dhs, dct, dht, torch.float32)
     got = rnn_cuda.peephole_train_backward(*bargs)
+    again = rnn_cuda.peephole_train_backward(*bargs)
     want = rnn_cuda.peephole_train_backward_reference(*bargs)
     torch.cuda.synchronize()
+    if not all(torch.equal(a, k) for a, k in zip(again, got)):
+        fail("peephole_train_backward: a second call on the same inputs gave "
+             "other bits")
+    del again
     names = ("dproj", "dW_h", "dP_i", "dP_f", "dP_o", "dc0", "dh0")
     errs = {n: (float((k - w).abs().max()), float(w.abs().max()))
             for n, k, w in zip(names, got, want)}
@@ -1359,6 +1381,9 @@ def peephole_kernel_phase(torch, np, dev, card):
              f"{dw_alone_err} of max |dW| (tolerance {DW_RTOL})")
     bwd_ms = cuda_ms(torch, lambda: rnn_cuda.peephole_train_backward(*bargs),
                      10)
+    bwd_step_us = kernel_us_per_step(
+        torch, lambda: rnn_cuda.peephole_train_backward(*bargs), 10,
+        "peephole_train_bwd_persistent", T)
     bwd_plain_ms = cuda_ms(
         torch, lambda: rnn_cuda.peephole_train_backward_reference(*bargs), 3)
     dw_ms = cuda_ms(torch, lambda: rnn_cuda.peephole_train_dw(res, dz), 10)
@@ -1393,13 +1418,18 @@ def peephole_kernel_phase(torch, np, dev, card):
     lib_inputs = [x_lib] + list(cudnn.parameters())
     bwd_lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
         out_lib, lib_inputs, gout, retain_graph=True), 10)
-    log(f"[peephole train] T={T} B={B} H={H}: forward bit-equal to "
-        f"peephole_scan; vs plain f32 {fwd['f32']['err']:.3e}, bf16 "
+    log(f"[peephole train] T={T} B={B} H={H}: forward vs peephole_scan f32 "
+        f"{fwd['f32']['scan_err']:.3e}, bf16 {fwd['bf16']['scan_err']:.3e} "
+        f"of max(1, max|scan|) (tolerance {PEEP_ATOL}); vs plain f32 "
+        f"{fwd['f32']['err']:.3e}, bf16 "
         f"{fwd['bf16']['err']:.3e} of max(1, max|plain|) (tolerance "
         f"{PEEP_ATOL}), residuals beyond {RES_RTOL:.4f} relative "
         f"{max(f['res_over'] for f in fwd.values()):.3e}; backward: "
         f"{detail} (tolerances {BWD_RTOL} / {DW_RTOL}); dW kernel alone "
-        f"{dw_alone_err:.3e} of max |dW|")
+        f"{dw_alone_err:.3e} of max |dW|; a second forward and backward "
+        f"call bit-identical")
+    log(f"[peephole train] {fwd_step_us:.2f} us a forward step, "
+        f"{bwd_step_us:.2f} us a reverse step (device time) [{card}]")
     log(f"[peephole train] forward {fwd_ms:.3f} ms (plain {fwd_plain_ms:.3f}"
         f", bound {fwd_bound:.4f} {fwd_by}), backward with dW {bwd_ms:.3f} "
         f"ms (plain {bwd_plain_ms:.3f}, bound {bwd_bound:.4f} {bwd_by}), dW "
@@ -1411,7 +1441,8 @@ def peephole_kernel_phase(torch, np, dev, card):
     out.update(
         fwd=fwd, fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain_ms,
         fwd_bound=fwd_bound, fwd_by=fwd_by, fwd_lib_ms=fwd_lib_ms,
-        bwd_errs=errs, bwd_rel=bwd_rel, dw_rel=dw_rel,
+        fwd_step_us=fwd_step_us, bwd_step_us=bwd_step_us, bwd_errs=errs,
+        bwd_rel=bwd_rel, dw_rel=dw_rel,
         bwd_abs=max(errs[n][0] for n in ("dproj", "dc0", "dh0")),
         bwd_tol=BWD_RTOL * max(errs[n][1] for n in ("dproj", "dc0", "dh0")),
         bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms, bwd_bound=bwd_bound,
@@ -1506,8 +1537,17 @@ def peephole_phases(torch, np, dev, card, corpus, dec, lp_lstm, report):
     phase_done(20)
 
     # ---- 21. where the time goes: 3 PeepholeLSTM updates, profiled ------
-    wall_ms, busy_ms, top = profiled()
+    step_kernels = ("peephole_train_fwd_persistent",
+                    "peephole_train_bwd_persistent")
+    wall_ms, busy_ms, top, peep_kernels = profiled(step_kernels)
     log_profile("peephole train profile", wall_ms, busy_ms, top, card)
+    if any(n != 3 * LAYERS for n in peep_kernels.values()):
+        fail(f"3 profiled PeepholeLSTM updates ran {peep_kernels} device "
+             f"kernels, not one forward and one backward a layer an update "
+             f"({3 * LAYERS})")
+    log(f"[peephole train profile] device kernels in 3 updates of {LAYERS} "
+        f"layers: {peep_kernels}: one forward and one backward a layer an "
+        f"update")
     phase_done(21)
 
     report["peephole"] = dict(
@@ -1517,7 +1557,8 @@ def peephole_phases(torch, np, dev, card, corpus, dec, lp_lstm, report):
                                   device_busy_ms=zo_prof[1],
                                   top_device_ms=zo_prof[2])),
         profile=dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
-                     top_device_ms=top), phase_s=phase_s)
+                     top_device_ms=top, kernels=peep_kernels),
+        phase_s=phase_s)
     scan_src = "nnacousticmodeling_tpu_torch/csrc/peephole_scan.cu"
     train_src = "nnacousticmodeling_tpu_torch/csrc/peephole_train.cu"
     return [

@@ -17,9 +17,8 @@
 // Residual row (training only), bf16 (B, 4H): [r | z | hb | h_prev],
 // r = 0 for mgru, as _gated_train_fwd_impl writes it.
 //
-// The tile sizes, the rounding helpers and the two product loops
-// (fwd_product, bwd_product) are also the peephole kernels'
-// (peephole_step.cuh, peephole_train.cu).
+// The tile sizes, the rounding helpers and fwd_product are also the
+// peephole scan's (peephole_step.cuh).
 
 #pragma once
 
@@ -119,8 +118,8 @@ __device__ __forceinline__ void fwd_product(
 
 // acc[r][u] += sum_{n<N} a[(b0 + tr + r) * lda + n] * w[(k0u + tu + u) * N
 // + n] for a (B, lda) bf16 (its first N columns read) and w (H, N) bf16:
-// the product with w^T, reading w by rows, as the backward kernels
-// (gated_train.cu, peephole_train.cu) form their dh tiles.
+// the product with w^T, reading w by rows, as the gated backward kernels
+// (gated_train.cu) form their dh tiles.
 __device__ __forceinline__ void bwd_product(
     const __nv_bfloat16* __restrict__ a, int lda,
     const __nv_bfloat16* __restrict__ w, int N, int B, int H, int b0,

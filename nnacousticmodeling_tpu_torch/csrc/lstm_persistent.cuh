@@ -360,19 +360,20 @@ int launch(K kern, bool resident, const void* proj, const void* wt, void* h,
 }
 
 template <typename K>
-int blocks_per_sm(K kern, size_t smem, int* out) {
+int blocks_per_sm(K kern, int threads, size_t smem, int* out) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kern,
-                                                            THREADS, smem);
+                                                            threads, smem);
 }
 
 // Co-resident blocks on the current device of the smaller of two kernels'
-// occupancies (one per proj dtype) with smem bytes of shared memory each:
-// 0 when that exceeds the card's.
+// occupancies (one per proj dtype) with threads a block and smem bytes of
+// shared memory each: 0 when that exceeds the card's.
 template <typename K32, typename K16>
-int capacity(K32 k32, K16 k16, size_t smem, int* blocks) {
+int capacity(K32 k32, K16 k16, size_t smem, int* blocks,
+             int threads = THREADS) {
   *blocks = 0;
   if (smem > SMEM_MAX) return 0;
   int dev = 0, sms = 0, n32 = 0, n16 = 0;
@@ -380,8 +381,8 @@ int capacity(K32 k32, K16 k16, size_t smem, int* blocks) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  int e = blocks_per_sm(k32, smem, &n32);
-  if (e == 0) e = blocks_per_sm(k16, smem, &n16);
+  int e = blocks_per_sm(k32, threads, smem, &n32);
+  if (e == 0) e = blocks_per_sm(k16, threads, smem, &n16);
   if (e != 0) return e;
   *blocks = (n32 < n16 ? n32 : n16) * sms;
   return 0;

@@ -1,5 +1,6 @@
 // Inline-PTX building blocks shared by the hand-written tensor-core
-// kernels (lstm_scan.cu, dw_gemm.cuh): 16-byte cp.async copies into shared
+// kernels (lstm_persistent.cuh, peephole_persistent.cuh, lstm_train.cu,
+// peephole_train.cu, dw_gemm.cuh): 16-byte cp.async copies into shared
 // memory, ldmatrix loads of 8x8 bf16 tiles, the bf16 x bf16 -> f32
 // mma.sync.m16n8k16 and the global nanosecond clock. The fragment layout
 // of mma.m16n8k16 (PTX ISA, "Matrix fragments for mma.m16n8k16"):
@@ -67,6 +68,16 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// Two 8x8 bf16 tiles; lanes 0-15 give the addresses (lane l: row l % 8
+// of tile l / 8), the other lanes' are not read.
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2],
+                                            const __nv_bfloat16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
       : "r"(smem_addr(p)));
 }
 

@@ -6,8 +6,7 @@
 // precision contract as its twin peephole_scan_mixed_reference (:1413):
 // bf16(proj), bf16 operands of h @ W_h, c @ P_i, c @ P_f and c' @ P_o with
 // f32 accumulation, f32 gates and carry, hs in proj's dtype. The step
-// kernels are in peephole_step.cuh, shared with the training forward
-// (peephole_train.cu).
+// kernels are in peephole_step.cuh.
 //
 // What bounds it on this card. One step at B=128, H=1024 is
 // 2*B*H*7H = 1.88 GFLOP in two dependent groups of products: (B, H) @
@@ -47,7 +46,7 @@ extern "C" int peephole_scan_f32(const void* proj, const void* wh,
       static_cast<const __nv_bfloat16*>(po), static_cast<float*>(h_a),
       static_cast<float*>(h_b), static_cast<float*>(c_a),
       static_cast<float*>(c_b), static_cast<float*>(zo),
-      static_cast<float*>(hs), nullptr, T, B, H,
+      static_cast<float*>(hs), T, B, H,
       static_cast<cudaStream_t>(stream));
 }
 
@@ -63,6 +62,6 @@ extern "C" int peephole_scan_bf16(const void* proj, const void* wh,
       static_cast<const __nv_bfloat16*>(po), static_cast<float*>(h_a),
       static_cast<float*>(h_b), static_cast<float*>(c_a),
       static_cast<float*>(c_b), static_cast<float*>(zo),
-      static_cast<__nv_bfloat16*>(hs), nullptr, T, B, H,
+      static_cast<__nv_bfloat16*>(hs), T, B, H,
       static_cast<cudaStream_t>(stream));
 }

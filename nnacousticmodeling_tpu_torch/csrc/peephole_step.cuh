@@ -1,10 +1,10 @@
-// Step kernels of the peephole LSTM for Hopper (sm_90a), shared by
-// peephole_scan.cu (inference) and peephole_train.cu (the training
-// forward, which also writes the backward's residuals). One source for
-// both, so the two forwards are bit-equal by construction; the cell
-// arithmetic is pinned with round-to-nearest intrinsics, so no FMA
-// contraction can differ between the two builds. The tiles, the product
-// loop and the rounding helpers are gated_step.cuh's.
+// Step kernels of the peephole LSTM for Hopper (sm_90a), for
+// peephole_scan.cu (inference) alone: the training forward runs the
+// persistent recurrence of peephole_persistent.cuh instead, which sums on
+// the tensor cores in another order, so the two forwards agree within
+// the recurrence tolerance, not bit for bit. The cell arithmetic is
+// pinned with round-to-nearest intrinsics. The tiles, the product loop
+// and the rounding helpers are gated_step.cuh's.
 //
 // The cell (Chainer StatefulPeepholeLSTM, full (H, H) peephole matrices;
 // rnn_pallas.py:1356-1369):
@@ -53,7 +53,6 @@ peep_cell_step(const TP* __restrict__ proj_t,            // (B, 4H)
                const float* __restrict__ c_in,           // (B, H)
                float* __restrict__ c_out,                // (B, H)
                float* __restrict__ zo,                   // (B, H) out
-               __nv_bfloat16* __restrict__ res_t,        // (B, 8H) or null
                int B, int H) {
   __shared__ float a_sm[TB][KC + 1];
   __shared__ __align__(8) float w4_sm[KC][4 * TJ];
@@ -89,15 +88,6 @@ peep_cell_step(const TP* __restrict__ proj_t,            // (B, 4H)
       const float cn = __fadd_rn(__fmul_rn(f, cp), __fmul_rn(ig, a));
       c_out[idx] = cn;
       zo[idx] = __fadd_rn(load_as_bf16(pr + 3 * H + j), acc[r][u][3]);
-      if (res_t != nullptr) {
-        __nv_bfloat16* rr = res_t + (size_t)b * 8 * H + j;
-        rr[0] = __float2bfloat16(a);
-        rr[H] = __float2bfloat16(ig);
-        rr[2 * H] = __float2bfloat16(f);
-        rr[5 * H] = __float2bfloat16(cp);
-        rr[6 * H] = __float2bfloat16(h_in[idx]);
-        rr[7 * H] = __float2bfloat16(cn);
-      }
     }
   }
 }
@@ -111,7 +101,6 @@ peep_out_step(const __nv_bfloat16* __restrict__ po,      // (H, H)
               const float* __restrict__ zo,              // (B, H)
               float* __restrict__ h_out,                 // (B, H)
               TP* __restrict__ hs_t,                     // (B, H)
-              __nv_bfloat16* __restrict__ res_t,         // (B, 8H) or null
               int B, int H) {
   __shared__ float a_sm[TB][KC + 1];
   __shared__ __align__(8) float w_sm[KC][TJ];
@@ -135,11 +124,6 @@ peep_out_step(const __nv_bfloat16* __restrict__ po,      // (H, H)
       const float hn = __fmul_rn(o, tc);
       h_out[idx] = hn;
       store_out(hs_t + idx, hn);
-      if (res_t != nullptr) {
-        __nv_bfloat16* rr = res_t + (size_t)b * 8 * H + j;
-        rr[3 * H] = __float2bfloat16(o);
-        rr[4 * H] = __float2bfloat16(tc);
-      }
     }
   }
 }
@@ -147,30 +131,27 @@ peep_out_step(const __nv_bfloat16* __restrict__ po,      // (H, H)
 // The whole sequence, two launches a step. h ping-pongs between h_a
 // (holding h0) and h_b, c between c_a (holding c0) and c_b; after the
 // call h_T and c_T are in h_a / c_a when T is even, else in h_b / c_b.
-// zo (B, H) f32 is scratch; res (T, B, 8H) bf16 or null.
+// zo (B, H) f32 is scratch.
 template <typename TP>
 int run_peep_fwd(const TP* proj, const __nv_bfloat16* wh,
                  const __nv_bfloat16* pif, const __nv_bfloat16* po,
                  float* h_a, float* h_b, float* c_a, float* c_b, float* zo,
-                 TP* hs, __nv_bfloat16* res, int T, int B, int H,
-                 cudaStream_t stream) {
+                 TP* hs, int T, int B, int H, cudaStream_t stream) {
   const dim3 grid((H + TJ - 1) / TJ, (B + TB - 1) / TB);
   const size_t step_in = (size_t)B * 4 * H;
   const size_t step_out = (size_t)B * H;
-  const size_t step_res = (size_t)B * 8 * H;
   for (int t = 0; t < T; ++t) {
     const bool even = t % 2 == 0;
     const float* h_in = even ? h_a : h_b;
     float* h_out = even ? h_b : h_a;
     const float* c_in = even ? c_a : c_b;
     float* c_out = even ? c_b : c_a;
-    __nv_bfloat16* res_t = (res != nullptr) ? res + t * step_res : nullptr;
     peep_cell_step<TP><<<grid, THREADS, 0, stream>>>(
-        proj + t * step_in, wh, pif, h_in, c_in, c_out, zo, res_t, B, H);
+        proj + t * step_in, wh, pif, h_in, c_in, c_out, zo, B, H);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     peep_out_step<TP><<<grid, THREADS, 0, stream>>>(
-        po, c_out, zo, h_out, hs + t * step_out, res_t, B, H);
+        po, c_out, zo, h_out, hs + t * step_out, B, H);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

@@ -45,10 +45,13 @@ bf16 roundings.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes
 its plain version only for CPU tensors. ``lstm_scan_plan``,
-``lstm_train_bwd_plan`` and ``dw_plan`` are the host-side layouts of the
-persistent LSTM recurrence (``csrc/lstm_persistent.cuh``: ``lstm_scan``
-and the training forward), of the persistent training backward
-(``csrc/lstm_train.cu``) and of the tensor-core dW GEMM shared by the
+``lstm_train_bwd_plan``, ``peephole_train_fwd_plan``,
+``peephole_train_bwd_plan`` and ``dw_plan`` are the host-side layouts of
+the persistent LSTM recurrence (``csrc/lstm_persistent.cuh``:
+``lstm_scan`` and the training forward), of the persistent LSTM training
+backward (``csrc/lstm_train.cu``), of the persistent peephole training
+forward and backward (``csrc/peephole_persistent.cuh``,
+``csrc/peephole_train.cu``) and of the tensor-core dW GEMM shared by the
 three training backwards (``csrc/dw_gemm.cuh``): plain Python, so the
 CPU tests check what the kernels are handed.
 """
@@ -58,7 +61,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -138,37 +141,41 @@ def bwd_w_resident(h_dim: int) -> bool:
 
 @dataclass(frozen=True)
 class ScanPlan:
-    """One call of a persistent recurrence kernel: W_h resident or
-    streamed, each block's shared memory, the grid's blocks along H, and
-    the row chunks of the batch, one cooperative launch each (``(row0,
-    nrows)``; the grid of a launch is ``unit_blocks`` x ceil(nrows /
-    SCAN_ROWS))."""
+    """One call of a persistent recurrence kernel: its weight slice
+    resident or streamed, each block's shared memory, the grid's blocks
+    along H, and the row chunks of the batch, one cooperative launch each
+    (``(row0, nrows)``; the grid of a launch is ``unit_blocks`` x
+    ceil(nrows / rows)). A block owns ``units`` hidden units of ``rows``
+    batch rows."""
     resident: bool
     smem_bytes: int
     unit_blocks: int
     launches: Tuple[Tuple[int, int], ...]
+    units: int = SCAN_UNITS
+    rows: int = SCAN_ROWS
 
     def grid(self, nrows: int) -> Tuple[int, int]:
-        return self.unit_blocks, -(-nrows // SCAN_ROWS)
+        return self.unit_blocks, -(-nrows // self.rows)
 
 
 def _row_chunks(name: str, h_dim: int, batch: int, max_blocks: int,
-                resident: bool, smem: int) -> ScanPlan:
-    """Every block of a launch covers SCAN_UNITS units and SCAN_ROWS
-    rows; a batch that needs more row tiles than one grid of at most
+                resident: bool, smem: int, units: int = SCAN_UNITS,
+                rows: int = SCAN_ROWS) -> ScanPlan:
+    """Every block of a launch covers ``units`` units and ``rows`` rows;
+    a batch that needs more row tiles than one grid of at most
     ``max_blocks`` co-resident blocks holds is cut into chunks."""
     if smem > SMEM_LIMIT:
         raise ValueError(f"{name}: H={h_dim} needs {smem} bytes of shared "
                          f"memory a block")
-    unit_blocks = -(-h_dim // SCAN_UNITS)
+    unit_blocks = -(-h_dim // units)
     tiles = max_blocks // unit_blocks
     if tiles < 1:
         raise ValueError(f"{name}: H={h_dim} needs {unit_blocks} "
                          f"co-resident blocks, the card holds {max_blocks}")
-    rows = tiles * SCAN_ROWS
-    launches = tuple((r0, min(rows, batch - r0))
-                     for r0 in range(0, batch, rows))
-    return ScanPlan(resident, smem, unit_blocks, launches)
+    chunk = tiles * rows
+    launches = tuple((r0, min(chunk, batch - r0))
+                     for r0 in range(0, batch, chunk))
+    return ScanPlan(resident, smem, unit_blocks, launches, units, rows)
 
 
 def lstm_scan_plan(h_dim: int, batch: int, max_blocks: int) -> ScanPlan:
@@ -189,6 +196,109 @@ def lstm_train_bwd_plan(h_dim: int, batch: int, max_blocks: int) -> ScanPlan:
     resident = bwd_w_resident(h_dim)
     return _row_chunks("lstm_train_backward", h_dim, batch, max_blocks,
                        resident, bwd_smem_bytes(h_dim, resident))
+
+
+#: csrc/peephole_persistent.cuh (the peephole training forward) and the
+#: peephole training backward (csrc/peephole_train.cu): hidden units and
+#: batch rows a block owns (one mma n8 tile a gate, 16 rows a warp; half
+#: the rows, at twice the blocks an SM, where the grid of streamed
+#: 128-row blocks is not co-resident), and, with the weight slice
+#: resident / streamed, the reduction chunk of one ring stage and the
+#: ring depth
+PEEP_UNITS = 8
+PEEP_ROWS = 128
+PEEP_NARROW_ROWS = 64
+PEEP_KC = {True: 128, False: 64}
+PEEP_STAGES = {True: 3, False: 4}
+
+
+def _peep_extent(h_dim: int) -> int:
+    """H rounded up to whole 128-wide chunks: a resident slice's row."""
+    return -(-h_dim // PEEP_KC[True]) * PEEP_KC[True]
+
+
+def _peep_ring(resident: bool, w_rows: int, rows: int) -> int:
+    """The ring: the exchange tile of the block's rows, and the weight
+    rows of the chunk beside it when the slice is streamed."""
+    return (PEEP_STAGES[resident]
+            * (rows + (0 if resident else w_rows))
+            * (PEEP_KC[resident] + 8) * 2)
+
+
+def peephole_fwd_smem_bytes(h_dim: int, resident: bool,
+                            rows: int = PEEP_ROWS) -> int:
+    """Shared memory of one training-forward block of ``rows`` batch rows:
+    the 7U weight rows (W_h^T's four gates, P_o^T, P_i^T, P_f^T of its
+    units, each padded by 8) when resident, and the ring (4U weight rows
+    a stage streamed)."""
+    w = 7 * PEEP_UNITS * (_peep_extent(h_dim) + 8) * 2 if resident else 0
+    return w + _peep_ring(resident, 4 * PEEP_UNITS, rows)
+
+
+def peephole_bwd_smem_bytes(h_dim: int, resident: bool,
+                            rows: int = PEEP_ROWS) -> int:
+    """Shared memory of one training-backward block of ``rows`` batch
+    rows: per unit a dh row (row k of W_h, 4 gate blocks) and a dc row
+    (row k of [P_i | P_f | P_o], 3 blocks), each block padded to whole
+    chunks and each row by 8, when resident, and the ring (2U weight rows
+    a stage streamed)."""
+    w = (PEEP_UNITS * (7 * _peep_extent(h_dim) + 16) * 2 if resident
+         else 0)
+    return w + _peep_ring(resident, 2 * PEEP_UNITS, rows)
+
+
+def _peep_w_resident(smem_bytes, h_dim: int, resident_blocks: int) -> bool:
+    return (smem_bytes(h_dim, True) <= SMEM_LIMIT
+            and -(-h_dim // PEEP_UNITS) <= resident_blocks)
+
+
+def peephole_fwd_w_resident(h_dim: int, resident_blocks: int) -> bool:
+    """Whether a training-forward block's weight slice stays in shared
+    memory for all T: it fits (H <= 1024, 128-wide chunks), and the grid
+    of H/8 unit blocks is co-resident at ``resident_blocks`` (one an SM,
+    132 on an H100). Else the kernel streams it from L2 each phase."""
+    return _peep_w_resident(peephole_fwd_smem_bytes, h_dim,
+                            resident_blocks)
+
+
+def peephole_bwd_w_resident(h_dim: int, resident_blocks: int) -> bool:
+    """``peephole_fwd_w_resident`` for the training backward."""
+    return _peep_w_resident(peephole_bwd_smem_bytes, h_dim,
+                            resident_blocks)
+
+
+def _peep_plan(name, smem_bytes, h_dim, batch, capacity) -> ScanPlan:
+    resident = _peep_w_resident(smem_bytes, h_dim,
+                                capacity(True, PEEP_ROWS))
+    rows = PEEP_ROWS
+    if not resident and -(-h_dim // PEEP_UNITS) > capacity(False, rows):
+        rows = PEEP_NARROW_ROWS
+    return _row_chunks(name, h_dim, batch, capacity(resident, rows),
+                       resident, smem_bytes(h_dim, resident, rows),
+                       PEEP_UNITS, rows)
+
+
+def peephole_train_fwd_plan(
+        h_dim: int, batch: int,
+        capacity: Callable[[bool, int], int]) -> ScanPlan:
+    """Lay out ``peephole_train_forward``'s persistent kernel.
+    ``capacity(resident, rows)`` is the card's count of co-resident blocks
+    with the weight slice resident or streamed and ``rows`` batch rows a
+    block. Each block owns all four gate columns of its 8 units for 128
+    batch rows, or 64 where the H/8 streamed blocks of 128 rows are not
+    co-resident (H > 2112 on an H100)."""
+    return _peep_plan("peephole_train_forward", peephole_fwd_smem_bytes,
+                      h_dim, batch, capacity)
+
+
+def peephole_train_bwd_plan(
+        h_dim: int, batch: int,
+        capacity: Callable[[bool, int], int]) -> ScanPlan:
+    """Lay out ``peephole_train_backward``'s reverse-time kernel, as
+    ``peephole_train_fwd_plan``. Each block owns the dh, dc and the four
+    dz columns of its 8 units for the plan's batch rows."""
+    return _peep_plan("peephole_train_backward", peephole_bwd_smem_bytes,
+                      h_dim, batch, capacity)
 
 
 #: csrc/dw_gemm.cuh: the rows of dW a block owns, and the tilings it is
@@ -318,14 +428,16 @@ def _lib():
     return lib
 
 
-def _capacity(name, query, device, h_dim, resident):
+def _capacity(name, query, device, h_dim, resident, *layout):
     """Co-resident blocks of the kernel ``name`` on ``device`` at this H,
-    from its C query ``query(H, resident, &blocks)``."""
-    key = (name, device.index, h_dim, resident)
+    from its C query ``query(H, resident, *layout, &blocks)`` (``layout``:
+    further int arguments of the query, e.g. the rows a block)."""
+    key = (name, device.index, h_dim, resident, *layout)
     if key not in _CAPACITY:
         n = ctypes.c_int(0)
         with torch.cuda.device(device):
-            kernels.check(query(h_dim, int(resident), ctypes.byref(n)), name)
+            kernels.check(query(h_dim, int(resident), *layout,
+                                ctypes.byref(n)), name)
         _CAPACITY[key] = n.value
     return _CAPACITY[key]
 
@@ -1107,10 +1219,10 @@ def gated_scan_train(proj, w1, w2, h0, *, kind, activation="tanh"):
 
 _PEEP_SCAN_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
-_PEEP_FWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
-                      + [ctypes.c_void_p])
-_PEEP_BWD_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 3
-                      + [ctypes.c_void_p])
+# the training forward and backward: pointers, then T, B, H, row0,
+# nrows, resident, rows a block, then the stream
+_PEEP_TRAIN_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                        + [ctypes.c_void_p])
 
 
 def _peep_scan_lib():
@@ -1124,21 +1236,49 @@ def _peep_scan_lib():
 def _peep_train_lib():
     lib = kernels.load("peephole_train")
     for fns, argtypes in (((lib.peephole_train_fwd_f32,
-                            lib.peephole_train_fwd_bf16), _PEEP_FWD_ARGTYPES),
-                          ((lib.peephole_train_bwd_f32,
-                            lib.peephole_train_bwd_bf16), _PEEP_BWD_ARGTYPES),
+                            lib.peephole_train_fwd_bf16,
+                            lib.peephole_train_bwd_f32,
+                            lib.peephole_train_bwd_bf16),
+                           _PEEP_TRAIN_ARGTYPES),
                           ((lib.peephole_train_dw,), _DW_ARGTYPES)):
         for fn in fns:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+    lib.peephole_train_capacity.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.peephole_train_capacity.restype = ctypes.c_int
     return lib
 
 
 def _peep_operands(wh, pi, pf, po):
-    """The kernels' bf16 weight operands: W_h, [P_i | P_f] (one product
-    serves both gates) and P_o, contiguous."""
+    """The scan kernel's bf16 weight operands: W_h, [P_i | P_f] (one
+    product serves both gates) and P_o, contiguous."""
     pif = torch.cat([pi.detach(), pf.detach()], dim=1)
     return [w.detach().to(torch.bfloat16).contiguous() for w in (wh, pif, po)]
+
+
+def _bf16c(*ws):
+    """The weights ``ws`` as one contiguous bf16 tensor, concatenated
+    along their last dimension."""
+    return torch.cat([w.detach() for w in ws], dim=-1).to(
+        torch.bfloat16).contiguous()
+
+
+def _peep_train_launches(name, plan_fn, fn, query, dev, h_dim, batch,
+                         tensors, t, stream):
+    """Launch the peephole training kernel ``fn`` in the row chunks of
+    ``plan_fn`` for its co-residency ``query(H, resident, rows,
+    &blocks)``: the pointers of ``tensors``, a zeroed barrier count a
+    launch, then T, B, H, row0, nrows, resident, rows and the stream."""
+    plan = plan_fn(h_dim, batch, lambda r, rows: _capacity(
+        name, query, dev, h_dim, r, rows))
+    bar = torch.zeros(len(plan.launches), dtype=torch.int32, device=dev)
+    ptrs = [x.data_ptr() for x in tensors]
+    for i, (row0, nrows) in enumerate(plan.launches):
+        kernels.check(fn(*ptrs, bar.data_ptr() + 4 * i, t, batch, h_dim,
+                         row0, nrows, int(plan.resident), plan.rows,
+                         stream), name)
+    kernels.launches[name] += 1
 
 
 def _check_peep_args(name, proj, wh, pi, pf, po, c0, h0):
@@ -1179,9 +1319,9 @@ def _peep_forward_loop(proj, wh, pi, pf, po, c0, h0, with_res):
     return hs, res, c, h
 
 
-def _peep_forward_launch(name, fn, proj, wh, pi, pf, po, c0, h0, with_res):
-    """Launch a peephole forward kernel (``peephole_scan_*`` or
-    ``peephole_train_fwd_*``). Returns ``hs, res (or None), c_T, h_T``."""
+def _peep_scan_launch(name, fn, proj, wh, pi, pf, po, c0, h0):
+    """Launch the peephole scan kernel ``peephole_scan_*``. Returns
+    ``hs, c_T, h_T``."""
     stream = _check_cuda(name, proj, wh, pi, pf, po, c0, h0)
     if not proj.is_contiguous():
         raise ValueError(f"{name}: proj must be contiguous")
@@ -1195,18 +1335,14 @@ def _peep_forward_launch(name, fn, proj, wh, pi, pf, po, c0, h0, with_res):
     c_b = torch.empty_like(c_a)
     zo = torch.empty_like(h_a)
     hs = torch.empty((t, b, h_dim), dtype=proj.dtype, device=dev)
-    res = (torch.empty((t, b, 8 * h_dim), dtype=torch.bfloat16, device=dev)
-           if with_res else None)
-    args = [proj.data_ptr(), whb.data_ptr(), pifb.data_ptr(), pob.data_ptr(),
-            h_a.data_ptr(), h_b.data_ptr(), c_a.data_ptr(), c_b.data_ptr(),
-            zo.data_ptr(), hs.data_ptr()]
-    if with_res:
-        args.append(res.data_ptr())
-    kernels.check(fn(*args, t, b, h_dim, stream), name)
+    kernels.check(fn(proj.data_ptr(), whb.data_ptr(), pifb.data_ptr(),
+                     pob.data_ptr(), h_a.data_ptr(), h_b.data_ptr(),
+                     c_a.data_ptr(), c_b.data_ptr(), zo.data_ptr(),
+                     hs.data_ptr(), t, b, h_dim, stream), name)
     kernels.launches[name] += 1
     if t % 2 == 0:
-        return hs, res, c_a, h_a
-    return hs, res, c_b, h_b
+        return hs, c_a, h_a
+    return hs, c_b, h_b
 
 
 def peephole_scan_reference(proj, wh, pi, pf, po, c0, h0):
@@ -1240,8 +1376,8 @@ def peephole_scan(proj, wh, pi, pf, po, c0, h0):
             "torch.inference_mode()")
     fn = getattr(_peep_scan_lib(), "peephole_scan_" + _dtype_suffix(
         "peephole_scan", proj.dtype))
-    hs, _, c_t, h_t = _peep_forward_launch("peephole_scan", fn, proj, wh, pi,
-                                           pf, po, c0, h0, False)
+    hs, c_t, h_t = _peep_scan_launch("peephole_scan", fn, proj, wh, pi, pf,
+                                     po, c0, h0)
     return (c_t.to(c0.dtype), h_t.to(c0.dtype)), hs
 
 
@@ -1256,15 +1392,50 @@ def peephole_train_forward(proj, wh, pi, pf, po, c0, h0):
     """Forward of the trainable peephole recurrence, ``peephole_scan``'s
     arguments. Returns ``hs`` (T, B, H) in proj's dtype, the residuals
     ``res`` (T, B, 8H) bf16 ``[a | i | f | o | tanh c_t | c_{t-1} |
-    h_{t-1} | c_t]``, and ``c_T``, ``h_T`` float32. hs, c_T and h_T equal
-    ``peephole_scan``'s on the same inputs."""
-    _check_peep_args("peephole_train_forward", proj, wh, pi, pf, po, c0, h0)
+    h_{t-1} | c_t]``, and ``c_T``, ``h_T`` float32.
+
+    On the card: one persistent launch per row chunk of
+    ``peephole_train_fwd_plan`` (one for B <= 128 at H=1024), two grid
+    exchanges a step, tensor-core sums. hs, c_T and h_T agree with
+    ``peephole_scan``'s (per-step kernels, f32 FMA sums in another order)
+    within the recurrence tolerance, and a second call gives the same
+    bits.
+    """
+    name = "peephole_train_forward"
+    _check_peep_args(name, proj, wh, pi, pf, po, c0, h0)
     if proj.device.type == "cpu":
         return peephole_train_forward_reference(proj, wh, pi, pf, po, c0, h0)
-    fn = getattr(_peep_train_lib(), "peephole_train_fwd_" + _dtype_suffix(
-        "peephole_train_forward", proj.dtype))
-    return _peep_forward_launch("peephole_train_forward", fn, proj, wh, pi,
-                                pf, po, c0, h0, True)
+    stream = _check_cuda(name, proj, wh, pi, pf, po, c0, h0)
+    if not proj.is_contiguous():
+        raise ValueError(f"{name}: proj must be contiguous")
+    lib = _peep_train_lib()
+    fn = getattr(lib, "peephole_train_fwd_" + _dtype_suffix(name,
+                                                            proj.dtype))
+    return _peep_train_forward_launch(
+        fn, functools.partial(lib.peephole_train_capacity, 0), proj, wh, pi,
+        pf, po, c0, h0, stream)
+
+
+def _peep_train_forward_launch(fn, query, proj, wh, pi, pf, po, c0, h0,
+                               stream):
+    """The operands, scratch and outputs of the training forward's entry
+    point ``fn``, launched in ``peephole_train_fwd_plan``'s row chunks.
+    Returns ``hs, res, c_T, h_T``."""
+    t, b, _ = proj.shape
+    h_dim = wh.shape[0]
+    dev = proj.device
+    wt = wh.detach().to(torch.bfloat16).t().contiguous()   # W_h^T (4H, H)
+    pt = _bf16c(po, pi, pf).t().contiguous()   # [P_o | P_i | P_f]^T (3H, H)
+    h = h0.detach().float().contiguous().clone()
+    c = c0.detach().float().contiguous().clone()
+    hx = torch.empty((b, h_dim), dtype=torch.bfloat16, device=dev)
+    cx = torch.empty((2, b, h_dim), dtype=torch.bfloat16, device=dev)
+    hs = torch.empty((t, b, h_dim), dtype=proj.dtype, device=dev)
+    res = torch.empty((t, b, 8 * h_dim), dtype=torch.bfloat16, device=dev)
+    _peep_train_launches("peephole_train_forward", peephole_train_fwd_plan,
+                         fn, query, dev, h_dim, b,
+                         (proj, wt, pt, h, c, hx, cx, hs, res), t, stream)
+    return hs, res, c, h
 
 
 def peephole_train_dw_reference(res, dz):
@@ -1362,39 +1533,53 @@ def peephole_train_backward(res, wh, pi, pf, po, dhs, dc_T, dh_T,
     dc_T/dh_T (B, H). Returns ``dproj`` (T, B, 4H) in ``proj_dtype``,
     ``dW_h``, ``dP_i``, ``dP_f``, ``dP_o`` each in its weight's dtype, and
     ``dc0``, ``dh0`` float32.
+
+    On the card: one persistent launch over all reverse steps per row
+    chunk of ``peephole_train_bwd_plan``, two grid exchanges a reverse
+    step, then one dW launch (``peephole_train_dw``) on the bf16 dz it
+    leaves behind.
     """
-    _check_peep_bwd_args("peephole_train_backward", res, wh, pi, pf, po,
-                         dhs, dc_T, dh_T)
+    name = "peephole_train_backward"
+    _check_peep_bwd_args(name, res, wh, pi, pf, po, dhs, dc_T, dh_T)
     if res.device.type == "cpu":
         return peephole_train_backward_reference(res, wh, pi, pf, po, dhs,
                                                  dc_T, dh_T, proj_dtype)
-    stream = _check_cuda("peephole_train_backward", res, wh, pi, pf, po, dhs,
-                         dc_T, dh_T)
-    fn = getattr(_peep_train_lib(), "peephole_train_bwd_" + _dtype_suffix(
-        "peephole_train_backward", proj_dtype))
+    stream = _check_cuda(name, res, wh, pi, pf, po, dhs, dc_T, dh_T)
+    lib = _peep_train_lib()
+    fn = getattr(lib, "peephole_train_bwd_" + _dtype_suffix(name,
+                                                            proj_dtype))
     if not res.is_contiguous():
-        raise ValueError("peephole_train_backward: res must be contiguous")
-    t, b, eight_h = res.shape
-    h_dim = eight_h // 8
-    dev = res.device
-    whb, pifb, pob = _peep_operands(wh, pi, pf, po)
-    dhs_f = dhs.float().contiguous()
-    dh_t = dh_T.float().contiguous()
-    dc_t = dc_T.float().contiguous()
-    dcbuf = torch.empty((b, h_dim), dtype=torch.float32, device=dev)
-    dproj = torch.empty((t, b, 4 * h_dim), dtype=proj_dtype, device=dev)
-    dz = torch.empty((t, b, 4 * h_dim), dtype=torch.bfloat16, device=dev)
-    dh0 = torch.empty((b, h_dim), dtype=torch.float32, device=dev)
-    dc0 = torch.empty_like(dh0)
-    kernels.check(fn(res.data_ptr(), whb.data_ptr(), pifb.data_ptr(),
-                     pob.data_ptr(), dhs_f.data_ptr(), dh_t.data_ptr(),
-                     dc_t.data_ptr(), dcbuf.data_ptr(), dproj.data_ptr(),
-                     dz.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), t, b,
-                     h_dim, stream), "peephole_train_backward")
-    kernels.launches["peephole_train_backward"] += 1
+        raise ValueError(f"{name}: res must be contiguous")
+    dproj, dz, dc0, dh0 = _peep_train_backward_launch(
+        fn, functools.partial(lib.peephole_train_capacity, 1), res, wh, pi,
+        pf, po, dhs, dc_T, dh_T, proj_dtype, stream)
     dwh, dpi, dpf, dpo = peephole_train_dw(res, dz)
     return (dproj, dwh.to(wh.dtype), dpi.to(pi.dtype), dpf.to(pf.dtype),
             dpo.to(po.dtype), dc0, dh0)
+
+
+def _peep_train_backward_launch(fn, query, res, wh, pi, pf, po, dhs, dc_T,
+                                dh_T, proj_dtype, stream):
+    """The operands, scratch and outputs of the training backward's entry
+    point ``fn``, launched in ``peephole_train_bwd_plan``'s row chunks.
+    Returns ``dproj``, the bf16 ``dz`` it leaves for the dW contractions,
+    ``dc0`` and ``dh0``."""
+    t, b, eight_h = res.shape
+    h_dim = eight_h // 8
+    dev = res.device
+    whb = _bf16c(wh)
+    pm = _bf16c(pi, pf, po)                      # [P_i | P_f | P_o] (H, 3H)
+    dhs_f = dhs.float().contiguous()
+    dh_t = dh_T.float().contiguous()
+    dc = dc_T.float().contiguous().clone()
+    dproj = torch.empty((t, b, 4 * h_dim), dtype=proj_dtype, device=dev)
+    dz = torch.empty((t, b, 4 * h_dim), dtype=torch.bfloat16, device=dev)
+    dh0 = torch.empty((b, h_dim), dtype=torch.float32, device=dev)
+    _peep_train_launches("peephole_train_backward", peephole_train_bwd_plan,
+                         fn, query, dev, h_dim, b,
+                         (res, whb, pm, dhs_f, dh_t, dc, dproj, dz, dh0), t,
+                         stream)
+    return dproj, dz, dc, dh0
 
 
 class _PeepholeScanTrain(torch.autograd.Function):
@@ -1424,10 +1609,13 @@ class _PeepholeScanTrain(torch.autograd.Function):
 
 def peephole_scan_train(proj, wh, pi, pf, po, c0, h0):
     """Differentiable peephole recurrence for training, ``peephole_scan``'s
-    signature and forward values: ``(c_T, h_T), hs``. Gradients (dproj,
-    dW_h, dP_i, dP_f, dP_o, dc0, dh0) come from the reverse-time kernel
-    (``peephole_train_backward``) with bf16 residuals, as from the JAX
-    custom VJP."""
+    signature: ``(c_T, h_T), hs``. On the card the forward values come
+    from the persistent training forward (``peephole_train_forward``),
+    which agrees with ``peephole_scan`` within the recurrence tolerance,
+    not bit for bit (the two kernels sum in another order). Gradients
+    (dproj, dW_h, dP_i, dP_f, dP_o, dc0, dh0) come from the reverse-time
+    kernel (``peephole_train_backward``) with bf16 residuals, as from the
+    JAX custom VJP."""
     _check_peep_args("peephole_scan_train", proj, wh, pi, pf, po, c0, h0)
     c_t, h_t, hs = _PeepholeScanTrain.apply(proj, wh, pi, pf, po, c0, h0)
     return (c_t, h_t), hs

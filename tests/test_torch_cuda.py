@@ -18,10 +18,16 @@ to ``DW_RTOL`` of max |dW|, chip_smoke.py's bound.
 The gated kernels are held to the same tolerances, each relative to the
 largest value of its tensor (the relu candidate of MGRU is unbounded);
 their training forward is bit-equal to the ``gated_scan`` kernel. So are
-the peephole kernels, whose training forward is bit-equal to the
-``peephole_scan`` kernel. The dense-cube Viterbi forward is bit-equal to
-its plain version; the fbank kernel is within 1e-3 of the plain
-``fbank`` in the log domain (float32 sums in another order).
+the peephole kernels; their training forward (one persistent launch,
+tensor-core sums) and the ``peephole_scan`` kernel (per-step launches,
+f32 FMA sums) each lie within BF16_ATOL of the plain version, so within
+twice that of each other, and each training kernel gives the same bits
+on a second call; the peephole backward's wide cases hold dh0 and dW to
+the plain products of the kernel's own bf16 dz, and to the plain version
+within limits set from the card's readings (see WIDE_DW_RTOL). The
+dense-cube Viterbi forward is bit-equal to its plain version; the fbank
+kernel is within 1e-3 of the plain ``fbank`` in the log domain (float32
+sums in another order).
 """
 
 import numpy as np
@@ -516,8 +522,10 @@ def test_gated_scan_refuses_grad_on_card(cuda):
 def _peep_case(t, b, h, dtype, device):
     g = torch.Generator().manual_seed(t * 1000 + b * 10 + h)
     proj = (torch.randn(t, b, 4 * h, generator=g) * 0.5).to(dtype)
-    wh = torch.randn(h, 4 * h, generator=g) * 0.1
-    peeps = [torch.randn(h, h, generator=g) * 0.2 for _ in range(3)]
+    # the small sizes' scales, shrunk like 1 / sqrt(H) beyond H=400
+    wh = torch.randn(h, 4 * h, generator=g) * min(0.1, 2.0 / h ** 0.5)
+    peeps = [torch.randn(h, h, generator=g) * min(0.2, 4.0 / h ** 0.5)
+             for _ in range(3)]
     c0 = torch.randn(b, h, generator=g) * 0.1
     h0 = torch.randn(b, h, generator=g) * 0.1
     return [x.to(device) for x in (proj, wh, *peeps, c0, h0)]
@@ -538,17 +546,43 @@ def test_peephole_scan_kernel_matches_plain(cuda, t, b, h, dtype):
     _close_rel(hk, hr, BF16_ATOL)
 
 
+# (1, 1, 40): one step, one row
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t,b,h", [(5, 4, 32), (13, 33, 40)])
+@pytest.mark.parametrize("t,b,h", [(5, 4, 32), (13, 33, 40), (1, 1, 40)])
 def test_peephole_train_forward_kernel(cuda, t, b, h, dtype):
+    _check_peep_forward(cuda, t, b, h, dtype)
+
+
+# (3, 128, 1024): the training width, the weight slice resident in shared
+# memory; (3, 4, 2048): streamed from L2; (3, 300, 1024): three row chunks
+# of 128, 128 and 44 rows; (3, 100, 2120) and (3, 4, 4096): 64-row blocks
+# (H/8 streamed 128-row blocks are not co-resident), two row chunks at
+# 2120. Float32 proj: at these widths a bf16 hs value near 1 can round to
+# the other neighbouring bf16 (2**-8, beyond BF16_ATOL) after float32
+# sums in another order; chip_smoke.py holds bf16 hs to one bf16 ulp at
+# the training shape.
+PEEP_WIDE = [(3, 128, 1024), (3, 4, 2048), (3, 300, 1024), (3, 100, 2120),
+             (3, 4, 4096)]
+
+
+@pytest.mark.parametrize("t,b,h", PEEP_WIDE)
+def test_peephole_train_forward_kernel_wide(cuda, t, b, h):
+    _check_peep_forward(cuda, t, b, h, torch.float32)
+
+
+def _check_peep_forward(cuda, t, b, h, dtype):
     args = _peep_case(t, b, h, dtype, cuda)
     before = kernels.launches["peephole_train_forward"]
     hs, res, ct, ht = peephole_train_forward(*args)
     torch.cuda.synchronize()
     assert kernels.launches["peephole_train_forward"] == before + 1
+    again = peephole_train_forward(*args)
+    assert all(torch.equal(a, k) for a, k in zip(again, (hs, res, ct, ht)))
+    # the scan kernel sums in another order: both within BF16_ATOL of plain
     (cs, hs_c), hs_s = peephole_scan(*args)
-    assert torch.equal(hs, hs_s) and torch.equal(ct, cs)
-    assert torch.equal(ht, hs_c)
+    _close_rel(hs, hs_s, 2 * BF16_ATOL)
+    _close_rel(ct, cs, 2 * BF16_ATOL)
+    _close_rel(ht, hs_c, 2 * BF16_ATOL)
     hs_r, res_r, ct_r, ht_r = peephole_train_forward_reference(*args)
     _close_rel(hs, hs_r, BF16_ATOL)
     _close_rel(ct, ct_r, BF16_ATOL)
@@ -559,8 +593,38 @@ def test_peephole_train_forward_kernel(cuda, t, b, h, dtype):
 
 
 @pytest.mark.parametrize("proj_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t,b,h", [(5, 3, 32), (13, 33, 40), (5, 33, 40)])
+@pytest.mark.parametrize("t,b,h", [(5, 3, 32), (13, 33, 40), (5, 33, 40),
+                                   (1, 1, 40)])
 def test_peephole_train_backward_kernel(cuda, t, b, h, proj_dtype):
+    _check_peep_backward(cuda, t, b, h, proj_dtype)
+
+
+# The forward's wide sizes, float32 dproj, as for the LSTM backward above:
+# a bf16 dproj value near the max can round to the other neighbouring bf16
+# after float32 sums in another order; the bf16 store is checked at the
+# sizes above. dproj and dc0 stay within BWD_RTOL of the plain version.
+# dh0 and dW do not always: the f32 sums flip a few bf16(dz) roundings at
+# the first reverse step, the two peephole products carry them into every
+# unit's dc, and by t = 0 a tenth to a fifth of bf16(dz) differs; dh0 (4H
+# such terms) and dW (a sum over T*B rows, few at B=4) move by up to 2e-3
+# and 3.7e-3 of their largest values on an H100 (readings of
+# bench_peephole_bwd_errors.py). That is the problem's conditioning,
+# not the kernel's: there the float32 plain version differs from a
+# float64 twin by up to 1.4e-3 in dh0, and the per-step kernels that
+# these replaced read dh0 1.3e-3 and dW 1.4e-3. So dh0 and dW are held to
+# BWD_RTOL / DW_RTOL of the plain products of the kernel's own bf16 dz
+# (read up to 2.2e-5 / 1.5e-6), and to WIDE_DH0_RTOL / WIDE_DW_RTOL of the
+# plain version (1.3x the largest readings).
+WIDE_DH0_RTOL = 2.5e-3
+WIDE_DW_RTOL = 5e-3
+
+
+@pytest.mark.parametrize("t,b,h", PEEP_WIDE)
+def test_peephole_train_backward_kernel_streamed_and_chunked(cuda, t, b, h):
+    _check_peep_backward(cuda, t, b, h, torch.float32, wide=True)
+
+
+def _check_peep_backward(cuda, t, b, h, proj_dtype, wide=False):
     args = _peep_case(t, b, h, proj_dtype, cuda)
     _, res, _, _ = peephole_train_forward_reference(*args)
     g = torch.Generator().manual_seed(7)
@@ -573,14 +637,38 @@ def test_peephole_train_backward_kernel(cuda, t, b, h, proj_dtype):
     torch.cuda.synchronize()
     for name in ("peephole_train_backward", "peephole_train_dw"):
         assert kernels.launches[name] == before.get(name, 0) + 1, name
-    want = peephole_train_backward_reference(res, *args[1:5], dhs, dct, dht,
-                                             proj_dtype)
-    for k, w, name in zip(got, want, ["dproj", "dwh", "dpi", "dpf", "dpo",
-                                      "dc0", "dh0"]):
+    want = peephole_train_backward_reference(res, *args[1:5], dhs, dct,
+                                             dht, proj_dtype)
+    names = ("dproj", "dwh", "dpi", "dpf", "dpo", "dc0", "dh0")
+    rtol = dict.fromkeys(names, BWD_RTOL)
+    if wide:
+        rtol.update(dict.fromkeys(names[1:5], WIDE_DW_RTOL),
+                    dh0=WIDE_DH0_RTOL)
+    for k, w, name in zip(got, want, names):
         assert k.dtype == w.dtype and k.shape == w.shape, name
-        scale = float(w.float().abs().max())
-        torch.testing.assert_close(k.float(), w.float(), rtol=0,
-                                   atol=BWD_RTOL * scale, msg=name)
+        _close_max(k, w, rtol[name], name)
+    if wide:
+        # float32 dproj holds the kernel's dz before its bf16 rounding
+        dzb = got[0].to(torch.bfloat16)
+        _close_max(got[6], dzb[0].float() @ _bf16(args[1]).T, BWD_RTOL,
+                   "dh0 = bf16(dz[0]) @ W_h^T")
+        for k, w, name in zip(got[1:5], peephole_train_dw_reference(res, dzb),
+                              names[1:5]):
+            _close_max(k, w, DW_RTOL, name + " of the kernel's bf16 dz")
+    again = peephole_train_backward(res, *args[1:5], dhs, dct, dht,
+                                    proj_dtype)
+    assert all(torch.equal(a, k) for a, k in zip(again, got))
+
+
+def _close_max(got, want, rtol, msg):
+    """|got - want| within rtol of max |want|."""
+    scale = float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=rtol * scale, msg=msg)
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
 
 
 def test_peephole_train_dw_kernel(cuda):

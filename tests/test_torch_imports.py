@@ -1,7 +1,7 @@
 """The port stands alone and defaults to the card.
 
-Every module of ``nnacousticmodeling_tpu_torch`` and ``chip_smoke.py``
-imports neither JAX nor the JAX package (an AST scan, so nothing is
+Every module of ``nnacousticmodeling_tpu_torch``, ``chip_smoke.py`` and
+the port's ``bench_*.py`` scripts imports neither JAX nor the JAX package (an AST scan, so nothing is
 imported to find out). Entry points called without ``device="cpu"``
 run on CUDA: on a machine without a card they raise instead of running
 on the CPU.
@@ -70,7 +70,8 @@ def test_port_files_found():
 
 
 @pytest.mark.parametrize(
-    "path", PORT_FILES + [REPO / "chip_smoke.py"],
+    "path", PORT_FILES + [REPO / "chip_smoke.py"]
+    + sorted(REPO.glob("bench_*.py")),
     ids=lambda p: p.relative_to(REPO).as_posix())
 def test_no_jax_imports(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))

@@ -1,8 +1,10 @@
 """Host-side layouts of the persistent LSTM kernels (``lstm_scan`` and the
 training forward, which share one kernel body, and the training
-backward) and of the tensor-core dW GEMM shared by the three training
-backwards (``ops/rnn_cuda.py`` ``lstm_scan_plan``,
-``lstm_train_bwd_plan`` and ``dw_plan``), on the CPU.
+backward), of the persistent peephole training kernels, and of the
+tensor-core dW GEMM shared by the three training backwards
+(``ops/rnn_cuda.py`` ``lstm_scan_plan``, ``lstm_train_bwd_plan``,
+``peephole_train_fwd_plan``, ``peephole_train_bwd_plan`` and
+``dw_plan``), on the CPU.
 
 The kernels run only on the card; what they are handed is plain Python,
 and is checked here: every (batch row, hidden unit) cell and every gate
@@ -32,11 +34,17 @@ from nnacousticmodeling_tpu_torch.ops.rnn_cuda import (
     SCAN_ROWS,
     SCAN_UNITS,
     BWD_KC,
+    PEEP_KC,
+    PEEP_NARROW_ROWS,
+    PEEP_ROWS,
+    PEEP_UNITS,
     SMEM_LIMIT,
     bwd_w_resident,
     dw_plan,
     lstm_scan_plan,
     lstm_train_bwd_plan,
+    peephole_train_bwd_plan,
+    peephole_train_fwd_plan,
     scan_w_resident,
 )
 
@@ -193,6 +201,199 @@ def test_train_forward_is_handed_the_scan_plan(monkeypatch, h_dim, batch):
                                None)
         assert scan[i][-7:] == fwd[i][-7:]
         assert fwd[i][7] - fwd[0][7] == 4 * i      # one barrier a launch
+
+
+# ---- the persistent peephole training kernels -----------------------------
+
+#: co-resident blocks of the peephole training kernels on a 132-SM H100,
+#: by (resident, rows a block): one block an SM with the weight slice
+#: resident (~220 KB), two streamed, four streamed at 64 rows
+H100_PEEP_BLOCKS = {(True, 128): 132, (False, 128): 264, (False, 64): 528}
+#: the peephole plans' sizes: HS, and two widths whose grid of streamed
+#: 128-row blocks is not co-resident (64-row blocks)
+PEEP_HS = HS + [2120, 4096]
+
+
+def _h100_peep(resident, rows):
+    return H100_PEEP_BLOCKS[resident, rows]
+
+
+PEEP_PLANS = {"forward": (peephole_train_fwd_plan,
+                          rnn_cuda.peephole_fwd_smem_bytes),
+              "backward": (peephole_train_bwd_plan,
+                           rnn_cuda.peephole_bwd_smem_bytes)}
+
+
+def _peep_cells(plan, h_dim, batch):
+    """How often each (row, unit) cell and each (row, gate column) is
+    owned, following peephole_persistent.cuh's layout: block (x, y) owns
+    units x*8.. for rows row0 + y*rows.. (rows / 16 warps); lane (g, q)
+    of warp w owns, in every gate's n8 tile, rows w*16 + g (+ 8) and
+    units 2q, 2q + 1."""
+    cells = np.zeros((batch, h_dim), np.int64)
+    cols = np.zeros((batch, 4 * h_dim), np.int64)
+    warp, lane = np.divmod(np.arange(plan.rows // 16 * 32), 32)
+    for row0, nrows in plan.launches:
+        gx, gy = plan.grid(nrows)
+        for bx in range(gx):
+            for by in range(gy):
+                for e in range(4):
+                    b = (row0 + by * plan.rows + warp * 16 + lane // 4
+                         + 8 * (e // 2))
+                    j = bx * PEEP_UNITS + 2 * (lane % 4) + e % 2
+                    own = (j < h_dim) & (b < row0 + nrows)
+                    np.add.at(cells, (b[own], j[own]), 1)
+                    for g in range(4):
+                        np.add.at(cols, (b[own], g * h_dim + j[own]), 1)
+    return cells, cols
+
+
+@pytest.mark.parametrize("batch", BWD_BS)
+@pytest.mark.parametrize("h_dim", PEEP_HS)
+@pytest.mark.parametrize("kind", ["forward", "backward"])
+def test_peephole_plan_owns_every_cell_once(kind, h_dim, batch):
+    """Each thread of the forward owns all four gate columns of its cells
+    (the cell update runs in its registers); each of the backward owns the
+    dh, dc and four dz columns of its cells."""
+    plan_fn, smem = PEEP_PLANS[kind]
+    plan = plan_fn(h_dim, batch, _h100_peep)
+    assert plan.resident == (h_dim <= 1024)
+    rows = PEEP_ROWS if h_dim <= 2112 else PEEP_NARROW_ROWS
+    assert (plan.units, plan.rows) == (PEEP_UNITS, rows)
+    assert plan.smem_bytes == smem(h_dim, plan.resident, rows) <= SMEM_LIMIT
+    for _, nrows in plan.launches:
+        gx, gy = plan.grid(nrows)
+        assert gx * gy <= H100_PEEP_BLOCKS[plan.resident, rows]
+    assert sum(n for _, n in plan.launches) == batch
+    if h_dim == 1024 and batch <= 128:
+        assert len(plan.launches) == 1    # the training path: one launch
+    cells, cols = _peep_cells(plan, h_dim, batch)
+    assert (cells == 1).all() and (cols == 1).all()
+
+
+@pytest.mark.parametrize("h_dim", HS)
+def test_peephole_bwd_products_reduce_every_dz_column_once(h_dim):
+    """A reverse step's two products walk the o block, then the a, i and
+    f blocks, each in chunks of PEEP_KC over H rounded up to whole chunks:
+    together they reduce every one of the 4H dz columns exactly once, and
+    only the i, f and o blocks reach the dc rows."""
+    resident = rnn_cuda.peephole_bwd_w_resident(h_dim, 132)
+    kc = PEEP_KC[resident]
+    nkb = -(-h_dim // kc)
+    dh_cols = np.zeros(4 * h_dim, np.int64)
+    dc_cols = np.zeros(4 * h_dim, np.int64)
+    for blk0, nblk in ((3, 1), (0, 3)):
+        for c in range(nblk * nkb):
+            blk, n0 = blk0 + c // nkb, (c % nkb) * kc
+            cols = blk * h_dim + np.arange(n0, min(n0 + kc, h_dim))
+            dh_cols[cols] += 1
+            if blk >= 1:
+                dc_cols[cols] += 1
+    assert (dh_cols == 1).all()
+    assert (dc_cols[:h_dim] == 0).all() and (dc_cols[h_dim:] == 1).all()
+
+
+@pytest.mark.parametrize("kind", ["forward", "backward"])
+def test_peephole_plan_streams_exactly_where_the_slice_does_not_fit(kind):
+    plan_fn, smem = PEEP_PLANS[kind]
+    for h_dim in range(960, 1200, 8):
+        fits = smem(h_dim, True) <= SMEM_LIMIT
+        assert plan_fn(h_dim, 8, _h100_peep).resident == fits
+        assert smem(h_dim, False) <= SMEM_LIMIT // 2    # two blocks an SM
+    assert smem(4096, False, PEEP_NARROW_ROWS) <= SMEM_LIMIT // 4
+    # a resident grid that the card cannot hold at one block an SM streams
+    small = {(True, 128): 114, (False, 128): 228, (False, 64): 456}
+    assert not plan_fn(1024, 8, lambda r, rows: small[r, rows]).resident
+    # 64-row blocks exactly where H/8 streamed 128-row blocks are not
+    # co-resident; beyond what four blocks an SM hold, refused
+    for h_dim, rows in ((2112, 128), (2120, 64), (4224, 64)):
+        assert plan_fn(h_dim, 8, _h100_peep).rows == rows
+    with pytest.raises(ValueError, match="co-resident"):
+        plan_fn(4232, 8, _h100_peep)
+
+
+@pytest.mark.parametrize("h_dim,batch", [(40, 3), (1024, 128), (1024, 300),
+                                         (2048, 200), (2120, 3)])
+@pytest.mark.parametrize("kind", ["forward", "backward"])
+def test_peephole_train_wrappers_are_handed_their_plans(monkeypatch, kind,
+                                                       h_dim, batch):
+    """Each launch of a peephole training kernel gets its plan's row chunk,
+    its residency flag and a barrier count of its own, after the
+    pointers in the order of the C entry points' argtypes."""
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda _: contextlib.nullcontext())
+    monkeypatch.setattr(rnn_cuda, "_CAPACITY", {})
+    t = 3
+    rng = np.random.default_rng(h_dim + batch)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32))
+
+    wh = rand(h_dim, 4 * h_dim)
+    peeps = [rand(h_dim, h_dim) for _ in range(3)]
+    calls = []
+
+    def query(h, res_flag, rows, blocks):
+        blocks._obj.value = H100_PEEP_BLOCKS[bool(res_flag), rows]
+        return 0
+
+    def entry(*args):
+        calls.append(args)
+        return 0
+
+    before = dict(kernels.launches)
+    try:
+        if kind == "forward":
+            proj = rand(t, batch, 4 * h_dim)
+            c0, h0 = rand(batch, h_dim), rand(batch, h_dim)
+            hs, res, c, h = rnn_cuda._peep_train_forward_launch(
+                entry, query, proj, wh, *peeps, c0, h0, None)
+            assert hs.shape == (t, batch, h_dim) and c.shape == h.shape
+            assert res.shape == (t, batch, 8 * h_dim)
+        else:
+            res = rand(t, batch, 8 * h_dim).to(torch.bfloat16)
+            dproj, dz, dc0, dh0 = rnn_cuda._peep_train_backward_launch(
+                entry, query, res, wh, *peeps, rand(t, batch, h_dim),
+                rand(batch, h_dim), rand(batch, h_dim), torch.float32, None)
+            assert dproj.shape == dz.shape == (t, batch, 4 * h_dim)
+            assert dz.dtype == torch.bfloat16
+            assert dc0.shape == dh0.shape == (batch, h_dim)
+        name = f"peephole_train_{kind}"
+        assert kernels.launches[name] == before.get(name, 0) + 1
+    finally:
+        kernels.launches.clear()
+        kernels.launches.update(before)
+    plan = PEEP_PLANS[kind][0](h_dim, batch, _h100_peep)
+    assert len(calls) == len(plan.launches)
+    for i, (row0, nrows) in enumerate(plan.launches):
+        assert len(calls[i]) == len(rnn_cuda._PEEP_TRAIN_ARGTYPES)
+        assert calls[i][-8:] == (t, batch, h_dim, row0, nrows,
+                                 int(plan.resident), plan.rows, None)
+        assert calls[i][:9] == calls[0][:9]          # the same tensors
+        assert calls[i][9] - calls[0][9] == 4 * i    # one barrier a launch
+    if kind == "backward":
+        assert calls[0][0] == res.data_ptr()
+
+
+def test_peephole_train_operands_are_the_kernels_layouts():
+    """The forward's B operands are W_h^T (4H, H) and [P_o | P_i | P_f]^T
+    (3H, H), rows contiguous along the reduction; the backward's are W_h
+    and [P_i | P_f | P_o] (H, 3H), whose rows k are contiguous already."""
+    h_dim = 24
+    rng = np.random.default_rng(5)
+    wh, pi, pf, po = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)) for s in ((h_dim, 4 * h_dim),) + ((h_dim, h_dim),) * 3)
+    bf = rnn_cuda._bf16f
+    pt = rnn_cuda._bf16c(po, pi, pf).t().contiguous()
+    assert pt.shape == (3 * h_dim, h_dim) and pt.dtype == torch.bfloat16
+    for g, p in enumerate((po, pi, pf)):
+        assert torch.equal(pt[g * h_dim:(g + 1) * h_dim].float(), bf(p).T)
+    pm = rnn_cuda._bf16c(pi, pf, po)
+    assert pm.shape == (h_dim, 3 * h_dim) and pm.is_contiguous()
+    for g, p in enumerate((pi, pf, po)):
+        assert torch.equal(pm[:, g * h_dim:(g + 1) * h_dim].float(), bf(p))
+    assert torch.equal(rnn_cuda._bf16c(wh).float(), bf(wh))
 
 
 def _families():
