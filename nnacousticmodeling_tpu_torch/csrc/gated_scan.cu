@@ -6,7 +6,9 @@
 // contract as its twin gated_scan_mixed_reference (:320): bf16(proj),
 // bf16 operands of h @ w1 and of bf16(r*h) @ w2 with f32 accumulation,
 // f32 gates and carry, hs in proj's dtype. The step kernels are in
-// gated_step.cuh, shared with the training forward (gated_train.cu).
+// gated_step.cuh; the training forward (gated_train.cu) runs the
+// persistent recurrence of gated_persistent.cuh, which sums in another
+// order, so the two agree within the recurrence tolerance.
 //
 // What bounds it on this card. One GRU step at B=128, H=1024 is two
 // dependent products, (B, H) @ (H, 2H) and (B, H) @ (H, H): 0.81 GFLOP
@@ -23,10 +25,9 @@
 // product h @ [u_z | u] feeds both of its gates. A block owns 32 hidden
 // units x 32 batch rows, h ping-pongs between two f32 buffers, and the
 // weights are re-read from L2 each step. The products run on the CUDA
-// cores as f32 FMAs of bf16-rounded operands from shared-memory tiles,
-// as lstm_scan.cu's do. Tensor cores, the weights split across a
-// persistent grid with a grid sync instead of launches, and CUDA graphs
-// are later work.
+// cores as f32 FMAs of bf16-rounded operands from shared-memory tiles.
+// The persistent design of the training forward (gated_persistent.cuh,
+// instantiated with RES = false) is later work.
 
 #include "gated_step.cuh"
 
@@ -43,8 +44,8 @@ extern "C" int gated_scan_f32(const void* proj, const void* w1,
       static_cast<const float*>(proj), static_cast<const __nv_bfloat16*>(w1),
       static_cast<const __nv_bfloat16*>(w2), static_cast<float*>(h_a),
       static_cast<float*>(h_b), static_cast<__nv_bfloat16*>(rh),
-      static_cast<float*>(zbuf), static_cast<float*>(hs), nullptr, T, B, H,
-      kind, act, static_cast<cudaStream_t>(stream));
+      static_cast<float*>(zbuf), static_cast<float*>(hs), T, B, H, kind, act,
+      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int gated_scan_bf16(const void* proj, const void* w1,
@@ -56,6 +57,6 @@ extern "C" int gated_scan_bf16(const void* proj, const void* w1,
       static_cast<const __nv_bfloat16*>(w1),
       static_cast<const __nv_bfloat16*>(w2), static_cast<float*>(h_a),
       static_cast<float*>(h_b), static_cast<__nv_bfloat16*>(rh),
-      static_cast<float*>(zbuf), static_cast<__nv_bfloat16*>(hs), nullptr, T,
-      B, H, kind, act, static_cast<cudaStream_t>(stream));
+      static_cast<float*>(zbuf), static_cast<__nv_bfloat16*>(hs), T, B, H,
+      kind, act, static_cast<cudaStream_t>(stream));
 }

@@ -1,10 +1,11 @@
 // Step kernels of the gated recurrences (GRU, and the minimal GRU with or
-// without its reset gate) for Hopper (sm_90a), shared by gated_scan.cu
-// (inference) and gated_train.cu (the training forward, which also
-// writes the backward's residuals). One source for both, so the two
-// forwards are bit-equal by construction; the arithmetic is pinned with
-// round-to-nearest intrinsics, so no FMA contraction can differ between
-// the two builds.
+// without its reset gate) for Hopper (sm_90a): gated_scan.cu's forward
+// (one or two launches a step) and the product loop of gated_train.cu's
+// backward. The training forward runs gated_persistent.cuh's persistent
+// recurrence instead, which sums on the tensor cores in another order, so
+// the two forwards agree within the recurrence tolerance, not bit for
+// bit. The elementwise arithmetic, pinned with round-to-nearest
+// intrinsics, is gated_persistent.cuh's.
 //
 // kind 0 = gru: proj (B, 3H) packs [r, z, c], w1 = wh_rz (H, 2H) [r | z],
 //               w2 = wh_c (H, H) applied to r*h, candidate tanh;
@@ -13,12 +14,6 @@
 // All kinds: h' = z*hb + (1-z)*h (Chainer's z gates the candidate).
 // act (the mgru candidate; the gru wrapper passes tanh): 0 tanh, 1 relu,
 // 2 sigmoid.
-//
-// Residual row (training only), bf16 (B, 4H): [r | z | hb | h_prev],
-// r = 0 for mgru, as _gated_train_fwd_impl writes it.
-//
-// The tile sizes, the rounding helpers and fwd_product are also the
-// peephole scan's (peephole_step.cuh).
 
 #pragma once
 
@@ -26,16 +21,24 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "gated_persistent.cuh"
+
 namespace gated {
 namespace {
+
+using gated_persistent::ACT_RELU;
+using gated_persistent::ACT_SIGMOID;
+using gated_persistent::KIND_GRU;
+using gated_persistent::KIND_MGRU;
+using gated_persistent::activate;
+using gated_persistent::interpolate;
+using lstm_persistent::sigmoidf;
+using lstm_persistent::store_out;
 
 constexpr int TB = 32;        // batch rows per block
 constexpr int TJ = 32;        // hidden units per block
 constexpr int KC = 32;        // reduction chunk held in shared memory
 constexpr int THREADS = 256;  // 16 x 16 threads, each 2 rows x 2 units
-
-enum { KIND_GRU = 0, KIND_MGRU_R = 1, KIND_MGRU = 2 };
-enum { ACT_TANH = 0, ACT_RELU = 1, ACT_SIGMOID = 2 };
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
@@ -47,27 +50,6 @@ __device__ __forceinline__ float load_as_bf16(const float* p) {
 
 __device__ __forceinline__ float load_as_bf16(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
-}
-
-__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
-
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float sigmoidf(float x) {
-  return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
-}
-
-__device__ __forceinline__ float activate(int act, float x) {
-  if (act == ACT_RELU) return fmaxf(x, 0.0f);
-  if (act == ACT_SIGMOID) return sigmoidf(x);
-  return tanhf(x);
-}
-
-// z * hb + (1 - z) * h, each operation rounded on its own
-__device__ __forceinline__ float interpolate(float z, float hb, float h) {
-  return __fadd_rn(__fmul_rn(z, hb), __fmul_rn(__fsub_rn(1.0f, z), h));
 }
 
 // acc[r][u][g] += sum_k bf16(a[b0 + tr + r, k]) * w[k, g*H + j0 + tu + u]
@@ -166,7 +148,6 @@ gated_rz_step(const TP* __restrict__ proj_t,            // (B, 3H)
               const float* __restrict__ h_in,           // (B, H)
               __nv_bfloat16* __restrict__ rh,           // (B, H) out
               float* __restrict__ zbuf,                 // (B, H) out
-              __nv_bfloat16* __restrict__ res_t,        // (B, 4H) or null
               int B, int H, int kind) {
   __shared__ float a_sm[TB][KC + 1];
   __shared__ __align__(8) float w_sm[KC][2 * TJ];
@@ -194,15 +175,8 @@ gated_rz_step(const TP* __restrict__ proj_t,            // (B, 3H)
       const float rg = sigmoidf(__fadd_rn(load_as_bf16(pr + off_r + j), m_r));
       const float zg = sigmoidf(__fadd_rn(load_as_bf16(pr + off_z + j), m_z));
       const size_t idx = (size_t)b * H + j;
-      const float h = h_in[idx];
-      rh[idx] = __float2bfloat16(__fmul_rn(rg, h));
+      rh[idx] = __float2bfloat16(__fmul_rn(rg, h_in[idx]));
       zbuf[idx] = zg;
-      if (res_t != nullptr) {
-        __nv_bfloat16* rr = res_t + (size_t)b * 4 * H + j;
-        rr[0] = __float2bfloat16(rg);
-        rr[H] = __float2bfloat16(zg);
-        rr[3 * H] = __float2bfloat16(h);
-      }
     }
   }
 }
@@ -218,7 +192,6 @@ gated_cand_step(const TP* __restrict__ proj_t,           // (B, 3H)
                 const float* __restrict__ h_in,          // (B, H)
                 float* __restrict__ h_out,               // (B, H)
                 TP* __restrict__ hs_t,                   // (B, H)
-                __nv_bfloat16* __restrict__ res_t,       // (B, 4H) or null
                 int B, int H, int kind, int act) {
   __shared__ float a_sm[TB][KC + 1];
   __shared__ __align__(8) float w_sm[KC][TJ];
@@ -244,8 +217,6 @@ gated_cand_step(const TP* __restrict__ proj_t,           // (B, 3H)
       const float hn = interpolate(zbuf[idx], hb, h_in[idx]);
       h_out[idx] = hn;
       store_out(hs_t + idx, hn);
-      if (res_t != nullptr)
-        res_t[(size_t)b * 4 * H + 2 * (size_t)H + j] = __float2bfloat16(hb);
     }
   }
 }
@@ -259,7 +230,6 @@ gated_mgru_step(const TP* __restrict__ proj_t,           // (B, 2H)
                 const float* __restrict__ h_in,          // (B, H)
                 float* __restrict__ h_out,               // (B, H)
                 TP* __restrict__ hs_t,                   // (B, H)
-                __nv_bfloat16* __restrict__ res_t,       // (B, 4H) or null
                 int B, int H, int act) {
   __shared__ float a_sm[TB][KC + 1];
   __shared__ __align__(8) float w_sm[KC][2 * TJ];
@@ -282,17 +252,9 @@ gated_mgru_step(const TP* __restrict__ proj_t,           // (B, 2H)
       const float hb = activate(
           act, __fadd_rn(load_as_bf16(pr + H + j), acc[r][u][1]));
       const size_t idx = (size_t)b * H + j;
-      const float h = h_in[idx];
-      const float hn = interpolate(zg, hb, h);
+      const float hn = interpolate(zg, hb, h_in[idx]);
       h_out[idx] = hn;
       store_out(hs_t + idx, hn);
-      if (res_t != nullptr) {
-        __nv_bfloat16* rr = res_t + (size_t)b * 4 * H + j;
-        rr[0] = __float2bfloat16(0.0f);
-        rr[H] = __float2bfloat16(zg);
-        rr[2 * H] = __float2bfloat16(hb);
-        rr[3 * H] = __float2bfloat16(h);
-      }
     }
   }
 }
@@ -301,34 +263,30 @@ gated_mgru_step(const TP* __restrict__ proj_t,           // (B, 2H)
 // (the second product needs r*h of every unit). h ping-pongs between
 // h_a (holding h0) and h_b; after the call h_T is in h_a when T is even,
 // else in h_b. rh (B, H) bf16 and zbuf (B, H) f32 are scratch (unused,
-// may be null, for mgru); res (T, B, 4H) bf16 or null.
+// may be null, for mgru).
 template <typename TP>
 int run_gated_fwd(const TP* proj, const __nv_bfloat16* w1,
                   const __nv_bfloat16* w2, float* h_a, float* h_b,
-                  __nv_bfloat16* rh, float* zbuf, TP* hs,
-                  __nv_bfloat16* res, int T, int B, int H, int kind, int act,
-                  cudaStream_t stream) {
+                  __nv_bfloat16* rh, float* zbuf, TP* hs, int T, int B,
+                  int H, int kind, int act, cudaStream_t stream) {
   const dim3 grid((H + TJ - 1) / TJ, (B + TB - 1) / TB);
   const int gp = (kind == KIND_MGRU) ? 2 : 3;
   const size_t step_in = (size_t)B * gp * H;
   const size_t step_out = (size_t)B * H;
-  const size_t step_res = (size_t)B * 4 * H;
   for (int t = 0; t < T; ++t) {
     const float* h_in = (t % 2 == 0) ? h_a : h_b;
     float* h_out = (t % 2 == 0) ? h_b : h_a;
-    __nv_bfloat16* res_t = (res != nullptr) ? res + t * step_res : nullptr;
     if (kind == KIND_MGRU) {
       gated_mgru_step<TP><<<grid, THREADS, 0, stream>>>(
-          proj + t * step_in, w1, h_in, h_out, hs + t * step_out, res_t, B,
-          H, act);
+          proj + t * step_in, w1, h_in, h_out, hs + t * step_out, B, H, act);
     } else {
       gated_rz_step<TP><<<grid, THREADS, 0, stream>>>(
-          proj + t * step_in, w1, h_in, rh, zbuf, res_t, B, H, kind);
+          proj + t * step_in, w1, h_in, rh, zbuf, B, H, kind);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
       gated_cand_step<TP><<<grid, THREADS, 0, stream>>>(
           proj + t * step_in, w2, rh, zbuf, h_in, h_out, hs + t * step_out,
-          res_t, B, H, kind, act);
+          B, H, kind, act);
     }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;

@@ -9,9 +9,10 @@
 //   gated_train_bwd_*  <- _gated_train_bwd_impl (:785, pallas_call :906),
 //   gated_train_dw        its dW1 / dW2 contractions (:886-895)
 //
-// Forward: gated_step.cuh's step kernels (the inference kernel's code, so
-// hs and h_T are bit-equal to gated_scan.cu's) with the residual row
-// bf16 [r | z | hb | h_prev] (r = 0 for mgru).
+// Forward: gated_persistent.cuh's recurrence with the residual row bf16
+// [r | z | hb | h_prev] (RES = true; r = 0 for mgru). gated_scan.cu still
+// runs gated_step.cuh's per-step kernels, which sum in another order: the
+// two forwards agree within the recurrence tolerance, not bit for bit.
 //
 // Backward, per step in reverse time (the operation order of :824-881),
 // from the bf16 residuals:
@@ -34,29 +35,89 @@
 // forward does 16.1 GFLOP (0.016 ms at the bf16 tensor rate) against
 // ~60 MB of proj, residuals and hs (0.018 ms at 3.35 TB/s); the backward
 // with dW 32.2 GFLOP against ~80 MB. Both sit far below the floor of the
-// serial recurrence, whose reverse step holds two dependent products
-// (w2^T needs dcpre of every unit, w1^T needs the whole pair), and the
-// weights (6 MB bf16) fit in no SM's shared memory, so the TPU design
-// (W1^T and W2^T resident in VMEM for all T)
-// does not carry over.
+// serial recurrence, whose steps each hold two dependent products (the
+// candidate's w2 product needs r h of every unit; in reverse, w2^T needs
+// dcpre of every unit, w1^T the whole pair): two grid-wide exchanges a
+// step for gru and mgru_r, one for mgru.
 //
-// What this design does about it. Launch boundaries are the barriers.
-// The backward block owns 32 hidden units k x 32 batch rows; its first
-// launch of step t forms dh_t = partial_{t+1} + pair_{t+1} @ w1^T for its
-// tile (row k of w1 is contiguous, so no transposed copy), then step t's
-// elementwise part, all of whose operands are local to its units; for
-// gru / mgru_r a second launch forms drh = bf16(dcpre_t) @ w2^T and the
-// reset-gate part. partial (dh' without the w1^T term) is one (B, H) f32
-// buffer updated in place; bf16(pair) and bf16(dcpre) go to (T, B, .)
-// scratch that the dW contractions read after the loop. So a gru /
-// mgru_r layer takes 2T+1 backward launches and mgru T+1, plus one dW
-// launch (dw_gemm.cuh, on the tensor cores: dW1 and dW2 as two problems
-// of one grid, bf16(r * h_prev) formed as its tile lands in shared
-// memory). The step products run on the CUDA cores as f32 FMAs of bf16
-// operands from shared-memory tiles.
+// What the designs do about it. The forward is one persistent cooperative
+// launch per row chunk (ops/rnn_cuda.py gated_train_fwd_plan; one at
+// B=128, H=1024) that walks all T steps with one split grid barrier a
+// phase, keeps its 16 units' weight slice in shared memory for all T and
+// sums on the tensor cores (gated_persistent.cuh says how). The backward
+// still uses launch boundaries as its barriers: a block owns 32 hidden
+// units k x 32 batch rows; its first launch of step t forms dh_t =
+// partial_{t+1} + pair_{t+1} @ w1^T for its tile (row k of w1 is
+// contiguous, so no transposed copy), then step t's elementwise part, all
+// of whose operands are local to its units; for gru / mgru_r a second
+// launch forms drh = bf16(dcpre_t) @ w2^T and the reset-gate part. partial
+// (dh' without the w1^T term) is one (B, H) f32 buffer updated in place;
+// bf16(pair) and bf16(dcpre) go to (T, B, .) scratch that the dW
+// contractions read after the loop. So a gru / mgru_r layer takes 2T+1
+// backward launches and mgru T+1, plus one dW launch (dw_gemm.cuh, on the
+// tensor cores: dW1 and dW2 as two problems of one grid, bf16(r * h_prev)
+// formed as its tile lands in shared memory). The backward's step
+// products run on the CUDA cores as f32 FMAs of bf16 operands from
+// shared-memory tiles (gated_step.cuh's bwd_product).
 
-#include "gated_step.cuh"
 #include "dw_gemm.cuh"
+#include "gated_persistent.cuh"
+#include "gated_step.cuh"
+
+// ---- forward: the persistent recurrence plus the residual row ---------
+
+namespace {
+
+using namespace gated_persistent;
+
+template <typename TP, bool RESIDENT, int RB>
+__global__ void __launch_bounds__(threads_of(RB), min_blocks(RESIDENT, RB))
+gated_train_fwd_persistent(const TP* __restrict__ proj,       // (T,B,gp*H)
+                           const __nv_bfloat16* __restrict__ w1t,  // (2H,H)
+                           const __nv_bfloat16* __restrict__ w2t,  // (H, H)
+                           float* __restrict__ h,      // (B, H) h0 -> h_T
+                           __nv_bfloat16* hx,          // (2, B, H) exchange
+                           __nv_bfloat16* rx,          // (B, H) exchange
+                           TP* __restrict__ hs,        // (T, B, H)
+                           __nv_bfloat16* __restrict__ res,  // (T, B, 4H)
+                           unsigned int* bar,          // zeroed count
+                           int T, int B, int H, int row0, int nrows,
+                           int kind, int act) {
+  recurrence<TP, RESIDENT, true, RB>(proj, w1t, w2t, h, hx, rx, hs, res, bar,
+                                     T, B, H, row0, nrows, kind, act);
+}
+
+template <typename TP>
+int run_fwd(const void* proj, const void* w1t, const void* w2t, void* h,
+            void* hx, void* rx, void* hs, void* res, void* bar, int T, int B,
+            int H, int row0, int nrows, int kind, int act, int resident,
+            int rows, void* stream) {
+  if (T < 1 || nrows < 1 || row0 < 0 || row0 + nrows > B || kind < 0 ||
+      kind > KIND_MGRU || act < 0 || act > ACT_SIGMOID ||
+      (kind != KIND_MGRU && (w2t == nullptr || rx == nullptr)) ||
+      !valid_layout(resident, rows))
+    return (int)cudaErrorInvalidValue;
+  auto args = [&](auto kern, bool r, int rb) {
+    return cooperative(
+        kern, grid_of(H, nrows, rb), threads_of(rb), fwd_smem_bytes(H, r, rb),
+        static_cast<cudaStream_t>(stream), static_cast<const TP*>(proj),
+        static_cast<const __nv_bfloat16*>(w1t),
+        static_cast<const __nv_bfloat16*>(w2t), static_cast<float*>(h),
+        static_cast<__nv_bfloat16*>(hx), static_cast<__nv_bfloat16*>(rx),
+        static_cast<TP*>(hs), static_cast<__nv_bfloat16*>(res),
+        static_cast<unsigned int*>(bar), T, B, H, row0, nrows, kind, act);
+  };
+  if (resident)
+    return args(gated_train_fwd_persistent<TP, true, ROWS>, true, ROWS);
+  return rows == ROWS
+             ? args(gated_train_fwd_persistent<TP, false, ROWS>, false, ROWS)
+             : args(gated_train_fwd_persistent<TP, false, ROWS / 2>, false,
+                    ROWS / 2);
+}
+
+}  // namespace
+
+// ---- backward: one or two launches a reverse step ----------------------
 
 namespace gated {
 namespace {
@@ -222,35 +283,57 @@ int run_gated_bwd(const __nv_bfloat16* res, const __nv_bfloat16* w1,
 }  // namespace
 }  // namespace gated
 
-// Forward with residuals: gated_scan_*'s arguments plus res (T, B, 4H)
-// bf16 out.
-extern "C" int gated_train_fwd_f32(const void* proj, const void* w1,
-                                   const void* w2, void* h_a, void* h_b,
-                                   void* rh, void* zbuf, void* hs, void* res,
-                                   int T, int B, int H, int kind, int act,
-                                   void* stream) {
-  return gated::run_gated_fwd<float>(
-      static_cast<const float*>(proj), static_cast<const __nv_bfloat16*>(w1),
-      static_cast<const __nv_bfloat16*>(w2), static_cast<float*>(h_a),
-      static_cast<float*>(h_b), static_cast<__nv_bfloat16*>(rh),
-      static_cast<float*>(zbuf), static_cast<float*>(hs),
-      static_cast<__nv_bfloat16*>(res), T, B, H, kind, act,
-      static_cast<cudaStream_t>(stream));
+// How many blocks of the forward kernel, with the weight slice resident
+// or streamed and rows batch rows a block, can be co-resident on the
+// current device at this H, for both proj dtypes: 0 when a block's shared
+// memory would exceed the card's or there is no such layout.
+extern "C" int gated_train_capacity(int H, int resident, int rows,
+                                    int* blocks) {
+  *blocks = 0;
+  if (H < 1 || !valid_layout(resident, rows)) return 0;
+  auto query = [&](auto k32, auto k16, bool r, int rb) {
+    return lstm_persistent::capacity(k32, k16, fwd_smem_bytes(H, r, rb),
+                                     blocks, threads_of(rb));
+  };
+  if (resident)
+    return query(gated_train_fwd_persistent<float, true, ROWS>,
+                 gated_train_fwd_persistent<__nv_bfloat16, true, ROWS>, true,
+                 ROWS);
+  if (rows == ROWS)
+    return query(gated_train_fwd_persistent<float, false, ROWS>,
+                 gated_train_fwd_persistent<__nv_bfloat16, false, ROWS>,
+                 false, ROWS);
+  return query(gated_train_fwd_persistent<float, false, ROWS / 2>,
+               gated_train_fwd_persistent<__nv_bfloat16, false, ROWS / 2>,
+               false, ROWS / 2);
 }
 
-extern "C" int gated_train_fwd_bf16(const void* proj, const void* w1,
-                                    const void* w2, void* h_a, void* h_b,
-                                    void* rh, void* zbuf, void* hs, void* res,
-                                    int T, int B, int H, int kind, int act,
-                                    void* stream) {
-  return gated::run_gated_fwd<__nv_bfloat16>(
-      static_cast<const __nv_bfloat16*>(proj),
-      static_cast<const __nv_bfloat16*>(w1),
-      static_cast<const __nv_bfloat16*>(w2), static_cast<float*>(h_a),
-      static_cast<float*>(h_b), static_cast<__nv_bfloat16*>(rh),
-      static_cast<float*>(zbuf), static_cast<__nv_bfloat16*>(hs),
-      static_cast<__nv_bfloat16*>(res), T, B, H, kind, act,
-      static_cast<cudaStream_t>(stream));
+// proj (T, B, gp*H) f32 or bf16, w1t = w1^T (2H, H) and w2t = w2^T (H, H)
+// bf16 (w2t null for mgru), h (B, H) f32 holding h0 and left holding h_T,
+// hx (2, B, H) and rx (B, H) bf16 scratch (rx null for mgru), hs (T, B,
+// H) in proj's dtype, res (T, B, 4H) bf16, bar one zeroed uint32. Runs the
+// rows [row0, row0 + nrows) of the batch; kind 0 gru, 1 mgru_r, 2 mgru,
+// act 0 tanh, 1 relu, 2 sigmoid; resident: the weight slice stays in
+// shared memory (else streamed); rows a block (64, or 32 streamed).
+extern "C" int gated_train_fwd_f32(const void* proj, const void* w1t,
+                                   const void* w2t, void* h, void* hx,
+                                   void* rx, void* hs, void* res, void* bar,
+                                   int T, int B, int H, int row0, int nrows,
+                                   int kind, int act, int resident, int rows,
+                                   void* stream) {
+  return run_fwd<float>(proj, w1t, w2t, h, hx, rx, hs, res, bar, T, B, H,
+                        row0, nrows, kind, act, resident, rows, stream);
+}
+
+extern "C" int gated_train_fwd_bf16(const void* proj, const void* w1t,
+                                    const void* w2t, void* h, void* hx,
+                                    void* rx, void* hs, void* res, void* bar,
+                                    int T, int B, int H, int row0, int nrows,
+                                    int kind, int act, int resident,
+                                    int rows, void* stream) {
+  return run_fwd<__nv_bfloat16>(proj, w1t, w2t, h, hx, rx, hs, res, bar, T,
+                                B, H, row0, nrows, kind, act, resident, rows,
+                                stream);
 }
 
 // res (T, B, 4H) bf16, w1 (H, 2H) and w2 (H, H) bf16 (w2 null for mgru),

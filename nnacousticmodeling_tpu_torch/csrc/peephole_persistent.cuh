@@ -1,9 +1,11 @@
-// The persistent peephole LSTM recurrence: the training forward, which
-// also writes the backward's residual row (peephole_train.cu, kernel
-// peephole_train_fwd_persistent), with a compile-time residual flag so
-// that the serving scan can take the same body. Also the block layout,
-// the cp.async ring and the warp products that the training backward
-// (peephole_train.cu) shares.
+// The persistent peephole LSTM recurrence, one source for two kernels: the
+// serving scan (peephole_scan.cu, kernel peephole_scan_persistent) and the
+// training forward, which also writes the backward's residual row
+// (peephole_train.cu, kernel peephole_train_fwd_persistent). Both
+// instantiate recurrence() below, so their hs, c_T and h_T are bit-equal
+// by construction. Also the block layout, the cp.async ring and the warp
+// products that the training backward (peephole_train.cu) and the gated
+// recurrence (gated_persistent.cuh) share.
 //
 // Per step (the precision contract of _peep_train_fwd_impl,
 // nnacousticmodeling_tpu/ops/rnn_pallas.py:1031-1054):
@@ -66,12 +68,14 @@
 
 #include "lstm_persistent.cuh"
 
-// Measurement knobs for bench_peephole_ring_variants.py; the package
-// builds with none of them. PEEP_RING_KC / PEEP_RING_STAGES: the chunk and
-// depth of the ring beside a resident weight slice. PEEP_LEAVE_OUT leaves
-// parts of every ring out of both training kernels, which then compute
-// wrong values: 1 the exchange loads, 2 the tensor-core products, 3 the
-// ring altogether, 4 the loads, zeros written in their place.
+// Measurement knobs for bench_peephole_ring_variants.py and
+// bench_gated_layouts.py; the package builds with none of them.
+// PEEP_RING_KC / PEEP_RING_STAGES: the chunk and depth of the ring beside
+// a resident weight slice. PEEP_LEAVE_OUT leaves parts of every ring out
+// of the kernels built on it (the peephole training kernels, the gated
+// training forward), which then compute wrong values: 1 the exchange
+// loads, 2 the tensor-core products, 3 the ring altogether, 4 the loads,
+// zeros written in their place.
 #ifndef PEEP_RING_KC
 #define PEEP_RING_KC 128
 #endif
@@ -200,21 +204,22 @@ __device__ __forceinline__ void warp_mma(float (&acc)[NT][4],
   }
 }
 
-// The thread's cells, in the mma accumulator layout: lane (g, q) of warp
-// w holds, in every n8 tile, rows w*16 + g and w*16 + g + 8 of the block's
-// tile and its units 2q and 2q + 1. Cell e = 2 r + v: row r, unit v.
+// The thread's cells, in the mma accumulator layout: lane (g, q) of a warp
+// whose 16 x 8 tile starts at row r0 and unit u0 holds, in every n8 tile,
+// rows r0 + g and r0 + g + 8 and units u0 + 2q and u0 + 2q + 1. Cell e =
+// 2 r + v: row r, unit v.
 struct Cells {
   int b[4];        // batch row
   int j[4];        // hidden unit
   bool own[4];     // inside the batch chunk and H
   size_t idx[4];   // b * H + j (0 where not owned)
 
-  __device__ __forceinline__ Cells(int b0, int bend, int j0, int H) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __device__ __forceinline__ Cells(int r0, int bend, int u0, int H) {
+    const int lane = threadIdx.x & 31;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      b[e] = b0 + warp * 16 + lane / 4 + 8 * (e / 2);
-      j[e] = j0 + 2 * (lane % 4) + e % 2;
+      b[e] = r0 + lane / 4 + 8 * (e / 2);
+      j[e] = u0 + 2 * (lane % 4) + e % 2;
       own[e] = j[e] < H && b[e] < bend;
       idx[e] = own[e] ? (size_t)b[e] * H + j[e] : 0;
     }
@@ -306,7 +311,7 @@ __device__ __forceinline__ void recurrence(
   // the phases and the next proj row live in its registers (proj as
   // loaded: rounded to bf16 where it is used, so that the load's latency
   // hides behind the barrier)
-  const Cells cl(b0, bend, j0, H);
+  const Cells cl(b0 + warp * 16, bend, j0, H);
   float c_r[4], h_r[4], pi_r[4], pf_r[4], zo_r[4];
   TP p_r[4][4];
   // with RES: the cell's residual row of the step, in bf16, from its

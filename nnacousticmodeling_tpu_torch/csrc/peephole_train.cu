@@ -11,7 +11,9 @@
 //                            (:1195-1208)
 //
 // Forward: peephole_persistent.cuh's recurrence with the residual row
-// bf16 [a | i | f | o | tanh c_t | c_{t-1} | h_{t-1} | c_t] (RES = true).
+// bf16 [a | i | f | o | tanh c_t | c_{t-1} | h_{t-1} | c_t] (RES = true);
+// peephole_scan.cu runs the same body without it, so the two forwards'
+// hs, c_T and h_T are bit-equal.
 //
 // Backward, per step in reverse time (the operation order of :1147-1191),
 // from the bf16 residuals:
@@ -260,7 +262,7 @@ peephole_train_bwd_persistent(
   // the previous step's second barrier. The elementwise arithmetic is
   // pinned to round-to-nearest intrinsics in the order of :1147-1191, so
   // no FMA contraction moves a dz across a bf16 rounding boundary.
-  const Cells cl(b0, bend, k0u, H);
+  const Cells cl(b0 + warp * 16, bend, k0u, H);
   float dc_r[4], dh_r[4], dhs_r[4];
   __nv_bfloat162 r_r[4][3];   // (a, i), (f, o), (tanh c_t, c_{t-1})
   auto load_step = [&](int t) {

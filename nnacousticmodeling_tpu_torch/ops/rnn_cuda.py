@@ -17,9 +17,10 @@ Counterpart of ``nnacousticmodeling_tpu/ops/rnn_pallas.py``:
   inference only;
 - ``gated_scan_train`` <- ``gated_scan_pallas_train``, a
   ``torch.autograd.Function`` over ``gated_train_forward``
-  (<- ``_gated_train_fwd_impl``) and ``gated_train_backward``
-  (<- ``_gated_train_bwd_impl``, with its dW1 / dW2 contractions
-  ``gated_train_dw``), kernels ``csrc/gated_train.cu``;
+  (<- ``_gated_train_fwd_impl``, kernel on ``csrc/gated_persistent.cuh``)
+  and ``gated_train_backward`` (<- ``_gated_train_bwd_impl``, with its
+  dW1 / dW2 contractions ``gated_train_dw``), kernels
+  ``csrc/gated_train.cu``;
 - ``peephole_scan`` <- ``peephole_scan_pallas`` (twin
   ``peephole_scan_mixed_reference``), kernel ``csrc/peephole_scan.cu``;
   inference only;
@@ -45,13 +46,15 @@ bf16 roundings.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes
 its plain version only for CPU tensors. ``lstm_scan_plan``,
-``lstm_train_bwd_plan``, ``peephole_train_fwd_plan``,
-``peephole_train_bwd_plan`` and ``dw_plan`` are the host-side layouts of
-the persistent LSTM recurrence (``csrc/lstm_persistent.cuh``:
-``lstm_scan`` and the training forward), of the persistent LSTM training
-backward (``csrc/lstm_train.cu``), of the persistent peephole training
-forward and backward (``csrc/peephole_persistent.cuh``,
-``csrc/peephole_train.cu``) and of the tensor-core dW GEMM shared by the
+``lstm_train_bwd_plan``, ``gated_train_fwd_plan``, ``peephole_scan_plan``,
+``peephole_train_fwd_plan``, ``peephole_train_bwd_plan`` and ``dw_plan``
+are the host-side layouts of the persistent LSTM recurrence
+(``csrc/lstm_persistent.cuh``: ``lstm_scan`` and the training forward),
+of the persistent LSTM training backward (``csrc/lstm_train.cu``), of
+the persistent gated training forward (``csrc/gated_persistent.cuh``),
+of the persistent peephole recurrence (``csrc/peephole_persistent.cuh``:
+``peephole_scan`` and the training forward) and training backward
+(``csrc/peephole_train.cu``) and of the tensor-core dW GEMM shared by the
 three training backwards (``csrc/dw_gemm.cuh``): plain Python, so the
 CPU tests check what the kernels are handed.
 """
@@ -247,35 +250,49 @@ def peephole_bwd_smem_bytes(h_dim: int, resident: bool,
     return w + _peep_ring(resident, 2 * PEEP_UNITS, rows)
 
 
-def _peep_w_resident(smem_bytes, h_dim: int, resident_blocks: int) -> bool:
-    return (smem_bytes(h_dim, True) <= SMEM_LIMIT
-            and -(-h_dim // PEEP_UNITS) <= resident_blocks)
-
-
-def peephole_fwd_w_resident(h_dim: int, resident_blocks: int) -> bool:
-    """Whether a training-forward block's weight slice stays in shared
-    memory for all T: it fits (H <= 1024, 128-wide chunks), and the grid
-    of H/8 unit blocks is co-resident at ``resident_blocks`` (one an SM,
-    132 on an H100). Else the kernel streams it from L2 each phase."""
-    return _peep_w_resident(peephole_fwd_smem_bytes, h_dim,
-                            resident_blocks)
+def _w_resident(smem_bytes, h_dim, units, rows, resident_blocks) -> bool:
+    """Whether a block's weight slice stays in shared memory for all T: it
+    fits, and the grid of the H/``units`` unit blocks of ``rows`` rows is
+    co-resident at ``resident_blocks`` (one an SM, 132 on an H100). Else
+    the kernel streams it from L2 each phase."""
+    return (smem_bytes(h_dim, True, rows) <= SMEM_LIMIT
+            and -(-h_dim // units) <= resident_blocks)
 
 
 def peephole_bwd_w_resident(h_dim: int, resident_blocks: int) -> bool:
-    """``peephole_fwd_w_resident`` for the training backward."""
-    return _peep_w_resident(peephole_bwd_smem_bytes, h_dim,
-                            resident_blocks)
+    """``_w_resident`` for the peephole training backward (H <= 1024
+    with 128-wide chunks)."""
+    return _w_resident(peephole_bwd_smem_bytes, h_dim, PEEP_UNITS,
+                       PEEP_ROWS, resident_blocks)
+
+
+def _persistent_plan(name, smem_bytes, h_dim, batch, capacity, units, rows,
+                     narrow_rows) -> ScanPlan:
+    """The weight slice resident where ``_w_resident`` says so at
+    ``capacity(True, rows)``; else streamed, in blocks of ``narrow_rows``
+    rows where the streamed ``rows``-row blocks of all units are not
+    co-resident either."""
+    resident = _w_resident(smem_bytes, h_dim, units, rows,
+                           capacity(True, rows))
+    if not resident and -(-h_dim // units) > capacity(False, rows):
+        rows = narrow_rows
+    return _row_chunks(name, h_dim, batch, capacity(resident, rows),
+                       resident, smem_bytes(h_dim, resident, rows), units,
+                       rows)
 
 
 def _peep_plan(name, smem_bytes, h_dim, batch, capacity) -> ScanPlan:
-    resident = _peep_w_resident(smem_bytes, h_dim,
-                                capacity(True, PEEP_ROWS))
-    rows = PEEP_ROWS
-    if not resident and -(-h_dim // PEEP_UNITS) > capacity(False, rows):
-        rows = PEEP_NARROW_ROWS
-    return _row_chunks(name, h_dim, batch, capacity(resident, rows),
-                       resident, smem_bytes(h_dim, resident, rows),
-                       PEEP_UNITS, rows)
+    return _persistent_plan(name, smem_bytes, h_dim, batch, capacity,
+                            PEEP_UNITS, PEEP_ROWS, PEEP_NARROW_ROWS)
+
+
+def peephole_scan_plan(h_dim: int, batch: int,
+                       capacity: Callable[[bool, int], int]) -> ScanPlan:
+    """Lay out ``peephole_scan``'s persistent kernel, which runs the
+    training forward's body without the residuals and the same layout as
+    ``peephole_train_fwd_plan``; ``capacity`` is the scan kernel's."""
+    return _peep_plan("peephole_scan", peephole_fwd_smem_bytes, h_dim,
+                      batch, capacity)
 
 
 def peephole_train_fwd_plan(
@@ -299,6 +316,40 @@ def peephole_train_bwd_plan(
     dz columns of its 8 units for the plan's batch rows."""
     return _peep_plan("peephole_train_backward", peephole_bwd_smem_bytes,
                       h_dim, batch, capacity)
+
+
+#: csrc/gated_persistent.cuh (the gated training forward): hidden units
+#: and batch rows a block owns (warps of 16 rows x 8 units, all gate
+#: columns of them), and the rows a block takes where the grid of streamed
+#: GATED_ROWS-row blocks is not co-resident; its ring is the peephole
+#: kernels' (PEEP_KC, PEEP_STAGES). Read at call time, so that
+#: bench_gated_layouts.py can lay out the 8-unit build it times.
+GATED_UNITS = 16
+GATED_ROWS = 64
+GATED_NARROW_ROWS = 32
+
+
+def gated_fwd_smem_bytes(h_dim: int, resident: bool,
+                         rows: int = GATED_ROWS) -> int:
+    """Shared memory of one gated training-forward block of ``rows``
+    batch rows: the weight slice, room for three gate groups of its
+    units (w1^T's two, w2^T's; mgru fills two), each row padded by 8,
+    when resident, and the ring (two groups' rows a stage streamed)."""
+    w = 3 * GATED_UNITS * (_peep_extent(h_dim) + 8) * 2 if resident else 0
+    return w + _peep_ring(resident, 2 * GATED_UNITS, rows)
+
+
+def gated_train_fwd_plan(
+        h_dim: int, batch: int,
+        capacity: Callable[[bool, int], int]) -> ScanPlan:
+    """Lay out ``gated_train_forward``'s persistent kernel, as
+    ``peephole_train_fwd_plan`` does, for every kind alike: each block
+    owns all gate columns of its 16 units for 64 batch rows, or 32 where
+    the H/16 streamed blocks of 64 rows are not co-resident (H > 4224 on
+    an H100); the slice stays resident up to H = 1792."""
+    return _persistent_plan("gated_train_forward", gated_fwd_smem_bytes,
+                            h_dim, batch, capacity, GATED_UNITS, GATED_ROWS,
+                            GATED_NARROW_ROWS)
 
 
 #: csrc/dw_gemm.cuh: the rows of dW a block owns, and the tilings it is
@@ -805,7 +856,9 @@ _ACT_CODES = {"tanh": 0, "relu": 1, "sigmoid": 2}
 
 _GATED_SCAN_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                         + [ctypes.c_void_p])
-_GATED_FWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+# the training forward: pointers, then T, B, H, row0, nrows, kind, act,
+# resident, rows a block, then the stream
+_GATED_FWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
 _GATED_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
@@ -829,6 +882,9 @@ def _gated_train_lib():
         for fn in fns:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+    lib.gated_train_capacity.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.gated_train_capacity.restype = ctypes.c_int
     return lib
 
 
@@ -912,9 +968,9 @@ def _gated_forward_loop(proj, w1, w2, h0, kind, act, with_res):
     return hs, res, h
 
 
-def _gated_forward_launch(name, fn, proj, w1, w2, h0, kind, act, with_res):
-    """Launch a gated forward kernel (``gated_scan_*`` or
-    ``gated_train_fwd_*``). Returns ``hs, res (or None), h_T``."""
+def _gated_forward_launch(name, fn, proj, w1, w2, h0, kind, act):
+    """Launch the per-step gated scan kernel ``gated_scan_*``. Returns
+    ``hs, h_T``."""
     stream = _check_cuda(name, proj, w1, h0, *([] if w2 is None else [w2]))
     if not proj.is_contiguous():
         raise ValueError(f"{name}: proj must be contiguous")
@@ -930,16 +986,12 @@ def _gated_forward_launch(name, fn, proj, w1, w2, h0, kind, act, with_res):
           if scratch else None)
     zbuf = torch.empty_like(h_a) if scratch else None
     hs = torch.empty((t, b, h_dim), dtype=proj.dtype, device=dev)
-    res = (torch.empty((t, b, 4 * h_dim), dtype=torch.bfloat16, device=dev)
-           if with_res else None)
-    args = [proj.data_ptr(), w1b.data_ptr(), _ptr(w2b), h_a.data_ptr(),
-            h_b.data_ptr(), _ptr(rh), _ptr(zbuf), hs.data_ptr()]
-    if with_res:
-        args.append(res.data_ptr())
-    kernels.check(fn(*args, t, b, h_dim, _GATED_KINDS[kind][0],
+    kernels.check(fn(proj.data_ptr(), w1b.data_ptr(), _ptr(w2b),
+                     h_a.data_ptr(), h_b.data_ptr(), _ptr(rh), _ptr(zbuf),
+                     hs.data_ptr(), t, b, h_dim, _GATED_KINDS[kind][0],
                      _ACT_CODES[act], stream), name)
     kernels.launches[name] += 1
-    return hs, res, (h_a if t % 2 == 0 else h_b)
+    return hs, (h_a if t % 2 == 0 else h_b)
 
 
 def gated_scan_reference(proj, w1, w2, h0, *, kind, activation="tanh"):
@@ -980,8 +1032,8 @@ def gated_scan(proj, w1, w2, h0, *, kind, activation="tanh"):
             "torch.inference_mode()")
     fn = getattr(_gated_scan_lib(), "gated_scan_" + _dtype_suffix(
         "gated_scan", proj.dtype))
-    hs, _, h_t = _gated_forward_launch("gated_scan", fn, proj, w1, w2, h0,
-                                       kind, act, False)
+    hs, h_t = _gated_forward_launch("gated_scan", fn, proj, w1, w2, h0, kind,
+                                    act)
     return h_t.to(h0.dtype), hs
 
 
@@ -998,17 +1050,52 @@ def gated_train_forward(proj, w1, w2, h0, *, kind, activation="tanh"):
     """Forward of the trainable gated recurrence, ``gated_scan``'s
     arguments. Returns ``hs`` (T, B, H) in proj's dtype, the residuals
     ``res`` (T, B, 4H) bf16 ``[r | z | hb | h_prev]`` (r = 0 for
-    ``mgru``), and ``h_T`` float32. hs and h_T equal ``gated_scan``'s on
-    the same inputs."""
-    _check_gated_args("gated_train_forward", proj, w1, w2, h0, kind)
+    ``mgru``), and ``h_T`` float32.
+
+    On the card: one persistent launch per row chunk of
+    ``gated_train_fwd_plan`` (one for B <= 128 at H=1024), two grid
+    exchanges a step for gru and mgru_r and one for mgru, tensor-core
+    sums. hs and h_T agree with ``gated_scan``'s (per-step kernels, f32
+    FMA sums in another order) within the recurrence tolerance, and a
+    second call gives the same bits.
+    """
+    name = "gated_train_forward"
+    _check_gated_args(name, proj, w1, w2, h0, kind)
     act = _gated_act(kind, activation)
     if proj.device.type == "cpu":
         return gated_train_forward_reference(proj, w1, w2, h0, kind=kind,
                                              activation=act)
-    fn = getattr(_gated_train_lib(), "gated_train_fwd_" + _dtype_suffix(
-        "gated_train_forward", proj.dtype))
-    return _gated_forward_launch("gated_train_forward", fn, proj, w1, w2, h0,
-                                 kind, act, True)
+    stream = _check_cuda(name, proj, w1, h0, *([] if w2 is None else [w2]))
+    if not proj.is_contiguous():
+        raise ValueError(f"{name}: proj must be contiguous")
+    lib = _gated_train_lib()
+    fn = getattr(lib, "gated_train_fwd_" + _dtype_suffix(name, proj.dtype))
+    return _gated_train_forward_launch(fn, lib.gated_train_capacity, proj,
+                                       w1, w2, h0, kind, act, stream)
+
+
+def _gated_train_forward_launch(fn, query, proj, w1, w2, h0, kind, act,
+                                stream):
+    """The operands, scratch and outputs of the training forward's entry
+    point ``fn``, launched in ``gated_train_fwd_plan``'s row chunks.
+    Returns ``hs, res, h_T``."""
+    t, b, _ = proj.shape
+    h_dim = w1.shape[0]
+    dev = proj.device
+    w1t = w1.detach().to(torch.bfloat16).t().contiguous()   # w1^T (2H, H)
+    w2t = (None if w2 is None
+           else w2.detach().to(torch.bfloat16).t().contiguous())
+    h = h0.detach().float().contiguous().clone()
+    hx = torch.empty((2, b, h_dim), dtype=torch.bfloat16, device=dev)
+    rx = (None if w2 is None
+          else torch.empty((b, h_dim), dtype=torch.bfloat16, device=dev))
+    hs = torch.empty((t, b, h_dim), dtype=proj.dtype, device=dev)
+    res = torch.empty((t, b, 4 * h_dim), dtype=torch.bfloat16, device=dev)
+    _cooperative_launches("gated_train_forward", gated_train_fwd_plan, fn,
+                          query, dev, h_dim, b,
+                          (proj, w1t, w2t, h, hx, rx, hs, res), t, stream,
+                          (_GATED_KINDS[kind][0], _ACT_CODES[act]))
+    return hs, res, h
 
 
 def gated_train_dw_reference(res, pair, dc):
@@ -1217,10 +1304,11 @@ def gated_scan_train(proj, w1, w2, h0, *, kind, activation="tanh"):
 # peephole LSTM (full (H, H) peephole matrices on the cell state)
 # ---------------------------------------------------------------------------
 
-_PEEP_SCAN_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+# the scan (9 pointers) and the training forward and backward (10):
+# pointers, then T, B, H, row0, nrows, resident, rows a block, then the
+# stream
+_PEEP_SCAN_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                        + [ctypes.c_void_p])
-# the training forward and backward: pointers, then T, B, H, row0,
-# nrows, resident, rows a block, then the stream
 _PEEP_TRAIN_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                         + [ctypes.c_void_p])
 
@@ -1230,6 +1318,9 @@ def _peep_scan_lib():
     for fn in (lib.peephole_scan_f32, lib.peephole_scan_bf16):
         fn.argtypes = _PEEP_SCAN_ARGTYPES
         fn.restype = ctypes.c_int
+    lib.peephole_scan_capacity.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.peephole_scan_capacity.restype = ctypes.c_int
     return lib
 
 
@@ -1250,13 +1341,6 @@ def _peep_train_lib():
     return lib
 
 
-def _peep_operands(wh, pi, pf, po):
-    """The scan kernel's bf16 weight operands: W_h, [P_i | P_f] (one
-    product serves both gates) and P_o, contiguous."""
-    pif = torch.cat([pi.detach(), pf.detach()], dim=1)
-    return [w.detach().to(torch.bfloat16).contiguous() for w in (wh, pif, po)]
-
-
 def _bf16c(*ws):
     """The weights ``ws`` as one contiguous bf16 tensor, concatenated
     along their last dimension."""
@@ -1264,19 +1348,20 @@ def _bf16c(*ws):
         torch.bfloat16).contiguous()
 
 
-def _peep_train_launches(name, plan_fn, fn, query, dev, h_dim, batch,
-                         tensors, t, stream):
-    """Launch the peephole training kernel ``fn`` in the row chunks of
-    ``plan_fn`` for its co-residency ``query(H, resident, rows,
-    &blocks)``: the pointers of ``tensors``, a zeroed barrier count a
-    launch, then T, B, H, row0, nrows, resident, rows and the stream."""
+def _cooperative_launches(name, plan_fn, fn, query, dev, h_dim, batch,
+                          tensors, t, stream, extra=()):
+    """Launch the persistent kernel ``fn`` (a gated or peephole one) in the
+    row chunks of ``plan_fn`` for its co-residency ``query(H, resident,
+    rows, &blocks)``: the pointers of ``tensors`` (None: null), a zeroed
+    barrier count a launch, then T, B, H, row0, nrows, the ints
+    ``extra``, resident, rows and the stream."""
     plan = plan_fn(h_dim, batch, lambda r, rows: _capacity(
         name, query, dev, h_dim, r, rows))
     bar = torch.zeros(len(plan.launches), dtype=torch.int32, device=dev)
-    ptrs = [x.data_ptr() for x in tensors]
+    ptrs = [_ptr(x) for x in tensors]
     for i, (row0, nrows) in enumerate(plan.launches):
         kernels.check(fn(*ptrs, bar.data_ptr() + 4 * i, t, batch, h_dim,
-                         row0, nrows, int(plan.resident), plan.rows,
+                         row0, nrows, *extra, int(plan.resident), plan.rows,
                          stream), name)
     kernels.launches[name] += 1
 
@@ -1319,32 +1404,6 @@ def _peep_forward_loop(proj, wh, pi, pf, po, c0, h0, with_res):
     return hs, res, c, h
 
 
-def _peep_scan_launch(name, fn, proj, wh, pi, pf, po, c0, h0):
-    """Launch the peephole scan kernel ``peephole_scan_*``. Returns
-    ``hs, c_T, h_T``."""
-    stream = _check_cuda(name, proj, wh, pi, pf, po, c0, h0)
-    if not proj.is_contiguous():
-        raise ValueError(f"{name}: proj must be contiguous")
-    t, b, _ = proj.shape
-    h_dim = wh.shape[0]
-    dev = proj.device
-    whb, pifb, pob = _peep_operands(wh, pi, pf, po)
-    h_a = h0.detach().float().contiguous().clone()
-    h_b = torch.empty_like(h_a)
-    c_a = c0.detach().float().contiguous().clone()
-    c_b = torch.empty_like(c_a)
-    zo = torch.empty_like(h_a)
-    hs = torch.empty((t, b, h_dim), dtype=proj.dtype, device=dev)
-    kernels.check(fn(proj.data_ptr(), whb.data_ptr(), pifb.data_ptr(),
-                     pob.data_ptr(), h_a.data_ptr(), h_b.data_ptr(),
-                     c_a.data_ptr(), c_b.data_ptr(), zo.data_ptr(),
-                     hs.data_ptr(), t, b, h_dim, stream), name)
-    kernels.launches[name] += 1
-    if t % 2 == 0:
-        return hs, c_a, h_a
-    return hs, c_b, h_b
-
-
 def peephole_scan_reference(proj, wh, pi, pf, po, c0, h0):
     """Plain PyTorch version of ``peephole_scan``, same contract: the twin
     of ``peephole_scan_mixed_reference`` (rnn_pallas.py:1413-1439), the
@@ -1360,11 +1419,16 @@ def peephole_scan(proj, wh, pi, pf, po, c0, h0):
     (T, B, H) in proj's dtype and the carry in c0's.
 
     CUDA tensors launch the kernel (or raise); CPU tensors take
-    ``peephole_scan_reference``. The kernel has no backward: on the card
+    ``peephole_scan_reference``. On the card the whole sequence is one
+    persistent launch per row chunk of ``peephole_scan_plan`` (one for
+    B <= 128 at H=1024; H <= 4224 on an H100), the training forward's
+    kernel body without the residuals: hs, c_T and h_T are bit-equal to
+    ``peephole_train_forward``'s. The kernel has no backward: on the card
     a tensor that requires grad under grad mode raises, and training goes
     through ``peephole_scan_train``.
     """
-    _check_peep_args("peephole_scan", proj, wh, pi, pf, po, c0, h0)
+    name = "peephole_scan"
+    _check_peep_args(name, proj, wh, pi, pf, po, c0, h0)
     if proj.device.type == "cpu":
         return peephole_scan_reference(proj, wh, pi, pf, po, c0, h0)
     if torch.is_grad_enabled() and any(
@@ -1374,10 +1438,14 @@ def peephole_scan(proj, wh, pi, pf, po, c0, h0):
             "outputs would carry no gradient; train through "
             "peephole_scan_train, or run under torch.no_grad() / "
             "torch.inference_mode()")
-    fn = getattr(_peep_scan_lib(), "peephole_scan_" + _dtype_suffix(
-        "peephole_scan", proj.dtype))
-    hs, c_t, h_t = _peep_scan_launch("peephole_scan", fn, proj, wh, pi, pf,
-                                     po, c0, h0)
+    stream = _check_cuda(name, proj, wh, pi, pf, po, c0, h0)
+    if not proj.is_contiguous():
+        raise ValueError(f"{name}: proj must be contiguous")
+    lib = _peep_scan_lib()
+    fn = getattr(lib, "peephole_scan_" + _dtype_suffix(name, proj.dtype))
+    hs, _, c_t, h_t = _peep_forward_launch(
+        name, peephole_scan_plan, fn, lib.peephole_scan_capacity, proj, wh,
+        pi, pf, po, c0, h0, stream, with_res=False)
     return (c_t.to(c0.dtype), h_t.to(c0.dtype)), hs
 
 
@@ -1396,10 +1464,9 @@ def peephole_train_forward(proj, wh, pi, pf, po, c0, h0):
 
     On the card: one persistent launch per row chunk of
     ``peephole_train_fwd_plan`` (one for B <= 128 at H=1024), two grid
-    exchanges a step, tensor-core sums. hs, c_T and h_T agree with
-    ``peephole_scan``'s (per-step kernels, f32 FMA sums in another order)
-    within the recurrence tolerance, and a second call gives the same
-    bits.
+    exchanges a step, tensor-core sums. ``peephole_scan`` runs the same
+    kernel body, so hs, c_T and h_T are bit-equal to its; a second call
+    gives the same bits.
     """
     name = "peephole_train_forward"
     _check_peep_args(name, proj, wh, pi, pf, po, c0, h0)
@@ -1418,9 +1485,20 @@ def peephole_train_forward(proj, wh, pi, pf, po, c0, h0):
 
 def _peep_train_forward_launch(fn, query, proj, wh, pi, pf, po, c0, h0,
                                stream):
-    """The operands, scratch and outputs of the training forward's entry
-    point ``fn``, launched in ``peephole_train_fwd_plan``'s row chunks.
-    Returns ``hs, res, c_T, h_T``."""
+    """The training forward's entry point ``fn`` in
+    ``peephole_train_fwd_plan``'s row chunks. Returns ``hs, res, c_T,
+    h_T``."""
+    return _peep_forward_launch("peephole_train_forward",
+                                peephole_train_fwd_plan, fn, query, proj, wh,
+                                pi, pf, po, c0, h0, stream, with_res=True)
+
+
+def _peep_forward_launch(name, plan_fn, fn, query, proj, wh, pi, pf, po, c0,
+                         h0, stream, with_res):
+    """The operands, scratch and outputs of a persistent peephole forward's
+    entry point ``fn`` (the scan's, or with ``with_res`` the training
+    forward's), launched in ``plan_fn``'s row chunks. Returns ``hs, res
+    (None without with_res), c_T, h_T``."""
     t, b, _ = proj.shape
     h_dim = wh.shape[0]
     dev = proj.device
@@ -1431,10 +1509,11 @@ def _peep_train_forward_launch(fn, query, proj, wh, pi, pf, po, c0, h0,
     hx = torch.empty((b, h_dim), dtype=torch.bfloat16, device=dev)
     cx = torch.empty((2, b, h_dim), dtype=torch.bfloat16, device=dev)
     hs = torch.empty((t, b, h_dim), dtype=proj.dtype, device=dev)
-    res = torch.empty((t, b, 8 * h_dim), dtype=torch.bfloat16, device=dev)
-    _peep_train_launches("peephole_train_forward", peephole_train_fwd_plan,
-                         fn, query, dev, h_dim, b,
-                         (proj, wt, pt, h, c, hx, cx, hs, res), t, stream)
+    res = (torch.empty((t, b, 8 * h_dim), dtype=torch.bfloat16, device=dev)
+           if with_res else None)
+    _cooperative_launches(name, plan_fn, fn, query, dev, h_dim, b,
+                          (proj, wt, pt, h, c, hx, cx, hs)
+                          + ((res,) if with_res else ()), t, stream)
     return hs, res, c, h
 
 
@@ -1575,10 +1654,10 @@ def _peep_train_backward_launch(fn, query, res, wh, pi, pf, po, dhs, dc_T,
     dproj = torch.empty((t, b, 4 * h_dim), dtype=proj_dtype, device=dev)
     dz = torch.empty((t, b, 4 * h_dim), dtype=torch.bfloat16, device=dev)
     dh0 = torch.empty((b, h_dim), dtype=torch.float32, device=dev)
-    _peep_train_launches("peephole_train_backward", peephole_train_bwd_plan,
-                         fn, query, dev, h_dim, b,
-                         (res, whb, pm, dhs_f, dh_t, dc, dproj, dz, dh0), t,
-                         stream)
+    _cooperative_launches("peephole_train_backward", peephole_train_bwd_plan,
+                          fn, query, dev, h_dim, b,
+                          (res, whb, pm, dhs_f, dh_t, dc, dproj, dz, dh0), t,
+                          stream)
     return dproj, dz, dc, dh0
 
 
@@ -1609,10 +1688,9 @@ class _PeepholeScanTrain(torch.autograd.Function):
 
 def peephole_scan_train(proj, wh, pi, pf, po, c0, h0):
     """Differentiable peephole recurrence for training, ``peephole_scan``'s
-    signature: ``(c_T, h_T), hs``. On the card the forward values come
-    from the persistent training forward (``peephole_train_forward``),
-    which agrees with ``peephole_scan`` within the recurrence tolerance,
-    not bit for bit (the two kernels sum in another order). Gradients
+    signature and forward values: ``(c_T, h_T), hs`` (the persistent
+    training forward, ``peephole_train_forward``, runs the scan's kernel
+    body). Gradients
     (dproj, dW_h, dP_i, dP_f, dP_o, dc0, dh0) come from the reverse-time
     kernel (``peephole_train_backward``) with bf16 residuals, as from the
     JAX custom VJP."""

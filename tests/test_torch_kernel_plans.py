@@ -1,8 +1,11 @@
 """Host-side layouts of the persistent LSTM kernels (``lstm_scan`` and the
 training forward, which share one kernel body, and the training
-backward), of the persistent peephole training kernels, and of the
+backward), of the persistent gated training forward, of the persistent
+peephole kernels (``peephole_scan`` and the training forward, which
+share one kernel body, and the training backward), and of the
 tensor-core dW GEMM shared by the three training backwards
 (``ops/rnn_cuda.py`` ``lstm_scan_plan``, ``lstm_train_bwd_plan``,
+``gated_train_fwd_plan``, ``peephole_scan_plan``,
 ``peephole_train_fwd_plan``, ``peephole_train_bwd_plan`` and
 ``dw_plan``), on the CPU.
 
@@ -31,6 +34,9 @@ from nnacousticmodeling_tpu_torch.ops import rnn_cuda
 from nnacousticmodeling_tpu_torch.ops.rnn_cuda import (
     DW_CONFIGS,
     DW_TILE_M,
+    GATED_NARROW_ROWS,
+    GATED_ROWS,
+    GATED_UNITS,
     SCAN_ROWS,
     SCAN_UNITS,
     BWD_KC,
@@ -41,8 +47,10 @@ from nnacousticmodeling_tpu_torch.ops.rnn_cuda import (
     SMEM_LIMIT,
     bwd_w_resident,
     dw_plan,
+    gated_train_fwd_plan,
     lstm_scan_plan,
     lstm_train_bwd_plan,
+    peephole_scan_plan,
     peephole_train_bwd_plan,
     peephole_train_fwd_plan,
     scan_w_resident,
@@ -221,7 +229,8 @@ def _h100_peep(resident, rows):
 PEEP_PLANS = {"forward": (peephole_train_fwd_plan,
                           rnn_cuda.peephole_fwd_smem_bytes),
               "backward": (peephole_train_bwd_plan,
-                           rnn_cuda.peephole_bwd_smem_bytes)}
+                           rnn_cuda.peephole_bwd_smem_bytes),
+              "scan": (peephole_scan_plan, rnn_cuda.peephole_fwd_smem_bytes)}
 
 
 def _peep_cells(plan, h_dim, batch):
@@ -250,11 +259,12 @@ def _peep_cells(plan, h_dim, batch):
 
 @pytest.mark.parametrize("batch", BWD_BS)
 @pytest.mark.parametrize("h_dim", PEEP_HS)
-@pytest.mark.parametrize("kind", ["forward", "backward"])
+@pytest.mark.parametrize("kind", ["forward", "backward", "scan"])
 def test_peephole_plan_owns_every_cell_once(kind, h_dim, batch):
-    """Each thread of the forward owns all four gate columns of its cells
-    (the cell update runs in its registers); each of the backward owns the
-    dh, dc and four dz columns of its cells."""
+    """Each thread of the forward (and of the scan, the same body) owns
+    all four gate columns of its cells (the cell update runs in its
+    registers); each of the backward owns the dh, dc and four dz columns
+    of its cells."""
     plan_fn, smem = PEEP_PLANS[kind]
     plan = plan_fn(h_dim, batch, _h100_peep)
     assert plan.resident == (h_dim <= 1024)
@@ -293,7 +303,7 @@ def test_peephole_bwd_products_reduce_every_dz_column_once(h_dim):
     assert (dc_cols[:h_dim] == 0).all() and (dc_cols[h_dim:] == 1).all()
 
 
-@pytest.mark.parametrize("kind", ["forward", "backward"])
+@pytest.mark.parametrize("kind", ["forward", "backward", "scan"])
 def test_peephole_plan_streams_exactly_where_the_slice_does_not_fit(kind):
     plan_fn, smem = PEEP_PLANS[kind]
     for h_dim in range(960, 1200, 8):
@@ -394,6 +404,215 @@ def test_peephole_train_operands_are_the_kernels_layouts():
     for g, p in enumerate((pi, pf, po)):
         assert torch.equal(pm[:, g * h_dim:(g + 1) * h_dim].float(), bf(p))
     assert torch.equal(rnn_cuda._bf16c(wh).float(), bf(wh))
+
+
+@pytest.mark.parametrize("h_dim,batch", [(40, 3), (1024, 128), (1024, 300),
+                                         (2048, 200), (2120, 3)])
+def test_peephole_scan_is_handed_the_train_forward_plan(monkeypatch, h_dim,
+                                                        batch):
+    """peephole_scan runs the training forward's kernel body: one launch
+    per row chunk of the same plan, the same operands and scratch in the
+    same order, without the residuals, and a barrier count a launch."""
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda _: contextlib.nullcontext())
+    monkeypatch.setattr(rnn_cuda, "_CAPACITY", {})
+    t = 3
+    rng = np.random.default_rng(h_dim + batch)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32))
+
+    args = (rand(t, batch, 4 * h_dim), rand(h_dim, 4 * h_dim),
+            *[rand(h_dim, h_dim) for _ in range(3)], rand(batch, h_dim),
+            rand(batch, h_dim))
+    calls = {}
+
+    def query(h, res_flag, rows, blocks):
+        blocks._obj.value = H100_PEEP_BLOCKS[bool(res_flag), rows]
+        return 0
+
+    def entry(name):
+        def fn(*a):
+            calls.setdefault(name, []).append(a)
+            return 0
+        return fn
+
+    before = dict(kernels.launches)
+    try:
+        hs, res, c, h = rnn_cuda._peep_forward_launch(
+            "peephole_scan", peephole_scan_plan, entry("scan"), query, *args,
+            None, with_res=False)
+        assert res is None and hs.shape == (t, batch, h_dim)
+        assert c.shape == h.shape == (batch, h_dim)
+        rnn_cuda._peep_train_forward_launch(entry("train"), query, *args,
+                                            None)
+        assert kernels.launches["peephole_scan"] == \
+            before.get("peephole_scan", 0) + 1
+    finally:
+        kernels.launches.clear()
+        kernels.launches.update(before)
+    plan = peephole_scan_plan(h_dim, batch, _h100_peep)
+    assert plan == peephole_train_fwd_plan(h_dim, batch, _h100_peep)
+    scan, train = calls["scan"], calls["train"]
+    assert len(scan) == len(train) == len(plan.launches)
+    for i, (row0, nrows) in enumerate(plan.launches):
+        assert len(scan[i]) == len(rnn_cuda._PEEP_SCAN_ARGTYPES)
+        assert scan[i][-8:] == train[i][-8:] == (
+            t, batch, h_dim, row0, nrows, int(plan.resident), plan.rows,
+            None)
+        assert scan[i][8] - scan[0][8] == 4 * i     # one barrier a launch
+
+
+# ---- the persistent gated training forward --------------------------------
+
+#: co-resident blocks of the gated training forward on a 132-SM H100, by
+#: (resident, rows a block): one block an SM with the weight slice
+#: resident (~148 KB), two streamed, four streamed at 32 rows
+H100_GATED_BLOCKS = {(True, 64): 132, (False, 64): 264, (False, 32): 528}
+#: HS, the widest resident width, a streamed one, and one whose grid of
+#: streamed 64-row blocks is not co-resident (32-row blocks)
+GATED_HS = HS + [1792, 4240]
+GATED_KINDS = {"gru": 3, "mgru_r": 3, "mgru": 2}
+
+
+def _h100_gated(resident, rows):
+    return H100_GATED_BLOCKS[resident, rows]
+
+
+def _gated_cells(plan, h_dim, batch, gp):
+    """How often each (row, unit) cell and each (row, gate column) is
+    owned, following gated_persistent.cuh's layout: block (x, y) owns
+    units x*16.. for rows row0 + y*rows..; warp w owns rows (w % (rows /
+    16))*16.. and units (w // (rows / 16))*8..; lane (g, q) owns, in every
+    gate's n8 tile, rows g and g + 8 and units 2q, 2q + 1 of them."""
+    cells = np.zeros((batch, h_dim), np.int64)
+    cols = np.zeros((batch, gp * h_dim), np.int64)
+    row_warps = plan.rows // 16
+    warps = row_warps * plan.units // 8
+    warp, lane = np.divmod(np.arange(warps * 32), 32)
+    wr, wu = warp % row_warps, warp // row_warps
+    for row0, nrows in plan.launches:
+        gx, gy = plan.grid(nrows)
+        for bx in range(gx):
+            for by in range(gy):
+                for e in range(4):
+                    b = (row0 + by * plan.rows + wr * 16 + lane // 4
+                         + 8 * (e // 2))
+                    j = bx * plan.units + wu * 8 + 2 * (lane % 4) + e % 2
+                    own = (j < h_dim) & (b < row0 + nrows)
+                    np.add.at(cells, (b[own], j[own]), 1)
+                    for g in range(gp):
+                        np.add.at(cols, (b[own], g * h_dim + j[own]), 1)
+    return cells, cols
+
+
+@pytest.mark.parametrize("batch", BWD_BS)
+@pytest.mark.parametrize("h_dim", GATED_HS)
+@pytest.mark.parametrize("kind", sorted(GATED_KINDS))
+def test_gated_plan_owns_every_cell_once(kind, h_dim, batch):
+    """Each thread owns every gate column of its cells (the cell update
+    runs in its registers), for every kind alike; one launch at the
+    training width; the slice resident up to H=1792, 32-row blocks where
+    the H/16 streamed blocks of 64 rows are not co-resident."""
+    plan = gated_train_fwd_plan(h_dim, batch, _h100_gated)
+    assert plan.resident == (h_dim <= 1792)
+    rows = GATED_ROWS if h_dim <= 4224 else GATED_NARROW_ROWS
+    assert (plan.units, plan.rows) == (GATED_UNITS, rows)
+    assert plan.smem_bytes == rnn_cuda.gated_fwd_smem_bytes(
+        h_dim, plan.resident, rows) <= SMEM_LIMIT
+    for _, nrows in plan.launches:
+        gx, gy = plan.grid(nrows)
+        assert gx * gy <= H100_GATED_BLOCKS[plan.resident, rows]
+    assert sum(n for _, n in plan.launches) == batch
+    if h_dim == 1024 and batch <= 128:
+        assert len(plan.launches) == 1    # the training path: one launch
+    if h_dim == 1024 and batch == 300:
+        assert [n for _, n in plan.launches] == [128, 128, 44]
+    cells, cols = _gated_cells(plan, h_dim, batch, GATED_KINDS[kind])
+    assert (cells == 1).all() and (cols == 1).all()
+
+
+def test_gated_plan_streams_exactly_where_the_slice_does_not_fit():
+    smem = rnn_cuda.gated_fwd_smem_bytes
+    for h_dim in range(1600, 2000, 8):
+        fits = smem(h_dim, True) <= SMEM_LIMIT
+        assert fits == (h_dim <= 1792)
+        assert gated_train_fwd_plan(h_dim, 8, _h100_gated).resident == fits
+        assert smem(h_dim, False) <= SMEM_LIMIT // 2    # two blocks an SM
+    assert smem(8448, False, GATED_NARROW_ROWS) <= SMEM_LIMIT // 4
+    # a grid of the units' resident blocks that the card cannot hold at
+    # one block an SM streams, here in two row chunks
+    small = {(True, 64): 60, (False, 64): 120, (False, 32): 240}
+    plan = gated_train_fwd_plan(1024, 128, lambda r, rows: small[r, rows])
+    assert not plan.resident and plan.launches == ((0, 64), (64, 64))
+    # 32-row blocks exactly where H/16 streamed 64-row blocks are not
+    # co-resident; beyond what four blocks an SM hold, refused
+    for h_dim, rows in ((4224, 64), (4240, 32), (8448, 32)):
+        assert gated_train_fwd_plan(h_dim, 8, _h100_gated).rows == rows
+    with pytest.raises(ValueError, match="co-resident"):
+        gated_train_fwd_plan(8464, 8, _h100_gated)
+
+
+@pytest.mark.parametrize("h_dim,batch", [(40, 3), (1024, 128), (1024, 300),
+                                         (2048, 4), (4240, 3)])
+@pytest.mark.parametrize("kind", sorted(GATED_KINDS))
+def test_gated_train_forward_is_handed_its_plan(monkeypatch, kind, h_dim,
+                                                batch):
+    """Each launch of the gated training forward gets its plan's row
+    chunk, the kind's and activation's codes, the residency flag and a
+    barrier count of its own, after the pointers in the order of the C
+    entry points' argtypes; mgru gets no w2^T and no r h exchange."""
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda _: contextlib.nullcontext())
+    monkeypatch.setattr(rnn_cuda, "_CAPACITY", {})
+    t, gp = 3, GATED_KINDS[kind]
+    rng = np.random.default_rng(h_dim + batch)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32))
+
+    proj = rand(t, batch, gp * h_dim)
+    w1 = rand(h_dim, 2 * h_dim)
+    w2 = None if kind == "mgru" else rand(h_dim, h_dim)
+    h0 = rand(batch, h_dim)
+    act = "tanh" if kind == "gru" else "relu"
+    calls = []
+
+    def query(h, res_flag, rows, blocks):
+        blocks._obj.value = H100_GATED_BLOCKS[bool(res_flag), rows]
+        return 0
+
+    def entry(*args):
+        calls.append(args)
+        return 0
+
+    before = dict(kernels.launches)
+    try:
+        hs, res, h = rnn_cuda._gated_train_forward_launch(
+            entry, query, proj, w1, w2, h0, kind, act, None)
+        assert hs.shape == (t, batch, h_dim) and hs.dtype == proj.dtype
+        assert res.shape == (t, batch, 4 * h_dim)
+        assert res.dtype == torch.bfloat16
+        assert h.shape == (batch, h_dim) and h.dtype == torch.float32
+        assert kernels.launches["gated_train_forward"] == \
+            before.get("gated_train_forward", 0) + 1
+    finally:
+        kernels.launches.clear()
+        kernels.launches.update(before)
+    plan = gated_train_fwd_plan(h_dim, batch, _h100_gated)
+    codes = {"gru": (0, 0), "mgru_r": (1, 1), "mgru": (2, 1)}[kind]
+    assert len(calls) == len(plan.launches)
+    for i, (row0, nrows) in enumerate(plan.launches):
+        assert len(calls[i]) == len(rnn_cuda._GATED_FWD_ARGTYPES)
+        assert calls[i][-10:] == (t, batch, h_dim, row0, nrows, *codes,
+                                  int(plan.resident), plan.rows, None)
+        assert calls[i][:8] == calls[0][:8]          # the same tensors
+        assert calls[i][8] - calls[0][8] == 4 * i    # one barrier a launch
+    assert calls[0][0] == proj.data_ptr() and calls[0][7] == res.data_ptr()
+    # w2^T and the r h exchange only where there is a reset gate
+    assert (calls[0][2] is None) == (calls[0][5] is None) == (kind == "mgru")
 
 
 def _families():
