@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""The block layouts of the persistent gated training forward, and what
-its step spends, on one NVIDIA card: builds ``csrc/gated_train.cu`` as
+"""The block layouts of the persistent gated training kernels, and what
+their steps spend, on one NVIDIA card: builds ``csrc/gated_train.cu`` as
 the package does (16 units x 64 rows a block), with ``-DGATED_UNITS=8``
 (8 units x 128 rows, the peephole kernels' layout) and with the
 measurement knob ``PEEP_LEAVE_OUT`` of the shared ring
-(``csrc/peephole_persistent.cuh``), one library each, and times each
-kernel's step (the profiler's device time, the slope between T=5 and
-T=20) for gru, mgru_r and mgru at B=128, H=1024.
+(``csrc/peephole_persistent.cuh``), one library each, and times the step
+of each library's forward and reverse step of its backward (the
+profiler's device time, the slope between T=5 and T=20; the backward
+without its dW launch) for gru, mgru_r and mgru at B=128, H=1024.
 
     python3 bench_gated_layouts.py
 
@@ -18,12 +19,15 @@ only to split a step's time: ``zerofill`` (each ring stage writes zeros
 into shared memory instead of loading the exchange rows from L2),
 ``noload`` (stages neither loaded nor written), ``nomma`` (loaded, the
 tensor-core products left out) and ``noring`` (neither: the barriers,
-the elementwise work and the stores alone). The libraries go to
-``build/gated_layouts/`` (ignored by git). Prints one line per variant
-and kind and the card's name and power limit.
+the elementwise work and the stores alone). The backward's phases read
+the pair exchange (2H wide) and the dc exchange (H wide): (H / units) x
+B x 3H x 2 bytes across the grid a gru step. The libraries go to
+``build/gated_layouts/`` (ignored by git). Prints one line per variant,
+kind and kernel and the card's name and power limit.
 """
 
 import ctypes
+import functools
 import subprocess
 import sys
 from pathlib import Path
@@ -108,33 +112,53 @@ def main():
         w2 = (None if kind == "mgru" else
               (torch.randn(H, H, generator=g) / H ** 0.5).to(dev))
         h0 = (torch.randn(B, H, generator=g) * 0.1).to(dev)
-        inputs[kind] = (act, w1, w2, h0,
-                        {t: torch.randn(t, B, gp * H, generator=g).to(dev)
-                         for t in TS})
+        projs = {t: torch.randn(t, B, gp * H, generator=g).to(dev)
+                 for t in TS}
+        # the backward's inputs: the packaged forward's residuals, finite
+        # in every variant
+        grads = {t: (r.gated_train_forward(projs[t], w1, w2, h0, kind=kind,
+                                           activation=act)[1],
+                     torch.randn(t, B, H, generator=g).to(dev),
+                     torch.randn(B, H, generator=g).to(dev)) for t in TS}
+        inputs[kind] = (act, w1, w2, h0, projs, grads)
     for name in ORDER:
         units, rows, narrow = VARIANTS[name][1]
         lib = ctypes.CDLL(str(out / f"{name}.so"))
         lib.gated_train_fwd_f32.argtypes = r._GATED_FWD_ARGTYPES
         lib.gated_train_fwd_f32.restype = ctypes.c_int
-        lib.gated_train_capacity.argtypes = [ctypes.c_int] * 3 + [
+        lib.gated_train_bwd_f32.argtypes = r._GATED_BWD_ARGTYPES
+        lib.gated_train_bwd_f32.restype = ctypes.c_int
+        lib.gated_train_capacity.argtypes = [ctypes.c_int] * 4 + [
             ctypes.POINTER(ctypes.c_int)]
         lib.gated_train_capacity.restype = ctypes.c_int
+        fwd_query = functools.partial(lib.gated_train_capacity, 0)
+        bwd_query = functools.partial(lib.gated_train_capacity, 1)
         r._CAPACITY.clear()
         with mock.patch.multiple(r, GATED_UNITS=units, GATED_ROWS=rows,
                                  GATED_NARROW_ROWS=narrow):
-            for kind, (act, w1, w2, h0, projs) in inputs.items():
-                ms = {}
+            for kind, (act, w1, w2, h0, projs, grads) in inputs.items():
+                ms = {"forward": {}, "backward": {}}
                 for t, proj in projs.items():
                     def fwd():
                         return r._gated_train_forward_launch(
-                            lib.gated_train_fwd_f32, lib.gated_train_capacity,
-                            proj, w1, w2, h0, kind, act, stream)
-                    ms[t] = kernel_ms(torch, fwd,
-                                      "gated_train_fwd_persistent")
-                step = (ms[TS[1]] - ms[TS[0]]) * 1e3 / (TS[1] - TS[0])
-                print(f"{name} {kind}: forward T={TS[1]} {ms[TS[1]]:.4f} ms, "
-                      f"{step:.2f} us a step (B={B}, H={H}) [{card}]",
-                      flush=True)
+                            lib.gated_train_fwd_f32, fwd_query, proj, w1, w2,
+                            h0, kind, act, stream)
+                    ms["forward"][t] = kernel_ms(
+                        torch, fwd, "gated_train_fwd_persistent")
+                    res, dhs, dht = grads[t]
+
+                    def bwd():
+                        return r._gated_train_backward_launch(
+                            lib.gated_train_bwd_f32, bwd_query, res, w1, w2,
+                            dhs, dht, torch.float32, kind, act, stream)
+                    ms["backward"][t] = kernel_ms(
+                        torch, bwd, "gated_train_bwd_persistent")
+                for which, m in ms.items():
+                    step = (m[TS[1]] - m[TS[0]]) * 1e3 / (TS[1] - TS[0])
+                    print(f"{name} {kind}: {which} T={TS[1]} "
+                          f"{m[TS[1]]:.4f} ms, {step:.2f} us a "
+                          f"{'step' if which == 'forward' else 'reverse step'}"
+                          f" (B={B}, H={H}) [{card}]", flush=True)
     r._CAPACITY.clear()
 
 

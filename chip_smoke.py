@@ -50,12 +50,13 @@ Phases (each one that fails ends the run with a non-zero exit):
     persistent forward and one backward device kernel a layer an update;
 12. the gated kernels against their plain versions, for each kind (gru,
     mgru_r, mgru): ``gated_scan`` at the serving shapes (T=512, B=128,
-    H=1024), ``gated_train_forward`` (one persistent launch; within the
-    stated tolerance of ``gated_scan``, which sums in another order; a
-    second call bit-identical; its layout and device microseconds a
-    step), ``gated_train_backward`` and its dW kernel ``gated_train_dw``
-    at the training shapes (T=20), f32 and bf16 proj, with cuDNN
-    ``nn.GRU``
+    H=1024; its layout and device microseconds a step),
+    ``gated_train_forward`` (one persistent launch; hs and h_T bit-equal
+    to ``gated_scan``'s, one kernel body; a second call bit-identical;
+    its layout and device microseconds a step), ``gated_train_backward``
+    (one persistent launch; a second call bit-identical; device
+    microseconds a reverse step) and its dW kernel ``gated_train_dw`` at
+    the training shapes (T=20), f32 and bf16 proj, with cuDNN ``nn.GRU``
     bf16 timed beside them as a yardstick of like work (it applies r
     after the product, so it is not the same function); the dW kernel
     against cuBLAS bf16 ``matmul`` of the same operands (dW1, and dW2 on
@@ -63,8 +64,10 @@ Phases (each one that fails ends the run with a non-zero exit):
 13. the GRU serving slice: phase 5's corpus and decoder, a GRU 4x1024
     -> 1909 with numpy-seeded weights, ``rnn_log_posteriors``,
     ``decode_corpus``, MLF, PER; ``gated_scan`` must be launched once a
-    layer and the Viterbi kernel launched, the posteriors agree with the
-    plain GRU's and the plain Viterbi gives identical segments and PER;
+    layer (one persistent device kernel a layer in a profiled repeat of
+    the posteriors) and the Viterbi kernel launched, the posteriors agree
+    with the plain GRU's and the plain Viterbi gives identical segments
+    and PER;
 14. the GRU training slice: ``train_cli.main`` with ``-n gru -l 4 -u
     1024 --timedelay 5 -d 0.2`` (TBPTT b128 L20, momentumsgd lr 1e-2, 2
     epochs) on phase 9's corpus tree; the gated training kernels and
@@ -74,7 +77,8 @@ Phases (each one that fails ends the run with a non-zero exit):
 15. 3 kernel updates against 3 plain ones through ``train_network`` for
     each of gru, mgrurelu and mgrurelur at 4x1024;
 16. a profiled repeat of 3 GRU updates: device busy share and top ops;
-    one persistent forward device kernel a layer an update;
+    one persistent forward and one persistent backward device kernel a
+    layer an update, and no other gated recurrence kernel;
 17. the peephole kernels against their plain versions:
     ``peephole_scan`` at the serving shapes (T=512, B=128, H=1024), f32
     and bf16 proj, with device microseconds a step;
@@ -139,6 +143,7 @@ Output: progress lines, then the ``nvidia-smi`` line, one
 A fuller JSON report (stage times, profile, timings) goes to stderr.
 """
 
+import functools
 import json
 import subprocess
 import sys
@@ -473,6 +478,25 @@ def serving_slice(torch, np, net, name, scan_name, plain_scan, corpus, dec,
             f"{same} utterances and PER identical")
     return dict(per=per, audio_s=audio_s, audio_s_per_s=tput,
                 posterior_err=post_err, launches=launches, **stages)
+
+
+def scan_device_kernels(torch, net, corpus, name, kernel):
+    """A profiled repeat of ``net``'s posteriors (phases 13, 18): the
+    device kernel ``kernel`` must run once a layer. Returns its count."""
+    from nnacousticmodeling_tpu_torch.infer import rnn_log_posteriors
+    for _ in range(3):   # a session the profiler dropped is repeated
+        _, busy_ms, _, counts = device_profile(
+            torch, lambda: rnn_log_posteriors(
+                net, corpus.test.data, corpus.test.offsets,
+                ap=corpus.log_priors, batch=B_MAIN), (kernel,))
+        if busy_ms > 0:
+            break
+    if counts[kernel] != LAYERS:
+        fail(f"the {name} posteriors ran {counts} device kernels, not one "
+             f"persistent scan a layer ({LAYERS})")
+    log(f"[{name} slice] device kernels of the posteriors: {counts}: one "
+        f"persistent scan a layer")
+    return counts[kernel]
 
 
 def train_slice(torch, np, dev, corpus, tree, name, extra, kernel_names,
@@ -893,12 +917,33 @@ def train_phases(torch, np, dev, card, corpus, report):
          "library_ms": dw_dev["library_ms"]},
     ]
 
-def gated_fwd_plan(rnn_cuda, dev, h_dim, batch):
-    """The layout ``gated_train_forward`` takes on this card."""
-    query = rnn_cuda._gated_train_lib().gated_train_capacity
-    return rnn_cuda.gated_train_fwd_plan(h_dim, batch, lambda r, rows: (
-        rnn_cuda._capacity("gated_train_forward", query, dev, h_dim, r,
-                           rows)))
+def gated_plan(rnn_cuda, dev, name, h_dim, batch):
+    """The layout the gated kernel ``name`` (``gated_scan``,
+    ``gated_train_forward`` or ``gated_train_backward``) takes on this
+    card."""
+    if name == "gated_scan":
+        plan_fn = rnn_cuda.gated_scan_plan
+        query = rnn_cuda._gated_scan_lib().gated_scan_capacity
+    else:
+        backward = name == "gated_train_backward"
+        plan_fn = (rnn_cuda.gated_train_bwd_plan if backward
+                   else rnn_cuda.gated_train_fwd_plan)
+        query = functools.partial(
+            rnn_cuda._gated_train_lib().gated_train_capacity, int(backward))
+    return plan_fn(h_dim, batch, lambda r, rows: rnn_cuda._capacity(
+        name, query, dev, h_dim, r, rows))
+
+
+def layout_of(plan, batch):
+    """A plan's layout: for the log line and for the report."""
+    d = dict(resident=plan.resident, units=plan.units, rows=plan.rows,
+             launches=len(plan.launches), smem_bytes=plan.smem_bytes)
+    text = (f"{len(plan.launches)} cooperative launch(es) of "
+            f"{plan.unit_blocks} x {-(-batch // plan.rows)} blocks "
+            f"({plan.units} units x {plan.rows} rows), weight slice "
+            f"{'resident' if plan.resident else 'streamed'}, "
+            f"{plan.smem_bytes} bytes of shared memory a block")
+    return d, text
 
 
 def gated_kernel_phase(torch, np, dev, card, report):
@@ -930,6 +975,11 @@ def gated_kernel_phase(torch, np, dev, card, report):
                  f"{GATED_ATOL})")
         scan_ms = cuda_ms(torch, lambda: rnn_cuda.gated_scan(
             proj, w1, w2, h0, **k), 3)
+        scan_step_us = kernel_us_per_step(
+            torch, lambda: rnn_cuda.gated_scan(proj, w1, w2, h0, **k), 3,
+            "gated_scan_persistent", T)
+        scan_layout, scan_layout_text = layout_of(
+            gated_plan(rnn_cuda, dev, "gated_scan", H, B), B)
         scan_plain_ms = cuda_ms(torch, lambda: rnn_cuda.gated_scan_reference(
             proj, w1, w2, h0, **k), 1, warm=False)
         n_cols = 3 * H if has_w2 else 2 * H
@@ -947,9 +997,10 @@ def gated_kernel_phase(torch, np, dev, card, report):
         log(f"[gated_scan {kind}] T={T} B={B} H={H} f32 proj: max |kernel - "
             f"plain| {scan_err:.3e} of max(1, max|plain|) (tolerance "
             f"{GATED_ATOL}), max|hs| {float(hs_r.abs().max()):.3g}; kernel "
-            f"{scan_ms:.3f} ms, plain {scan_plain_ms:.3f} ms, bound "
+            f"{scan_ms:.3f} ms, {scan_step_us:.2f} us a step (device time), "
+            f"plain {scan_plain_ms:.3f} ms, bound "
             f"{scan_bound:.3f} ms ({scan_by}); cuDNN nn.GRU bf16 yardstick "
-            f"{scan_lib_ms:.3f} ms [{card}]")
+            f"{scan_lib_ms:.3f} ms; {scan_layout_text} [{card}]")
         del proj, hs_k, hs_r, x_lib
 
         # ---- training kernels at the training shapes
@@ -993,25 +1044,22 @@ def gated_kernel_phase(torch, np, dev, card, report):
                      f" {GATED_ATOL}; bf16 hs beyond one ulp "
                      f"{hs_over(hs_k)}), "
                      f"residuals beyond {RES_RTOL} relative by {res_over}")
-            # the persistent forward sums on the tensor cores, gated_scan's
-            # step kernels with f32 FMAs: each within GATED_ATOL of the
-            # plain version, so within twice that of each other
-            scan_gap = max(rel_err(hs_k, hs_s), rel_err(ht_k, ht_s))
-            if not (hs_ok(hs_s) and rel_err(ht_s, ht_r) <= GATED_ATOL
-                    and scan_gap <= 2 * GATED_ATOL):
-                fail(f"gated_train_forward ({kind}, {tag}) and gated_scan: "
-                     f"{scan_gap} of max(1, max|scan|) apart (tolerance "
-                     f"{2 * GATED_ATOL}), gated_scan h_T "
-                     f"{rel_err(ht_s, ht_r)} from plain (tolerance "
-                     f"{GATED_ATOL})")
+            # the scan runs the training forward's kernel body: the same
+            # bits
+            if not (torch.equal(hs_k, hs_s) and torch.equal(ht_k, ht_s)):
+                fail(f"gated_train_forward ({kind}, {tag}) is not bit-equal "
+                     f"to gated_scan: "
+                     f"{max(rel_err(hs_k, hs_s), rel_err(ht_k, ht_s))} of "
+                     f"max(1, max|scan|) apart")
             fwd[tag] = dict(err=err, res_err=float(res_d.max()),
-                            res_over=res_over, scan_gap=scan_gap)
+                            res_over=res_over)
         fwd_ms = cuda_ms(torch, lambda: rnn_cuda.gated_train_forward(
             proj, w1, w2, h0, **k), 10)
         fwd_step_us = kernel_us_per_step(
             torch, lambda: rnn_cuda.gated_train_forward(proj, w1, w2, h0, **k),
             10, "gated_train_fwd_persistent", T)
-        fwd_plan = gated_fwd_plan(rnn_cuda, dev, H, B)
+        fwd_layout, fwd_layout_text = layout_of(
+            gated_plan(rnn_cuda, dev, "gated_train_forward", H, B), B)
         fwd_plain_ms = cuda_ms(
             torch, lambda: rnn_cuda.gated_train_forward_reference(
                 proj, w1, w2, h0, **k), 3)
@@ -1026,9 +1074,16 @@ def gated_kernel_phase(torch, np, dev, card, report):
         _, res, _ = rnn_cuda.gated_train_forward(proj, w1, w2, h0, **k)
         got = rnn_cuda.gated_train_backward(res, w1, w2, dhs, dht,
                                             torch.float32, **k)
+        again = rnn_cuda.gated_train_backward(res, w1, w2, dhs, dht,
+                                              torch.float32, **k)
         want = rnn_cuda.gated_train_backward_reference(res, w1, w2, dhs, dht,
                                                        torch.float32, **k)
         torch.cuda.synchronize()
+        if not all((a is None and b is None) or torch.equal(a, b)
+                   for a, b in zip(again, got)):
+            fail(f"gated_train_backward ({kind}): a second call on the same "
+                 f"inputs gave other bits")
+        del again
         names = ("dproj", "dW1", "dW2", "dh0")
         errs = {}
         for n, gk, wr in zip(names, got, want):
@@ -1069,6 +1124,12 @@ def gated_kernel_phase(torch, np, dev, card, report):
                  f" {dw_alone_err} of max |dW| (tolerance {DW_RTOL})")
         bwd_ms = cuda_ms(torch, lambda: rnn_cuda.gated_train_backward(
             res, w1, w2, dhs, dht, torch.float32, **k), 10)
+        bwd_step_us = kernel_us_per_step(
+            torch, lambda: rnn_cuda.gated_train_backward(
+                res, w1, w2, dhs, dht, torch.float32, **k), 10,
+            "gated_train_bwd_persistent", T)
+        bwd_layout, bwd_layout_text = layout_of(
+            gated_plan(rnn_cuda, dev, "gated_train_backward", H, B), B)
         bwd_plain_ms = cuda_ms(
             torch, lambda: rnn_cuda.gated_train_backward_reference(
                 res, w1, w2, dhs, dht, torch.float32, **k), 3)
@@ -1115,19 +1176,15 @@ def gated_kernel_phase(torch, np, dev, card, report):
             f"{fwd['f32']['err']:.3e}, bf16 {fwd['bf16']['err']:.3e} of "
             f"max(1, max|plain|) (tolerance {GATED_ATOL}), residuals beyond "
             f"{RES_RTOL:.4f} relative "
-            f"{max(f['res_over'] for f in fwd.values()):.3e}; vs gated_scan "
-            f"f32 {fwd['f32']['scan_gap']:.3e}, bf16 "
-            f"{fwd['bf16']['scan_gap']:.3e} (tolerance {2 * GATED_ATOL}); a "
-            f"second forward call bit-identical; backward: "
+            f"{max(f['res_over'] for f in fwd.values()):.3e}; hs and h_T "
+            f"bit-equal to gated_scan's; a second forward and backward call "
+            f"bit-identical; backward: "
             f"{detail} (tolerances {BWD_RTOL} / {DW_RTOL}); dW kernel alone "
             f"{dw_alone_err:.3e} of max |dW|")
-        log(f"[gated train {kind}] forward: {len(fwd_plan.launches)} "
-            f"cooperative launch(es) of {fwd_plan.unit_blocks} x "
-            f"{-(-B // fwd_plan.rows)} blocks ({fwd_plan.units} units x "
-            f"{fwd_plan.rows} rows), weight slice "
-            f"{'resident' if fwd_plan.resident else 'streamed'}, "
-            f"{fwd_plan.smem_bytes} bytes of shared memory a block; "
-            f"{fwd_step_us:.2f} us a step (device time) [{card}]")
+        log(f"[gated train {kind}] forward: {fwd_layout_text}; "
+            f"{fwd_step_us:.2f} us a step (device time); backward: "
+            f"{bwd_layout_text}; {bwd_step_us:.2f} us a reverse step "
+            f"[{card}]")
         log(f"[gated train {kind}] forward {fwd_ms:.3f} ms (plain "
             f"{fwd_plain_ms:.3f}, bound {fwd_bound:.4f} {fwd_by}), backward "
             f"with dW {bwd_ms:.3f} ms (plain {bwd_plain_ms:.3f}, bound "
@@ -1141,12 +1198,11 @@ def gated_kernel_phase(torch, np, dev, card, report):
         out[kind] = dict(
             scan_err=scan_err, scan_ms=scan_ms, scan_plain_ms=scan_plain_ms,
             scan_bound=scan_bound, scan_by=scan_by, scan_lib_ms=scan_lib_ms,
+            scan_step_us=scan_step_us, scan_layout=scan_layout,
             fwd=fwd, fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain_ms,
             fwd_bound=fwd_bound, fwd_by=fwd_by, fwd_lib_ms=fwd_lib_ms,
-            fwd_step_us=fwd_step_us, fwd_layout=dict(
-                resident=fwd_plan.resident, units=fwd_plan.units,
-                rows=fwd_plan.rows, launches=len(fwd_plan.launches),
-                smem_bytes=fwd_plan.smem_bytes),
+            fwd_step_us=fwd_step_us, fwd_layout=fwd_layout,
+            bwd_step_us=bwd_step_us, bwd_layout=bwd_layout,
             bwd_errs=errs, bwd_rel=bwd_rel, bwd_abs=max(
                 errs[n][0] for n in ("dproj", "dh0")),
             bwd_tol=BWD_RTOL * max(errs[n][1] for n in ("dproj", "dh0")),
@@ -1187,6 +1243,8 @@ def gated_phases(torch, np, dev, card, corpus, dec, report):
                                         device=dev))
     serve = serving_slice(torch, np, net, "gru", "gated_scan",
                           rnn_cuda.gated_scan_reference, corpus, dec, card)
+    serve["scan_device_kernels"] = scan_device_kernels(
+        torch, net, corpus, "gru", "gated_scan_persistent")
     del net
     phase_done(13)
 
@@ -1211,14 +1269,21 @@ def gated_phases(torch, np, dev, card, corpus, dec, report):
     phase_done(15)
 
     # ---- 16. where the time goes: 3 GRU updates, profiled --------------
-    step_kernels = ("gated_train_fwd_persistent",)
-    wall_ms, busy_ms, top, gru_kernels = profiled["gru"](step_kernels)
+    step_kernels = ("gated_train_fwd_persistent",
+                    "gated_train_bwd_persistent")
+    # the per-step gated kernels that the persistent ones replaced
+    gone = ("gated_bwd_gate", "gated_bwd_reset", "gated_rz_step",
+            "gated_cand_step", "gated_mgru_step")
+    wall_ms, busy_ms, top, gru_kernels = profiled["gru"](step_kernels + gone)
     log_profile("gru train profile", wall_ms, busy_ms, top, card)
-    if any(n != 3 * LAYERS for n in gru_kernels.values()):
+    if any(gru_kernels[n] != 3 * LAYERS for n in step_kernels) or any(
+            gru_kernels[n] for n in gone):
         fail(f"3 profiled GRU updates ran {gru_kernels} device kernels, not "
-             f"one persistent forward a layer an update ({3 * LAYERS})")
+             f"one persistent forward and one persistent backward a layer an "
+             f"update ({3 * LAYERS}) and no other gated recurrence kernel")
     log(f"[gru train profile] device kernels in 3 updates of {LAYERS} "
-        f"layers: {gru_kernels}: one persistent forward a layer an update")
+        f"layers: {gru_kernels}: one persistent forward and one persistent "
+        f"backward a layer an update")
     phase_done(16)
 
     report["gated"] = dict(
@@ -1231,10 +1296,12 @@ def gated_phases(torch, np, dev, card, corpus, dec, report):
     train_src = "nnacousticmodeling_tpu_torch/csrc/gated_train.cu"
     return [
         {"name": "gated_scan", "route": "cuda", "source": scan_src,
+         "device_kernel": "gated_scan_persistent",
          "replaces": "nnacousticmodeling_tpu/ops/rnn_pallas.py:197",
          "launches": serve["launches"]["gated_scan"],
          "max_abs_err": gru["scan_err"], "tolerance": GATED_ATOL,
-         "ms": gru["scan_ms"], "plain_ms": gru["scan_plain_ms"],
+         "ms": gru["scan_ms"], "us_per_step": gru["scan_step_us"],
+         "plain_ms": gru["scan_plain_ms"],
          "bound_ms": gru["scan_bound"], "bound_by": gru["scan_by"],
          "library_ms": None},
         {"name": "gated_train_forward", "route": "cuda", "source": train_src,
@@ -1247,10 +1314,12 @@ def gated_phases(torch, np, dev, card, corpus, dec, report):
          "bound_ms": gru["fwd_bound"], "bound_by": gru["fwd_by"],
          "library_ms": None},
         {"name": "gated_train_backward", "route": "cuda", "source": train_src,
+         "device_kernel": "gated_train_bwd_persistent",
          "replaces": "nnacousticmodeling_tpu/ops/rnn_pallas.py:785",
          "launches": train["launches"]["gated_train_backward"],
          "max_abs_err": gru["bwd_abs"], "tolerance": gru["bwd_tol"],
-         "ms": gru["bwd_ms"], "plain_ms": gru["bwd_plain_ms"],
+         "ms": gru["bwd_ms"], "us_per_step": gru["bwd_step_us"],
+         "plain_ms": gru["bwd_plain_ms"],
          "bound_ms": gru["bwd_bound"], "bound_by": gru["bwd_by"],
          "library_ms": None},
         {"name": "gated_train_dw", "route": "cuda", "source": train_src,
@@ -1544,20 +1613,8 @@ def peephole_phases(torch, np, dev, card, corpus, dec, lp_lstm, report):
     serve = serving_slice(torch, np, net, "peepholelstm", "peephole_scan",
                           rnn_cuda.peephole_scan_reference, corpus, dec,
                           card)
-    for _ in range(3):   # a session the profiler dropped is repeated
-        _, busy_ms, _, scan_kernels = device_profile(
-            torch, lambda: rnn_log_posteriors(
-                net, corpus.test.data, corpus.test.offsets,
-                ap=corpus.log_priors, batch=B_MAIN),
-            ("peephole_scan_persistent",))
-        if busy_ms > 0:
-            break
-    if scan_kernels["peephole_scan_persistent"] != LAYERS:
-        fail(f"the PeepholeLSTM posteriors ran {scan_kernels} device "
-             f"kernels, not one persistent scan a layer ({LAYERS})")
-    log(f"[peepholelstm slice] device kernels of the posteriors: "
-        f"{scan_kernels}: one persistent scan a layer")
-    serve["scan_device_kernels"] = scan_kernels["peephole_scan_persistent"]
+    serve["scan_device_kernels"] = scan_device_kernels(
+        torch, net, corpus, "peepholelstm", "peephole_scan_persistent")
     del net
     phase_done(18)
 

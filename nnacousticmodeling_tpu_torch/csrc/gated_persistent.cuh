@@ -1,8 +1,10 @@
 // The persistent gated recurrence (GRU, and the minimal GRU with or
-// without its reset gate): the training forward, which also writes the
-// backward's residual row (gated_train.cu, kernel
-// gated_train_fwd_persistent), with a compile-time residual flag so that
-// the serving scan can take the same body.
+// without its reset gate), one source for two kernels: the serving scan
+// (gated_scan.cu, kernel gated_scan_persistent) and the training forward,
+// which also writes the backward's residual row (gated_train.cu, kernel
+// gated_train_fwd_persistent). Both instantiate recurrence() below, so
+// their hs and h_T are bit-equal by construction. Also the block layout
+// that the training backward (gated_train.cu) takes.
 //
 // Per step (the precision contract of _gated_train_fwd_impl,
 // nnacousticmodeling_tpu/ops/rnn_pallas.py:722-747), with p = bf16(proj[t])
@@ -61,7 +63,7 @@
 // operands, f32 accumulation); every sum runs in one fixed order, so the
 // same inputs give the same bits. The elementwise arithmetic is pinned to
 // round-to-nearest intrinsics in the reference's order (activate and
-// interpolate below, which gated_step.cuh's kernels share).
+// interpolate below).
 
 #pragma once
 
@@ -136,6 +138,67 @@ inline size_t fwd_smem_bytes(int H, bool resident, int rb) {
 
 inline dim3 grid_of(int H, int nrows, int rb) {
   return dim3((H + UB - 1) / UB, (nrows + rb - 1) / rb);
+}
+
+// ---- the host side that the scan, the training forward and the training
+// backward share: the layout dispatch, the argument checks, the launch and
+// the co-residency query
+
+// A layout as types, for the kernel templates.
+template <bool R, int RB>
+struct Layout {
+  static constexpr bool resident = R;
+  static constexpr int rb = RB;
+};
+
+// f(Layout<...>{}) for the layout (resident, rows), which the caller has
+// checked with valid_layout.
+template <typename F>
+int with_layout(bool resident, int rows, F f) {
+  if (resident) return f(Layout<true, ROWS>{});
+  return rows == ROWS ? f(Layout<false, ROWS>{})
+                      : f(Layout<false, ROWS / 2>{});
+}
+
+// The arguments of a launch over the rows [row0, row0 + nrows); w2 and
+// x2 are the w2 operand and its exchange buffer, which mgru goes without.
+inline bool args_ok(int T, int B, int row0, int nrows, int kind, int act,
+                    const void* w2, const void* x2, int resident, int rows) {
+  return T >= 1 && nrows >= 1 && row0 >= 0 && row0 + nrows <= B &&
+         kind >= 0 && kind <= KIND_MGRU && act >= 0 && act <= ACT_SIGMOID &&
+         (kind == KIND_MGRU || (w2 != nullptr && x2 != nullptr)) &&
+         valid_layout(resident, rows);
+}
+
+// One cooperative launch of pick(layout), a kernel over nrows rows at
+// this H, with smem(H, resident, rb) bytes of shared memory; args are the
+// kernel's arguments, of its exact parameter types.
+template <typename Smem, typename Pick, typename... Args>
+int launch_layout(Smem smem, int H, int nrows, int resident, int rows,
+           void* stream, Pick pick, Args... args) {
+  return with_layout(resident, rows, [&](auto L) {
+    using Lt = decltype(L);
+    return cooperative(pick(L), grid_of(H, nrows, Lt::rb),
+                       threads_of(Lt::rb), smem(H, Lt::resident, Lt::rb),
+                       static_cast<cudaStream_t>(stream), args...);
+  });
+}
+
+// How many blocks of pick(layout, dtype) -- one kernel for each dtype,
+// float and bf16 -- can be co-resident on the current device at this H
+// with smem(H, resident, rb) bytes of shared memory: 0 when that exceeds
+// the card's or there is no such layout.
+template <typename Smem, typename Pick>
+int layout_capacity(Smem smem, int H, int resident, int rows, int* blocks,
+             Pick pick) {
+  *blocks = 0;
+  if (H < 1 || !valid_layout(resident, rows)) return 0;
+  return with_layout(resident, rows, [&](auto L) {
+    using Lt = decltype(L);
+    return lstm_persistent::capacity(
+        pick(L, float{}), pick(L, __nv_bfloat16{}),
+        smem(H, Lt::resident, Lt::rb), blocks, threads_of(Lt::rb));
+  });
 }
 
 // The kernel's arguments: proj (T, B, gp*H) f32 or bf16 (gp = 3, or 2 for

@@ -72,8 +72,8 @@
 // bench_gated_layouts.py; the package builds with none of them.
 // PEEP_RING_KC / PEEP_RING_STAGES: the chunk and depth of the ring beside
 // a resident weight slice. PEEP_LEAVE_OUT leaves parts of every ring out
-// of the kernels built on it (the peephole training kernels, the gated
-// training forward), which then compute wrong values: 1 the exchange
+// of the kernels built on it (the peephole and gated persistent
+// kernels), which then compute wrong values: 1 the exchange
 // loads, 2 the tensor-core products, 3 the ring altogether, 4 the loads,
 // zeros written in their place.
 #ifndef PEEP_RING_KC

@@ -13,13 +13,13 @@ Counterpart of ``nnacousticmodeling_tpu/ops/rnn_pallas.py``:
   (<- ``_lstm_train_bwd_impl``, with its dW contraction
   ``lstm_train_dw``), kernels ``csrc/lstm_train.cu``;
 - ``gated_scan`` <- ``gated_scan_pallas`` (twin
-  ``gated_scan_mixed_reference``), kernel ``csrc/gated_scan.cu``;
-  inference only;
+  ``gated_scan_mixed_reference``), kernel ``csrc/gated_scan.cu`` on
+  ``csrc/gated_persistent.cuh``; inference only;
 - ``gated_scan_train`` <- ``gated_scan_pallas_train``, a
   ``torch.autograd.Function`` over ``gated_train_forward``
-  (<- ``_gated_train_fwd_impl``, kernel on ``csrc/gated_persistent.cuh``)
-  and ``gated_train_backward`` (<- ``_gated_train_bwd_impl``, with its
-  dW1 / dW2 contractions ``gated_train_dw``), kernels
+  (<- ``_gated_train_fwd_impl``, the scan's kernel body plus the
+  residuals) and ``gated_train_backward`` (<- ``_gated_train_bwd_impl``,
+  with its dW1 / dW2 contractions ``gated_train_dw``), kernels
   ``csrc/gated_train.cu``;
 - ``peephole_scan`` <- ``peephole_scan_pallas`` (twin
   ``peephole_scan_mixed_reference``), kernel ``csrc/peephole_scan.cu``;
@@ -46,17 +46,20 @@ bf16 roundings.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes
 its plain version only for CPU tensors. ``lstm_scan_plan``,
-``lstm_train_bwd_plan``, ``gated_train_fwd_plan``, ``peephole_scan_plan``,
+``lstm_train_bwd_plan``, ``gated_scan_plan``, ``gated_train_fwd_plan``,
+``gated_train_bwd_plan``, ``peephole_scan_plan``,
 ``peephole_train_fwd_plan``, ``peephole_train_bwd_plan`` and ``dw_plan``
 are the host-side layouts of the persistent LSTM recurrence
 (``csrc/lstm_persistent.cuh``: ``lstm_scan`` and the training forward),
 of the persistent LSTM training backward (``csrc/lstm_train.cu``), of
-the persistent gated training forward (``csrc/gated_persistent.cuh``),
-of the persistent peephole recurrence (``csrc/peephole_persistent.cuh``:
-``peephole_scan`` and the training forward) and training backward
-(``csrc/peephole_train.cu``) and of the tensor-core dW GEMM shared by the
-three training backwards (``csrc/dw_gemm.cuh``): plain Python, so the
-CPU tests check what the kernels are handed.
+the persistent gated recurrence (``csrc/gated_persistent.cuh``:
+``gated_scan`` and the training forward) and training backward
+(``csrc/gated_train.cu``), of the persistent peephole recurrence
+(``csrc/peephole_persistent.cuh``: ``peephole_scan`` and the training
+forward) and training backward (``csrc/peephole_train.cu``) and of the
+tensor-core dW GEMM shared by the three training backwards
+(``csrc/dw_gemm.cuh``): plain Python, so the CPU tests check what the
+kernels are handed.
 """
 
 from __future__ import annotations
@@ -318,12 +321,13 @@ def peephole_train_bwd_plan(
                       h_dim, batch, capacity)
 
 
-#: csrc/gated_persistent.cuh (the gated training forward): hidden units
-#: and batch rows a block owns (warps of 16 rows x 8 units, all gate
+#: csrc/gated_persistent.cuh (``gated_scan`` and the gated training
+#: forward) and the gated training backward (csrc/gated_train.cu): hidden
+#: units and batch rows a block owns (warps of 16 rows x 8 units, all gate
 #: columns of them), and the rows a block takes where the grid of streamed
-#: GATED_ROWS-row blocks is not co-resident; its ring is the peephole
+#: GATED_ROWS-row blocks is not co-resident; their ring is the peephole
 #: kernels' (PEEP_KC, PEEP_STAGES). Read at call time, so that
-#: bench_gated_layouts.py can lay out the 8-unit build it times.
+#: bench_gated_layouts.py can lay out the 8- and 32-unit builds it times.
 GATED_UNITS = 16
 GATED_ROWS = 64
 GATED_NARROW_ROWS = 32
@@ -339,6 +343,31 @@ def gated_fwd_smem_bytes(h_dim: int, resident: bool,
     return w + _peep_ring(resident, 2 * GATED_UNITS, rows)
 
 
+def gated_bwd_smem_bytes(h_dim: int, resident: bool,
+                         rows: int = GATED_ROWS) -> int:
+    """Shared memory of one gated training-backward block of ``rows``
+    batch rows: per unit k, row k of w1 as two groups (its pair columns
+    [0, H) and [H, 2H)) and row k of w2, each padded by 8, when resident
+    (the forward's three groups), and the ring (one group's rows a stage
+    streamed)."""
+    w = 3 * GATED_UNITS * (_peep_extent(h_dim) + 8) * 2 if resident else 0
+    return w + _peep_ring(resident, GATED_UNITS, rows)
+
+
+def _gated_plan(name, smem_bytes, h_dim, batch, capacity) -> ScanPlan:
+    return _persistent_plan(name, smem_bytes, h_dim, batch, capacity,
+                            GATED_UNITS, GATED_ROWS, GATED_NARROW_ROWS)
+
+
+def gated_scan_plan(h_dim: int, batch: int,
+                    capacity: Callable[[bool, int], int]) -> ScanPlan:
+    """Lay out ``gated_scan``'s persistent kernel, which runs the training
+    forward's body without the residuals and the same layout as
+    ``gated_train_fwd_plan``; ``capacity`` is the scan kernel's."""
+    return _gated_plan("gated_scan", gated_fwd_smem_bytes, h_dim, batch,
+                       capacity)
+
+
 def gated_train_fwd_plan(
         h_dim: int, batch: int,
         capacity: Callable[[bool, int], int]) -> ScanPlan:
@@ -346,10 +375,20 @@ def gated_train_fwd_plan(
     ``peephole_train_fwd_plan`` does, for every kind alike: each block
     owns all gate columns of its 16 units for 64 batch rows, or 32 where
     the H/16 streamed blocks of 64 rows are not co-resident (H > 4224 on
-    an H100); the slice stays resident up to H = 1792."""
-    return _persistent_plan("gated_train_forward", gated_fwd_smem_bytes,
-                            h_dim, batch, capacity, GATED_UNITS, GATED_ROWS,
-                            GATED_NARROW_ROWS)
+    an H100; none above H = 8448); the slice stays resident up to
+    H = 1792."""
+    return _gated_plan("gated_train_forward", gated_fwd_smem_bytes, h_dim,
+                       batch, capacity)
+
+
+def gated_train_bwd_plan(
+        h_dim: int, batch: int,
+        capacity: Callable[[bool, int], int]) -> ScanPlan:
+    """Lay out ``gated_train_backward``'s reverse-time kernel, as
+    ``gated_train_fwd_plan``. Each block owns the dh, dzpre, dcpre and
+    drpre columns of its 16 units for the plan's batch rows."""
+    return _gated_plan("gated_train_backward", gated_bwd_smem_bytes, h_dim,
+                       batch, capacity)
 
 
 #: csrc/dw_gemm.cuh: the rows of dW a block owns, and the tilings it is
@@ -854,13 +893,14 @@ ACTIVATIONS = {"relu": torch.relu, "sigmoid": torch.sigmoid,
                "tanh": torch.tanh}
 _ACT_CODES = {"tanh": 0, "relu": 1, "sigmoid": 2}
 
-_GATED_SCAN_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+# the scan (8 pointers), the training forward (9) and backward (10):
+# pointers, then T, B, H, row0, nrows, kind, act, resident, rows a block,
+# then the stream
+_GATED_SCAN_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                         + [ctypes.c_void_p])
-# the training forward: pointers, then T, B, H, row0, nrows, kind, act,
-# resident, rows a block, then the stream
 _GATED_FWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
-_GATED_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+_GATED_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
 
 
@@ -869,6 +909,9 @@ def _gated_scan_lib():
     for fn in (lib.gated_scan_f32, lib.gated_scan_bf16):
         fn.argtypes = _GATED_SCAN_ARGTYPES
         fn.restype = ctypes.c_int
+    lib.gated_scan_capacity.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.gated_scan_capacity.restype = ctypes.c_int
     return lib
 
 
@@ -882,7 +925,7 @@ def _gated_train_lib():
         for fn in fns:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-    lib.gated_train_capacity.argtypes = [ctypes.c_int] * 3 + [
+    lib.gated_train_capacity.argtypes = [ctypes.c_int] * 4 + [
         ctypes.POINTER(ctypes.c_int)]
     lib.gated_train_capacity.restype = ctypes.c_int
     return lib
@@ -968,32 +1011,6 @@ def _gated_forward_loop(proj, w1, w2, h0, kind, act, with_res):
     return hs, res, h
 
 
-def _gated_forward_launch(name, fn, proj, w1, w2, h0, kind, act):
-    """Launch the per-step gated scan kernel ``gated_scan_*``. Returns
-    ``hs, h_T``."""
-    stream = _check_cuda(name, proj, w1, h0, *([] if w2 is None else [w2]))
-    if not proj.is_contiguous():
-        raise ValueError(f"{name}: proj must be contiguous")
-    t, b, _ = proj.shape
-    h_dim = w1.shape[0]
-    dev = proj.device
-    w1b = w1.detach().to(torch.bfloat16).contiguous()
-    w2b = None if w2 is None else w2.detach().to(torch.bfloat16).contiguous()
-    h_a = h0.detach().float().contiguous().clone()
-    h_b = torch.empty_like(h_a)
-    scratch = kind != "mgru"
-    rh = (torch.empty((b, h_dim), dtype=torch.bfloat16, device=dev)
-          if scratch else None)
-    zbuf = torch.empty_like(h_a) if scratch else None
-    hs = torch.empty((t, b, h_dim), dtype=proj.dtype, device=dev)
-    kernels.check(fn(proj.data_ptr(), w1b.data_ptr(), _ptr(w2b),
-                     h_a.data_ptr(), h_b.data_ptr(), _ptr(rh), _ptr(zbuf),
-                     hs.data_ptr(), t, b, h_dim, _GATED_KINDS[kind][0],
-                     _ACT_CODES[act], stream), name)
-    kernels.launches[name] += 1
-    return hs, (h_a if t % 2 == 0 else h_b)
-
-
 def gated_scan_reference(proj, w1, w2, h0, *, kind, activation="tanh"):
     """Plain PyTorch version of ``gated_scan``, same contract: the twin
     of ``gated_scan_mixed_reference`` (rnn_pallas.py:320-353), the
@@ -1014,11 +1031,16 @@ def gated_scan(proj, w1, w2, h0, *, kind, activation="tanh"):
     h0's.
 
     CUDA tensors launch the kernel (or raise); CPU tensors take
-    ``gated_scan_reference``. The kernel has no backward: on the card a
+    ``gated_scan_reference``. On the card the whole sequence is one
+    persistent launch per row chunk of ``gated_scan_plan`` (one for
+    B <= 128 at H=1024; H <= 8448 on an H100), the training forward's
+    kernel body without the residuals: hs and h_T are bit-equal to
+    ``gated_train_forward``'s. The kernel has no backward: on the card a
     tensor that requires grad under grad mode raises, and training goes
     through ``gated_scan_train``.
     """
-    _check_gated_args("gated_scan", proj, w1, w2, h0, kind)
+    name = "gated_scan"
+    _check_gated_args(name, proj, w1, w2, h0, kind)
     act = _gated_act(kind, activation)
     if proj.device.type == "cpu":
         return gated_scan_reference(proj, w1, w2, h0, kind=kind,
@@ -1030,10 +1052,14 @@ def gated_scan(proj, w1, w2, h0, *, kind, activation="tanh"):
             "outputs would carry no gradient; train through "
             "gated_scan_train, or run under torch.no_grad() / "
             "torch.inference_mode()")
-    fn = getattr(_gated_scan_lib(), "gated_scan_" + _dtype_suffix(
-        "gated_scan", proj.dtype))
-    hs, h_t = _gated_forward_launch("gated_scan", fn, proj, w1, w2, h0, kind,
-                                    act)
+    stream = _check_cuda(name, proj, w1, h0, *([] if w2 is None else [w2]))
+    if not proj.is_contiguous():
+        raise ValueError(f"{name}: proj must be contiguous")
+    lib = _gated_scan_lib()
+    fn = getattr(lib, "gated_scan_" + _dtype_suffix(name, proj.dtype))
+    hs, _, h_t = _gated_forward_launch(name, gated_scan_plan, fn,
+                                       lib.gated_scan_capacity, proj, w1, w2,
+                                       h0, kind, act, stream, with_res=False)
     return h_t.to(h0.dtype), hs
 
 
@@ -1055,9 +1081,8 @@ def gated_train_forward(proj, w1, w2, h0, *, kind, activation="tanh"):
     On the card: one persistent launch per row chunk of
     ``gated_train_fwd_plan`` (one for B <= 128 at H=1024), two grid
     exchanges a step for gru and mgru_r and one for mgru, tensor-core
-    sums. hs and h_T agree with ``gated_scan``'s (per-step kernels, f32
-    FMA sums in another order) within the recurrence tolerance, and a
-    second call gives the same bits.
+    sums. ``gated_scan`` runs the same kernel body, so hs and h_T are
+    bit-equal to its; a second call gives the same bits.
     """
     name = "gated_train_forward"
     _check_gated_args(name, proj, w1, w2, h0, kind)
@@ -1070,15 +1095,26 @@ def gated_train_forward(proj, w1, w2, h0, *, kind, activation="tanh"):
         raise ValueError(f"{name}: proj must be contiguous")
     lib = _gated_train_lib()
     fn = getattr(lib, "gated_train_fwd_" + _dtype_suffix(name, proj.dtype))
-    return _gated_train_forward_launch(fn, lib.gated_train_capacity, proj,
-                                       w1, w2, h0, kind, act, stream)
+    return _gated_train_forward_launch(
+        fn, functools.partial(lib.gated_train_capacity, 0), proj, w1, w2, h0,
+        kind, act, stream)
 
 
 def _gated_train_forward_launch(fn, query, proj, w1, w2, h0, kind, act,
                                 stream):
-    """The operands, scratch and outputs of the training forward's entry
-    point ``fn``, launched in ``gated_train_fwd_plan``'s row chunks.
-    Returns ``hs, res, h_T``."""
+    """The training forward's entry point ``fn`` in
+    ``gated_train_fwd_plan``'s row chunks. Returns ``hs, res, h_T``."""
+    return _gated_forward_launch("gated_train_forward", gated_train_fwd_plan,
+                                 fn, query, proj, w1, w2, h0, kind, act,
+                                 stream, with_res=True)
+
+
+def _gated_forward_launch(name, plan_fn, fn, query, proj, w1, w2, h0, kind,
+                          act, stream, with_res):
+    """The operands, scratch and outputs of a persistent gated forward's
+    entry point ``fn`` (the scan's, or with ``with_res`` the training
+    forward's), launched in ``plan_fn``'s row chunks. Returns ``hs, res
+    (None without with_res), h_T``."""
     t, b, _ = proj.shape
     h_dim = w1.shape[0]
     dev = proj.device
@@ -1090,10 +1126,11 @@ def _gated_train_forward_launch(fn, query, proj, w1, w2, h0, kind, act,
     rx = (None if w2 is None
           else torch.empty((b, h_dim), dtype=torch.bfloat16, device=dev))
     hs = torch.empty((t, b, h_dim), dtype=proj.dtype, device=dev)
-    res = torch.empty((t, b, 4 * h_dim), dtype=torch.bfloat16, device=dev)
-    _cooperative_launches("gated_train_forward", gated_train_fwd_plan, fn,
-                          query, dev, h_dim, b,
-                          (proj, w1t, w2t, h, hx, rx, hs, res), t, stream,
+    res = (torch.empty((t, b, 4 * h_dim), dtype=torch.bfloat16, device=dev)
+           if with_res else None)
+    _cooperative_launches(name, plan_fn, fn, query, dev, h_dim, b,
+                          (proj, w1t, w2t, h, hx, rx, hs)
+                          + ((res,) if with_res else ()), t, stream,
                           (_GATED_KINDS[kind][0], _ACT_CODES[act]))
     return hs, res, h
 
@@ -1223,44 +1260,57 @@ def gated_train_backward(res, w1, w2, dhs, dh_T, proj_dtype, *, kind,
     dhs (T, B, H), dh_T (B, H). Returns ``dproj`` (T, B, gp*H) in
     ``proj_dtype`` and proj's packing order, ``dW1`` in w1's dtype,
     ``dW2`` in w2's (None for ``mgru``) and ``dh0`` float32.
+
+    On the card: one persistent launch over all reverse steps per row
+    chunk of ``gated_train_bwd_plan`` (one for B <= 128 at H=1024), two
+    grid exchanges a reverse step for gru and mgru_r and one for mgru,
+    tensor-core sums, a second call gives the same bits; then one dW
+    launch (``gated_train_dw``) on the bf16 pair and dcpre it leaves
+    behind.
     """
-    _check_gated_bwd_args("gated_train_backward", res, w1, w2, dhs, dh_T,
-                          kind)
+    name = "gated_train_backward"
+    _check_gated_bwd_args(name, res, w1, w2, dhs, dh_T, kind)
     act = _gated_act(kind, activation)
     if res.device.type == "cpu":
         return gated_train_backward_reference(res, w1, w2, dhs, dh_T,
                                               proj_dtype, kind=kind,
                                               activation=act)
-    stream = _check_cuda("gated_train_backward", res, w1, dhs, dh_T,
+    stream = _check_cuda(name, res, w1, dhs, dh_T,
                          *([] if w2 is None else [w2]))
-    fn = getattr(_gated_train_lib(), "gated_train_bwd_" + _dtype_suffix(
-        "gated_train_backward", proj_dtype))
+    lib = _gated_train_lib()
+    fn = getattr(lib, "gated_train_bwd_" + _dtype_suffix(name, proj_dtype))
     if not res.is_contiguous():
-        raise ValueError("gated_train_backward: res must be contiguous")
-    t, b, four_h = res.shape
-    h_dim = four_h // 4
-    dev = res.device
-    has_w2 = w2 is not None
-    w1b = w1.detach().to(torch.bfloat16).contiguous()
-    w2b = w2.detach().to(torch.bfloat16).contiguous() if has_w2 else None
-    dhs_f = dhs.float().contiguous()
-    dh_t = dh_T.float().contiguous()
-    partial = torch.empty((b, h_dim), dtype=torch.float32, device=dev)
-    dproj = torch.empty((t, b, _GATED_KINDS[kind][1] * h_dim),
-                        dtype=proj_dtype, device=dev)
-    pair = torch.empty((t, b, 2 * h_dim), dtype=torch.bfloat16, device=dev)
-    dc = (torch.empty((t, b, h_dim), dtype=torch.bfloat16, device=dev)
-          if has_w2 else None)
-    dh0 = torch.empty((b, h_dim), dtype=torch.float32, device=dev)
-    kernels.check(fn(res.data_ptr(), w1b.data_ptr(), _ptr(w2b),
-                     dhs_f.data_ptr(), dh_t.data_ptr(), partial.data_ptr(),
-                     dproj.data_ptr(), pair.data_ptr(), _ptr(dc),
-                     dh0.data_ptr(), t, b, h_dim, _GATED_KINDS[kind][0],
-                     _ACT_CODES[act], stream), "gated_train_backward")
-    kernels.launches["gated_train_backward"] += 1
+        raise ValueError(f"{name}: res must be contiguous")
+    dproj, pair, dc, dh0 = _gated_train_backward_launch(
+        fn, functools.partial(lib.gated_train_capacity, 1), res, w1, w2, dhs,
+        dh_T, proj_dtype, kind, act, stream)
     dw1, dw2 = gated_train_dw(res, pair, dc)
     return (dproj, dw1.to(w1.dtype), None if dw2 is None else dw2.to(w2.dtype),
             dh0)
+
+
+def _gated_train_backward_launch(fn, query, res, w1, w2, dhs, dh_T,
+                                 proj_dtype, kind, act, stream):
+    """The operands, scratch and outputs of the training backward's entry
+    point ``fn``, launched in ``gated_train_bwd_plan``'s row chunks.
+    Returns ``dproj``, the bf16 ``pair`` and ``dc`` (None for ``mgru``) it
+    leaves for the dW contractions, and ``dh0``."""
+    t, b, four_h = res.shape
+    h_dim = four_h // 4
+    dev = res.device
+    w2b = None if w2 is None else _bf16c(w2)
+    dproj = torch.empty((t, b, _GATED_KINDS[kind][1] * h_dim),
+                        dtype=proj_dtype, device=dev)
+    pair = torch.empty((t, b, 2 * h_dim), dtype=torch.bfloat16, device=dev)
+    dc = (None if w2 is None else
+          torch.empty((t, b, h_dim), dtype=torch.bfloat16, device=dev))
+    dh0 = torch.empty((b, h_dim), dtype=torch.float32, device=dev)
+    _cooperative_launches("gated_train_backward", gated_train_bwd_plan, fn,
+                          query, dev, h_dim, b,
+                          (res, _bf16c(w1), w2b, dhs.float().contiguous(),
+                           dh_T.float().contiguous(), dproj, pair, dc, dh0),
+                          t, stream, (_GATED_KINDS[kind][0], _ACT_CODES[act]))
+    return dproj, pair, dc, dh0
 
 
 class _GatedScanTrain(torch.autograd.Function):

@@ -62,10 +62,9 @@ def test_port_files_found():
                 "decoder/viterbi_cube.py", "ops/features.py",
                 "pipeline/synth_data.py"):
         assert f"nnacousticmodeling_tpu_torch/{mod}" in names
-    for src in ("gated_step.cuh", "gated_persistent.cuh", "gated_scan.cu",
-                "gated_train.cu", "peephole_persistent.cuh",
-                "peephole_scan.cu", "peephole_train.cu", "viterbi_cube.cu",
-                "fbank.cu"):
+    for src in ("gated_persistent.cuh", "gated_scan.cu", "gated_train.cu",
+                "peephole_persistent.cuh", "peephole_scan.cu",
+                "peephole_train.cu", "viterbi_cube.cu", "fbank.cu"):
         assert (REPO / "nnacousticmodeling_tpu_torch" / "csrc" / src).is_file()
     assert (REPO / "chip_smoke.py").is_file()
 

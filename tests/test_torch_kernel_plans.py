@@ -1,13 +1,13 @@
 """Host-side layouts of the persistent LSTM kernels (``lstm_scan`` and the
 training forward, which share one kernel body, and the training
-backward), of the persistent gated training forward, of the persistent
-peephole kernels (``peephole_scan`` and the training forward, which
-share one kernel body, and the training backward), and of the
-tensor-core dW GEMM shared by the three training backwards
-(``ops/rnn_cuda.py`` ``lstm_scan_plan``, ``lstm_train_bwd_plan``,
-``gated_train_fwd_plan``, ``peephole_scan_plan``,
-``peephole_train_fwd_plan``, ``peephole_train_bwd_plan`` and
-``dw_plan``), on the CPU.
+backward), of the persistent gated kernels and of the persistent
+peephole kernels (each family's scan and training forward share one
+kernel body; then its training backward), and of the tensor-core dW
+GEMM shared by the three training backwards (``ops/rnn_cuda.py``
+``lstm_scan_plan``, ``lstm_train_bwd_plan``, ``gated_scan_plan``,
+``gated_train_fwd_plan``, ``gated_train_bwd_plan``,
+``peephole_scan_plan``, ``peephole_train_fwd_plan``,
+``peephole_train_bwd_plan`` and ``dw_plan``), on the CPU.
 
 The kernels run only on the card; what they are handed is plain Python,
 and is checked here: every (batch row, hidden unit) cell and every gate
@@ -47,6 +47,8 @@ from nnacousticmodeling_tpu_torch.ops.rnn_cuda import (
     SMEM_LIMIT,
     bwd_w_resident,
     dw_plan,
+    gated_scan_plan,
+    gated_train_bwd_plan,
     gated_train_fwd_plan,
     lstm_scan_plan,
     lstm_train_bwd_plan,
@@ -613,6 +615,223 @@ def test_gated_train_forward_is_handed_its_plan(monkeypatch, kind, h_dim,
     assert calls[0][0] == proj.data_ptr() and calls[0][7] == res.data_ptr()
     # w2^T and the r h exchange only where there is a reset gate
     assert (calls[0][2] is None) == (calls[0][5] is None) == (kind == "mgru")
+
+
+#: the gated plans other than the training forward's, with their shared
+#: memory: the scan runs the forward's body, the backward its own
+GATED_PLANS = {"scan": (gated_scan_plan, rnn_cuda.gated_fwd_smem_bytes),
+               "backward": (gated_train_bwd_plan,
+                            rnn_cuda.gated_bwd_smem_bytes)}
+
+
+@pytest.mark.parametrize("batch", BWD_BS)
+@pytest.mark.parametrize("h_dim", GATED_HS)
+@pytest.mark.parametrize("kind", sorted(GATED_KINDS))
+@pytest.mark.parametrize("which", sorted(GATED_PLANS))
+def test_gated_scan_and_bwd_plans_own_every_cell_once(which, kind, h_dim,
+                                                      batch):
+    """The scan's threads own every gate column of their cells, as the
+    training forward's; the backward's own the dh, dzpre, dcpre and drpre
+    columns of theirs (its dproj columns), in the same layout: 16 units x
+    64 rows a block, 32 rows where the H/16 streamed 64-row blocks are not
+    co-resident, the slice resident up to H=1792."""
+    plan_fn, smem = GATED_PLANS[which]
+    plan = plan_fn(h_dim, batch, _h100_gated)
+    if which == "scan":
+        assert plan == gated_train_fwd_plan(h_dim, batch, _h100_gated)
+    assert plan.resident == (h_dim <= 1792)
+    rows = GATED_ROWS if h_dim <= 4224 else GATED_NARROW_ROWS
+    assert (plan.units, plan.rows) == (GATED_UNITS, rows)
+    assert plan.smem_bytes == smem(h_dim, plan.resident, rows) <= SMEM_LIMIT
+    for _, nrows in plan.launches:
+        gx, gy = plan.grid(nrows)
+        assert gx * gy <= H100_GATED_BLOCKS[plan.resident, rows]
+    assert sum(n for _, n in plan.launches) == batch
+    if h_dim == 1024 and batch <= 128:
+        assert len(plan.launches) == 1    # serving and training: one launch
+    cells, cols = _gated_cells(plan, h_dim, batch, GATED_KINDS[kind])
+    assert (cells == 1).all() and (cols == 1).all()
+
+
+@pytest.mark.parametrize("h_dim", HS + [1792, 4240])
+@pytest.mark.parametrize("kind", sorted(GATED_KINDS))
+def test_gated_bwd_products_reduce_every_column_once(kind, h_dim):
+    """A reverse step's products: drh over the H dc columns against the w2
+    group (gru, mgru_r), then dh over the 2H pair columns, as two groups
+    of H, against the two w1 groups, each in chunks of PEEP_KC over H
+    rounded up to whole chunks: every column is reduced exactly once,
+    against the group that holds its weights."""
+    resident = rnn_cuda._w_resident(rnn_cuda.gated_bwd_smem_bytes, h_dim,
+                                    GATED_UNITS, GATED_ROWS, 132)
+    kc = PEEP_KC[resident]
+    nkb = -(-h_dim // kc)
+    seen = {"dc": np.zeros(h_dim, np.int64),
+            "pair": np.zeros(2 * h_dim, np.int64)}
+    groups = {"dc": np.full(h_dim, -1), "pair": np.full(2 * h_dim, -1)}
+    products = [("pair", 0, 2)]
+    if kind != "mgru":
+        products.insert(0, ("dc", 2, 1))
+    for x, g0, ng in products:
+        for c in range(ng * nkb):
+            g, n0 = g0 + c // nkb, (c % nkb) * kc
+            cols = (g - g0) * h_dim + np.arange(n0, min(n0 + kc, h_dim))
+            seen[x][cols] += 1
+            groups[x][cols] = g
+    assert (seen["pair"] == 1).all()
+    assert (groups["pair"] == np.repeat([0, 1], h_dim)).all()
+    assert (seen["dc"] == (kind != "mgru")).all()
+    if kind != "mgru":
+        assert (groups["dc"] == 2).all()
+
+
+@pytest.mark.parametrize("which", sorted(GATED_PLANS))
+def test_gated_scan_and_bwd_plans_stream_exactly_where_the_slice_does_not_fit(
+        which):
+    plan_fn, smem = GATED_PLANS[which]
+    for h_dim in range(1600, 2000, 8):
+        fits = smem(h_dim, True) <= SMEM_LIMIT
+        assert fits == (h_dim <= 1792)
+        assert plan_fn(h_dim, 8, _h100_gated).resident == fits
+        assert smem(h_dim, False) <= SMEM_LIMIT // 2    # two blocks an SM
+    assert smem(8448, False, GATED_NARROW_ROWS) <= SMEM_LIMIT // 4
+    # a grid of the units' resident blocks that the card cannot hold at
+    # one block an SM streams, here in two row chunks
+    small = {(True, 64): 60, (False, 64): 120, (False, 32): 240}
+    plan = plan_fn(1024, 128, lambda r, rows: small[r, rows])
+    assert not plan.resident and plan.launches == ((0, 64), (64, 64))
+    # 32-row blocks exactly where H/16 streamed 64-row blocks are not
+    # co-resident; beyond what four blocks an SM hold, refused: there is
+    # no per-step fallback
+    for h_dim, rows in ((4224, 64), (4240, 32), (8448, 32)):
+        assert plan_fn(h_dim, 8, _h100_gated).rows == rows
+    with pytest.raises(ValueError, match="co-resident"):
+        plan_fn(8464, 8, _h100_gated)
+
+
+def _gated_launch_case(kind, h_dim, batch, t=3):
+    rng = np.random.default_rng(h_dim + batch)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32))
+
+    w1 = rand(h_dim, 2 * h_dim)
+    w2 = None if kind == "mgru" else rand(h_dim, h_dim)
+    return rand, w1, w2, ("tanh" if kind == "gru" else "relu")
+
+
+def _gated_query(h, res_flag, rows, blocks):
+    blocks._obj.value = H100_GATED_BLOCKS[bool(res_flag), rows]
+    return 0
+
+
+@pytest.mark.parametrize("h_dim,batch", [(40, 3), (1024, 128), (1024, 300),
+                                         (2048, 4), (4240, 3)])
+@pytest.mark.parametrize("kind", sorted(GATED_KINDS))
+def test_gated_train_backward_is_handed_its_plan(monkeypatch, kind, h_dim,
+                                                 batch):
+    """Each launch of the gated training backward gets its plan's row
+    chunk, the kind's and activation's codes, the residency flag and a
+    barrier count of its own, after the pointers in the order of the C
+    entry points' argtypes; mgru gets no w2 and no dc exchange, and the
+    pair and dc it is handed are what the dW contractions read."""
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda _: contextlib.nullcontext())
+    monkeypatch.setattr(rnn_cuda, "_CAPACITY", {})
+    t, gp = 3, GATED_KINDS[kind]
+    rand, w1, w2, act = _gated_launch_case(kind, h_dim, batch, t)
+    res = rand(t, batch, 4 * h_dim).to(torch.bfloat16)
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return 0
+
+    before = dict(kernels.launches)
+    try:
+        dproj, pair, dc, dh0 = rnn_cuda._gated_train_backward_launch(
+            entry, _gated_query, res, w1, w2, rand(t, batch, h_dim),
+            rand(batch, h_dim), torch.bfloat16, kind, act, None)
+        assert dproj.shape == (t, batch, gp * h_dim)
+        assert dproj.dtype == torch.bfloat16
+        assert pair.shape == (t, batch, 2 * h_dim)
+        assert pair.dtype == torch.bfloat16
+        assert (dc is None) == (kind == "mgru")
+        if dc is not None:
+            assert dc.shape == (t, batch, h_dim)
+            assert dc.dtype == torch.bfloat16
+        assert dh0.shape == (batch, h_dim) and dh0.dtype == torch.float32
+        assert kernels.launches["gated_train_backward"] == \
+            before.get("gated_train_backward", 0) + 1
+    finally:
+        kernels.launches.clear()
+        kernels.launches.update(before)
+    plan = gated_train_bwd_plan(h_dim, batch, _h100_gated)
+    codes = {"gru": (0, 0), "mgru_r": (1, 1), "mgru": (2, 1)}[kind]
+    assert len(calls) == len(plan.launches)
+    for i, (row0, nrows) in enumerate(plan.launches):
+        assert len(calls[i]) == len(rnn_cuda._GATED_BWD_ARGTYPES)
+        assert calls[i][-10:] == (t, batch, h_dim, row0, nrows, *codes,
+                                  int(plan.resident), plan.rows, None)
+        assert calls[i][:9] == calls[0][:9]          # the same tensors
+        assert calls[i][9] - calls[0][9] == 4 * i    # one barrier a launch
+    assert calls[0][0] == res.data_ptr()
+    assert calls[0][5:9] == (dproj.data_ptr(), pair.data_ptr(),
+                             None if dc is None else dc.data_ptr(),
+                             dh0.data_ptr())
+    # w2 and the dc exchange only where there is a reset gate
+    assert (calls[0][2] is None) == (calls[0][7] is None) == (kind == "mgru")
+
+
+@pytest.mark.parametrize("h_dim,batch", [(40, 3), (1024, 128), (1024, 300),
+                                         (2048, 4), (4240, 3)])
+@pytest.mark.parametrize("kind", sorted(GATED_KINDS))
+def test_gated_scan_is_handed_the_train_forward_plan(monkeypatch, kind,
+                                                     h_dim, batch):
+    """gated_scan runs the training forward's kernel body: one launch per
+    row chunk of the same plan, the same operands and scratch in the same
+    order, without the residuals, and a barrier count a launch."""
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda _: contextlib.nullcontext())
+    monkeypatch.setattr(rnn_cuda, "_CAPACITY", {})
+    t, gp = 3, GATED_KINDS[kind]
+    rand, w1, w2, act = _gated_launch_case(kind, h_dim, batch, t)
+    args = (rand(t, batch, gp * h_dim), w1, w2, rand(batch, h_dim))
+    calls = {}
+
+    def entry(name):
+        def fn(*a):
+            calls.setdefault(name, []).append(a)
+            return 0
+        return fn
+
+    before = dict(kernels.launches)
+    try:
+        hs, res, h = rnn_cuda._gated_forward_launch(
+            "gated_scan", gated_scan_plan, entry("scan"), _gated_query,
+            *args, kind, act, None, with_res=False)
+        assert res is None and hs.shape == (t, batch, h_dim)
+        assert h.shape == (batch, h_dim) and h.dtype == torch.float32
+        rnn_cuda._gated_train_forward_launch(entry("train"), _gated_query,
+                                             *args, kind, act, None)
+        assert kernels.launches["gated_scan"] == \
+            before.get("gated_scan", 0) + 1
+    finally:
+        kernels.launches.clear()
+        kernels.launches.update(before)
+    plan = gated_scan_plan(h_dim, batch, _h100_gated)
+    assert plan == gated_train_fwd_plan(h_dim, batch, _h100_gated)
+    scan, train = calls["scan"], calls["train"]
+    assert len(scan) == len(train) == len(plan.launches)
+    for i, (row0, nrows) in enumerate(plan.launches):
+        assert len(scan[i]) == len(rnn_cuda._GATED_SCAN_ARGTYPES)
+        assert scan[i][-10:] == train[i][-10:]
+        assert scan[i][-10:-5] == (t, batch, h_dim, row0, nrows)
+        assert scan[i][:7] == scan[0][:7]            # the same tensors
+        assert scan[i][7] - scan[0][7] == 4 * i      # one barrier a launch
+    # the training forward's pointers with the residuals left out
+    assert scan[0][0] == args[0].data_ptr()
+    assert (scan[0][2] is None) == (scan[0][5] is None) == (kind == "mgru")
 
 
 def _families():
