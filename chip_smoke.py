@@ -14,17 +14,25 @@ Phases (each one that fails ends the run with a non-zero exit):
    second call on the same inputs must give the same bits;
 4. ``collapsed_viterbi_forward`` against its plain version on the card,
    on the synthetic 48-phone 1909-pdf image at the main path's shapes
-   (128 utterances x 512 frames), with and without a beam: packed rows
-   and end scores bit-equal within lengths;
+   (128 utterances x 512 frames), with and without a beam, on both
+   routes: the plan's cluster route (16 blocks an utterance, the DP
+   state in shared memory) and the device-memory route (``route=
+   "global"``): packed rows and end scores bit-equal within lengths, a
+   second call bit-identical, no (U, 3, PS, L) scratch on the cluster
+   route; each route's ms and microseconds a frame, the cluster size and
+   the co-resident cluster count;
 5. the slice: a synthetic corpus of 128 test utterances of about 400
    frames, an LSTM 4x1024 -> 1909 with numpy-seeded weights carried in
    through ``load_jax_params``, prior-subtracted ``rnn_log_posteriors``,
    ``decode_corpus``, MLF, PER. Both kernels' launch counts must be > 0
-   for that run. The plain LSTM's posteriors must agree within the
+   for that run, the Viterbi's on the cluster route and none on the
+   device-memory route. The plain LSTM's posteriors must agree within the
    stated tolerance, and the plain Viterbi's decode of the kernel run's
    posteriors must give identical segments and PER;
 6. a profiled repeat of the slice: device busy share and top device ops;
-   ``lstm_scan`` must have run as one device kernel a layer;
+   ``lstm_scan`` must have run as one device kernel a layer, the decode
+   as ``collapsed_viterbi_cluster_kernel`` and never as the
+   device-memory route's kernel;
 7. ``lstm_train_forward`` against its plain version at the training
    shapes (T=20, B=128, H=1024), f32 and bf16 proj: hs, c_T, h_T
    bit-equal to the ``lstm_scan`` kernel's (one kernel body) and within
@@ -116,7 +124,9 @@ Phases (each one that fails ends the run with a non-zero exit):
 22. ``cube_viterbi_forward`` against its plain version on phase 4's
     image and on a copy whose ends are (p, (p+1) mod P), which the
     collapsed kernel refuses, at phase 4's shapes, exact and with the
-    beam: packed rows and end scores bit-equal within lengths;
+    beam, on both routes as phase 4: packed rows and end scores
+    bit-equal within lengths, a second call bit-identical, each route's
+    ms and microseconds a frame;
 23. the decoder's backends on phase 5's LSTM posteriors: ``pallas``
     launches the cube kernel and not the collapsed one, ``xla`` launches
     no Viterbi kernel, and both give phase 5's segments and PER;
@@ -130,13 +140,13 @@ Phases (each one that fails ends the run with a non-zero exit):
     within 1e-3 in the log domain;
 25. the raw-audio serving slice: 128 seeded waveforms whose frame counts
     are the test utterances' lengths -> ``fbank_cuda`` -> ``cmn`` -> LSTM
-    4x1024 posteriors -> ``decode_corpus`` with ``backend="pallas"`` ->
-    MLF -> PER. ``fbank``, ``lstm_scan`` and ``cube_viterbi_forward``
-    must be launched; each utterance's ``fbank_cuda`` output must be
-    within 1e-3 of the plain ``fbank`` before CMN, the plain route (plain
-    fbank, plain LSTM) must give posteriors within POSTERIOR_ATOL, and the
-    plain cube Viterbi on the kernel run's posteriors identical segments
-    and PER.
+    4x1024 posteriors -> ``decode_corpus`` with ``backend="pallas"`` -> MLF
+    -> PER. ``fbank``, ``lstm_scan`` and ``cube_viterbi_forward`` must be
+    launched (the cube kernel on its cluster route); each utterance's
+    ``fbank_cuda`` output must be within 1e-3 of the plain ``fbank`` before
+    CMN, the plain route (plain fbank, plain LSTM) must give posteriors
+    within POSTERIOR_ATOL, and the plain cube Viterbi on the kernel run's
+    posteriors identical segments and PER.
 
 Output: progress lines, then the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -1742,6 +1752,89 @@ def irregular_ends(img):
     return dataclasses.replace(img, end_idxs=ends).validate()
 
 
+def viterbi_routes(torch, obj, forward, reference, capacity, lp, lens, tag,
+                   card):
+    """Phases 4 and 22: a Viterbi kernel's two routes on the same inputs,
+    the plan's cluster route and the device-memory route (``route=
+    "global"``), each bit-equal to the plain version within lengths and
+    bit-identical on a second call; the cluster route must allocate no
+    (U, 3, PS, lanes) scratch. Times both in turns (cluster, device
+    memory, device memory, cluster) and the plain version once; per
+    frame: the cluster route's time over the frames each co-resident
+    cluster walks, the device-memory route's over the longest utterance.
+    Returns {"cluster": ..., "global": ..., "plain_ms", "clusters"}."""
+    U, T, _ = lp.shape
+    mask = (torch.arange(T, device=lp.device)[None, :]
+            < lens[:, None].long())
+    frames, longest = int(lens.sum()), int(lens.max())
+    lanes = obj.tps.shape[2]
+    scratch = U * 3 * obj.PS * lanes * 8
+    outputs = U * T * (lanes + obj.P) * 4
+    plan = obj.plan
+    if plan.route != "cluster":
+        fail(f"{tag}: the plan took the {plan.route} route, not a cluster")
+    clusters = capacity(obj)
+    pr, er = reference(obj, lp, lens)
+    out = {"clusters": clusters, "cluster_size": plan.cluster}
+    for route, key in ((None, "cluster"), ("global", "global")):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        pk, ek = forward(obj, lp, lens, route=route)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        pk2, ek2 = forward(obj, lp, lens, route=route)
+        torch.cuda.synchronize()
+        bad_packed = int((pk != pr)[mask].sum())
+        bad_end = int(((ek != er).any(dim=2))[mask].sum())
+        err = float((ek - er).abs()[mask].max())
+        if bad_packed or bad_end:
+            fail(f"{tag}, {key} route: not bit-equal to the plain version: "
+                 f"{bad_packed} packed and {bad_end} end rows differ, max "
+                 f"|end diff| {err}")
+        if not (torch.equal(pk[mask], pk2[mask])
+                and torch.equal(ek[mask], ek2[mask])):
+            fail(f"{tag}, {key} route: a second call gave other bits")
+        if (peak - outputs >= scratch) == (key == "cluster"):
+            fail(f"{tag}, {key} route: allocated {peak} bytes, its outputs "
+                 f"{outputs}, the (U, 3, PS, lanes) scratch {scratch}")
+        out[key] = dict(err=err, peak_bytes=peak, ms=[])
+        del pk, ek, pk2, ek2
+    for route, key in ((None, "cluster"), ("global", "global"),
+                       ("global", "global"), (None, "cluster")):
+        out[key]["ms"].append(cuda_ms(torch, lambda: forward(
+            obj, lp, lens, route=route), 3))
+    for key in ("cluster", "global"):
+        r = out[key]
+        r["ms"] = sum(r["ms"]) / len(r["ms"])
+        r["us_frame"] = (r["ms"] * 1e3 * clusters / frames if key ==
+                         "cluster" else r["ms"] * 1e3 / longest)
+    out["plain_ms"] = cuda_ms(torch, lambda: reference(obj, lp, lens), 1,
+                              warm=False)
+    c, g = out["cluster"], out["global"]
+    log(f"[{tag}] U={U} T={T} frames={frames}: both routes bit-equal within "
+        f"lengths, second calls bit-identical; cluster route (c="
+        f"{plan.cluster}, {clusters} co-resident clusters) {c['ms']:.3f} ms"
+        f" = {c['us_frame']:.2f} us a frame, {c['peak_bytes'] / 1e6:.1f} MB "
+        f"allocated (outputs {outputs / 1e6:.1f}); device-memory route "
+        f"{g['ms']:.3f} ms = {g['us_frame']:.2f} us a frame, "
+        f"{g['peak_bytes'] / 1e6:.1f} MB allocated (scratch "
+        f"{scratch / 1e6:.1f}); plain "
+        f"{out['plain_ms']:.3f} ms [{card}]")
+    return out
+
+
+def route_entries(name, source, replaces, launches, res, bound_ms, by):
+    """The ``{"kernels": [...]}`` entries of a Viterbi kernel's two routes
+    (``name``, ``name.global``) from ``viterbi_routes``'s exact run."""
+    return [{"name": name + suffix, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches.get(name + suffix, 0),
+             "max_abs_err": res[key]["err"], "tolerance": 0.0,
+             "ms": res[key]["ms"], "plain_ms": res["plain_ms"],
+             "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
+            for suffix, key in (("", "cluster"), (".global", "global"))]
+
+
 def timed_decode(torch, dec, lp, offsets):
     """``decode_corpus`` of the test set through ``dec``: (results, ms,
     launches)."""
@@ -1785,9 +1878,7 @@ def decoder_audio_phases(torch, np, dev, card, img, corpus, lp_rand, lens,
     audio_s = float(lengths.sum()) / 100.0
     irr = irregular_ends(img)
 
-    # ---- 22. cube_viterbi_forward against its plain version ------------
-    mask = (torch.arange(lp_rand.shape[1], device=dev)[None, :]
-            < lens[:, None].long())
+    # ---- 22. cube_viterbi_forward's two routes against plain ----------
     cube = {}
     decs = {}
     for tag, im, beam in (("exact", img, None), ("beam", img, BEAM),
@@ -1795,27 +1886,11 @@ def decoder_audio_phases(torch, np, dev, card, img, corpus, lp_rand, lens,
                           ("irregular beam", irr, BEAM)):
         d = ViterbiDecoder(im, pip=20.0, lmw=1.0, beam=beam,
                            backend="pallas", device=dev)
-        cv = d._pallas_fwd
         decs[tag] = d
-        pk, ek = vcube.cube_viterbi_forward(cv, lp_rand, lens)
-        pr, er = vcube.cube_viterbi_reference(cv, lp_rand, lens)
-        torch.cuda.synchronize()
-        bad_packed = int((pk != pr)[mask].sum())
-        bad_end = int(((ek != er).any(dim=2))[mask].sum())
-        err = float((ek - er).abs()[mask].max())
-        if bad_packed or bad_end:
-            fail(f"cube_viterbi_forward ({tag}) not bit-equal to its plain "
-                 f"version: {bad_packed} packed and {bad_end} end rows "
-                 f"differ, max |end diff| {err}")
-        ms = cuda_ms(torch, lambda: vcube.cube_viterbi_forward(
-            cv, lp_rand, lens), 3)
-        plain_ms = cuda_ms(torch, lambda: vcube.cube_viterbi_reference(
-            cv, lp_rand, lens), 1, warm=False)
-        cube[tag] = dict(ms=ms, plain_ms=plain_ms, err=err)
-        log(f"[cube {tag}] U={lp_rand.shape[0]} T={lp_rand.shape[1]} frames"
-            f"={int(lens.sum())}: bit-equal within lengths; kernel {ms:.3f} "
-            f"ms, plain {plain_ms:.3f} ms [{card}]")
-        del pk, ek, pr, er
+        cube[tag] = viterbi_routes(
+            torch, d._pallas_fwd, vcube.cube_viterbi_forward,
+            vcube.cube_viterbi_reference, vcube.cube_cluster_capacity,
+            lp_rand, lens, f"cube {tag}", card)
     cv = decs["exact"]._pallas_fwd
     frames = int(lens.sum())
     cells = frames * cv.PS * cv.B
@@ -1826,10 +1901,10 @@ def decoder_audio_phases(torch, np, dev, card, img, corpus, lp_rand, lens,
     state_mb = lp_rand.shape[0] * 3 * cv.PS * cv.B * 8 / 1e6
     state_bytes = frames * 3 * cv.PS * cv.B * 8 * 2
     log(f"[cube] bound {cube_bound:.3f} ms ({cube_by}); DP state "
-        f"{state_mb:.1f} MB for {lp_rand.shape[0]} utterances, its traffic "
-        f"{state_bytes / 1e9:.1f} GB = "
-        f"{state_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at the HBM rate")
-    del mask
+        f"{state_mb:.1f} MB for {lp_rand.shape[0]} utterances, on the "
+        f"device-memory route its traffic {state_bytes / 1e9:.1f} GB = "
+        f"{state_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at the HBM rate, on "
+        f"the cluster route none")
     phase_done(22)
 
     # ---- 23. the decoder's backends on phase 5's posteriors ------------
@@ -1969,6 +2044,9 @@ def decoder_audio_phases(torch, np, dev, card, img, corpus, lp_rand, lens,
         for name in ("fbank", "lstm_scan", "cube_viterbi_forward"):
             if launches.get(name, 0) <= 0:
                 fail(f"the raw-audio path did not launch {name}")
+        if launches.get("cube_viterbi_forward.global", 0):
+            fail("the raw-audio path took the cube kernel's device-memory "
+                 "route, not the cluster route")
         if x.shape != (n_frames, DIM) or not np.isfinite(lp_a).all():
             fail(f"raw-audio features {x.shape} or posteriors malformed")
         if not all(r.segments for r in res_a):
@@ -2033,14 +2111,11 @@ def decoder_audio_phases(torch, np, dev, card, img, corpus, lp_rand, lens,
                          posterior_err=post_err,
                          launches=launches, **stages),
         phase_s=phase_s)
-    return [
-        {"name": "cube_viterbi_forward", "route": "cuda",
-         "source": "nnacousticmodeling_tpu_torch/csrc/viterbi_cube.cu",
-         "replaces": "nnacousticmodeling_tpu/decoder/viterbi_pallas.py:255",
-         "launches": launches["cube_viterbi_forward"],
-         "max_abs_err": cube["exact"]["err"], "tolerance": 0.0,
-         "ms": cube["exact"]["ms"], "plain_ms": cube["exact"]["plain_ms"],
-         "bound_ms": cube_bound, "bound_by": cube_by, "library_ms": None},
+    return route_entries(
+        "cube_viterbi_forward",
+        "nnacousticmodeling_tpu_torch/csrc/viterbi_cube.cu",
+        "nnacousticmodeling_tpu/decoder/viterbi_pallas.py:255", launches,
+        cube["exact"], cube_bound, cube_by) + [
         {"name": "fbank", "route": "cuda",
          "source": "nnacousticmodeling_tpu_torch/csrc/fbank.cu",
          "replaces": "nnacousticmodeling_tpu/ops/features.py:210",
@@ -2147,7 +2222,7 @@ def main():
         f"{lstm_bound:.3f} ms ({lstm_by}) [{card}]")
     del proj, wh, hs_k, hs_r, cudnn, x_lib
 
-    # ---- 4. collapsed_viterbi_forward against its plain version --------
+    # ---- 4. collapsed_viterbi_forward's two routes against plain -------
     t0 = time.perf_counter()
     img = make_synthetic_image(num_phones=PHONES, num_states=CLASSES,
                                pdf_tied_transitions=True)
@@ -2163,29 +2238,11 @@ def main():
     lp_rand = torch.from_numpy(np.log(rng.dirichlet(
         np.ones(CLASSES), size=(B_MAIN, T_MAIN))).astype(np.float32)).to(dev)
     lens = torch.from_numpy(lens_np).to(dev)
-    mask = (torch.arange(T_MAIN, device=dev)[None, :]
-            < lens[:, None].long())                         # (U, T)
-    vit = {}
-    for tag, d in (("exact", dec), ("beam", dec_beam)):
-        ckd = d._collapsed_fwd
-        pk, ek = vc.collapsed_viterbi_forward(ckd, lp_rand, lens)
-        pr, er = vc.collapsed_viterbi_reference(ckd, lp_rand, lens)
-        torch.cuda.synchronize()
-        bad_packed = int((pk != pr)[mask].sum())
-        bad_end = int(((ek != er).any(dim=2))[mask].sum())
-        err = float((ek - er).abs()[mask].max())
-        if bad_packed or bad_end:
-            fail(f"collapsed_viterbi_forward ({tag}) not bit-equal to its "
-                 f"plain version: {bad_packed} packed and {bad_end} end "
-                 f"rows differ, max |end diff| {err}")
-        ms = cuda_ms(torch, lambda: vc.collapsed_viterbi_forward(
-            ckd, lp_rand, lens), 3)
-        plain_ms = cuda_ms(torch, lambda: vc.collapsed_viterbi_reference(
-            ckd, lp_rand, lens), 1, warm=False)
-        vit[tag] = dict(ms=ms, plain_ms=plain_ms, err=err)
-        log(f"[viterbi {tag}] U={B_MAIN} T={T_MAIN} frames={int(lens.sum())}"
-            f": bit-equal within lengths; kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms [{card}]")
+    vit = {tag: viterbi_routes(
+        torch, d._collapsed_fwd, vc.collapsed_viterbi_forward,
+        vc.collapsed_viterbi_reference, vc.collapsed_cluster_capacity,
+        lp_rand, lens, f"viterbi {tag}", card)
+        for tag, d in (("exact", dec), ("beam", dec_beam))}
     frames = int(lens.sum())
     cells = frames * ck.PS * ck.L
     vit_ops = 13 * cells + 2 * frames * ck.PS * ck.Pp
@@ -2194,10 +2251,10 @@ def main():
                     + ck.lmq.numel() + 3 * ck.L + ck.Pp + ck.P) * 4)
     vit_bound, vit_by = bound(vit_bytes, vit_ops, F32_FLOPS)
     state_bytes = frames * 3 * ck.PS * ck.L * 8 * 2
-    log(f"[viterbi] bound {vit_bound:.3f} ms ({vit_by}); the design's DP "
-        f"state traffic alone is {state_bytes / 1e9:.1f} GB = "
-        f"{state_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at the HBM rate")
-    del mask
+    log(f"[viterbi] bound {vit_bound:.3f} ms ({vit_by}); the device-memory "
+        f"route's DP state traffic alone is {state_bytes / 1e9:.1f} GB = "
+        f"{state_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at the HBM rate; the "
+        f"cluster route keeps it in shared memory")
 
     # ---- 5. the slice --------------------------------------------------
     t0 = time.perf_counter()
@@ -2237,6 +2294,9 @@ def main():
         for name in ("lstm_scan", "collapsed_viterbi_forward"):
             if launches.get(name, 0) <= 0:
                 fail(f"the main path did not launch {name}")
+        if launches.get("collapsed_viterbi_forward.global", 0):
+            fail("the main path took the collapsed kernel's device-memory "
+                 "route, not the cluster route")
         if lp.shape != (lengths.sum(), CLASSES) or not np.isfinite(lp).all():
             fail(f"posteriors malformed: shape {lp.shape}")
         if not all(r.segments for r in results):
@@ -2279,16 +2339,26 @@ def main():
         decode_corpus(dec, lp_prof, offsets, batch=B_MAIN)
 
     wall_ms, busy_ms, top, counts = device_profile(
-        torch, serve, launches_of=("lstm_scan",))
+        torch, serve, launches_of=("lstm_scan", "collapsed_viterbi_cluster",
+                                   "collapsed_viterbi_kernel"))
     scan_kernels = counts["lstm_scan"]
     report["profile"] = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
-                             top_device_ms=top, lstm_scan_kernels=scan_kernels)
+                             top_device_ms=top, lstm_scan_kernels=scan_kernels,
+                             viterbi_kernels=counts)
     log_profile("profile", wall_ms, busy_ms, top, card)
     if scan_kernels != LAYERS:
         fail(f"the profiled serving run ran {scan_kernels} lstm_scan device "
              f"kernels, not one a layer ({LAYERS})")
+    if (counts["collapsed_viterbi_cluster"] <= 0
+            or counts["collapsed_viterbi_kernel"]):
+        fail(f"the profiled serving run's Viterbi device kernels: {counts}, "
+             f"not collapsed_viterbi_cluster_kernel alone")
+    vit_dev = sum(v for k, v in top.items()
+                  if "collapsed_viterbi_cluster" in k)
     log(f"[profile] lstm_scan: {scan_kernels} device kernels for {LAYERS} "
-        f"layers, one persistent launch a call")
+        f"layers, one persistent launch a call; the decode ran "
+        f"{counts['collapsed_viterbi_cluster']} collapsed_viterbi_cluster_"
+        f"kernel ({vit_dev:.2f} ms device) and no device-memory route")
     del net, dec_beam
 
     train_kernels = train_phases(torch, np, dev, card, corpus, report)
@@ -2314,16 +2384,12 @@ def main():
          "tolerance": LSTM_ATOL, "ms": lstm_ms, "plain_ms": lstm_plain_ms,
          "bound_ms": lstm_bound, "bound_by": lstm_by,
          "library_ms": lstm_lib_ms},
-        {"name": "collapsed_viterbi_forward", "route": "cuda",
-         "source": "nnacousticmodeling_tpu_torch/csrc/viterbi_collapsed.cu",
-         "replaces": "nnacousticmodeling_tpu/decoder/viterbi_collapsed.py"
-                     ":347",
-         "launches": launches["collapsed_viterbi_forward"],
-         "max_abs_err": vit["exact"]["err"], "tolerance": 0.0,
-         "ms": vit["exact"]["ms"], "plain_ms": vit["exact"]["plain_ms"],
-         "bound_ms": vit_bound, "bound_by": vit_by, "library_ms": None},
-    ] + train_kernels + gated_kernels + peephole_kernels
-        + decoder_audio_kernels}
+    ] + route_entries(
+        "collapsed_viterbi_forward",
+        "nnacousticmodeling_tpu_torch/csrc/viterbi_collapsed.cu",
+        "nnacousticmodeling_tpu/decoder/viterbi_collapsed.py:347", launches,
+        vit["exact"], vit_bound, vit_by) + train_kernels + gated_kernels
+        + peephole_kernels + decoder_audio_kernels}
     report["kernels"] = kernels_line["kernels"]
     report["total_s"] = time.perf_counter() - t_start
     print(f"[report] {json.dumps(report)}", file=sys.stderr)

@@ -1,0 +1,475 @@
+// The cluster route of the two triphone Viterbi forwards (collapsed and
+// dense-cube), for Hopper (sm_90a): one thread-block cluster decodes one
+// utterance, and the utterance's DP state stays in the cluster's shared
+// memory for all its frames.
+//
+// What bounds the device-memory route (viterbi_collapsed.cu,
+// viterbi_cube.cu). One block an utterance keeps the DP state -- (3
+// states, PS rows, L lanes) scores and entry times, 2.65 MB on the
+// synthetic 48-phone 1909-pdf image -- in device memory and reads and
+// writes it whole every frame. The TPU kernels kept it in VMEM; one SM's
+// 227 KB cannot hold it, but a cluster of 16 SMs can.
+//
+// The layout. A cluster of c blocks decodes utterance order[cluster]
+// (the caller hands the clusters out longest first). Block r owns the
+// lane slice [r W, (r + 1) W), W = L / c, for all 3 states and PS rows.
+// A warp owns 8 lanes (a chunk) and its four groups of 8 threads the
+// rows a = g, g + 4, ...: thread (g, jj) of chunk k handles cell (a =
+// 4 i + g, lane 8 k + jj) at row step i. Its scores and entry times
+// stay in the block's shared memory, one int2 a cell, indexed (i, k,
+// thread) so a warp's 32 cells are contiguous. A cell's tables come as
+// 32 bytes of records (six f32 transitions, three 16-bit pdf ids and,
+// for the collapsed kernel, its 16-bit entry source), an int4 and two
+// int2, laid out on the host in the same (i, global chunk, thread)
+// order, so each of a warp's record loads reads contiguous bytes. A
+// butterfly over the four groups picks the first maximum over left
+// contexts: the greater value, or on equal values the smaller row. For
+// finite values (NEG_INF is -1e20) that is the row and the value bits a
+// sequential strict-`>` walk from a = 0 gives.
+//
+// One cluster barrier a frame, split around half the frame's work. The
+// export of frame t depends only on frame t-1's states (state 2 reads
+// states 1 and 2), so a frame runs in two passes. Pass 1 updates states
+// 2 and 1 and the export, writes the block's exported slice and (with a
+// beam) its warps' maxima into its publish slot t % 2, and arrives at
+// barrier.cluster (release). Pass 2 updates state 0, whose entry reads
+// the exchanged row of frame t-1; then the block waits (acquire), reads
+// every peer's slot of frame t through distributed shared memory into
+// its own full row pc_t (double-buffered: pass 2 of frame t still read
+// pc_(t-1)), takes the frame's beam threshold from the peers' maxima,
+// and writes its share of end row t. Double slots make one barrier a
+// frame race-free: a peer overwrites slot t % 2 at frame t + 2, after
+// barrier t + 1, which this block reaches only after its reads of frame
+// t. A last barrier keeps every block resident until its peers' last
+// reads are done; every block of a cluster walks the same length, so the
+// barrier counts agree, and a zero-length utterance crosses only that
+// one. The cube kernel's beam clamps the exported row itself: a select
+// applied wherever the row is read.
+//
+// What bounds this route. With the state on chip, each cell still reads
+// its 32 bytes of records (36 with the collapsed kernel's entry score)
+// from L2 every frame -- 3.5 MB an utterance-frame on the synthetic
+// image, shared by every cluster -- beside its state's shared-memory
+// traffic and the gathers of the posterior and entry scores, all through
+// the SM's load/store pipe; each frame ends with the cluster barrier's
+// wait and a distributed-shared-memory gather of the L-float exported
+// row. (bench_viterbi_cluster.py splits a frame with the VIT_LEAVE_OUT
+// measurement builds.)
+//
+// Float order: each cell's operations are the device-memory route's (one
+// IEEE add a step, the observation added after the select, strict `>`),
+// with no multiply anywhere to contract; the posterior row of frame t+1
+// is staged by cp.async while frame t computes.
+
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+// Measurement builds only (bench_viterbi_cluster.py), whose values are
+// wrong: 1 reads every row step's records from row step 0 (L1 hits: no
+// L2 stream), 2 leaves out the cluster barrier and the exchange of the
+// exported row, 3 both. The package builds 0.
+#ifndef VIT_LEAVE_OUT
+#define VIT_LEAVE_OUT 0
+#endif
+
+namespace viterbi_cluster {
+
+namespace cg = cooperative_groups;
+
+constexpr float NEG_INF = -1.0e20f;
+constexpr float THR0 = -3.0e38f;
+constexpr int LANE_CHUNK = 8;     // lanes a warp
+constexpr int ROW_GROUPS = 4;     // row groups a warp (32 / LANE_CHUNK)
+constexpr int MAX_WARPS = 18;
+constexpr int MAX_THREADS = 32 * MAX_WARPS;
+constexpr int MAX_CLUSTER = 16;
+constexpr size_t SMEM_LIMIT = 232448;
+
+// The block's layout, mirrored by viterbi_cluster_plan (decoder/
+// viterbi_collapsed.py).
+__host__ __device__ inline int threads_of(int w) {
+  const int warps = w / LANE_CHUNK;
+  return 32 * (warps < MAX_WARPS ? warps : MAX_WARPS);
+}
+__host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
+inline size_t smem_bytes(int PS, int lanes, int S, int c) {
+  const int w = lanes / c;
+  return (size_t)3 * PS * w * 8               // state: (score, entry time)
+         + (size_t)2 * (lanes + PS) * 4       // exported rows pc (2, padded)
+         + (size_t)2 * w * 4                  // publish slots
+         + (size_t)2 * MAX_WARPS * 4          // published warp maxima
+         + 4 * 4                              // thresholds (2, padded)
+         + (size_t)2 * round4(S) * 4;         // posterior rows (2)
+}
+// 0 if c blocks of lanes / c lanes each can decode this geometry.
+inline int check_layout(int PS, int lanes, int S, int c) {
+  if (c < 1 || c > MAX_CLUSTER || lanes % c != 0 || PS % ROW_GROUPS != 0)
+    return (int)cudaErrorInvalidValue;
+  const int w = lanes / c;
+  if (w % LANE_CHUNK != 0 || smem_bytes(PS, lanes, S, c) > SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float clamp(float x, float thr) {
+  return (x >= thr) ? x : NEG_INF;
+}
+
+// The right-context-collapsed kernel's entry, export and end row.
+struct Collapsed {
+  const float* __restrict__ lmq;     // (n,) entry lm of each cell
+  const float* __restrict__ lmmax;   // (L,)
+  const float* __restrict__ lmend;   // (Pp,)
+  const int* __restrict__ pc0_map;   // (P,)
+  int pack;
+
+  __device__ int lane_ctx(int) const { return 0; }
+  __device__ int pc_slot(int e) const { return e; }
+  // ((pc[src] + lm) -> beam clamp) + pip; src < 0: no entry (0.0 + lm)
+  __device__ float entry(int, int, int idx, int src, const float* pc,
+                         float thr, int use_beam, float pip) const {
+    float q = (src >= 0 ? pc[src] : 0.0f) + __ldg(lmq + idx);
+    if (use_beam) q = clamp(q, thr);
+    return q + pip;
+  }
+  __device__ float exported(float best, int) const { return best; }
+  __device__ float beam_score(float v, int j) const {
+    return v + __ldg(lmmax + j);
+  }
+  __device__ int key(int a, int tt, int) const { return a * pack + tt + 1; }
+  __device__ float end_score(int p, const float* pc, float thr,
+                             int use_beam) const {
+    const int jl = __ldg(pc0_map + p);
+    const float e = pc[jl] + __ldg(lmend + jl);
+    return use_beam ? clamp(e, thr) : e;
+  }
+};
+
+// The dense-cube kernel's. Its beam clamps the exported row itself: a
+// select applied wherever the row is read (the entry, the end row). The
+// row is kept with its biphone rows P + 1 apart, so a warp's transposed
+// entry reads pc[b*P + a] (8 b's x 4 a's) fall on distinct banks but for
+// pairs.
+struct Cube {
+  const float* __restrict__ lm;        // (B,)
+  const int* __restrict__ tri_base;    // (B,)
+  const int* __restrict__ end_lane;    // (P,)
+  int P, a_coef;
+  static constexpr int TIME_PACK = 2048;
+
+  __device__ int lane_ctx(int j) const { return (j % P) * (P + 1); }
+  __device__ int pc_slot(int e) const { return e + e / P; }
+  // q[a, b] = p[b*P + a] (0.0 on pad rows), then + pip
+  __device__ float entry(int a, int ctx, int, int, const float* pc,
+                         float thr, int use_beam, float pip) const {
+    float q = 0.0f;
+    if (a < P) q = use_beam ? clamp(pc[ctx + a], thr) : pc[ctx + a];
+    return q + pip;
+  }
+  __device__ float exported(float best, int j) const {
+    return best + __ldg(lm + j);
+  }
+  __device__ float beam_score(float v, int) const { return v; }
+  __device__ int key(int a, int tt, int j) const {
+    return (a * a_coef + __ldg(tri_base + j)) * TIME_PACK + tt + 1;
+  }
+  __device__ float end_score(int p, const float* pc, float thr,
+                             int use_beam) const {
+    const float e = pc[pc_slot(__ldg(end_lane + p))];
+    return use_beam ? clamp(e, thr) : e;
+  }
+};
+
+template <class Pol>
+__device__ __forceinline__ void decode(
+    const Pol& pol, const float* __restrict__ lp,   // (U, T, S)
+    const int* __restrict__ lengths,                // (U,)
+    const int* __restrict__ order,                  // (U,) cluster -> u
+    const int* __restrict__ rec,                    // (8 PS L,) records
+    const float* __restrict__ p0,                   // (L,)
+    int* __restrict__ packed,                       // (U, T, L)
+    float* __restrict__ end,                        // (U, T, P)
+    int T, int S, int P, int PS, int L, float pip, float beam,
+    int use_beam) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int W = L / c;
+  const int S4 = round4(S);
+  const int lane0 = rank * W;
+  const int u = order[blockIdx.x / c];
+  const int len = min(lengths[u], T);
+  const int splane = PS * W;         // cells of one state in this block
+  const int pcn = L + PS;            // floats of one (padded) row pc
+  const size_t n = (size_t)PS * L;   // cells: records of each kind
+  const int4* __restrict__ rec12 = reinterpret_cast<const int4*>(rec);
+  const int2* __restrict__ rec3 = reinterpret_cast<const int2*>(rec + 4 * n);
+  const int2* __restrict__ rec0 = reinterpret_cast<const int2*>(rec + 6 * n);
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int2* st = reinterpret_cast<int2*>(smem_raw);                // (3, PS W)
+  float* pcl = reinterpret_cast<float*>(st + 3 * splane);      // (2, pcn)
+  float* pub = pcl + 2 * pcn;                                  // (2, W)
+  float* pubmax = pub + 2 * W;                                 // (2, 18)
+  float* thr_s = pubmax + 2 * MAX_WARPS;                       // 2 (+2)
+  float* lps = thr_s + 4;                                      // (2, S4)
+
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int nwarps = nt >> 5;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane / LANE_CHUNK;
+  const int jj = lane % LANE_CHUNK;
+  const int nchunks = W / LANE_CHUNK;
+  const int nk = L / LANE_CHUNK;     // chunks of the whole row
+  const int k0 = lane0 / LANE_CHUNK;
+  const int steps = PS / ROW_GROUPS;
+
+  const int2 init = make_int2(__float_as_int(NEG_INF), 0);
+  for (int e = tid; e < 3 * splane; e += nt) st[e] = init;
+  for (int j = tid; j < L; j += nt) pcl[pcn + pol.pc_slot(j)] = p0[j];
+  if (len > 0) {
+    const float* lp0 = lp + (size_t)u * T * S;
+    for (int k = tid; k < S; k += nt) lps[k] = lp0[k];
+  }
+  float thr = THR0;
+  __syncthreads();
+
+  // Frame t in two passes. States 1-2 and the export of frame t need
+  // only frame t-1's states, so they go first and are published; state
+  // 0's entry reads the exchanged row of frame t-1 (pc_prev), so its
+  // pass runs between this block's arrival at barrier t and its wait.
+  for (int t = 0; t < len; ++t) {
+    const int buf = t & 1;
+    const float* lpc = lps + buf * S4;
+    const float* pc_prev = pcl + (buf ^ 1) * pcn;
+    if (t + 1 < len) {
+      float* lpn = lps + (buf ^ 1) * S4;
+      const float* lpt = lp + ((size_t)u * T + t + 1) * S;
+      for (int k = tid; k < S; k += nt) cp_async4(lpn + k, lpt + k);
+    }
+    cp_async_commit();
+
+    // ---- pass 1: states 2 and 1, the export of frame t ----
+    float local = -INFINITY;
+    for (int k = warp; k < nchunks; k += nwarps) {
+      const int jl = k * LANE_CHUNK + jj;     // lane within the slice
+      const int j = lane0 + jl;               // lane of the row
+      float best = 0.0f;
+      int arg = 0, bt = 0;
+#pragma unroll 4
+      for (int i = 0; i < steps; ++i) {
+        const int idx =
+            (((VIT_LEAVE_OUT & 1 ? 0 : i * nk) + k0 + k) << 5) + lane;
+        const int si = ((i * nchunks + k) << 5) + lane;
+        const int4 r = __ldg(rec12 + idx);
+        const int2 r3 = __ldg(rec3 + idx);
+        const int2 c0 = st[si], c1 = st[splane + si], c2 = st[2 * splane + si];
+        const float old0 = __int_as_float(c0.x);
+        const float old1 = __int_as_float(c1.x);
+        const float old2 = __int_as_float(c2.x);
+
+        const float go2 = old1 + __int_as_float(r.w);
+        const float stay2 = old2 + __int_as_float(r.y);
+        const bool take2 = go2 > stay2;
+        const float pp2 =
+            (take2 ? go2 : stay2) + lpc[(unsigned)r3.y >> 16];
+        const int tt2 = take2 ? c1.y : c2.y;
+
+        const float go1 = old0 + __int_as_float(r.z);
+        const float stay1 = old1 + __int_as_float(r.x);
+        const bool take1 = go1 > stay1;
+        const float pp1 = (take1 ? go1 : stay1) + lpc[r3.y & 0xffff];
+        const int tt1 = take1 ? c0.y : c1.y;
+
+        st[splane + si] = make_int2(__float_as_int(pp1), tt1);
+        st[2 * splane + si] = make_int2(__float_as_int(pp2), tt2);
+
+        // export: first max over this group's rows (strict >, ascending a)
+        const float out = pp2 + __int_as_float(r3.x);
+        if (i == 0 || out > best) {
+          best = out;
+          arg = i * ROW_GROUPS + g;
+          bt = tt2;
+        }
+      }
+      // first max over the four groups: greater, or equal and smaller row
+#pragma unroll
+      for (int off = LANE_CHUNK; off < 32; off <<= 1) {
+        const float ob = __shfl_xor_sync(0xffffffffu, best, off);
+        const int oa = __shfl_xor_sync(0xffffffffu, arg, off);
+        const int ot = __shfl_xor_sync(0xffffffffu, bt, off);
+        if (ob > best || (ob == best && oa < arg)) {
+          best = ob;
+          arg = oa;
+          bt = ot;
+        }
+      }
+      if (g == 0) {
+        packed[((size_t)u * T + t) * L + j] = pol.key(arg, bt, j);
+        const float v = pol.exported(best, j);
+        pub[buf * W + jl] = v;
+        local = fmaxf(local, pol.beam_score(v, j));
+      }
+    }
+    if (use_beam) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        local = fmaxf(local, __shfl_xor_sync(0xffffffffu, local, off));
+      if (lane == 0) pubmax[buf * MAX_WARPS + warp] = local;
+    }
+#if !(VIT_LEAVE_OUT & 2)
+    cluster_arrive();    // frame t's slice and warp maxima published
+#endif
+
+    // ---- pass 2: state 0, entering from frame t-1's row ----
+    for (int k = warp; k < nchunks; k += nwarps) {
+      const int jl = k * LANE_CHUNK + jj;
+      const int ctx = pol.lane_ctx(lane0 + jl);
+#pragma unroll 4
+      for (int i = 0; i < steps; ++i) {
+        const int idx =
+            (((VIT_LEAVE_OUT & 1 ? 0 : i * nk) + k0 + k) << 5) + lane;
+        const int si = ((i * nchunks + k) << 5) + lane;
+        const int2 r = __ldg(rec0 + idx);
+        const int2 c0 = st[si];
+        const float p_in = pol.entry(i * ROW_GROUPS + g, ctx, idx,
+                                     r.y >> 16, pc_prev, thr, use_beam, pip);
+        const float stay0 = __int_as_float(c0.x) + __int_as_float(r.x);
+        const bool take0 = p_in > stay0;
+        const float pp0 = (take0 ? p_in : stay0) + lpc[r.y & 0xffff];
+        st[si] = make_int2(__float_as_int(pp0), take0 ? t - 1 : c0.y);
+      }
+    }
+#if !(VIT_LEAVE_OUT & 2)
+    cluster_wait();
+#endif
+
+    // ---- the exchange: row t (and its threshold) from every block ----
+    float* pc_t = pcl + buf * pcn;
+    for (int e = 4 * tid; e < (VIT_LEAVE_OUT & 2 ? 0 : L); e += 4 * nt) {
+      const int r = e / W;
+      const float4 v = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(pub + buf * W + (e - r * W), r));
+      pc_t[pol.pc_slot(e)] = v.x;
+      pc_t[pol.pc_slot(e + 1)] = v.y;
+      pc_t[pol.pc_slot(e + 2)] = v.z;
+      pc_t[pol.pc_slot(e + 3)] = v.w;
+    }
+    if (use_beam && warp == 0) {
+      // lane r < c reads block r's warp maxima: one mapping, no division
+      float m = -INFINITY;
+      if (lane < c) {
+        const float* peer = cluster.map_shared_rank(pubmax + buf * MAX_WARPS,
+                                                    lane);
+#pragma unroll
+        for (int w = 0; w < MAX_WARPS; ++w)
+          if (w < nwarps) m = fmaxf(m, peer[w]);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      if (lane == 0) thr_s[buf] = m - beam;
+    }
+    cp_async_wait_all();
+    __syncthreads();     // row t, its threshold, posterior row t + 1
+    if (use_beam) thr = thr_s[buf];
+
+    float* endt = end + ((size_t)u * T + t) * P;
+    for (int p = rank * nt + tid; p < P; p += c * nt)
+      endt[p] = pol.end_score(p, pc_t, thr, use_beam);
+  }
+  cluster_arrive();      // no block leaves while a peer reads its slots
+  cluster_wait();
+}
+
+// cudaLaunchKernelEx's configuration of a grid of `clusters` clusters of
+// c blocks; sets the kernel's shared-memory and cluster-size attributes.
+template <class K>
+cudaError_t configure(K kern, int clusters, int c, int threads, size_t smem,
+                      cudaStream_t stream, cudaLaunchAttribute* attr,
+                      cudaLaunchConfig_t* cfg) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if (c > 8) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = c;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(clusters * c);
+  cfg->blockDim = dim3(threads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// How many clusters of c blocks the card holds at once (into *out).
+template <class K>
+int capacity(K kern, int PS, int lanes, int S, int c, int* out) {
+  int err = check_layout(PS, lanes, S, c);
+  if (err) return err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  const int w = lanes / c;
+  err = (int)configure(kern, 1, c, threads_of(w), smem_bytes(PS, lanes, S, c),
+                       nullptr, &attr, &cfg);
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveClusters(out, kern, &cfg);
+}
+
+// One launch of U clusters of c blocks. Fails (never falls back) if the
+// layout is refused, the card holds no such cluster, or the launch fails.
+template <class K, class... Args>
+int launch(K kern, int U, int PS, int lanes, int S, int c, void* stream,
+           Args... args) {
+  int err = check_layout(PS, lanes, S, c);
+  if (err) return err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  const int w = lanes / c;
+  err = (int)configure(kern, U, c, threads_of(w),
+                       smem_bytes(PS, lanes, S, c),
+                       static_cast<cudaStream_t>(stream), &attr, &cfg);
+  if (err) return err;
+  int active = 0;
+  err = (int)cudaOccupancyMaxActiveClusters(&active, kern, &cfg);
+  if (err) return err;
+  if (active < 1) return (int)cudaErrorInvalidConfiguration;
+  err = (int)cudaLaunchKernelEx(&cfg, kern, args...);
+  if (err) return err;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace viterbi_cluster

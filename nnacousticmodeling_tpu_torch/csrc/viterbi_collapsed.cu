@@ -10,34 +10,34 @@
 // the beam threshold of frame t clamps frame t's end row and frame
 // t+1's entry).
 //
-// What bounds it on this card. Device-memory bytes. The DP state of one
-// utterance is (3 states, PS rows, L lanes) scores plus entry times: on
-// the synthetic 48-phone 1909-pdf image (PS = 48, L = 2304) that is
-// 2.65 MB, read and written every frame, so 128 utterances move about
-// 680 MB a frame; the per-frame arithmetic is a few adds and compares a
-// cell. The TPU kernel kept this state in VMEM; an SM's 227 KB of shared
-// memory holds no utterance's state.
+// Two routes, chosen by the host's viterbi_cluster_plan from the image's
+// size, never as a fallback:
 //
-// What this design does about it. One block per utterance walks its
-// frames in order up to its own length (frames past the length are not
-// computed; their rows are left unwritten), so the frame-to-frame
-// dependency is a __syncthreads, not a launch. The state lives in
-// device memory laid out lane-fastest, so each thread owns lanes and
-// reads and writes them coalesced while it walks the left contexts
-// a = 0..PS-1 in order: the running strict-`>` maximum gives the first
-// max and its key with no cross-thread reduction. Per frame the block
-// stages the utterance's posterior row (S floats) and the previous
-// exported row pc (L floats, double-buffered) in shared memory; the
-// observation is a gather lp[pdf[s, a, j]] from that row (no per-frame
-// table of distinct-pdf scores is built), and the entry is the exact
-// gather pc[src[a, j % Pp]] that replaces the TPU kernel's one-hot
-// matmul. The beam's row maximum is one block reduction a frame.
-// Keeping the state on chip (clusters, fewer bytes per cell) is later
-// work.
+// * the cluster route, collapsed_viterbi_cluster (viterbi_cluster.cuh
+//   says what bounds the other route and what this design does about
+//   it): one thread-block cluster an utterance keeps the DP state in its
+//   blocks' shared memory, one cluster barrier a frame;
+// * the device-memory route, collapsed_viterbi_kernel below, for images
+//   whose state no cluster of at most 16 blocks holds: one block per
+//   utterance walks its frames with the state in device memory laid out
+//   lane-fastest; each thread owns lanes and walks the left contexts
+//   a = 0..PS-1 in order, so the running strict-`>` maximum gives the
+//   first max with no cross-thread reduction. Per frame the block stages
+//   the posterior row (S floats) and the previous exported row pc (L
+//   floats, double-buffered) in shared memory; the beam's row maximum is
+//   one block reduction a frame. It moves the whole state (2.65 MB an
+//   utterance on the synthetic 48-phone image) through device memory
+//   every frame.
+//
+// Both read the observation as the gather lp[pdf[s, a, j]] (no per-frame
+// table of distinct-pdf scores) and the entry as the exact gather
+// pc[src[a, j % Pp]] that replaces the TPU kernel's one-hot matmul.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "viterbi_cluster.cuh"
 
 namespace {
 
@@ -172,11 +172,31 @@ collapsed_viterbi_kernel(const float* __restrict__ lp,       // (U, T, S)
   }
 }
 
+__global__ void __launch_bounds__(viterbi_cluster::MAX_THREADS, 1)
+collapsed_viterbi_cluster_kernel(const float* __restrict__ lp,
+                                 const int* __restrict__ lengths,
+                                 const int* __restrict__ order,
+                                 const int* __restrict__ rec,
+                                 const float* __restrict__ lmq,
+                                 const float* __restrict__ lmmax,
+                                 const float* __restrict__ lmend,
+                                 const float* __restrict__ p0,
+                                 const int* __restrict__ pc0_map,
+                                 int* __restrict__ packed,
+                                 float* __restrict__ end, int T, int S,
+                                 int P, int PS, int L, int pack, float pip,
+                                 float beam, int use_beam) {
+  const viterbi_cluster::Collapsed pol{lmq, lmmax, lmend, pc0_map, pack};
+  viterbi_cluster::decode(pol, lp, lengths, order, rec, p0, packed, end, T,
+                          S, P, PS, L, pip, beam, use_beam);
+}
+
 }  // namespace
 
-// One block per utterance. pp/tt are (U, 3, PS, L) scratch the kernel
-// initialises; packed (U, T, L) and end (U, T, P) rows t < lengths[u]
-// are written. Returns the cudaError_t of the launch.
+// The device-memory route. One block per utterance. pp/tt are (U, 3,
+// PS, L) scratch the kernel initialises; packed (U, T, L) and end (U, T,
+// P) rows t < lengths[u] are written. Returns the cudaError_t of the
+// launch.
 extern "C" int collapsed_viterbi_forward(
     const void* lp, const void* lengths, const void* pdf, const void* tps,
     const void* src, const void* lmq, const void* lmmax, const void* lmend,
@@ -203,4 +223,33 @@ extern "C" int collapsed_viterbi_forward(
       static_cast<int*>(packed), static_cast<float*>(end), T, S, P, PS, L,
       Pp, pack, pip, beam, use_beam);
   return (int)cudaGetLastError();
+}
+
+// The cluster route: U clusters of c blocks; cluster i decodes utterance
+// order[i]. rec (8 PS L,) int32 and lmq (PS L,) are the cells' records
+// in the order of viterbi_cluster.cuh; packed (U, T, L) and end (U, T, P)
+// rows t < lengths[u] are written; no scratch. Returns the cudaError_t of
+// the layout check, the co-residency query or the launch.
+extern "C" int collapsed_viterbi_cluster(
+    const void* lp, const void* lengths, const void* order, const void* rec,
+    const void* lmq, const void* lmmax, const void* lmend, const void* p0,
+    const void* pc0_map, void* packed, void* end, int U, int T, int S,
+    int P, int PS, int L, int pack, float pip, float beam, int use_beam,
+    int c, void* stream) {
+  if (U == 0 || T == 0) return 0;
+  return viterbi_cluster::launch(
+      collapsed_viterbi_cluster_kernel, U, PS, L, S, c, stream,
+      static_cast<const float*>(lp), static_cast<const int*>(lengths),
+      static_cast<const int*>(order), static_cast<const int*>(rec),
+      static_cast<const float*>(lmq), static_cast<const float*>(lmmax),
+      static_cast<const float*>(lmend), static_cast<const float*>(p0),
+      static_cast<const int*>(pc0_map), static_cast<int*>(packed),
+      static_cast<float*>(end), T, S, P, PS, L, pack, pip, beam, use_beam);
+}
+
+// How many clusters of c blocks the card holds at once for this geometry.
+extern "C" int collapsed_viterbi_cluster_capacity(int PS, int L, int S,
+                                                  int c, int* out) {
+  return viterbi_cluster::capacity(collapsed_viterbi_cluster_kernel, PS, L,
+                                   S, c, out);
 }

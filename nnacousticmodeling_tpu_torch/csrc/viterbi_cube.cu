@@ -20,34 +20,37 @@
 // observation of a cell is lp[pdf[s, a, j]], the pdf the TPU kernel's
 // sublane gathers selected. No matmul and no TF32 is left.
 //
-// What bounds it on this card. Device-memory bytes. The DP state of one
-// utterance is (3 states, PS rows, B = P^2 lanes) scores plus entry
-// times: on the synthetic 48-phone 1909-pdf image (PS = 48, B = 2304)
-// that is 2.65 MB, read and written every frame, with six transition
-// planes and three pdf planes (3.98 MB, shared by all utterances and
-// L2-resident). The arithmetic is ~13 operations a cell a frame (6 adds,
-// 4 compares, 3 selects of scores and times, the export's compare): the
-// bound by operations is the larger of the two bounds, but the state's
-// bytes are what this design spends its time on. The TPU kernel kept the
-// state in VMEM; an SM's 227 KB of shared memory holds no utterance's
-// state.
+// Two routes, chosen by the host's viterbi_cluster_plan from the image's
+// size, never as a fallback:
 //
-// What this design does about it. The collapsed kernel's shape: one
-// block per utterance walks its frames in order up to its own length
-// (rows at or past the length are left unwritten, the TPU kernel's
-// chunk-skip contract), so the frame-to-frame dependency is a
-// __syncthreads, not a launch. The state lives in device memory laid out
-// lane-fastest: each thread owns lanes and walks the rows a = 0..PS-1 in
-// order, so its loads and stores are coalesced and the running strict-`>`
-// maximum gives the first max with no cross-thread reduction. Per frame
-// the block stages the utterance's posterior row (S floats) and the
-// previous exported row (B floats, double-buffered) in shared memory; the
-// beam's row maximum is one block reduction a frame. Keeping the state on
-// chip is later work.
+// * the cluster route, cube_viterbi_cluster (viterbi_cluster.cuh says
+//   what bounds the other route and what this design does about it): one
+//   thread-block cluster an utterance keeps the DP state in its blocks'
+//   shared memory, one cluster barrier a frame; the beam clamp pnew >=
+//   rowmax - beam becomes a select applied as the exported row is read,
+//   for the next frame's entry and for the end row (a select changes no
+//   bits);
+// * the device-memory route, cube_viterbi_kernel below, for images whose
+//   state no cluster of at most 16 blocks holds (or whose lane count no
+//   cluster splits into slices of a multiple of 8 lanes): one block per
+//   utterance walks its frames up to its own length (rows at or past the
+//   length are left unwritten, the TPU kernel's chunk-skip contract) with
+//   the state in device memory laid out lane-fastest. Each thread owns
+//   lanes and walks the rows a = 0..PS-1 in order, so its loads and
+//   stores are coalesced and the running strict-`>` maximum gives the
+//   first max with no cross-thread reduction. Per frame the block stages
+//   the posterior row (S floats) and the previous exported row (B floats,
+//   double-buffered) in shared memory; the beam's row maximum is one
+//   block reduction a frame. It moves the whole state (2.65 MB an
+//   utterance on the synthetic 48-phone 1909-pdf image, with six
+//   transition planes and three pdf planes, 3.98 MB, from L2) every
+//   frame.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "viterbi_cluster.cuh"
 
 namespace {
 
@@ -177,11 +180,30 @@ cube_viterbi_kernel(const float* __restrict__ lp,        // (U, T, S)
   }
 }
 
+__global__ void __launch_bounds__(viterbi_cluster::MAX_THREADS, 1)
+cube_viterbi_cluster_kernel(const float* __restrict__ lp,
+                            const int* __restrict__ lengths,
+                            const int* __restrict__ order,
+                            const int* __restrict__ rec,
+                            const float* __restrict__ lm,
+                            const float* __restrict__ p0,
+                            const int* __restrict__ tri_base,
+                            const int* __restrict__ end_lane,
+                            int* __restrict__ packed,
+                            float* __restrict__ end, int T, int S, int P,
+                            int PS, int B, int a_coef, float pip, float beam,
+                            int use_beam) {
+  const viterbi_cluster::Cube pol{lm, tri_base, end_lane, P, a_coef};
+  viterbi_cluster::decode(pol, lp, lengths, order, rec, p0, packed, end, T,
+                          S, P, PS, B, pip, beam, use_beam);
+}
+
 }  // namespace
 
-// One block per utterance. pp/tt are (U, 3, PS, B) scratch the kernel
-// initialises; packed (U, T, B) and end (U, T, P) rows t < lengths[u]
-// are written. Returns the cudaError_t of the launch.
+// The device-memory route. One block per utterance. pp/tt are (U, 3,
+// PS, B) scratch the kernel initialises; packed (U, T, B) and end (U, T,
+// P) rows t < lengths[u] are written. Returns the cudaError_t of the
+// launch.
 extern "C" int cube_viterbi_forward(
     const void* lp, const void* lengths, const void* pdf, const void* tps,
     const void* lm, const void* p0, const void* tri_base,
@@ -207,4 +229,33 @@ extern "C" int cube_viterbi_forward(
       static_cast<int*>(packed), static_cast<float*>(end), T, S, P, PS, B,
       a_coef, pip, beam, use_beam);
   return (int)cudaGetLastError();
+}
+
+// The cluster route: U clusters of c blocks; cluster i decodes utterance
+// order[i]. rec (8 PS B,) int32 are the cells' records in the order of
+// viterbi_cluster.cuh; packed (U, T, B) and end (U, T, P) rows t <
+// lengths[u] are written; no scratch. Returns the cudaError_t of the
+// layout check, the co-residency query or the launch.
+extern "C" int cube_viterbi_cluster(
+    const void* lp, const void* lengths, const void* order, const void* rec,
+    const void* lm, const void* p0, const void* tri_base,
+    const void* end_lane, void* packed, void* end, int U, int T, int S,
+    int P, int PS, int B, int a_coef, float pip, float beam, int use_beam,
+    int c, void* stream) {
+  if (U == 0 || T == 0) return 0;
+  return viterbi_cluster::launch(
+      cube_viterbi_cluster_kernel, U, PS, B, S, c, stream,
+      static_cast<const float*>(lp), static_cast<const int*>(lengths),
+      static_cast<const int*>(order), static_cast<const int*>(rec),
+      static_cast<const float*>(lm), static_cast<const float*>(p0),
+      static_cast<const int*>(tri_base), static_cast<const int*>(end_lane),
+      static_cast<int*>(packed), static_cast<float*>(end), T, S, P, PS, B,
+      a_coef, pip, beam, use_beam);
+}
+
+// How many clusters of c blocks the card holds at once for this geometry.
+extern "C" int cube_viterbi_cluster_capacity(int PS, int B, int S, int c,
+                                             int* out) {
+  return viterbi_cluster::capacity(cube_viterbi_cluster_kernel, PS, B, S, c,
+                                   out);
 }

@@ -393,7 +393,10 @@ class ViterbiDecoder:
             if hop % _BACKTRACE_SYNC_EVERY == 0 and not bool((t >= 0).any()):
                 break
             active = t >= 0
-            entry = packed[rows, t.clamp(min=0), lane_of(cur)].long()
+            # a finished (or empty) utterance reads a row the kernels may
+            # have left unwritten: give its step a harmless entry (tri 0)
+            entry = torch.where(
+                active, packed[rows, t.clamp(min=0), lane_of(cur)].long(), 1)
             tri, t_new, nxt = step(entry, cur)
             row = torch.stack([t_new + 1, t + 1, tri], dim=1).to(torch.int32)
             slot = k.clamp(max=T - 1)

@@ -24,18 +24,28 @@ Outputs are those of the TPU kernel's ``_forward_impl``: packed
 backpointers (U, T, L) int32 in collapsed-lane space, ``a* * pack +
 t_entry + 1``, and end scores (U, T, P) float32, bit-identical to the
 XLA scan path for every frame t < lengths[u].
+
+The kernel has two routes, and ``viterbi_cluster_plan`` (shared with
+the dense-cube kernel) picks one from the image's size: the cluster
+route keeps each utterance's DP state in the shared memory of a cluster
+of at most 16 blocks (``csrc/viterbi_cluster.cuh``); the device-memory
+route, for images whose state no such cluster holds, keeps it in a
+(U, 3, PS, L) scratch. ``kernels.launches`` counts them apart, as
+``collapsed_viterbi_forward`` and ``collapsed_viterbi_forward.global``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import kernels
+from ..ops.rnn_cuda import SMEM_LIMIT
 
 NEG_INF = -1.0e20
 TIME_PACK = 2048
@@ -43,6 +53,98 @@ TIME_PACK = 2048
 THR0 = -3.0e38
 #: classes per pseudo-center (the JAX package's default ``cap``)
 CAP = 8
+
+#: csrc/viterbi_cluster.cuh: the cluster sizes tried, in order; the lanes
+#: of a warp and its row groups (a warp owns 8 lanes, each group of 8
+#: threads every fourth row); the warps a block at most
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+LANE_CHUNK = 8
+ROW_GROUPS = 4
+MAX_WARPS = 18
+
+
+@dataclass(frozen=True)
+class ViterbiPlan:
+    """The route of a Viterbi forward (``"cluster"`` or ``"global"``, the
+    device-memory route) and, on the cluster route, its layout: ``cluster``
+    blocks an utterance, each owning ``slice`` lanes of every state and
+    row, with ``threads`` threads and ``smem_bytes`` of shared memory."""
+    route: str
+    cluster: int = 0
+    slice: int = 0
+    threads: int = 0
+    smem_bytes: int = 0
+
+
+def cluster_smem_bytes(ps: int, lanes: int, s: int, c: int) -> int:
+    """Shared memory of one cluster-route block (``smem_bytes`` of
+    csrc/viterbi_cluster.cuh): its state slice (score and entry time a
+    cell), two full exported rows padded by ``ps``, two publish slots,
+    two sets of published warp maxima, two thresholds (padded to four)
+    and two posterior rows."""
+    w = lanes // c
+    return (3 * ps * w * 8 + 2 * (lanes + ps) * 4 + 2 * w * 4
+            + 2 * MAX_WARPS * 4 + 16 + 2 * _ceil(s, 4) * 4)
+
+
+def viterbi_cluster_plan(ps: int, lanes: int, s: int,
+                         smem_limit: int = SMEM_LIMIT) -> ViterbiPlan:
+    """Lay out a Viterbi forward of ``ps`` rows, ``lanes`` lanes and ``s``
+    pdfs: the smallest cluster in ``CLUSTER_SIZES`` whose blocks each
+    hold a slice of a multiple of ``LANE_CHUNK`` lanes in ``smem_limit``
+    bytes (fewer blocks a cluster, more utterances at once); the
+    device-memory route where none does. Pure host arithmetic."""
+    if ps % ROW_GROUPS == 0:
+        for c in CLUSTER_SIZES:
+            w = lanes // c
+            if lanes % c or w % LANE_CHUNK:
+                continue
+            smem = cluster_smem_bytes(ps, lanes, s, c)
+            if smem <= smem_limit:
+                return ViterbiPlan("cluster", c, w,
+                                   32 * min(w // LANE_CHUNK, MAX_WARPS), smem)
+    return ViterbiPlan("global")
+
+
+def cell_order(x: np.ndarray) -> np.ndarray:
+    """A (ps, lanes) plane in the cluster route's record order: row step
+    i = a // 4, lane chunk j // 8, then the warp's thread (a % 4) * 8 + j
+    % 8, so the 32 cells a warp handles at one row step are contiguous."""
+    ps, lanes = x.shape
+    return np.ascontiguousarray(x.reshape(
+        ps // ROW_GROUPS, ROW_GROUPS, lanes // LANE_CHUNK, LANE_CHUNK
+    ).transpose(0, 2, 1, 3).reshape(-1))
+
+
+def cluster_records(pdf: np.ndarray, tps: np.ndarray,
+                    src: Optional[np.ndarray] = None) -> np.ndarray:
+    """The cluster route's cell records, each kind in ``cell_order``, as
+    one (8 * cells,) int32 array: the states-1-2 records (transition
+    planes 1-4, f32 bits; an int4 a cell), the export records (plane 5,
+    pdf1 | pdf2 << 16; an int2) and the state-0 records (plane 0, pdf0 |
+    src << 16; an int2). ``src`` is the collapsed kernel's entry source
+    lane (-1 for none), 0 for the cube kernel."""
+    if pdf.max() >= 1 << 16 or (src is not None and src.max() >= 1 << 15):
+        raise UnsupportedImage("pdf ids or lanes too many for 16 bits")
+    bits = lambda x: cell_order(  # noqa: E731
+        np.ascontiguousarray(x, np.float32)).view(np.int32)
+    low = lambda x: cell_order(x).astype(np.int64) & 0xFFFF  # noqa: E731
+    pair = lambda lo, hi: (lo | hi << 16).astype(  # noqa: E731
+        np.uint32).view(np.int32)
+    hi = low(src) if src is not None else 0
+    return np.concatenate([
+        np.stack([bits(tps[q]) for q in (1, 2, 3, 4)], axis=1).reshape(-1),
+        np.stack([bits(tps[5]), pair(low(pdf[1]), low(pdf[2]))],
+                 axis=1).reshape(-1),
+        np.stack([bits(tps[0]), pair(low(pdf[0]), hi)], axis=1).reshape(-1)])
+
+
+def longest_first(lengths: torch.Tensor) -> torch.Tensor:
+    """The utterances by descending length (ties in index order), int32 on
+    ``lengths``' device: cluster i of the cluster route decodes
+    utterance ``order[i]``, so the longest start first."""
+    return torch.argsort(lengths, descending=True, stable=True).to(
+        torch.int32)
 
 
 class UnsupportedImage(ValueError):
@@ -272,6 +374,14 @@ class CollapsedViterbi:
         self.lmmax = as_t(lmmax, torch.float32)       # (L,)
         self.lmend = as_t(lmend, torch.float32)       # (Pp,)
         self.p0 = as_t(p0, torch.float32)             # (L,)
+        self.plan = viterbi_cluster_plan(PS, L, self.S)
+        if self.plan.route == "cluster":
+            lane_bp_cells = np.broadcast_to(lane_bp, (PS, L))
+            src_cells = np.take_along_axis(src, lane_bp_cells, axis=1)
+            self.records = as_t(cluster_records(pdf_plane, tps, src_cells),
+                                torch.int32)          # (8 PS L,)
+            self.lmq_cells = as_t(cell_order(np.take_along_axis(
+                lmq, lane_bp_cells, axis=1)), torch.float32)  # (PS L,)
 
     # ------------------------------------------------------------------
     def packed_to_full(self, packed_c: np.ndarray) -> np.ndarray:
@@ -384,56 +494,122 @@ def collapsed_viterbi_reference(ck: CollapsedViterbi, lp: torch.Tensor,
 _ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                 ctypes.c_void_p])
+_CLUSTER_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+                     + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_void_p])
+_CAPACITY_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
 
 
 def _lib():
     lib = kernels.load("viterbi_collapsed")
     lib.collapsed_viterbi_forward.argtypes = _ARGTYPES
     lib.collapsed_viterbi_forward.restype = ctypes.c_int
+    lib.collapsed_viterbi_cluster.argtypes = _CLUSTER_ARGTYPES
+    lib.collapsed_viterbi_cluster.restype = ctypes.c_int
+    lib.collapsed_viterbi_cluster_capacity.argtypes = _CAPACITY_ARGTYPES
+    lib.collapsed_viterbi_cluster_capacity.restype = ctypes.c_int
     return lib
 
 
-def collapsed_viterbi_forward(ck: CollapsedViterbi, lp: torch.Tensor,
-                              lengths: torch.Tensor
-                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """CUDA kernel wrapper (``csrc/viterbi_collapsed.cu``): one block per
-    utterance walks its frames up to its length. Rows past an
-    utterance's length are left unwritten."""
+def cluster_capacity(query, ps: int, lanes: int, s: int,
+                     plan: ViterbiPlan) -> int:
+    """How many clusters of ``plan`` the card holds at once, from a
+    ``*_cluster_capacity`` entry point ``query`` (raises if it fails)."""
+    out = ctypes.c_int(0)
+    kernels.check(query(ps, lanes, s, plan.cluster, ctypes.byref(out)),
+                  "cluster capacity query")
+    return out.value
+
+
+def collapsed_cluster_capacity(ck: CollapsedViterbi) -> int:
+    """Clusters of ``ck``'s plan the card holds at once."""
+    return cluster_capacity(_lib().collapsed_viterbi_cluster_capacity,
+                            ck.PS, ck.L, ck.S, ck.plan)
+
+
+def _route(name: str, plan: ViterbiPlan, route: Optional[str]
+           ) -> ViterbiPlan:
+    """``plan``, or with ``route="global"`` the device-memory route (card
+    tests and chip_smoke.py time and check it on images the plan gives a
+    cluster)."""
+    if route is None:
+        return plan
+    if route == "global":
+        return ViterbiPlan("global")
+    raise ValueError(f"{name}: route must be None or 'global', got "
+                     f"{route!r}")
+
+
+def _check_lp(name: str, tables: torch.Tensor, s: int, lp: torch.Tensor,
+              lengths: torch.Tensor) -> None:
     if lp.device.type != "cuda":
-        raise ValueError(f"collapsed_viterbi_forward: lp on {lp.device}, "
-                         f"needs a CUDA tensor")
-    if ck.tps.device != lp.device:
-        raise ValueError(f"collapsed_viterbi_forward: tables on "
-                         f"{ck.tps.device}, lp on {lp.device}")
-    if lp.dtype != torch.float32 or lp.dim() != 3 or lp.shape[2] != ck.S:
-        raise ValueError(f"collapsed_viterbi_forward: lp must be float32 "
-                         f"(U, T, {ck.S}), got {lp.dtype} "
-                         f"{tuple(lp.shape)}")
+        raise ValueError(f"{name}: lp on {lp.device}, needs a CUDA tensor")
+    if tables.device != lp.device:
+        raise ValueError(f"{name}: tables on {tables.device}, lp on "
+                         f"{lp.device}")
+    if lp.dtype != torch.float32 or lp.dim() != 3 or lp.shape[2] != s:
+        raise ValueError(f"{name}: lp must be float32 (U, T, {s}), got "
+                         f"{lp.dtype} {tuple(lp.shape)}")
     if not lp.is_contiguous():
-        raise ValueError("collapsed_viterbi_forward: lp must be contiguous")
-    U, T, S = lp.shape
-    if lengths.shape != (U,) or lengths.dtype != torch.int32 \
+        raise ValueError(f"{name}: lp must be contiguous")
+    if lengths.shape != (lp.shape[0],) or lengths.dtype != torch.int32 \
             or lengths.device != lp.device:
-        raise ValueError("collapsed_viterbi_forward: lengths must be "
-                         "int32 (U,) on lp's device")
-    if T >= ck.pack - 1:
-        raise ValueError(f"{T} frames need a pack factor > {ck.pack}")
-    PS, L, Pp, P = ck.PS, ck.L, ck.Pp, ck.P
+        raise ValueError(f"{name}: lengths must be int32 (U,) on lp's "
+                         f"device")
+
+
+def collapsed_viterbi_forward(ck: CollapsedViterbi, lp: torch.Tensor,
+                              lengths: torch.Tensor,
+                              route: Optional[str] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """CUDA kernel wrapper (``csrc/viterbi_collapsed.cu``) on ``ck.plan``'s
+    route: one cluster (or, on the device-memory route, one block) per
+    utterance walks its frames up to its length. Rows past an
+    utterance's length are left unwritten. ``route="global"`` forces the
+    device-memory route (tests and chip_smoke.py)."""
+    name = "collapsed_viterbi_forward"
+    _check_lp(name, ck.tps, ck.S, lp, lengths)
+    if lp.shape[1] >= ck.pack - 1:
+        raise ValueError(f"{lp.shape[1]} frames need a pack factor > "
+                         f"{ck.pack}")
+    stream = torch.cuda.current_stream(lp.device).cuda_stream
+    return _collapsed_launch(ck, lp, lengths, _route(name, ck.plan, route),
+                             _lib(), stream)
+
+
+def _collapsed_launch(ck: CollapsedViterbi, lp: torch.Tensor,
+                      lengths: torch.Tensor, plan: ViterbiPlan, lib, stream
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The outputs (and, on the device-memory route, the scratch) of one
+    launch of ``plan``'s route through ``lib``'s entry points."""
+    U, T, S = lp.shape
+    PS, L, P = ck.PS, ck.L, ck.P
     dev = lp.device
     pc0 = ck.pc0_map.to(torch.int32)
-    pp = torch.empty((U, 3, PS, L), dtype=torch.float32, device=dev)
-    tt = torch.empty((U, 3, PS, L), dtype=torch.int32, device=dev)
     packed = torch.empty((U, T, L), dtype=torch.int32, device=dev)
     end = torch.empty((U, T, P), dtype=torch.float32, device=dev)
-    beam = ck._beam if ck._beam is not None else 0.0
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    status = _lib().collapsed_viterbi_forward(
-        lp.data_ptr(), lengths.data_ptr(), ck.pdf.data_ptr(),
-        ck.tps.data_ptr(), ck.src.data_ptr(), ck.lmq.data_ptr(),
-        ck.lmmax.data_ptr(), ck.lmend.data_ptr(), ck.p0.data_ptr(),
-        pc0.data_ptr(), pp.data_ptr(), tt.data_ptr(), packed.data_ptr(),
-        end.data_ptr(), U, T, S, P, PS, L, Pp, ck.pack,
-        ck._pip, beam, int(ck._beam is not None), stream)
-    kernels.check(status, "collapsed_viterbi_forward")
-    kernels.launches["collapsed_viterbi_forward"] += 1
+    use_beam = int(ck._beam is not None)
+    beam = ck._beam if use_beam else 0.0
+    if plan.route == "cluster":
+        order = longest_first(lengths)
+        status = lib.collapsed_viterbi_cluster(
+            lp.data_ptr(), lengths.data_ptr(), order.data_ptr(),
+            ck.records.data_ptr(), ck.lmq_cells.data_ptr(),
+            ck.lmmax.data_ptr(), ck.lmend.data_ptr(), ck.p0.data_ptr(),
+            pc0.data_ptr(), packed.data_ptr(), end.data_ptr(), U, T, S, P,
+            PS, L, ck.pack, ck._pip, beam, use_beam, plan.cluster, stream)
+        name = "collapsed_viterbi_forward"
+    else:
+        pp = torch.empty((U, 3, PS, L), dtype=torch.float32, device=dev)
+        tt = torch.empty((U, 3, PS, L), dtype=torch.int32, device=dev)
+        status = lib.collapsed_viterbi_forward(
+            lp.data_ptr(), lengths.data_ptr(), ck.pdf.data_ptr(),
+            ck.tps.data_ptr(), ck.src.data_ptr(), ck.lmq.data_ptr(),
+            ck.lmmax.data_ptr(), ck.lmend.data_ptr(), ck.p0.data_ptr(),
+            pc0.data_ptr(), pp.data_ptr(), tt.data_ptr(), packed.data_ptr(),
+            end.data_ptr(), U, T, S, P, PS, L, ck.Pp, ck.pack, ck._pip, beam,
+            use_beam, stream)
+        name = "collapsed_viterbi_forward.global"
+    kernels.check(status, name)
+    kernels.launches[name] += 1
     return packed, end

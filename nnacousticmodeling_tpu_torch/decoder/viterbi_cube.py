@@ -30,19 +30,37 @@ Outputs are those of ``PallasCubeViterbi.forward``: packed backpointers
 (U, T, B) int32 on the right-major lane axis, ``tri * 2048 + t_entry +
 1``, and end scores (U, T, P) float32 in original phone order,
 bit-identical to the XLA scan path for every frame t < lengths[u].
+
+As the collapsed kernel, the kernel has a cluster route and a
+device-memory route, picked by ``viterbi_cluster_plan``; a lane count
+that no cluster splits into slices of a multiple of 8 lanes (an odd P)
+takes the device-memory route. ``kernels.launches`` counts them apart,
+as ``cube_viterbi_forward`` and ``cube_viterbi_forward.global``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import kernels
 from ..utils.device import resolve_device
-from .viterbi_collapsed import NEG_INF, UnsupportedImage, _ceil
+from .viterbi_collapsed import (
+    _CAPACITY_ARGTYPES,
+    NEG_INF,
+    UnsupportedImage,
+    ViterbiPlan,
+    _ceil,
+    _check_lp,
+    _route,
+    cluster_capacity,
+    cluster_records,
+    longest_first,
+    viterbi_cluster_plan,
+)
 
 #: the cube kernel's fixed pack factor: it decodes T < TIME_PACK - 1
 TIME_PACK = 2048
@@ -155,6 +173,10 @@ class CubeViterbi:
         # q[a, b] = p[b*P + a]: the entry gather's source lanes
         self.qsrc = as_t(np.arange(P)[None, :] * P + np.arange(P)[:, None],
                          torch.int64)                 # (P, P) [a, b]
+        self.plan = viterbi_cluster_plan(PS, B, self.S)
+        if self.plan.route == "cluster":
+            self.records = as_t(cluster_records(pdf_plane, tps),
+                                torch.int32)          # (8 PS B,)
 
     def forward(self, lp: torch.Tensor, lengths=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -244,55 +266,78 @@ def cube_viterbi_reference(cv: CubeViterbi, lp: torch.Tensor,
 _ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                 ctypes.c_void_p])
+_CLUSTER_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                     + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_void_p])
 
 
 def _lib():
     lib = kernels.load("viterbi_cube")
     lib.cube_viterbi_forward.argtypes = _ARGTYPES
     lib.cube_viterbi_forward.restype = ctypes.c_int
+    lib.cube_viterbi_cluster.argtypes = _CLUSTER_ARGTYPES
+    lib.cube_viterbi_cluster.restype = ctypes.c_int
+    lib.cube_viterbi_cluster_capacity.argtypes = _CAPACITY_ARGTYPES
+    lib.cube_viterbi_cluster_capacity.restype = ctypes.c_int
     return lib
 
 
+def cube_cluster_capacity(cv: CubeViterbi) -> int:
+    """Clusters of ``cv``'s plan the card holds at once."""
+    return cluster_capacity(_lib().cube_viterbi_cluster_capacity, cv.PS,
+                            cv.B, cv.S, cv.plan)
+
+
 def cube_viterbi_forward(cv: CubeViterbi, lp: torch.Tensor,
-                         lengths: torch.Tensor
+                         lengths: torch.Tensor, route: Optional[str] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """CUDA kernel wrapper (``csrc/viterbi_cube.cu``): one block per
+    """CUDA kernel wrapper (``csrc/viterbi_cube.cu``) on ``cv.plan``'s
+    route: one cluster (or, on the device-memory route, one block) per
     utterance walks its frames up to its length. Rows past an
-    utterance's length are left unwritten."""
-    if lp.device.type != "cuda":
-        raise ValueError(f"cube_viterbi_forward: lp on {lp.device}, needs "
-                         f"a CUDA tensor")
-    if cv.tps.device != lp.device:
-        raise ValueError(f"cube_viterbi_forward: tables on {cv.tps.device},"
-                         f" lp on {lp.device}")
-    if lp.dtype != torch.float32 or lp.dim() != 3 or lp.shape[2] != cv.S:
-        raise ValueError(f"cube_viterbi_forward: lp must be float32 "
-                         f"(U, T, {cv.S}), got {lp.dtype} {tuple(lp.shape)}")
-    if not lp.is_contiguous():
-        raise ValueError("cube_viterbi_forward: lp must be contiguous")
+    utterance's length are left unwritten. ``route="global"`` forces the
+    device-memory route (tests and chip_smoke.py)."""
+    name = "cube_viterbi_forward"
+    _check_lp(name, cv.tps, cv.S, lp, lengths)
+    if lp.shape[1] >= TIME_PACK - 1:
+        raise ValueError(f"{name}: {lp.shape[1]} frames; the cube kernel "
+                         f"packs T < {TIME_PACK - 1}")
+    stream = torch.cuda.current_stream(lp.device).cuda_stream
+    return _cube_launch(cv, lp, lengths, _route(name, cv.plan, route),
+                        _lib(), stream)
+
+
+def _cube_launch(cv: CubeViterbi, lp: torch.Tensor, lengths: torch.Tensor,
+                 plan: ViterbiPlan, lib, stream
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The outputs (and, on the device-memory route, the scratch) of one
+    launch of ``plan``'s route through ``lib``'s entry points."""
     U, T, S = lp.shape
-    if lengths.shape != (U,) or lengths.dtype != torch.int32 \
-            or lengths.device != lp.device:
-        raise ValueError("cube_viterbi_forward: lengths must be int32 (U,) "
-                         "on lp's device")
-    if T >= TIME_PACK - 1:
-        raise ValueError(f"cube_viterbi_forward: {T} frames; the cube "
-                         f"kernel packs T < {TIME_PACK - 1}")
     PS, B, P = cv.PS, cv.B, cv.P
     dev = lp.device
     end_lane = cv.end_lane.to(torch.int32)
-    pp = torch.empty((U, 3, PS, B), dtype=torch.float32, device=dev)
-    tt = torch.empty((U, 3, PS, B), dtype=torch.int32, device=dev)
     packed = torch.empty((U, T, B), dtype=torch.int32, device=dev)
     end = torch.empty((U, T, P), dtype=torch.float32, device=dev)
     beam = cv._beam if cv._beam is not None else 0.0
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    status = _lib().cube_viterbi_forward(
-        lp.data_ptr(), lengths.data_ptr(), cv.pdf.data_ptr(),
-        cv.tps.data_ptr(), cv.lm.data_ptr(), cv.p0.data_ptr(),
-        cv.tri_base.data_ptr(), end_lane.data_ptr(), pp.data_ptr(),
-        tt.data_ptr(), packed.data_ptr(), end.data_ptr(), U, T, S, P, PS, B,
-        cv.a_coef, cv._pip, beam, int(cv._beam is not None), stream)
-    kernels.check(status, "cube_viterbi_forward")
-    kernels.launches["cube_viterbi_forward"] += 1
+    scalars = (cv.a_coef, cv._pip, beam, int(cv._beam is not None))
+    if plan.route == "cluster":
+        order = longest_first(lengths)
+        status = lib.cube_viterbi_cluster(
+            lp.data_ptr(), lengths.data_ptr(), order.data_ptr(),
+            cv.records.data_ptr(), cv.lm.data_ptr(), cv.p0.data_ptr(),
+            cv.tri_base.data_ptr(), end_lane.data_ptr(),
+            packed.data_ptr(), end.data_ptr(), U, T, S, P, PS, B, *scalars,
+            plan.cluster, stream)
+        name = "cube_viterbi_forward"
+    else:
+        pp = torch.empty((U, 3, PS, B), dtype=torch.float32, device=dev)
+        tt = torch.empty((U, 3, PS, B), dtype=torch.int32, device=dev)
+        status = lib.cube_viterbi_forward(
+            lp.data_ptr(), lengths.data_ptr(), cv.pdf.data_ptr(),
+            cv.tps.data_ptr(), cv.lm.data_ptr(), cv.p0.data_ptr(),
+            cv.tri_base.data_ptr(), end_lane.data_ptr(), pp.data_ptr(),
+            tt.data_ptr(), packed.data_ptr(), end.data_ptr(), U, T, S, P,
+            PS, B, *scalars, stream)
+        name = "cube_viterbi_forward.global"
+    kernels.check(status, name)
+    kernels.launches[name] += 1
     return packed, end

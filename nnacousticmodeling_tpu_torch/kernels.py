@@ -9,8 +9,9 @@ or header is rebuilt and never confused with a stale library. Builds
 happen at first use or through ``build()``, never at import.
 
 ``launches`` counts, per kernel name, the wrapper calls that launched
-the kernel on the card. Calls that took the plain PyTorch version (CPU
-tensors) do not count.
+the kernel on the card; a kernel with two routes counts them apart
+(``collapsed_viterbi_forward`` and ``collapsed_viterbi_forward.global``).
+Calls that took the plain PyTorch version (CPU tensors) do not count.
 """
 
 from __future__ import annotations

@@ -4,7 +4,9 @@ Run on a machine with one: ``python -m pytest tests/test_torch_cuda.py
 -m cuda -q``.
 
 Tolerances as in ``test_torch_lstm.py`` for the recurrence (bf16 ``h``
-rounding after sums in another order); the Viterbi forward is bit-equal.
+rounding after sums in another order); the Viterbi forwards are bit-equal
+on both routes (the plan's cluster route, and the device-memory route
+forced with ``route="global"``), and a refused cluster launch raises.
 ``lstm_scan`` (one persistent launch, tensor-core sums) gives the same
 bits on every call. The LSTM training forward runs ``lstm_scan``'s
 kernel code (csrc/lstm_persistent.cuh) and is bit-equal to it. Its
@@ -188,70 +190,115 @@ def test_dw_kernels_match_plain(cuda, family, h):
     assert all(torch.equal(a, k) for a, k in zip(again, got))
 
 
-@pytest.mark.parametrize("beam", [None, 2.0])
-@pytest.mark.parametrize("num_phones", [4, 9])
-def test_collapsed_viterbi_kernel_bit_equal(cuda, num_phones, beam):
-    rng = np.random.default_rng(num_phones)
-    img = make_synthetic_image(num_phones=num_phones,
-                               num_states=3 * num_phones + 2,
-                               seed=num_phones, pdf_tied_transitions=True)
-    lens = np.array([23, 7, 16], np.int32)
-    lp = np.log(rng.dirichlet(np.ones(img.num_states),
-                              size=(3, 23))).astype(np.float32)
-    dec = ViterbiDecoder(img, pip=5.0, lmw=1.5, beam=beam, device=cuda)
-    ck = dec._collapsed_fwd
-    lp_t = torch.from_numpy(lp).to(cuda)
-    lens_t = torch.from_numpy(lens).to(cuda)
-    before = kernels.launches["collapsed_viterbi_forward"]
-    packed, end = ck.forward(lp_t, lens_t)
-    torch.cuda.synchronize()
-    assert kernels.launches["collapsed_viterbi_forward"] == before + 1
-    want_packed, want_end = collapsed_viterbi_reference(ck, lp_t, lens_t)
-    for u, l in enumerate(lens):
-        assert torch.equal(packed[u, :l], want_packed[u, :l])
-        assert torch.equal(end[u, :l], want_end[u, :l])
-    cpu = ViterbiDecoder(img, pip=5.0, lmw=1.5, beam=beam, device="cpu")
-    assert [r.segments for r in dec.decode_batch(lp, lens)] == \
-        [r.segments for r in cpu.decode_batch(lp, lens)]
-
-
-@pytest.mark.parametrize("beam", [None, 2.0])
-@pytest.mark.parametrize("ends", ["regular", "irregular"])
-def test_cube_viterbi_kernel_bit_equal(cuda, ends, beam):
+def _viterbi_image(num_phones, ends="regular"):
     import dataclasses
-    rng = np.random.default_rng(11)
-    P = 9
-    img = make_synthetic_image(num_phones=P, num_states=3 * P + 2, seed=11,
-                               pdf_tied_transitions=True)
+    states = 1909 if num_phones == 48 else 3 * num_phones + 2
+    img = make_synthetic_image(num_phones=num_phones, num_states=states,
+                               seed=num_phones, pdf_tied_transitions=True)
     if ends == "irregular":
+        P = num_phones
         img = dataclasses.replace(img, end_idxs=np.array(
             [p * P + (p + 1) % P for p in range(P)], np.int32))
-    lens = np.array([23, 7, 16], np.int32)
-    lp = np.log(rng.dirichlet(np.ones(img.num_states),
-                              size=(3, 23))).astype(np.float32)
+    return img
+
+
+def _viterbi_kernel_case(cuda, obj, forward, reference, capacity, route,
+                         name, seed):
+    """``forward`` (the kernel wrapper) on ``route`` against ``reference``
+    within lengths, with more utterances than the card holds clusters at
+    once (waves) and lengths 0, 1 and the batch's T among them; a second
+    call bit-identical; only ``name`` (the route's counter) counted; the
+    cluster route allocates no (U, 3, PS, lanes) scratch. Returns the
+    posteriors and lengths (numpy)."""
+    rng = np.random.default_rng(seed)
+    t = 23
+    cluster = obj.plan.route == "cluster" and route is None
+    u = capacity(obj) + 3 if cluster else 5
+    lens = rng.integers(0, t + 1, u).astype(np.int32)
+    lens[:3] = [0, 1, t]
+    lp = np.log(rng.dirichlet(np.ones(obj.S), size=(u, t))).astype(
+        np.float32)
+    lp_t = torch.from_numpy(lp).to(cuda)
+    lens_t = torch.from_numpy(lens).to(cuda)
+    before = dict(kernels.launches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    packed, end = forward(obj, lp_t, lens_t, route=route)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    again = forward(obj, lp_t, lens_t, route=route)
+    torch.cuda.synchronize()
+    counted = {k: v - before.get(k, 0) for k, v in kernels.launches.items()
+               if v != before.get(k, 0)}
+    assert counted == {name: 2}
+    lanes = obj.tps.shape[2]
+    scratch = u * 3 * obj.PS * lanes * 8
+    outputs = u * t * (lanes + obj.P) * 4
+    assert (peak - outputs < scratch) == cluster
+    want_packed, want_end = reference(obj, lp_t, lens_t)
+    for i, n in enumerate(lens):
+        assert torch.equal(packed[i, :n], want_packed[i, :n])
+        assert torch.equal(end[i, :n], want_end[i, :n])
+        assert torch.equal(again[0][i, :n], packed[i, :n])
+        assert torch.equal(again[1][i, :n], end[i, :n])
+    return lp, lens
+
+
+@pytest.mark.parametrize("route", [None, "global"])
+@pytest.mark.parametrize("beam", [None, 2.0])
+@pytest.mark.parametrize("num_phones", [4, 9, 48])
+def test_collapsed_viterbi_kernel_bit_equal(cuda, num_phones, beam, route):
+    """Both routes (the plan's cluster and the device-memory route forced)
+    bit-equal to the plain version; segments equal to the CPU decoder's."""
+    from nnacousticmodeling_tpu_torch.decoder import viterbi_collapsed as vc
+    img = _viterbi_image(num_phones)
+    dec = ViterbiDecoder(img, pip=5.0, lmw=1.5, beam=beam, device=cuda)
+    ck = dec._collapsed_fwd
+    assert ck.plan.route == "cluster"
+    assert ck.plan.cluster == (16 if num_phones == 48 else 1)
+    name = ("collapsed_viterbi_forward" if route is None
+            else "collapsed_viterbi_forward.global")
+    lp, lens = _viterbi_kernel_case(
+        cuda, ck, vc.collapsed_viterbi_forward,
+        collapsed_viterbi_reference, vc.collapsed_cluster_capacity, route,
+        name, num_phones)
+    cpu = ViterbiDecoder(img, pip=5.0, lmw=1.5, beam=beam, device="cpu")
+    before = dict(kernels.launches)
+    got = [r.segments for r in dec.decode_batch(lp, lens)]
+    assert kernels.launches["collapsed_viterbi_forward"] == \
+        before.get("collapsed_viterbi_forward", 0) + 1
+    assert got == [r.segments for r in cpu.decode_batch(lp, lens)]
+
+
+@pytest.mark.parametrize("route", [None, "global"])
+@pytest.mark.parametrize("beam", [None, 2.0])
+@pytest.mark.parametrize("ends", ["regular", "irregular"])
+@pytest.mark.parametrize("num_phones", [8, 9, 48])
+def test_cube_viterbi_kernel_bit_equal(cuda, num_phones, ends, beam, route):
+    """Both routes bit-equal to the plain version (9 phones: 81 lanes, the
+    plan's device-memory route either way); segments equal to the CPU
+    decoder's and the scan twin's, which launches no kernel."""
+    from nnacousticmodeling_tpu_torch.decoder import viterbi_cube as vcube
+    img = _viterbi_image(num_phones, ends)
     dec = ViterbiDecoder(img, pip=5.0, lmw=1.5, beam=beam, backend="pallas",
                          device=cuda)
     cv = dec._pallas_fwd
-    lp_t = torch.from_numpy(lp).to(cuda)
-    lens_t = torch.from_numpy(lens).to(cuda)
-    before = dict(kernels.launches)
-    packed, end = cv.forward(lp_t, lens_t)
-    torch.cuda.synchronize()
-    assert kernels.launches["cube_viterbi_forward"] == \
-        before.get("cube_viterbi_forward", 0) + 1
-    want_packed, want_end = cube_viterbi_reference(cv, lp_t, lens_t)
-    for u, l in enumerate(lens):
-        assert torch.equal(packed[u, :l], want_packed[u, :l])
-        assert torch.equal(end[u, :l], want_end[u, :l])
+    assert cv.plan.route == ("global" if num_phones == 9 else "cluster")
+    on_cluster = route is None and cv.plan.route == "cluster"
+    name = ("cube_viterbi_forward" if on_cluster
+            else "cube_viterbi_forward.global")
+    lp, lens = _viterbi_kernel_case(
+        cuda, cv, cube_viterbi_forward, cube_viterbi_reference,
+        vcube.cube_cluster_capacity, route, name, 11 + num_phones)
     cpu = ViterbiDecoder(img, pip=5.0, lmw=1.5, beam=beam, backend="pallas",
                          device="cpu")
-    assert [r.segments for r in dec.decode_batch(lp, lens)] == \
-        [r.segments for r in cpu.decode_batch(lp, lens)]
+    want = [r.segments for r in cpu.decode_batch(lp, lens)]
+    assert [r.segments for r in dec.decode_batch(lp, lens)] == want
     xla = ViterbiDecoder(img, pip=5.0, lmw=1.5, beam=beam, backend="xla",
                          device=cuda)
     before = dict(kernels.launches)
-    assert [r.segments for r in xla.decode_batch(lp, lens)] == \
-        [r.segments for r in cpu.decode_batch(lp, lens)]
+    assert [r.segments for r in xla.decode_batch(lp, lens)] == want
     assert dict(kernels.launches) == before
 
 
@@ -293,6 +340,38 @@ def test_new_wrappers_raise_and_never_fall_back(cuda):
                                           device=cuda))
     before = dict(kernels.launches)
     features.fbank_cuda(np.zeros(800, np.float32), device="cpu")
+    assert dict(kernels.launches) == before
+
+
+@pytest.mark.parametrize("geometry", ["collapsed", "cube"])
+def test_failed_cluster_launch_raises(cuda, geometry):
+    """A cluster launch the card refuses (a cluster of 32 blocks) raises,
+    counts no launch and never falls back to the device-memory route or
+    the plain version; so does a refused capacity query and an unknown
+    route."""
+    import dataclasses
+    from nnacousticmodeling_tpu_torch.decoder import viterbi_collapsed as vc
+    from nnacousticmodeling_tpu_torch.decoder import viterbi_cube as vcube
+    img = _viterbi_image(8)
+    if geometry == "collapsed":
+        obj = ViterbiDecoder(img, device=cuda)._collapsed_fwd
+        forward, capacity = (vc.collapsed_viterbi_forward,
+                             vc.collapsed_cluster_capacity)
+    else:
+        obj = ViterbiDecoder(img, backend="pallas", device=cuda)._pallas_fwd
+        forward, capacity = (cube_viterbi_forward,
+                             vcube.cube_cluster_capacity)
+    assert obj.plan.route == "cluster"
+    lp = torch.zeros((2, 4, obj.S), device=cuda)
+    lens = torch.full((2,), 4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="route"):
+        forward(obj, lp, lens, route="cluster")
+    obj.plan = dataclasses.replace(obj.plan, cluster=32)
+    before = dict(kernels.launches)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        forward(obj, lp, lens)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        capacity(obj)
     assert dict(kernels.launches) == before
 
 

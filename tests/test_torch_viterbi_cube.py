@@ -107,3 +107,31 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     lp = torch.zeros((1, 4, img.num_states))
     with pytest.raises(ValueError, match="CUDA"):
         cube_viterbi_forward(cv, lp, torch.full((1,), 4, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("backend", ["pallas", "auto"])
+def test_backtrace_ignores_unwritten_rows(backend):
+    """The kernels leave rows at or past an utterance's length unwritten;
+    the backtrace of a zero-length utterance must not read through them
+    (on the card an out-of-range index from such a row is a device-side
+    assert that ends the process's CUDA context)."""
+    rng = np.random.default_rng(5)
+    img = make_synthetic_image(num_phones=4, num_states=14, seed=4,
+                               pdf_tied_transitions=True)
+    dec = ViterbiDecoder(img, pip=5.0, lmw=1.5, backend=backend,
+                         device="cpu")
+    lp, _ = _posteriors(rng, 3, 9, img.num_states)
+    lens = torch.tensor([9, 0, 4], dtype=torch.int32)
+    lp_t = torch.from_numpy(lp)
+    fwd = dec._pallas_fwd if backend == "pallas" else dec._collapsed_fwd
+    packed, end = fwd.forward(lp_t, lens)
+    walk = (dec._pallas_backtrace if backend == "pallas"
+            else dec._collapsed_backtrace)
+    segs, counts = walk(packed, end, lens)
+    garbage = packed.clone()
+    garbage[1] = 2 ** 30 + 12345            # what an unwritten row may hold
+    garbage[2, 4:] = -(2 ** 30)
+    segs_g, counts_g = walk(garbage, end, lens)
+    assert counts_g.tolist() == counts.tolist() and counts[1] == 0
+    for u in (0, 2):
+        assert torch.equal(segs_g[u, :counts[u]], segs[u, :counts[u]])
