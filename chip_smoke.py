@@ -137,7 +137,12 @@ Phases (each one that fails ends the run with a non-zero exit):
     one give the same bits, and each is timed;
 24. the ``fbank`` kernel against its plain version on one seeded
     waveform as long as the test set's audio, with both mel conventions,
-    within 1e-3 in the log domain;
+    within 1e-3 in the log domain, its frames entry bit-equal to its
+    waveform entry; on a wide-range waveform (a loud tone, noise 60 dB
+    down, a stretch of zeros) no farther from a float64 twin than the
+    plain version, plus 1e-4; both entries' device time beside their
+    bounds, and cuFFT ``torch.fft.rfft(frames * win, n=512)`` as a
+    yardstick of like work;
 25. the raw-audio serving slice: 128 seeded waveforms whose frame counts
     are the test utterances' lengths -> ``fbank_cuda`` -> ``cmn`` -> LSTM
     4x1024 posteriors -> ``decode_corpus`` with ``backend="pallas"`` -> MLF
@@ -146,7 +151,8 @@ Phases (each one that fails ends the run with a non-zero exit):
     ``fbank_cuda`` output must be within 1e-3 of the plain ``fbank`` before
     CMN, the plain route (plain fbank, plain LSTM) must give posteriors
     within POSTERIOR_ATOL, and the plain cube Viterbi on the kernel run's
-    posteriors identical segments and PER.
+    posteriors identical segments and PER. Then the device time of the
+    batch's 128 ``fbank`` launches, summed under the profiler.
 
 Output: progress lines, then the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -1849,6 +1855,126 @@ def timed_decode(torch, dec, lp, offsets):
     return results, (time.perf_counter() - t0) * 1e3, dict(kernels.launches)
 
 
+def fbank_wide_range(torch, np, dev, features):
+    """The fbank kernel on a wide-range waveform (a loud 1 kHz tone, white
+    noise 60 dB below it, a 0.25 s stretch of zeros: 93 dB between a
+    frame's loudest and quietest mel bands), with both mel conventions.
+    Kernel and plain version are each held against a float64 twin of the
+    float32 windowed frames both transform (their rounding is common to
+    both, and larger than either transform's error); the kernel must lie
+    no farther from it than the plain version, plus 1e-4. Returns
+    {kaldi_weights: (kernel error, plain error)}."""
+    n = 48000
+    x = 0.9 * np.sin(2 * np.pi * 1000.3 * np.arange(n) / 16000.0)
+    x += 0.9e-3 * np.random.default_rng(24).standard_normal(n)
+    x[n // 3:n // 3 + 4000] = 0.0
+    wave = torch.from_numpy(x.astype(np.float32)).to(dev)
+    frames = (features.frame_signal(wave) * torch.from_numpy(
+        features.povey_window()).to(dev)).double().cpu().numpy()
+    power = np.abs(np.fft.rfft(frames, n=512)) ** 2
+    out = {}
+    for kw in (False, True):
+        mel = power @ features.mel_filterbank(kaldi_weights=kw).astype(
+            np.float64)
+        twin = np.log(np.maximum(mel, features.EPS))
+        got = features.fbank_cuda(wave, kaldi_weights=kw).cpu().numpy()
+        want = features.fbank(wave, kaldi_weights=kw).cpu().numpy()
+        err = float(np.abs(got - twin).max())
+        err_plain = float(np.abs(want - twin).max())
+        if not (np.isfinite(got).all() and err <= err_plain + 1e-4):
+            fail(f"fbank kernel (kaldi_weights={kw}) on the wide-range "
+                 f"waveform lies {err} from the float64 twin, the plain "
+                 f"version {err_plain} (gate: plain + 1e-4)")
+        out[kw] = (err, err_plain)
+    return out
+
+
+def fbank_phase(torch, np, dev, card, features, n_frames, rng):
+    """Phase 24: the fbank kernel's two entries against their plain
+    versions on one waveform of ``n_frames`` frames drawn from ``rng``,
+    the wide-range gate, times, bounds and the cuFFT yardstick."""
+    wave = torch.from_numpy((rng.standard_normal(
+        400 + (n_frames - 1) * 160) * 0.1).astype(np.float32)).to(dev)
+    fr = features.frame_signal(wave)
+    fb = {}
+    for kw in (False, True):
+        got = features.fbank_cuda(wave, kaldi_weights=kw)
+        want = features.fbank(wave, kaldi_weights=kw)
+        got_f = features.fbank_frames(fr, kaldi_weights=kw)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if got.shape != (n_frames, 40) or not err <= 1e-3:
+            fail(f"fbank kernel (kaldi_weights={kw}) differs from its plain "
+                 f"version by {err} (tolerance 1e-3), shape "
+                 f"{tuple(got.shape)}")
+        if not torch.equal(got_f, got):
+            fail(f"fbank kernel (kaldi_weights={kw}): the frames entry "
+                 f"differs from the waveform entry")
+        fb[kw] = err
+    wide = fbank_wide_range(torch, np, dev, features)
+    # CUDA events: each call's kernel outlasts its host time (the
+    # profiler's sums would miss the device events it drops)
+    fb_ms = cuda_ms(torch, lambda: features.fbank_frames(fr), 20)
+    fb_plain_ms = cuda_ms(torch, lambda: features.fbank(wave), 10)
+    fb_full_ms = cuda_ms(torch, lambda: features.fbank_cuda(wave), 20)
+    win = torch.from_numpy(features.povey_window()).to(dev)
+    fft_ms = cuda_ms(torch, lambda: torch.fft.rfft(fr * win, n=512), 20)
+    # the least work of the function, not of the TPU kernel's dense DFT
+    # products: a 512-point real FFT (2.5 N log2 N flops), the window,
+    # the power (3 a bin), the mel bank's nonzeros (2 each) and the log;
+    # bytes: the kernel's tables, the frames (frames entry) or the
+    # waveform (waveform entry) read once, the output written once
+    mel_nz = max(int(np.count_nonzero(features.mel_filterbank(
+        kaldi_weights=kw))) for kw in (False, True))
+    fb_ops = n_frames * (2.5 * 512 * 9 + 400 + 3 * 257 + 2 * mel_nz + 2 * 40)
+    tables = sum(a.nbytes for a in (
+        features.povey_window(), features.fft_twiddles(),
+        features.pass_twiddles(), *features.mel_lanes(*features.mel_bands(
+            features.mel_filterbank()))))
+    fb_bound, fb_by = bound(n_frames * (400 + 40) * 4 + tables, fb_ops,
+                            F32_FLOPS)
+    fb_wave_bound, fb_wave_by = bound(
+        (wave.numel() + n_frames * 40) * 4 + tables, fb_ops, F32_FLOPS)
+    log(f"[fbank] {n_frames} frames ({wave.numel() / 16000:.1f} s at 16 kHz):"
+        f" max |kernel - plain| {fb[False]:.3e} (HTK bins), {fb[True]:.3e} "
+        f"(Kaldi weights), tolerance 1e-3; frames entry bit-equal to the "
+        f"waveform entry; wide range (float64 twin): kernel "
+        f"{wide[False][0]:.3e} / {wide[True][0]:.3e}, plain "
+        f"{wide[False][1]:.3e} / {wide[True][1]:.3e}, gate plain + 1e-4")
+    log(f"[fbank] waveform entry {fb_full_ms:.4f} ms, bound "
+        f"{fb_wave_bound:.4f} ms ({fb_wave_by}, (160 + 40) x 4 B a frame); "
+        f"frames entry {fb_ms:.4f} ms, bound {fb_bound:.4f} ms ({fb_by}, "
+        f"(400 + 40) x 4 B a frame); cuFFT torch.fft.rfft(frames * win, "
+        f"n=512) {fft_ms:.4f} ms (yardstick of like work); plain "
+        f"{fb_plain_ms:.3f} ms (plain fbank; CUDA events) [{card}]")
+    return dict(err=fb, wide=wide, frames_ms=fb_ms, ms=fb_full_ms,
+                plain_ms=fb_plain_ms, fft_ms=fft_ms, frames_bound_ms=fb_bound,
+                frames_bound_by=fb_by, bound_ms=fb_wave_bound,
+                bound_by=fb_wave_by)
+
+
+def fbank_batch_device_ms(torch, features, waves):
+    """Device ms of the ``fbank`` kernels of one ``fbank_cuda`` call per
+    waveform (numpy), summed under the profiler, and how many kernels the
+    session recorded. The profiler now and then drops device events: a
+    session that recorded fewer kernels than launches is repeated, up to
+    three times in all, and the fullest one's sum is scaled to all
+    launches."""
+    best = (0.0, 0)
+    for _ in range(3):
+        _, _, top, counts = device_profile(
+            torch, lambda: [features.fbank_cuda(w) for w in waves],
+            launches_of=("fbank_kernel",))
+        got = (sum(v for k, v in top.items() if "fbank_kernel" in k),
+               counts["fbank_kernel"])
+        best = max(best, got, key=lambda b: b[1])
+        if got[1] == len(waves):
+            break
+    if best[1] == 0:
+        fail("the profiler recorded no fbank kernel in three sessions")
+    return best[0] * len(waves) / best[1], best[1]
+
+
 def decoder_audio_phases(torch, np, dev, card, img, corpus, lp_rand, lens,
                          lp, results, per, decode_ms, report):
     """Phases 22-25: the cube kernel against its plain version, the
@@ -1979,38 +2105,7 @@ def decoder_audio_phases(torch, np, dev, card, img, corpus, lp_rand, lens,
     # ---- 24. the fbank kernel against its plain version ----------------
     n_frames = int(lengths.sum())
     rng = np.random.default_rng(24)
-    wave = torch.from_numpy((rng.standard_normal(
-        400 + (n_frames - 1) * 160) * 0.1).astype(np.float32)).to(dev)
-    fr = features.frame_signal(wave)
-    fb = {}
-    for kw in (False, True):
-        got = features.fbank_cuda(wave, kaldi_weights=kw)
-        want = features.fbank(wave, kaldi_weights=kw)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        if got.shape != (n_frames, 40) or not err <= 1e-3:
-            fail(f"fbank kernel (kaldi_weights={kw}) differs from its plain "
-                 f"version by {err} (tolerance 1e-3), shape "
-                 f"{tuple(got.shape)}")
-        fb[kw] = err
-    fb_ms = cuda_ms(torch, lambda: features.fbank_frames(fr), 10)
-    fb_plain_ms = cuda_ms(torch, lambda: features.fbank_frames_reference(fr),
-                          10)
-    fb_full_ms = cuda_ms(torch, lambda: features.fbank_cuda(wave), 10)
-    # the least work of the function, not of the TPU kernel's dense DFT
-    # products: a 512-point real FFT (2.5 N log2 N flops), the window,
-    # the power (3 a bin), the mel bank's nonzeros (2 each) and the log
-    mel_nz = max(int(np.count_nonzero(features.mel_filterbank(
-        kaldi_weights=kw))) for kw in (False, True))
-    fb_ops = n_frames * (2.5 * 512 * 9 + 400 + 3 * 257 + 2 * mel_nz + 2 * 40)
-    fb_bytes = n_frames * (400 + 40) * 4 + (400 + 257 * 40) * 4
-    fb_bound, fb_by = bound(fb_bytes, fb_ops, F32_FLOPS)
-    log(f"[fbank] {n_frames} frames ({wave.numel() / 16000:.1f} s at 16 kHz):"
-        f" max |kernel - plain| {fb[False]:.3e} (HTK bins), {fb[True]:.3e} "
-        f"(Kaldi weights), tolerance 1e-3; kernel {fb_ms:.3f} ms (with "
-        f"framing {fb_full_ms:.3f}), plain {fb_plain_ms:.3f} ms, bound "
-        f"{fb_bound:.4f} ms ({fb_by}) [{card}]")
-    del wave, fr
+    fbk = fbank_phase(torch, np, dev, card, features, n_frames, rng)
     phase_done(24)
 
     # ---- 25. the raw-audio serving slice -------------------------------
@@ -2059,6 +2154,11 @@ def decoder_audio_phases(torch, np, dev, card, img, corpus, lp_rand, lens,
             f"of {len(waves)} waveforms ({audio_s:.2f} audio-s): PER "
             f"{per_a:.2f} %, {tput:.1f} audio-s/s; " + ", ".join(
                 f"{k} {v:.1f}" for k, v in stages.items()) + f" [{card}]")
+        fb_batch_ms, fb_seen = fbank_batch_device_ms(torch, features, waves)
+        log(f"[audio slice] the {len(waves)} fbank launches of a batch: "
+            f"{fb_batch_ms:.4f} ms of device time, summed under the "
+            f"profiler ({fb_seen} of {len(waves)} kernels recorded) "
+            f"[{card}]")
 
         # the plain route: plain fbank, plain LSTM; then the plain cube
         # Viterbi on the kernel run's posteriors
@@ -2104,8 +2204,7 @@ def decoder_audio_phases(torch, np, dev, card, img, corpus, lp_rand, lens,
     report["decoder_audio"] = dict(
         cube=cube, cube_bound_ms=cube_bound, cube_state_mb=state_mb,
         routes=routes, scan_twin_ms=twin_ms,
-        fbank=dict(err=fb, ms=fb_ms, full_ms=fb_full_ms, plain_ms=fb_plain_ms,
-                   bound_ms=fb_bound),
+        fbank=dict(fbk, batch_device_ms=fb_batch_ms),
         audio_slice=dict(per=per_a, audio_s=audio_s, audio_s_per_s=tput,
                          fbank_err=fb_main_err, feature_err=feat_err,
                          posterior_err=post_err,
@@ -2120,9 +2219,10 @@ def decoder_audio_phases(torch, np, dev, card, img, corpus, lp_rand, lens,
          "source": "nnacousticmodeling_tpu_torch/csrc/fbank.cu",
          "replaces": "nnacousticmodeling_tpu/ops/features.py:210",
          "launches": launches["fbank"],
-         "max_abs_err": max(fb_main_err, *fb.values()),
-         "tolerance": 1e-3, "ms": fb_ms, "plain_ms": fb_plain_ms,
-         "bound_ms": fb_bound, "bound_by": fb_by, "library_ms": None},
+         "max_abs_err": max(fb_main_err, *fbk["err"].values()),
+         "tolerance": 1e-3, "ms": fbk["ms"], "plain_ms": fbk["plain_ms"],
+         "bound_ms": fbk["bound_ms"], "bound_by": fbk["bound_by"],
+         "library_ms": None},
     ]
 
 

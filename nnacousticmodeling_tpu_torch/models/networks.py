@@ -418,8 +418,9 @@ def get_network(network: str, layers: int, units: Sequence[int],
     every recurrent net: ``"lstm"``, ``"zoneoutlstm"``,
     ``"zoneoutdropoutlstm"``, ``"peepholelstm"``, ``"gru"``,
     ``"mgrurelu"`` and ``"mgrurelur"``; ``"ff"`` and ``"tdnn"`` are
-    ROADMAP Queue 1 item 2. As in the JAX package, the MGRU nets keep
-    their default relu candidate and ignore ``activation``, and the
+    ROADMAP Queue 1, "Feed-forward nets". As in the JAX package, the
+    MGRU nets keep their default relu candidate and ignore
+    ``activation``, and the
     dropout list maps positionally (``networks.py:553-568``): onto
     ``(c_ratio, h_ratio)`` for ``zoneoutlstm`` and onto ``(dropout,
     c_ratio, h_ratio)`` for ``zoneoutdropoutlstm``, the ratios 0.5 where
@@ -454,8 +455,8 @@ def get_network(network: str, layers: int, units: Sequence[int],
                        use_reset_gate=network == "mgrurelur", **kw)
     if network in _LATER:
         raise NotImplementedError(
-            f"network {network!r} is not ported yet (ROADMAP Queue 1 "
-            f"item 2: MLP / TDNN)")
+            f"network {network!r} is not ported yet (ROADMAP Queue 1, "
+            f"\"Feed-forward nets\": MLP / TDNN)")
     raise ValueError(f"unknown network type: {network}")
 
 

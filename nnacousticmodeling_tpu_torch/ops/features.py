@@ -12,10 +12,13 @@ Two implementations with one function:
 * ``fbank``: plain PyTorch (framing by ``unfold``, window, DFT as two
   ``torch.matmul`` products, power, mel product, log). On the card its
   products run in full float32 (TF32 off, as ``resolve_device`` sets);
-* ``fbank_cuda``: the counterpart of the JAX package's ``fbank_pallas``.
-  Framing and preemphasis stay outside, as there; the window, both DFT
-  products, power, mel product and log run in one hand-written kernel
-  (``csrc/fbank.cu``) for a CUDA tensor. A CPU tensor takes ``fbank``.
+* ``fbank_cuda``: the counterpart of the JAX package's ``fbank_pallas``,
+  one hand-written kernel (``csrc/fbank.cu``) for a CUDA waveform:
+  framing, preemphasis, window, a 512-point real FFT (two 16-point
+  passes in registers, one transpose through shared memory), power,
+  the mel bands and log. ``fbank_frames`` runs the same kernel
+  on frames already cut by ``frame_signal``. A CPU waveform takes
+  ``fbank``.
 
 Waveforms may be numpy arrays or tensors; a numpy waveform goes to
 ``device`` (``cuda`` unless ``device="cpu"`` is given).
@@ -24,6 +27,7 @@ Waveforms may be numpy arrays or tensors; a numpy waveform goes to
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -216,34 +220,152 @@ def cmn_per_speaker(features: np.ndarray, offsets: np.ndarray,
 # the hand-written kernel
 # ---------------------------------------------------------------------------
 
+FBANK_FRAMES_PER_BLOCK = 4    # csrc/fbank.cu FRAMES
+FBANK_LANES = 16              # csrc/fbank.cu LANES: threads a frame
+FBANK_MEL_CHUNK = 8           # csrc/fbank.cu MEL_CHUNK: L's multiple
+
+
+def fft_twiddles() -> np.ndarray:
+    """(512, 2) float32 ``cos`` and ``sin`` of ``-2 pi e / 512``, e = 0
+    .. 511: computed in float64, rounded to float32 once. The kernel's
+    split step reads W512^k, its 16-point DFTs W16^e as entry 32e."""
+    ang = -2.0 * np.pi * np.arange(NFFT) / NFFT
+    return np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
+
+
+def pass_twiddles() -> np.ndarray:
+    """(16, 16, 2) float32: entry [k1][t] is W256^(t k1), the twiddle
+    between the kernel's two 16-point passes; a copy of the entries
+    2 t k1 of ``fft_twiddles()``."""
+    k1, t = np.meshgrid(np.arange(FBANK_LANES), np.arange(FBANK_LANES),
+                        indexing="ij")
+    return fft_twiddles()[(2 * k1 * t) % NFFT]
+
+
+def mel_bands(fb: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """A mel bank (nbins, num_mel) as bands: int32 (num_mel, 3) rows of
+    (first bin, length, offset into the weights) and the float32 weights
+    of every band, each from its first to its last nonzero bin in
+    ascending order (a filter with no nonzero has length 0)."""
+    rows, weights, off = [], [], 0
+    for col in np.asarray(fb, np.float32).T:
+        nz = np.flatnonzero(col)
+        start, length = (int(nz[0]), int(nz[-1] - nz[0] + 1)) if nz.size \
+            else (0, 0)
+        rows.append((start, length, off))
+        weights.append(col[start:start + length])
+        off += length
+    return (np.asarray(rows, np.int32).reshape(-1, 3),
+            np.concatenate(weights).astype(np.float32))
+
+
+MEL_END = 1 << 15             # a term code's flag: the band's last term
+
+
+def mel_lanes(bands: np.ndarray, weights: np.ndarray
+              ) -> Tuple[np.ndarray, np.ndarray]:
+    """``mel_bands``' bands packed into 16 term lists of about equal
+    length, one for each of the kernel's lanes of a frame: int32 codes
+    and float32 weights, both (L, 16), term j of lane t at [j, t]. A code
+    is ``bin | m << 9``, plus ``MEL_END`` on band m's last term; the
+    bands go to lanes longest first, each to the shortest list (a band
+    of length 0 takes one term of weight 0); each lane's bands in
+    ascending m, each band's terms in ascending bins; lists padded with
+    (bin 0, weight 0) terms to a length L that is a multiple of
+    ``FBANK_MEL_CHUNK``."""
+    lengths = np.maximum(bands[:, 1], 1)
+    lists = [[] for _ in range(FBANK_LANES)]
+    for m in sorted(range(len(bands)), key=lambda m: (-lengths[m], m)):
+        min(lists, key=lambda terms: sum(lengths[b] for b in terms)
+            ).append(m)
+    size = max(sum(lengths[m] for m in terms) for terms in lists)
+    size = -(-size // FBANK_MEL_CHUNK) * FBANK_MEL_CHUNK
+    codes = np.zeros((size, FBANK_LANES), np.int32)
+    wts = np.zeros((size, FBANK_LANES), np.float32)
+    for lane, terms in enumerate(lists):
+        j = 0
+        for m in sorted(terms):
+            start, length, off = (int(v) for v in bands[m])
+            for i in range(max(length, 1)):
+                codes[j, lane] = (start + i) | m << 9 | (
+                    MEL_END if i == max(length, 1) - 1 else 0)
+                wts[j, lane] = weights[off + i] if length else 0.0
+                j += 1
+    return codes, wts
+
+
+@dataclass(frozen=True)
+class FbankPlan:
+    """The kernel's grid for ``frames`` frames: block b computes frames
+    ``b * frames_per_block`` up to the next block's first or ``frames``,
+    and on the waveform entry reads the samples those frames span."""
+    frames: int
+    frames_per_block: int = FBANK_FRAMES_PER_BLOCK
+
+    @property
+    def blocks(self) -> int:
+        return -(-self.frames // self.frames_per_block)
+
+    def block_frames(self, b: int) -> range:
+        first = b * self.frames_per_block
+        return range(first, min(first + self.frames_per_block, self.frames))
+
+    def block_samples(self, b: int) -> range:
+        fr = self.block_frames(b)
+        return range(fr[0] * FRAME_HOP, fr[-1] * FRAME_HOP + FRAME_LEN)
+
+
 _tables: Dict[Tuple[str, bool], Tuple[torch.Tensor, ...]] = {}
 
 
 def _kernel_tables(device: torch.device, kaldi_weights: bool):
-    """Window, cos/sin bases and mel weights on ``device``, built once."""
+    """Window, twiddles, pass twiddles and the mel lanes' terms (each a
+    code and its weight's bits, int32 (L, 16, 2)) on ``device``, built
+    once."""
     key = (str(device), bool(kaldi_weights))
     if key not in _tables:
-        cos_b, sin_b = dft_bases()
+        codes, wts = mel_lanes(*mel_bands(mel_filterbank(
+            kaldi_weights=kaldi_weights)))
+        terms = np.stack([codes, wts.view(np.int32)], axis=-1)
         _tables[key] = tuple(
             torch.as_tensor(np.ascontiguousarray(a), device=device)
-            for a in (povey_window(), cos_b, sin_b,
-                      mel_filterbank(kaldi_weights=kaldi_weights)))
+            for a in (povey_window(), fft_twiddles(), pass_twiddles(),
+                      terms))
     return _tables[key]
 
 
 def _lib():
     lib = kernels.load("fbank")
-    lib.fbank_forward.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int,
-                                                          ctypes.c_void_p]
+    lib.fbank_forward.argtypes = (
+        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+        + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 3
+        + [ctypes.c_void_p])
     lib.fbank_forward.restype = ctypes.c_int
     return lib
+
+
+def _launch(src: torch.Tensor, t: int, from_wave: bool,
+            kaldi_weights: bool) -> torch.Tensor:
+    out = torch.empty((t, NUM_MEL), dtype=torch.float32, device=src.device)
+    if t == 0:
+        return out
+    plan = FbankPlan(t)
+    win, tw, tw1, terms = _kernel_tables(src.device, kaldi_weights)
+    stream = torch.cuda.current_stream(src.device).cuda_stream
+    status = _lib().fbank_forward(
+        src.data_ptr(), int(from_wave), win.data_ptr(), tw.data_ptr(),
+        tw1.data_ptr(), terms.data_ptr(), terms.shape[0],
+        out.data_ptr(), t, plan.blocks, plan.frames_per_block, stream)
+    kernels.check(status, "fbank")
+    kernels.launches["fbank"] += 1
+    return out
 
 
 def fbank_frames(frames: torch.Tensor, kaldi_weights: bool = False
                  ) -> torch.Tensor:
     """CUDA kernel wrapper (``csrc/fbank.cu``): preemphasised frames
-    (T, 400) float32 -> (T, 40) log-mel energies: window, real and
-    imaginary DFT products, power, mel product, ``log(max(., EPS))``."""
+    (T, 400) float32 -> (T, 40) log-mel energies: window, real FFT,
+    power, mel bands, ``log(max(., EPS))``."""
     if frames.device.type != "cuda":
         raise ValueError(f"fbank_frames: frames on {frames.device}, needs "
                          f"a CUDA tensor")
@@ -254,28 +376,20 @@ def fbank_frames(frames: torch.Tensor, kaldi_weights: bool = False
                          f"{tuple(frames.shape)}")
     if not frames.is_contiguous():
         raise ValueError("fbank_frames: frames must be contiguous")
-    t = frames.shape[0]
-    out = torch.empty((t, NUM_MEL), dtype=torch.float32,
-                      device=frames.device)
-    if t == 0:
-        return out
-    win, cos_b, sin_b, mel = _kernel_tables(frames.device, kaldi_weights)
-    stream = torch.cuda.current_stream(frames.device).cuda_stream
-    status = _lib().fbank_forward(
-        frames.data_ptr(), win.data_ptr(), cos_b.data_ptr(),
-        sin_b.data_ptr(), mel.data_ptr(), out.data_ptr(), t, stream)
-    kernels.check(status, "fbank")
-    kernels.launches["fbank"] += 1
-    return out
+    return _launch(frames, frames.shape[0], False, kaldi_weights)
 
 
 def fbank_cuda(x, kaldi_weights: bool = False, device="cuda"
                ) -> torch.Tensor:
     """Counterpart of the JAX package's ``fbank_pallas``: (num_samples,)
-    waveform -> (T, 40) log-mel energies. A CUDA waveform is framed on
-    the card and goes through the kernel (``fbank_frames``), or raises;
-    a CPU waveform takes the plain ``fbank``."""
+    waveform -> (T, 40) log-mel energies. A CUDA waveform goes through
+    the kernel, which frames it itself, or raises; a CPU waveform takes
+    the plain ``fbank``."""
     x = _waveform(x, device)
     if x.device.type == "cpu":
         return fbank(x, kaldi_weights=kaldi_weights)
-    return fbank_frames(frame_signal(x), kaldi_weights)
+    if x.dim() != 1:
+        raise ValueError(f"fbank_cuda: waveform must be 1-D, got "
+                         f"{tuple(x.shape)}")
+    return _launch(x.contiguous(), num_frames(x.shape[0]), True,
+                   kaldi_weights)

@@ -80,15 +80,19 @@ def main(arg_list=None):
                              else None)
     if args.rpl:
         raise NotImplementedError("--rpl ensembles are not ported yet "
-                                  "(ROADMAP Queue 1 item 7)")
+                                  "(ROADMAP Queue 1, \"RPL heads and "
+                                  "ensembles\")")
     if args.decoder == "native":
         raise NotImplementedError("--decoder native is not ported yet "
-                                  "(ROADMAP, \"Left out so far\": the "
-                                  "native decoder)")
+                                  "(ROADMAP Queue 1, \"The native decoder, "
+                                  "the graph helpers and the rest of "
+                                  "io/\")")
     if args.lm_from_mlf:
-        raise NotImplementedError("--lm-from-mlf needs decoder/graph.py, "
-                                  "not ported yet (ROADMAP, \"Left out so "
-                                  "far\": the native decoder)")
+        raise NotImplementedError("--lm-from-mlf needs decoder/graph.py's "
+                                  "bigram helpers, not the native decoder; "
+                                  "they are not ported yet (ROADMAP Queue "
+                                  "1, \"The native decoder, the graph "
+                                  "helpers and the rest of io/\")")
     device = resolve_device(args.device)
     num_classes = num_classes_for(args)
     split = args.test_or_dev

@@ -50,9 +50,10 @@ def main(arg_list=None):
                              else None)
     if args.timit_graph:
         raise NotImplementedError(
-            "--timit-graph needs decoder/graph.py and the reference bundle,"
-            " not ported yet (ROADMAP, \"Left out so far\": the real TIMIT "
-            "image)")
+            "--timit-graph builds the real TIMIT image from the reference "
+            "bundle, which this repository does not have; it is not queued "
+            "(ROADMAP Queue 1, \"The native decoder, the graph helpers and "
+            "the rest of io/\", lists it as left out)")
     img = make_synthetic_image(num_phones=args.num_phones, seed=args.seed,
                                tied=False)
     corpus = make_synthetic_corpus(

@@ -94,22 +94,23 @@ def build_parser() -> argparse.ArgumentParser:
 def _check_ported(args) -> None:
     if args.train_rpl:
         raise NotImplementedError("--train-rpl is not ported yet (ROADMAP "
-                                  "Queue 1 item 7: ensembles)")
+                                  "Queue 1, \"RPL heads and ensembles\")")
     if args.train_all_folds:
         raise NotImplementedError("--train-all-folds is not ported yet "
-                                  "(ROADMAP Queue 1 item 11: fold-parallel "
-                                  "training)")
+                                  "(ROADMAP Queue 1, \"Fold-parallel "
+                                  "training\")")
     if args.mesh:
-        raise NotImplementedError("--mesh is not ported yet (ROADMAP Queue 1 "
-                                  "item 11: parallelism)")
+        raise NotImplementedError("--mesh is not ported yet (ROADMAP Queue 1, "
+                                  "\"Parallelism\")")
     if args.distributed or args.coordinator:
         raise NotImplementedError("--distributed / --coordinator are not "
-                                  "ported yet (ROADMAP Queue 1 item 11: "
-                                  "parallelism)")
+                                  "ported yet (ROADMAP Queue 1, "
+                                  "\"Parallelism\")")
     if not is_recurrent(args.network):
         raise NotImplementedError(
             f"training network {args.network!r} is not ported yet: "
-            f"feed-forward stages are ROADMAP Queue 1 item 2")
+            f"feed-forward stages are ROADMAP Queue 1, \"Feed-forward "
+            f"nets\"")
 
 
 def _load_fold_train_data(args, recurrent: bool):

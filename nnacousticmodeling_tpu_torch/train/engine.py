@@ -228,11 +228,13 @@ def train_network(
     dev = resolve_device(device)
     if config.mesh is not None:
         raise NotImplementedError("mesh data/tensor parallelism is not "
-                                  "ported yet (ROADMAP Queue 1 item 11)")
+                                  "ported yet (ROADMAP Queue 1, "
+                                  "\"Parallelism\")")
     if apply_fn is not None or not getattr(net, "is_recurrent", False):
         raise NotImplementedError(
             "feed-forward stages and the RPL head are not ported yet "
-            "(ROADMAP Queue 1 items 2 and 7)")
+            "(ROADMAP Queue 1, \"Feed-forward nets\" and \"RPL heads and "
+            "ensembles\")")
     _compute_dtype(config)
     _check_dispatch(config)
     rng_np = np.random.default_rng(config.seed)

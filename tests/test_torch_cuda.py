@@ -29,8 +29,10 @@ wide cases hold dh0 and dW to
 the plain products of the kernel's own bf16 dz, and to the plain version
 within limits set from the card's readings (see WIDE_DW_RTOL). The
 dense-cube Viterbi forward is bit-equal to its plain version; the fbank
-kernel is within 1e-3 of the plain ``fbank`` in the log domain (float32
-sums in another order).
+kernel (an FFT where the plain version takes dense DFT products) is
+within 1e-3 of the plain ``fbank`` in the log domain, its two entries
+(waveform, frames) bit-equal, and on a wide-range waveform no farther
+from a float64 twin than the plain version, plus 1e-4.
 """
 
 import numpy as np
@@ -303,21 +305,75 @@ def test_cube_viterbi_kernel_bit_equal(cuda, num_phones, ends, beam, route):
 
 
 @pytest.mark.parametrize("kaldi_weights", [False, True])
-@pytest.mark.parametrize("n", [400, 12000, 160 * 37 + 240])
+@pytest.mark.parametrize("n", [400, 12000, 160 * 37 + 240, 399, 160 * 5 + 400,
+                               160 * 4 + 400])
 def test_fbank_kernel_matches_plain(cuda, n, kaldi_weights):
+    """0, 1, 5, 6 (a partial last block of 4), 37 and 73 frames: both
+    entries within 1e-3 of their plain versions, and bit-equal to each
+    other (the kernel's framing gives frame_signal(x) * win's bits)."""
     x = (np.random.default_rng(n).standard_normal(n) * 0.1
          ).astype(np.float32)
+    t = features.num_frames(n)
     before = kernels.launches["fbank"]
     got = features.fbank_cuda(x, kaldi_weights=kaldi_weights)
     torch.cuda.synchronize()
-    assert kernels.launches["fbank"] == before + 1
-    want = features.fbank(torch.from_numpy(x).to(cuda),
-                          kaldi_weights=kaldi_weights)
-    assert got.shape == want.shape == (features.num_frames(n), 40)
+    assert kernels.launches["fbank"] == before + (t > 0)
+    wave = torch.from_numpy(x).to(cuda)
+    want = features.fbank(wave, kaldi_weights=kaldi_weights)
+    assert got.shape == want.shape == (t, 40)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+    frames = features.frame_signal(wave)
+    got_f = features.fbank_frames(frames, kaldi_weights=kaldi_weights)
+    torch.cuda.synchronize()
+    assert kernels.launches["fbank"] == before + 2 * (t > 0)
+    torch.testing.assert_close(
+        got_f, features.fbank_frames_reference(
+            frames, kaldi_weights=kaldi_weights), rtol=0, atol=1e-3)
+    assert torch.equal(got_f, got)
     m = features.mfcc(x, kaldi_weights=kaldi_weights)
-    assert kernels.launches["fbank"] == before + 2
-    assert m.device.type == "cuda" and m.shape == (got.shape[0], 13)
+    assert kernels.launches["fbank"] == before + 3 * (t > 0)
+    assert m.device.type == "cuda" and m.shape == (t, 13)
+
+
+def _wide_range_wave(n, seed):
+    """A loud 1 kHz tone, white noise 60 dB below it, and a 0.25 s stretch
+    of zeros: chip_smoke.py phase 24's wide-range case."""
+    rng = np.random.default_rng(seed)
+    x = 0.9 * np.sin(2 * np.pi * 1000.3 * np.arange(n) / 16000.0)
+    x += 0.9e-3 * rng.standard_normal(n)
+    x[n // 3:n // 3 + 4000] = 0.0
+    return x.astype(np.float32)
+
+
+def _fbank_twin64(frames, kaldi_weights):
+    """float64 log-mel of windowed frames (T, 400): rfft power, mel, log."""
+    power = np.abs(np.fft.rfft(frames.astype(np.float64), n=512)) ** 2
+    mel = power @ features.mel_filterbank(
+        kaldi_weights=kaldi_weights).astype(np.float64)
+    return np.log(np.maximum(mel, features.EPS))
+
+
+@pytest.mark.parametrize("kaldi_weights", [False, True])
+def test_fbank_kernel_wide_range(cuda, kaldi_weights):
+    """93 dB between a frame's loudest and quietest mel bands, where
+    float32 transforms lose most. Kernel and plain version, each against
+    a float64 twin of the float32 windowed frames both transform (the
+    frames' own rounding is common to both, and larger than either
+    transform's error): the kernel lies no farther from the twin than the
+    plain version, plus 1e-4."""
+    x = _wide_range_wave(48000, 24)
+    wave = torch.from_numpy(x).to(cuda)
+    frames = features.frame_signal(wave)
+    twin = _fbank_twin64((frames * torch.from_numpy(
+        features.povey_window()).to(cuda)).cpu().numpy(), kaldi_weights)
+    got = features.fbank_cuda(wave, kaldi_weights=kaldi_weights)
+    want = features.fbank(wave, kaldi_weights=kaldi_weights)
+    assert torch.isfinite(got).all() and got.shape == want.shape
+    err = float(np.abs(got.cpu().numpy() - twin).max())
+    err_plain = float(np.abs(want.cpu().numpy() - twin).max())
+    assert err <= err_plain + 1e-4, (err, err_plain)
+    assert torch.equal(features.fbank_frames(
+        frames, kaldi_weights=kaldi_weights), got)
 
 
 def test_new_wrappers_raise_and_never_fall_back(cuda):
