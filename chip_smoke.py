@@ -152,7 +152,37 @@ Phases (each one that fails ends the run with a non-zero exit):
     CMN, the plain route (plain fbank, plain LSTM) must give posteriors
     within POSTERIOR_ATOL, and the plain cube Viterbi on the kernel run's
     posteriors identical segments and PER. Then the device time of the
-    batch's 128 ``fbank`` launches, summed under the profiler.
+    batch's 128 ``fbank`` launches, summed under the profiler;
+26. FF serving: an MLP 8x2048 relu -> 1909 with numpy-seeded weights
+    carried in through ``load_jax_params`` on phase 5's test set spliced
+    +-5 (440-dim) -> ``ff_log_posteriors`` with priors ->
+    ``decode_corpus`` -> MLF -> PER; the posteriors within
+    POSTERIOR_ATOL of the same net on the CPU, the collapsed Viterbi
+    launched on its cluster route, the plain Viterbi's segments and PER
+    identical; audio-s/s and the posterior-stage ms;
+27. FF and TDNN training through ``train_cli.main`` on phase 5's corpus
+    written as a tree: ``-n ff -l 8 -u 2048 -a relu --splice 5 -d 0.2 -b
+    1024 -o momentumsgd``, 2 epochs, float32 and then ``--dtype
+    bfloat16``; ``-n tdnn --tdnn-ksize 5 5 9 9 -u 1024 x4 -a relu -d 0.2
+    -b 256``, 1 epoch. Every loss finite, the FF's epoch-2 train loss
+    below epoch 1's, each ``model.npz`` loads into its serving net; ms
+    per update and train frames/s beside the FLOP bound of an update at
+    the f32 CUDA-core and the dense bf16 tensor peaks;
+28. the six-phase master pipeline (``master.main --num-folds 5
+    --gen-folds``, the default spec ``-n lstm -l 4 -u 1024 --timedelay 5
+    -d 0.2``, two stages of one epoch, RPL4 2 epochs) on that corpus
+    with its training utterances spread over 40 speakers, so every fold
+    holds some: each phase runs (1 fold generation, the master, 5 folds,
+    2 predictions, the RPL, 6 evaluations, each timed), the LSTM training
+    kernels with their dW, ``lstm_scan`` and the collapsed Viterbi are
+    launched, the RPL's losses are finite, six finite PERs come back;
+29. ensemble serving through ``evaluate.main --rpl`` on phase 28's
+    master, 5 folds and RPL over phase 5's test frames: ``lstm_scan``
+    launched 6x as often as for the master alone through the same call
+    (K + 1 passes, every layer on the kernel), the plain route
+    (``--scan-impl xla``, the same ensemble) within POSTERIOR_ATOL, the
+    plain Viterbi's segments and PER identical; audio-s/s of the 6-net
+    ensemble beside the master alone and phase 5's single net.
 
 Output: progress lines, then the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -217,6 +247,9 @@ T_MAIN, B_MAIN, H_MAIN, LAYERS, CLASSES, DIM = 512, 128, 1024, 4, 1909, 40
 PHONES = 48
 NUM_TEST = 128
 BEAM = 8.0
+# phase 5's corpus (make_synthetic_corpus's arguments)
+CORPUS = dict(dim=DIM, num_train=128, num_dev=1, num_test=NUM_TEST, seed=0,
+              min_phones=40, max_phones=48)
 
 
 def fail(msg):
@@ -2226,6 +2259,467 @@ def decoder_audio_phases(torch, np, dev, card, img, corpus, lp_rand, lens,
     ]
 
 
+# ---- phases 26-29: feed-forward nets, the master pipeline, ensembles ------
+FF_LAYERS, FF_UNITS, FF_SPLICE, FF_BATCH = 8, 2048, 5, 1024
+TDNN_KSIZE, TDNN_UNITS, TDNN_BATCH = (5, 5, 9, 9), 1024, 256
+NUM_FOLDS, FOLD_SPEAKERS = 5, 40
+
+
+def numpy_mlp_params(seed, in_dim):
+    """MLP FF_LAYERS x FF_UNITS relu -> CLASSES weights in the JAX pytree
+    layout, drawn from a numpy seed (hidden layers scaled sqrt(2 / fan
+    in), so the relu stack keeps its scale)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    hidden, d = [], in_dim
+    for _ in range(FF_LAYERS):
+        hidden.append({"w": (rng.standard_normal((d, FF_UNITS))
+                             * np.sqrt(2.0 / d)).astype(np.float32),
+                       "b": np.zeros(FF_UNITS, np.float32)})
+        d = FF_UNITS
+    return {"hidden": hidden,
+            "out": {"w": (rng.standard_normal((d, CLASSES)) / np.sqrt(d)
+                          ).astype(np.float32),
+                    "b": np.zeros(CLASSES, np.float32)}}
+
+
+def mlp_macs(in_dim):
+    """Multiply-adds a frame of the FF_LAYERS x FF_UNITS MLP."""
+    return (in_dim * FF_UNITS + (FF_LAYERS - 1) * FF_UNITS * FF_UNITS
+            + FF_UNITS * CLASSES)
+
+
+def tdnn_macs(feat):
+    """Multiply-adds a frame of the TDNN_KSIZE x TDNN_UNITS TDNN."""
+    width = sum(TDNN_KSIZE) - len(TDNN_KSIZE) + 1
+    macs, d = 0, feat
+    for k in TDNN_KSIZE:
+        width -= k - 1
+        macs += width * k * d * TDNN_UNITS
+        d = TDNN_UNITS
+    return macs + d * CLASSES
+
+
+def ff_train_run(torch, np, train_cli, argv, steps, flops_update, tag,
+                 epochs, card):
+    """One ``train_cli.main`` run of a feed-forward net: every loss finite;
+    the last epoch's ms per update and train frames/s beside the FLOP
+    bound of an update at the f32 CUDA-core and bf16 tensor peaks."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = train_cli.main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    hist = result.history
+    losses = [h[k] for h in hist for k in ("main/loss",
+                                           "validation/main/loss")]
+    if len(hist) != epochs or not np.isfinite(losses).all():
+        fail(f"{tag} training history malformed: {hist}")
+    last = hist[-1]["elapsed_time"]
+    update_ms = last / steps * 1e3
+    batch = int(argv[argv.index("-b") + 1])
+    frames_per_s = steps * batch / last
+    bound_f32 = flops_update / F32_FLOPS * 1e3
+    bound_bf16 = flops_update / BF16_TENSOR_FLOPS * 1e3
+    log(f"[{tag}] {steps} updates an epoch: epoch times "
+        + ", ".join(f"{h['elapsed_time']:.3f} s" for h in hist)
+        + f"; epoch {epochs}: {update_ms:.2f} ms per update, "
+        f"{frames_per_s:.0f} train frames/s; an update is "
+        f"{flops_update / 1e9:.1f} GFLOP: bound {bound_f32:.3f} ms at the "
+        f"f32 CUDA-core peak, {bound_bf16:.3f} ms at the dense bf16 "
+        f"tensor peak; losses " + ", ".join(
+            f"{h['main/loss']:.4f} (val {h['validation/main/loss']:.4f})"
+            for h in hist) + f"; whole call {wall_s:.1f} s [{card}]")
+    return result, dict(history=hist, update_ms=update_ms,
+                        frames_per_s=frames_per_s, gflop=flops_update / 1e9,
+                        bound_f32_ms=bound_f32, bound_bf16_ms=bound_bf16,
+                        wall_s=wall_s)
+
+
+def profile_updates(torch, dev, card, net, x, y, bs, dtype, tag):
+    """3 updates of ``net`` (batch ``bs``, momentumsgd, no validation)
+    under the profiler, after 3 unprofiled ones (cuBLAS / cuDNN plans):
+    wall ms, device busy ms and the top device ops."""
+    from nnacousticmodeling_tpu_torch.train import (
+        TrainConfig, TrainStage, train_network)
+    n = 3 * bs
+    cfg = TrainConfig(stages=[TrainStage(1, "momentumsgd", bs, 0.01, False)],
+                      log=None, use_validation=False, compute_dtype=dtype)
+
+    def run():
+        train_network(net, x[:n], y[:n], cfg, device=dev)
+
+    run()
+    wall_ms, busy_ms, top = device_profile(torch, run)
+    log_profile(tag, wall_ms, busy_ms, top, card)
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, top_device_ms=top)
+
+
+def master_phase_of(name, argv):
+    if name == "train_main":
+        if "--train-rpl" in argv:
+            return "train rpl"
+        return "train folds" if "--train-fold" in argv else "train master"
+    if name == "predict_folds_main":
+        return "predict"
+    return "generate folds" if name == "generate_folds_main" else "evaluate"
+
+
+class Spy:
+    """Wraps a function: keeps its last result and each call's first
+    argument and seconds (the card synchronised around it)."""
+
+    def __init__(self, torch, fn):
+        self.torch, self.fn, self.out, self.calls = torch, fn, None, []
+
+    def __call__(self, *args, **kwargs):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.out = self.fn(*args, **kwargs)
+        self.torch.cuda.synchronize()
+        self.calls.append((args[0], time.perf_counter() - t0))
+        return self.out
+
+
+def ff_ensemble_phases(torch, np, dev, card, img, corpus, dec, tput5,
+                       report):
+    """Phases 26-29: FF serving, FF and TDNN training through
+    ``train_cli``, the six-phase master pipeline, and ensemble serving
+    through ``evaluate --rpl``. ``corpus``/``dec`` are phase 5's,
+    ``tput5`` its audio-s/s."""
+    from nnacousticmodeling_tpu_torch import kernels
+    from nnacousticmodeling_tpu_torch.decoder import viterbi_collapsed as vc
+    from nnacousticmodeling_tpu_torch.decoder.corpus_decode import (
+        decode_corpus)
+    from nnacousticmodeling_tpu_torch.decoder.image import (
+        load_image, save_image)
+    from nnacousticmodeling_tpu_torch.decoder.viterbi import ViterbiDecoder
+    from nnacousticmodeling_tpu_torch.infer import ff_log_posteriors
+    from nnacousticmodeling_tpu_torch.io import load_mlf, write_mlf
+    from nnacousticmodeling_tpu_torch.models import get_network
+    from nnacousticmodeling_tpu_torch.ops.splice import splice_flat
+    from nnacousticmodeling_tpu_torch.pipeline import evaluate, train_cli
+    from nnacousticmodeling_tpu_torch.pipeline import master as master_mod
+    from nnacousticmodeling_tpu_torch.train import load_jax_params
+    from nnacousticmodeling_tpu_torch.utils.synthetic import (
+        make_synthetic_corpus, write_corpus_tree)
+
+    phase_s = {}
+    phase_done = phase_timer(phase_s)
+    out = {}
+    offsets = corpus.test.offsets
+    lengths = np.diff(offsets)
+    audio_s = float(lengths.sum()) / 100.0
+    ap = corpus.log_priors
+    tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_ff_")
+    tmp = Path(tmp_dir.name)
+    ref_path = tmp / "test_ref.mlf"
+    write_mlf(str(ref_path), corpus.ref_mlf["test"])
+    ref = load_mlf(str(ref_path))
+
+    # ---- 26. FF serving ------------------------------------------------
+    x_ff = splice_flat(corpus.test.data, range(-FF_SPLICE, FF_SPLICE + 1))
+    in_dim = x_ff.shape[1]
+    weights = numpy_mlp_params(2, in_dim)
+    net = get_network("ff", FF_LAYERS, [FF_UNITS], CLASSES, "relu",
+                      in_dim=in_dim, device=dev)
+    net.load_state_dict(load_jax_params(weights, device=dev))
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lp = ff_log_posteriors(net, x_ff, ap=ap)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    results = decode_corpus(dec, lp, offsets, batch=B_MAIN)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    per = per_of(corpus, results, tmp / "ff.mlf", ref)
+    t3 = time.perf_counter()
+    launches = dict(kernels.launches)
+    log(f"[ff serving] main-path launches: {launches}")
+    if launches.get("collapsed_viterbi_forward", 0) <= 0:
+        fail("the FF serving path did not launch collapsed_viterbi_forward")
+    if launches.get("collapsed_viterbi_forward.global", 0):
+        fail("the FF serving path took the collapsed kernel's device-memory "
+             "route, not the cluster route")
+    if lp.shape != (lengths.sum(), CLASSES) or not np.isfinite(lp).all():
+        fail(f"FF posteriors malformed: shape {lp.shape}")
+    stages = {"posteriors_ms": (t1 - t0) * 1e3, "decode_ms": (t2 - t1) * 1e3,
+              "mlf_per_ms": (t3 - t2) * 1e3}
+    tput = audio_s / (t3 - t0)
+    post_flops = 2.0 * mlp_macs(in_dim) * x_ff.shape[0]
+    log(f"[ff serving] MLP {FF_LAYERS}x{FF_UNITS} relu -> {CLASSES} on "
+        f"{x_ff.shape[0]} frames spliced +-{FF_SPLICE} ({in_dim}-dim): PER "
+        f"{per:.2f} %, {tput:.1f} audio-s/s; " + ", ".join(
+            f"{k} {v:.1f}" for k, v in stages.items())
+        + f"; the posterior products are {post_flops / 1e12:.2f} TFLOP, "
+        f"{post_flops / F32_FLOPS * 1e3:.1f} ms at the f32 CUDA-core peak "
+        f"[{card}]")
+    cpu_net = get_network("ff", FF_LAYERS, [FF_UNITS], CLASSES, "relu",
+                          in_dim=in_dim, device="cpu")
+    cpu_net.load_state_dict(load_jax_params(weights, device="cpu"))
+    lp_cpu = ff_log_posteriors(cpu_net, x_ff, ap=ap)
+    del cpu_net
+    post_err = float(np.abs(lp - lp_cpu).max())
+    if not post_err <= POSTERIOR_ATOL:
+        fail(f"FF posteriors on the card differ from the CPU's by {post_err} "
+             f"(tolerance {POSTERIOR_ATOL})")
+    with mock.patch.object(vc, "collapsed_viterbi_forward",
+                           vc.collapsed_viterbi_reference):
+        results_plain = decode_corpus(dec, lp, offsets, batch=B_MAIN)
+    per_plain = per_of(corpus, results_plain, tmp / "ff_plain.mlf", ref)
+    same = sum(a.segments == b.segments for a, b in zip(results,
+                                                        results_plain))
+    if same != len(results) or per_plain != per:
+        fail(f"FF serving: plain decode differs: {len(results) - same} "
+             f"utterances, PER {per_plain} vs {per}")
+    log(f"[ff serving] posteriors within {post_err:.3e} of the CPU's "
+        f"(tolerance {POSTERIOR_ATOL}); plain Viterbi: segments of all "
+        f"{same} utterances and PER identical")
+    wall_ms, busy_ms, top = device_profile(
+        torch, lambda: ff_log_posteriors(net, x_ff, ap=ap))
+    log_profile("ff posteriors profile", wall_ms, busy_ms, top, card)
+    out["ff_serving"] = dict(per=per, audio_s_per_s=tput,
+                             posterior_err=post_err, launches=launches,
+                             tflop=post_flops / 1e12, profile=dict(
+                                 wall_ms=wall_ms, device_busy_ms=busy_ms,
+                                 top_device_ms=top), **stages)
+    del net, lp, lp_cpu, x_ff
+    phase_done(26)
+
+    # ---- 27. FF and TDNN training through train_cli --------------------
+    # phase 5's corpus with its training utterances spread over
+    # FOLD_SPEAKERS speakers (the same frames: the names alone change),
+    # so that phase 28's 5 folds all hold speakers
+    corpus_k = make_synthetic_corpus(img, **CORPUS,
+                                     num_speakers=FOLD_SPEAKERS)
+    if not (np.array_equal(corpus_k.train.data, corpus.train.data)
+            and np.array_equal(corpus_k.test.data, corpus.test.data)):
+        fail("the fold corpus does not hold phase 5's frames")
+    tree = tmp / "tree"
+    write_corpus_tree(corpus_k, str(tree))
+    save_image(str(tree / "recog" / "kaldiTri1909.img"), img)
+    np.save(tree / "recog" / "log_ap_Kaldi1909.npy", corpus_k.log_priors)
+    data = ["--num-classes", str(CLASSES), "--data-dir", f"{tree}/data",
+            "--offset-dir", f"{tree}/data", "--target-dir", f"{tree}/data"]
+    n_train = int(corpus.train.data.shape[0])
+    ff_args = ["-n", "ff", "-l", str(FF_LAYERS), "-u", str(FF_UNITS), "-a",
+               "relu", "--splice", str(FF_SPLICE), "-d", "0.2", "-b",
+               str(FF_BATCH), "-o", "momentumsgd", "--lr", "0.01",
+               "--early-stopping", "false", "--noplot", "-e", "2"] + data
+    ff_flops = 3 * 2 * FF_BATCH * mlp_macs(in_dim)
+    ff_steps = n_train // FF_BATCH
+    train = {}
+    kernels.reset_launches()
+    for dtype in ("float32", "bfloat16"):
+        res, train[f"ff_{dtype}"] = ff_train_run(
+            torch, np, train_cli, ff_args + ["--dtype", dtype, "--out",
+                                             str(tmp / f"ff_{dtype}")],
+            ff_steps, ff_flops, f"ff train {dtype}", 2, card)
+        hist = res.history
+        if not hist[1]["main/loss"] < hist[0]["main/loss"]:
+            fail(f"FF {dtype} train loss did not fall: "
+                 f"{hist[0]['main/loss']} -> {hist[1]['main/loss']}")
+        serving = get_network("ff", FF_LAYERS, [FF_UNITS], CLASSES, "relu",
+                              in_dim=in_dim, device=dev)
+        serving.load_state_dict(load_jax_params(
+            tmp / f"ff_{dtype}" / "model.npz", device=dev))
+    win = sum(TDNN_KSIZE) - len(TDNN_KSIZE) + 1
+    tdnn_args = (["-n", "tdnn", "--tdnn-ksize"]
+                 + [str(k) for k in TDNN_KSIZE] + ["-u"]
+                 + [str(TDNN_UNITS)] * len(TDNN_KSIZE)
+                 + ["-a", "relu", "-d", "0.2", "-b", str(TDNN_BATCH), "-o",
+                    "momentumsgd", "--lr", "0.01", "--early-stopping",
+                    "false", "--noplot", "-e", "1", "--out",
+                    str(tmp / "tdnn")] + data)
+    _, train["tdnn"] = ff_train_run(
+        torch, np, train_cli, tdnn_args, n_train // TDNN_BATCH,
+        3 * 2 * TDNN_BATCH * tdnn_macs(DIM), "tdnn train (epoch 1, warm-up "
+        "included)", 1, card)
+    serving = get_network("tdnn", 0, [TDNN_UNITS] * len(TDNN_KSIZE), CLASSES,
+                          "relu", TDNN_KSIZE, in_dim=win * DIM, device=dev)
+    serving.load_state_dict(load_jax_params(tmp / "tdnn" / "model.npz",
+                                            device=dev))
+    train_launches = dict(kernels.launches)
+    if train_launches:
+        fail(f"the FF / TDNN training launched a recurrence or Viterbi "
+             f"kernel: {train_launches}")
+    log("[ff train] every loss finite, FF train losses fall in both "
+        "dtypes, each model.npz loads into its serving net")
+    # where an update's time goes: 3 updates of each, profiled
+    y_train = corpus.train.targets
+    x_tr = splice_flat(corpus.train.data, range(-FF_SPLICE, FF_SPLICE + 1))
+    for dtype in ("float32", "bfloat16"):
+        net = get_network("ff", FF_LAYERS, [FF_UNITS], CLASSES, "relu",
+                          in_dim=in_dim, device=dev)
+        train[f"ff_{dtype}"]["profile"] = profile_updates(
+            torch, dev, card, net, x_tr, y_train, FF_BATCH, dtype,
+            f"ff {dtype} update profile (3 updates)")
+    half = (win - 1) // 2
+    x_tr = splice_flat(corpus.train.data, range(-half, half + 1))
+    train["tdnn"]["profile"] = profile_updates(
+        torch, dev, card, serving, x_tr, y_train, TDNN_BATCH, "float32",
+        "tdnn update profile (3 updates)")
+    out["ff_train"] = train
+    del serving, net, x_tr
+    phase_done(27)
+
+    # ---- 28. the master pipeline ---------------------------------------
+    results_dir = tmp / "results"
+    spies = {name: Spy(torch, getattr(master_mod, name))
+             for name in ("generate_folds_main", "train_main",
+                          "predict_folds_main", "evaluate_main")}
+    master_args = [
+        "--num-folds", str(NUM_FOLDS), "--gen-folds",
+        "--data-dir", f"{tree}/data", "--offset-dir", f"{tree}/data",
+        "--target-dir", f"{tree}/data", "--utt-list-dir", f"{tree}/data",
+        "--recog-dir", f"{tree}/recog", "--output-dir", str(results_dir),
+        "--output-id", "smoke", "--num-classes", str(CLASSES),
+        f"--network-spec=-n lstm -l {LAYERS} -u {H_MAIN} --timedelay 5 "
+        f"-d 0.2",
+        "--epoch", "1", "-o", "adam", "momentumsgd", "-b", "256", "128",
+        "--lr", "1e-2", "1e-3",
+        "--rpl-train-setup=-b 1024 --epoch 2 -o adam --lr 1e-3 "
+        "--early-stopping false",
+        "--PIP", "20", "--seed", "0", "--eval-data", "test",
+        "--device", "cuda"]
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.multiple(master_mod, **spies):
+        pers = master_mod.main(master_args)
+    master_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    log(f"[master] main-path launches: {launches}")
+    for name in ("lstm_train_forward", "lstm_train_backward",
+                 "lstm_train_dw", "lstm_scan", "collapsed_viterbi_forward"):
+        if launches.get(name, 0) <= 0:
+            fail(f"the master pipeline did not launch {name}")
+    if launches.get("collapsed_viterbi_forward.global", 0):
+        fail("the master pipeline took the collapsed kernel's device-memory "
+             "route")
+    per_phase = {}
+    for name, spy in spies.items():
+        for argv, sec in spy.calls:
+            ph = master_phase_of(name, [str(a) for a in argv])
+            n, s = per_phase.get(ph, (0, 0.0))
+            per_phase[ph] = (n + 1, s + sec)
+    want = {"generate folds": 1, "train master": 1, "train folds": NUM_FOLDS,
+            "predict": 2, "train rpl": 1, "evaluate": 6}
+    if {k: v[0] for k, v in per_phase.items()} != want:
+        fail(f"the master pipeline's phases ran {per_phase}, not {want}")
+    fold_dir = results_dir / "fold_data" / str(NUM_FOLDS) / "data"
+    sizes = [len(np.load(fold_dir / f"offsets_{k}.npy")) - 1
+             for k in range(NUM_FOLDS)]
+    if min(sizes) <= 0:
+        fail(f"an empty fold: utterances a fold {sizes}")
+    rpl_log = json.loads((results_dir / "models" / "rpl" / str(NUM_FOLDS)
+                          / "smoke" / "log.json").read_text())
+    rpl_losses = [h[k] for h in rpl_log for k in ("main/loss",
+                                                  "validation/main/loss")]
+    if not rpl_log or not np.isfinite(rpl_losses).all():
+        fail(f"the RPL's losses are not finite: {rpl_log}")
+    if len(pers) != 6 or not all(np.isfinite(v) for v in pers.values()):
+        fail(f"the master pipeline returned {pers}, not six finite PERs")
+    log(f"[master] LSTM {LAYERS}x{H_MAIN} --timedelay 5 -d 0.2, "
+        f"{NUM_FOLDS} folds of {sizes} utterances, RPL4: {master_s:.1f} s; "
+        + "; ".join(f"{k} {n}x {s:.1f} s" for k, (n, s) in per_phase.items())
+        + f"; RPL losses {[round(v, 4) for v in rpl_losses]}; PER "
+        + ", ".join(f"{tag} {v:.2f} %" for (_, tag), v in pers.items())
+        + f" [{card}]")
+    out["master"] = dict(seconds=master_s, per_phase=per_phase,
+                         fold_utterances=sizes, rpl_history=rpl_log,
+                         pers={t: v for (_, t), v in pers.items()},
+                         launches=launches)
+    phase_done(28)
+
+    # ---- 29. ensemble serving through evaluate --rpl -------------------
+    models = results_dir / "models"
+    ev = ["-n", "lstm", "-l", str(LAYERS), "-u", str(H_MAIN),
+          "--timedelay", "5", "-d", "0.2", "--rpl", "--tri",
+          "--fold-model-dir", str(models / "folds" / str(NUM_FOLDS) / "smoke"),
+          "--master-network",
+          str(models / "master" / str(NUM_FOLDS) / "smoke" / "model"),
+          "--data-dir", f"{tree}/data", "--offset-dir", f"{tree}/data",
+          "--utt-list-dir", f"{tree}/data", "--recog-dir", f"{tree}/recog",
+          "--num-classes", str(CLASSES), "--test-or-dev", "test",
+          "--device", "cuda"]
+    full = ev + ["--rpl-model",
+                 str(models / "rpl" / str(NUM_FOLDS) / "smoke" / "model")]
+    single = ev + ["--rpl-model", "-", "--fold-network-pattern", "-"]
+    runs = {}
+    for tag, argv in (("single", single), ("ensemble", full),
+                      ("plain", full + ["--scan-impl", "xla"])):
+        lp_spy = Spy(torch, evaluate.ensemble_log_posteriors)
+        dec_spy = Spy(torch, evaluate.decode_corpus)
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mock.patch.multiple(evaluate, ensemble_log_posteriors=lp_spy,
+                                 decode_corpus=dec_spy):
+            per_t = evaluate.main(argv)
+        wall = time.perf_counter() - t0
+        lp_s, dec_s = lp_spy.calls[0][1], dec_spy.calls[0][1]
+        stage_s = lp_s + dec_s
+        runs[tag] = dict(per=per_t, lp=lp_spy.out, results=dec_spy.out,
+                         launches=dict(kernels.launches), wall_s=wall,
+                         posteriors_ms=lp_s * 1e3, decode_ms=dec_s * 1e3,
+                         audio_s_per_s=audio_s / stage_s,
+                         call_audio_s_per_s=audio_s / wall)
+    one, ens, plain = runs["single"], runs["ensemble"], runs["plain"]
+    log(f"[ensemble] launches: single {one['launches']}; ensemble "
+        f"{ens['launches']}; plain {plain['launches']}")
+    n_single = one["launches"].get("lstm_scan", 0)
+    if n_single <= 0 or ens["launches"].get("lstm_scan", 0) != \
+            (NUM_FOLDS + 1) * n_single:
+        fail(f"the ensemble launched lstm_scan "
+             f"{ens['launches'].get('lstm_scan', 0)} times, not "
+             f"{NUM_FOLDS + 1} x the single net's {n_single}")
+    if plain["launches"].get("lstm_scan", 0):
+        fail("the plain (--scan-impl xla) ensemble launched lstm_scan")
+    if ens["lp"].shape != (lengths.sum(), CLASSES) or not np.isfinite(
+            ens["lp"]).all():
+        fail(f"ensemble posteriors malformed: shape {ens['lp'].shape}")
+    post_err = float(np.abs(ens["lp"] - plain["lp"]).max())
+    if not post_err <= POSTERIOR_ATOL:
+        fail(f"ensemble posteriors differ from the plain route's by "
+             f"{post_err} (tolerance {POSTERIOR_ATOL})")
+    dec_k = ViterbiDecoder(load_image(str(tree / "recog" /
+                                          "kaldiTri1909.img")),
+                           pip=20.0, lmw=1.0, device=dev)
+    with mock.patch.object(vc, "collapsed_viterbi_forward",
+                           vc.collapsed_viterbi_reference):
+        res_plain = decode_corpus(dec_k, ens["lp"], corpus_k.test.offsets)
+    per_plain = per_of(corpus_k, res_plain, tmp / "ens_plain.mlf", load_mlf(
+        str(tree / "recog" / "test_ref.mlf")))
+    same = sum(a.segments == b.segments for a, b in zip(ens["results"],
+                                                        res_plain))
+    if same != len(res_plain) or per_plain != ens["per"]:
+        fail(f"ensemble: plain decode differs: {len(res_plain) - same} "
+             f"utterances, PER {per_plain} vs {ens['per']}")
+    del dec_k
+    log(f"[ensemble] {NUM_FOLDS + 1} nets + RPL4: PER {ens['per']:.2f} %, "
+        f"{ens['audio_s_per_s']:.1f} audio-s/s (posteriors "
+        f"{ens['posteriors_ms']:.1f} ms, decode {ens['decode_ms']:.1f}; "
+        f"whole evaluate call {ens['call_audio_s_per_s']:.1f}); the master "
+        f"alone {one['audio_s_per_s']:.1f} audio-s/s (posteriors "
+        f"{one['posteriors_ms']:.1f} ms; whole call "
+        f"{one['call_audio_s_per_s']:.1f}), phase 5's single net "
+        f"{tput5:.1f}; lstm_scan {n_single} -> "
+        f"{ens['launches']['lstm_scan']} launches; the plain route "
+        f"(--scan-impl xla) within {post_err:.3e} (tolerance "
+        f"{POSTERIOR_ATOL}), PER {plain['per']:.2f} %; plain Viterbi: "
+        f"segments of all {same} utterances and PER identical [{card}]")
+    out["ensemble"] = {tag: {k: v for k, v in r.items()
+                             if k not in ("lp", "results")}
+                       for tag, r in runs.items()}
+    out["ensemble"]["posterior_err"] = post_err
+    phase_done(29)
+    tmp_dir.cleanup()
+    out["phase_s"] = phase_s
+    report["ff_ensemble"] = out
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -2358,9 +2852,7 @@ def main():
 
     # ---- 5. the slice --------------------------------------------------
     t0 = time.perf_counter()
-    corpus = make_synthetic_corpus(img, dim=DIM, num_train=128, num_dev=1,
-                                   num_test=NUM_TEST, seed=0,
-                                   min_phones=40, max_phones=48)
+    corpus = make_synthetic_corpus(img, **CORPUS)
     x, offsets = corpus.test.data, corpus.test.offsets
     lengths = np.diff(offsets)
     audio_s = float(lengths.sum()) / 100.0
@@ -2468,6 +2960,7 @@ def main():
     decoder_audio_kernels = decoder_audio_phases(
         torch, np, dev, card, img, corpus, lp_rand, lens, lp, results, per,
         stages["decode_ms"], report)
+    ff_ensemble_phases(torch, np, dev, card, img, corpus, dec, tput, report)
 
     report.update(
         lstm=dict(err=lstm_err, ms=lstm_ms, plain_ms=lstm_plain_ms,

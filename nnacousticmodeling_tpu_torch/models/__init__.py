@@ -1,7 +1,11 @@
-from .networks import (GRU, LSTM, MGRUNet, PeepholeLSTM, ZoneoutDropoutLSTM,
-                       ZoneoutLSTM, get_network, is_recurrent)
+from .ensemble import Ensemble, stack_fold_params
+from .networks import (GRU, LSTM, MLP, TDNN, MGRUNet, PeepholeLSTM,
+                       ZoneoutDropoutLSTM, ZoneoutLSTM, get_network,
+                       is_recurrent)
 from .precision import HalfPrecisionNet, cast_params
+from .rpl import RPL0, RPL1, RPL2, RPL3, RPL4, get_rpl
 
-__all__ = ["GRU", "HalfPrecisionNet", "LSTM", "MGRUNet", "PeepholeLSTM",
+__all__ = ["Ensemble", "GRU", "HalfPrecisionNet", "LSTM", "MGRUNet", "MLP",
+           "PeepholeLSTM", "RPL0", "RPL1", "RPL2", "RPL3", "RPL4", "TDNN",
            "ZoneoutDropoutLSTM", "ZoneoutLSTM", "cast_params", "get_network",
-           "is_recurrent"]
+           "get_rpl", "is_recurrent", "stack_fold_params"]

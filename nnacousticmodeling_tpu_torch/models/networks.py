@@ -1,12 +1,16 @@
 """Acoustic model stacks as ``nn.Module``s.
 
-Counterpart of ``nnacousticmodeling_tpu/models/networks.py``. Ported: the
-LSTM stack (``networks.py:298-328``), the zoneout LSTM stacks without and
-with dropout (``:331-372``), the peephole LSTM stack (``:375-409``), the
-GRU stack (``:412-456``) and the minimal-GRU stack with and without its
-reset gate (``MGRUNet``, ``:459-531``): every recurrent net of the zoo.
-Each layer hoists its input projection over all timesteps into one
-``(B*T, D) @ (D, G*H)`` matmul, and only the recurrence runs per step,
+Counterpart of ``nnacousticmodeling_tpu/models/networks.py``: every net
+of the zoo. The feed-forward nets are the MLP (``networks.py:60-89``)
+and the TDNN (``:92-165``): dense products and ``F.conv1d``, with no
+kernel of their own (the JAX package has none for them either). The
+recurrent nets are the LSTM stack (``networks.py:298-328``), the zoneout
+LSTM stacks without and with dropout (``:331-372``), the peephole LSTM
+stack (``:375-409``), the GRU stack (``:412-456``) and the minimal-GRU
+stack with and without its reset gate (``MGRUNet``, ``:459-531``).
+Each recurrent layer hoists its input projection over all timesteps into
+one ``(B*T, D) @ (D, G*H)`` matmul, and only the recurrence runs per
+step,
 either as the float32 step loop (``scan_impl="xla"``, the twin of the JAX
 ``lax.scan`` path) or through the CUDA recurrence kernels
 (``scan_impl="pallas"``, the twin of the JAX Pallas path:
@@ -29,22 +33,27 @@ gated off at a fresh step 0 (``networks.py:437-443``, ``:491-497``), and
 ``fresh`` comes back as zeros.
 
 Dropout is the JAX package's placement (``networks.py:42-47``, the
-reference's): inverted dropout ``x / (1 - rate)`` on the input and after
-every layer, only when training, its masks drawn from the
-``torch.Generator`` the caller passes; the zoneout masks come from the
-same generator. ``ZoneoutLSTM`` has no dropout at all.
+reference's): inverted dropout ``x / (1 - rate)``, only when training,
+its masks drawn from the ``torch.Generator`` the caller passes; the
+recurrent nets apply it to the input and after every layer, the MLP
+after each hidden activation, the TDNN after each conv activation; the
+zoneout masks come from the same generator. ``ZoneoutLSTM`` has no
+dropout at all.
 
 Parameter names follow the JAX pytree paths with ``.`` for ``/``
-(``cells.0.wx``, ``out.w``), so ``train.checkpoint.load_jax_params``
-output loads with ``load_state_dict``. Weights keep the dense
-``(in, out)`` layout; nothing is transposed.
+(``cells.0.wx``, ``hidden.0.w``, ``conv.0.w``, ``out.w``), so
+``train.checkpoint.load_jax_params`` output loads with
+``load_state_dict``. Weights keep the JAX layouts (dense ``(in, out)``,
+TDNN kernels ``(k, d_in, d_out)``); nothing is transposed at rest.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.rnn_cuda import (
@@ -116,6 +125,127 @@ def _fold_u_bias(proj: torch.Tensor, bu: torch.Tensor,
     (Chainer skips the whole U term while ``h is None``)."""
     proj = proj + bu
     return torch.cat([proj[:1] - fresh[None] * bu, proj[1:]])
+
+
+# ---------------------------------------------------------------------------
+# Feed-forward
+# ---------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    """MLP twin (chainer_networks.py:8-22): ``layers`` hidden layers of
+    ``units``, activation and dropout after each, linear output.
+
+    ``in_dim`` is the feature width (the JAX ``init``'s argument);
+    weights are drawn from ``seed`` (they do not equal the JAX init; load
+    shared weights for parity)."""
+
+    is_recurrent = False
+
+    def __init__(self, units: int, num_classes: int, layers: int = 2,
+                 dropout: float = 0.0, activation: str = "relu", *,
+                 in_dim: int, device="cuda", seed: int = 0):
+        super().__init__()
+        if activation not in ACTIVATIONS:
+            raise ValueError(f"unknown activation {activation!r}")
+        dev = resolve_device(device)
+        self.units, self.num_classes, self.layers = units, num_classes, layers
+        self.dropout, self.activation = dropout, activation
+        gen = torch.Generator().manual_seed(seed)
+        hidden = []
+        d = in_dim
+        for _ in range(layers):
+            hidden.append(_Dense(cells.dense_init(d, units, gen)))
+            d = units
+        self.hidden = nn.ModuleList(hidden)
+        self.out = _Dense(cells.dense_init(d, num_classes, gen))
+        self.to(dev)
+
+    @property
+    def device(self) -> torch.device:
+        return self.out.w.device
+
+    def apply(self, x: torch.Tensor, train: bool = False,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(N, D) -> (N, C) logits."""
+        act = ACTIVATIONS[self.activation]
+        for layer in self.hidden:
+            x = dropout(act(x @ layer.w + layer.b), self.dropout, train,
+                        generator)
+        return x @ self.out.w + self.out.b
+
+    forward = apply
+
+
+class TDNN(nn.Module):
+    """TDNN twin (chainer_networks.py:24-42): 1-D convolutions over the
+    splice window with per-layer kernel sizes, a linear output on the
+    collapsed window.
+
+    The input is the spliced flat layout (N, winlen*D) with shift-major
+    blocks (``ops.splice_flat``), read as (N, W, D); with
+    ``chainer_layout`` it is the reference's raw reshape to (N, D, W)
+    instead (JAX ``networks.py:150-154``). Each layer is a VALID
+    cross-correlation, ``F.conv1d`` on the ``(k, d_in, d_out)`` kernel
+    permuted to ``(d_out, d_in, k)``, as ``conv_general_dilated`` with
+    ``WIO`` computes it."""
+
+    is_recurrent = False
+
+    def __init__(self, units: Sequence[int], num_classes: int,
+                 ksize: Sequence[int], dropout: float = 0.0,
+                 activation: str = "relu", chainer_layout: bool = False, *,
+                 in_dim: int, device="cuda", seed: int = 0):
+        super().__init__()
+        if len(units) != len(ksize):
+            raise ValueError("TDNN units must have the same length as ksize")
+        if activation not in ACTIVATIONS:
+            raise ValueError(f"unknown activation {activation!r}")
+        dev = resolve_device(device)
+        self.units, self.ksize = tuple(units), tuple(ksize)
+        self.num_classes = num_classes
+        self.dropout, self.activation = dropout, activation
+        self.chainer_layout = chainer_layout
+        winlen = self.input_win_size
+        if in_dim % winlen != 0:
+            raise ValueError(
+                f"TDNN input dim {in_dim} not divisible by window {winlen}")
+        gen = torch.Generator().manual_seed(seed)
+        d = in_dim // winlen
+        conv = []
+        for u, k in zip(self.units, self.ksize):
+            w = torch.randn(k, d, u, generator=gen) / math.sqrt(k * d)
+            conv.append(_Dense({"w": w, "b": torch.zeros(u)}))
+            d = u
+        self.conv = nn.ModuleList(conv)
+        self.out = _Dense(cells.dense_init(d, num_classes, gen))
+        self.to(dev)
+
+    @property
+    def input_win_size(self) -> int:
+        return sum(self.ksize) - len(self.ksize) + 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.out.w.device
+
+    def apply(self, x: torch.Tensor, train: bool = False,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(N, winlen*D) -> (N, C) logits."""
+        act = ACTIVATIONS[self.activation]
+        n = x.shape[0]
+        winlen = self.input_win_size
+        if self.chainer_layout:
+            x = x.reshape(n, -1, winlen)                    # (N, C=D, W)
+        else:
+            x = x.reshape(n, winlen, -1).transpose(1, 2)    # (N, D, W)
+        for layer in self.conv:
+            x = F.conv1d(x, layer.w.permute(2, 1, 0)) + layer.b[:, None]
+            x = dropout(act(x), self.dropout, train, generator)
+        x = x.reshape(n, -1)                     # the window collapsed to 1
+        return x @ self.out.w + self.out.b
+
+    forward = apply
+
 
 
 class _RecurrentStack(nn.Module):
@@ -406,19 +536,16 @@ class MGRUNet(_RecurrentStack):
         return (h_t, torch.zeros_like(fresh)), hs
 
 
-_LATER = {"ff", "tdnn"}
-
-
 def get_network(network: str, layers: int, units: Sequence[int],
                 num_classes: int, activation: str = "relu",
                 tdnn_ksize: Sequence[int] = (5,),
                 dropout: Sequence[float] = (0.0,), *, in_dim: int,
                 scan_impl: str = "xla", device="cuda", seed: int = 0):
-    """Twin of get_nn (chainer_networks.py:163-187). This port builds
-    every recurrent net: ``"lstm"``, ``"zoneoutlstm"``,
-    ``"zoneoutdropoutlstm"``, ``"peepholelstm"``, ``"gru"``,
-    ``"mgrurelu"`` and ``"mgrurelur"``; ``"ff"`` and ``"tdnn"`` are
-    ROADMAP Queue 1, "Feed-forward nets". As in the JAX package, the
+    """Twin of get_nn (chainer_networks.py:163-187), with the JAX
+    argument mapping (``networks.py:538-581``): ``"ff"`` is an MLP of
+    ``layers`` x ``units[0]``, ``"tdnn"`` a TDNN of ``units`` with
+    ``tdnn_ksize``, both with ``activation`` and ``dropout[0]``
+    (``scan_impl`` does not apply to them). As in the JAX package, the
     MGRU nets keep their default relu candidate and ignore
     ``activation``, and the
     dropout list maps positionally (``networks.py:553-568``): onto
@@ -427,6 +554,15 @@ def get_network(network: str, layers: int, units: Sequence[int],
     the list is shorter."""
     dropout = (list(dropout) if not isinstance(dropout, (int, float))
                else [dropout])
+    if network == "ff":
+        return MLP(units=units[0], num_classes=num_classes, layers=layers,
+                   dropout=dropout[0], activation=activation, in_dim=in_dim,
+                   device=device, seed=seed)
+    if network == "tdnn":
+        return TDNN(units=tuple(units), num_classes=num_classes,
+                    ksize=tuple(tdnn_ksize), dropout=dropout[0],
+                    activation=activation, in_dim=in_dim, device=device,
+                    seed=seed)
     kw = dict(in_dim=in_dim, scan_impl=scan_impl, device=device, seed=seed)
     if network == "lstm":
         return LSTM(units=units[0], num_classes=num_classes, layers=layers,
@@ -453,10 +589,6 @@ def get_network(network: str, layers: int, units: Sequence[int],
         return MGRUNet(units=units[0], num_classes=num_classes, layers=layers,
                        dropout=dropout[0],
                        use_reset_gate=network == "mgrurelur", **kw)
-    if network in _LATER:
-        raise NotImplementedError(
-            f"network {network!r} is not ported yet (ROADMAP Queue 1, "
-            f"\"Feed-forward nets\": MLP / TDNN)")
     raise ValueError(f"unknown network type: {network}")
 
 

@@ -28,10 +28,13 @@ def _cast_state(state, dtype):
 
 
 class HalfPrecisionNet:
-    """Wraps a recurrent network for bf16 compute with float32 outputs:
-    parameters, inputs and the initial state are cast to ``dtype``, the
-    logits come back as float32. Drops into ``rnn_log_posteriors`` and
-    the training engine like the network itself."""
+    """Wraps a network for bf16 compute with float32 outputs: parameters,
+    inputs and (recurrent nets) the initial state are cast to ``dtype``,
+    the logits come back as float32. Works with the feed-forward
+    ``apply`` and the recurrent ``apply_sequence``, so it drops into
+    ``ff_log_posteriors``, ``rnn_log_posteriors`` and the training engine
+    like the network itself (the FF stage's ``compute_dtype="bfloat16"``
+    is the JAX ``_mixed_apply``, ``engine.py:206-220``)."""
 
     def __init__(self, net, dtype=torch.bfloat16):
         self.net = net
@@ -44,6 +47,11 @@ class HalfPrecisionNet:
 
     def cast(self) -> Dict[str, torch.Tensor]:
         return cast_params(dict(self.net.named_parameters()), self.dtype)
+
+    def apply(self, x, train=False, generator=None):
+        y = functional_call(self.net, self.cast(), (x.to(self.dtype),),
+                            {"train": train, "generator": generator})
+        return y.float()
 
     def init_state(self, batch: int):
         return _cast_state(self.net.init_state(batch), self.dtype)

@@ -31,8 +31,7 @@ def add_network_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--network", "-n", default="ff",
                         help='Network type: ff, tdnn, lstm, zoneoutlstm, '
                              'zoneoutdropoutlstm, peepholelstm, gru, '
-                             'mgrurelu, mgrurelur (this port: all but ff '
-                             'and tdnn)')
+                             'mgrurelu, mgrurelur')
     parser.add_argument("--units", "-u", type=int, nargs="+", default=[1024])
     parser.add_argument("--layers", "-l", type=int, default=2)
     parser.add_argument("--activation", "-a", default="relu")

@@ -1,10 +1,15 @@
-"""Evaluation, single-model path: prior-subtracted log posteriors over
-the test or dev set, the triphone Viterbi decode on the card, the
-48->39 phone map, and ``PER: xx.xx %``.
+"""Evaluation: assembles the (master + folds + RPL) ensemble, or the
+single ``--model``, computes prior-subtracted log posteriors over the
+test or dev set, decodes them with the triphone Viterbi on the card,
+maps phones 48->39 and prints ``PER: xx.xx %``.
 
 Counterpart of ``nnacousticmodeling_tpu/pipeline/evaluate.py`` with the
-same argv surface plus ``--device``. Not ported yet (they raise):
-``--rpl`` ensembles, ``--decoder native`` and ``--lm-from-mlf``.
+same argv surface plus ``--device``: feed-forward nets (frame chunks, no
+offsets) and recurrent nets, ``--rpl`` ensembles through
+``assemble_params``. As in the JAX package, the posteriors decode with
+``timedelay=0`` even for a net trained with ``--timedelay`` (the
+reference's eval path does not compensate it). Not ported yet (they
+raise): ``--decoder native`` and ``--lm-from-mlf``.
 """
 
 from __future__ import annotations
@@ -17,10 +22,11 @@ import numpy as np
 from ..decoder import ViterbiDecoder, compute_per
 from ..decoder.corpus_decode import decode_corpus
 from ..decoder.image import load_image
-from ..infer import rnn_log_posteriors
+from ..infer import ensemble_log_posteriors
 from ..io import load_mlf, load_phone_map, load_utt_list, write_mlf
 from ..io.mlf import MlfEntry
-from ..train import load_jax_params
+from ..models import RPL4, Ensemble, stack_fold_params
+from ..train import load_jax_params, load_pytree
 from ..utils.device import resolve_device
 from .common import (
     add_data_args, add_network_args, build_network, effective_splice,
@@ -48,8 +54,7 @@ def build_parser():
                         help="48->39 map in recog-dir ('-' = identity)")
     parser.add_argument("--test-or-dev", default="test")
     parser.add_argument("--rpl", action="store_true",
-                        help="ensemble mode (master/folds/rpl); not ported "
-                             "yet")
+                        help="ensemble mode (master/folds/rpl)")
     parser.add_argument("--rpl-model", default="result_rpl/model")
     parser.add_argument("--fold-model-dir", default="fold_models")
     parser.add_argument("--fold-network-pattern", default="fold_{0}.npz")
@@ -74,14 +79,55 @@ def _model_path(p: str) -> str:
     return p if p.endswith(".npz") else p + ".npz"
 
 
+def _load_net_params(path, net, device):
+    """A checkpoint's params, read through ``net`` (whose
+    ``load_state_dict`` also takes the optional converted-checkpoint
+    biases of the gated nets) and copied out by name."""
+    net.load_state_dict(load_jax_params(path, device))
+    return {k: v.detach().clone() for k, v in net.state_dict().items()}
+
+
+def assemble_params(args, net, num_classes: int, device):
+    """Load the master / fold / RPL checkpoints into ``Ensemble`` params
+    (evaluate.py:105-132): the single ``--model`` without ``--rpl``;
+    with it the ``--master-network`` unless ``-``, the folds of
+    ``--fold-model-dir`` fold-ascending until the first missing one
+    unless the pattern is ``-``, and the RPL4 ``--rpl-model`` unless
+    ``-``."""
+    params = {"master": None, "folds": None, "rpl": None}
+    if not args.rpl:
+        params["master"] = _load_net_params(_model_path(args.model), net,
+                                            device)
+        return Ensemble(network=net, rpl=None, num_folds=0), params
+
+    if args.master_network != "-":
+        print("Loading master network")
+        params["master"] = _load_net_params(
+            _model_path(args.master_network), net, device)
+    folds = []
+    if args.fold_network_pattern != "-":
+        fold = 0
+        while True:
+            f = Path(args.fold_model_dir,
+                     args.fold_network_pattern.format(fold))
+            if not f.is_file():
+                break
+            print(f"Loading fold {fold} network")
+            folds.append(_load_net_params(str(f), net, device))
+            fold += 1
+    if folds:
+        params["folds"] = stack_fold_params(folds)
+    rpl = None
+    if args.rpl_model != "-":
+        rpl = RPL4(num_classes, device=device)
+        params["rpl"] = load_pytree(_model_path(args.rpl_model), rpl)
+    return Ensemble(network=net, rpl=rpl, num_folds=len(folds)), params
+
+
 def main(arg_list=None):
     parser = build_parser()
     args = parser.parse_args(list(map(str, arg_list)) if arg_list is not None
                              else None)
-    if args.rpl:
-        raise NotImplementedError("--rpl ensembles are not ported yet "
-                                  "(ROADMAP Queue 1, \"RPL heads and "
-                                  "ensembles\")")
     if args.decoder == "native":
         raise NotImplementedError("--decoder native is not ported yet "
                                   "(ROADMAP Queue 1, \"The native decoder, "
@@ -111,7 +157,7 @@ def main(arg_list=None):
         raise ValueError("wrong number of utterances")
 
     net = build_network(args, num_classes, x.shape[1], device)
-    net.load_state_dict(load_jax_params(_model_path(args.model), device))
+    ens, params = assemble_params(args, net, num_classes, device)
 
     # ---- posteriors with prior subtraction (evaluateModelForTest.py:75-77)
     ap = None
@@ -123,7 +169,9 @@ def main(arg_list=None):
                 f"requires it under --tri); pass --ap-file - to decode "
                 f"without prior subtraction")
         ap = args.ap_coef * np.load(str(ap_file))
-    lp = rnn_log_posteriors(net, x, offsets, ap=ap, timedelay=0)
+    lp = ensemble_log_posteriors(
+        ens, params, x, offsets=offsets if net.is_recurrent else None,
+        ap=ap, timedelay=0)
     # the reference's eval path does not compensate --timedelay
     # (evaluateModelForTest.py:36), so the unshifted sequence decodes
 

@@ -1,15 +1,16 @@
-"""Training CLI, single-model path: trains one recurrent network through
-staged (optimizer, batch-size, lr, early-stop) phases and writes
-``model.npz`` (under the JAX package's keys), ``log.json`` and
+"""Training CLI: trains one network (the master, one fold, or the RPL
+head) through staged (optimizer, batch-size, lr, early-stop) phases and
+writes ``model.npz`` (under the JAX package's keys), ``log.json`` and
 ``args.txt``.
 
 Counterpart of ``nnacousticmodeling_tpu/pipeline/train_cli.py`` with the
 same argv surface plus ``--device`` (default ``cuda``; ``--device cpu``
-runs without a card). In this slice: the master and ``--train-fold``
-data paths, ``--resume``, ``--dtype``, ``--timedelay``. Not ported yet
-(they raise ``NotImplementedError``): ``--train-rpl``,
-``--train-all-folds``, ``--mesh``, ``--distributed`` / ``--coordinator``,
-and feed-forward networks (which ``--shuffle-sequences`` is for).
+runs without a card): every network of the zoo (feed-forward and
+recurrent), the master and ``--train-fold`` data paths, ``--train-rpl``
+(RPL4 on the fold outputs, validated on the dev-set fold average),
+``--shuffle-sequences``, ``--resume``, ``--dtype``, ``--timedelay``. Not
+ported yet (they raise ``NotImplementedError``): ``--train-all-folds``,
+``--mesh``, ``--distributed`` / ``--coordinator``.
 
 Run: ``python -m nnacousticmodeling_tpu_torch.pipeline.train_cli [args]``.
 """
@@ -23,7 +24,7 @@ from pathlib import Path
 
 import numpy as np
 
-from ..models import is_recurrent
+from ..models import RPL4, is_recurrent
 from ..ops.timedelay import apply_time_delay
 from ..train import TrainConfig, build_stages, save_pytree, train_network
 from ..utils.device import resolve_device
@@ -75,8 +76,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--train-fold", type=int)
     parser.add_argument("--train-all-folds", action="store_true",
                         help="fold-parallel training; not ported yet")
-    parser.add_argument("--train-rpl", action="store_true",
-                        help="RPL head training; not ported yet")
+    parser.add_argument("--train-rpl", action="store_true")
     parser.add_argument("--fold-data-dir", default="fold_data")
     parser.add_argument("--fold-output-dir", default="fold_data_out")
     parser.add_argument("--fold-model-dir", default="fold_models")
@@ -92,9 +92,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _check_ported(args) -> None:
-    if args.train_rpl:
-        raise NotImplementedError("--train-rpl is not ported yet (ROADMAP "
-                                  "Queue 1, \"RPL heads and ensembles\")")
     if args.train_all_folds:
         raise NotImplementedError("--train-all-folds is not ported yet "
                                   "(ROADMAP Queue 1, \"Fold-parallel "
@@ -106,11 +103,37 @@ def _check_ported(args) -> None:
         raise NotImplementedError("--distributed / --coordinator are not "
                                   "ported yet (ROADMAP Queue 1, "
                                   "\"Parallelism\")")
-    if not is_recurrent(args.network):
-        raise NotImplementedError(
-            f"training network {args.network!r} is not ported yet: "
-            f"feed-forward stages are ROADMAP Queue 1, \"Feed-forward "
-            f"nets\"")
+
+
+class _RplNet(RPL4):
+    """RPL4 as a non-recurrent net of the training engine (JAX
+    ``train_cli.py:298-312``): its forward takes the engine's ``train``
+    and ``generator`` and ignores them (the head has no dropout)."""
+
+    def forward(self, x, train=False, generator=None):
+        return RPL4.apply(self, x)
+
+    apply = forward
+
+
+def _load_rpl_data(args):
+    """Fold-output logits and fold targets for RPL training, fold-
+    ascending until the first missing fold (train.py:129-157)."""
+    xs, ys = [], []
+    fold = 0
+    while True:
+        x_file = Path(args.fold_output_dir,
+                      args.fold_output_pattern.format(fold))
+        y_file = Path(args.fold_data_dir, args.fold_target_pattern.format(fold))
+        if not x_file.is_file() or not y_file.is_file():
+            break
+        print(f"Loading fold {fold} data")
+        xs.append(np.load(str(x_file)))
+        ys.append(np.load(str(y_file)))
+        fold += 1
+    if fold == 0:
+        raise FileNotFoundError("No fold data found")
+    return np.concatenate(xs, axis=0), np.concatenate(ys, axis=0)
 
 
 def _load_fold_train_data(args, recurrent: bool):
@@ -157,41 +180,56 @@ def main(arg_list=None):
     device = resolve_device(args.device)
     dump_args(args, args.out)
     num_classes = num_classes_for(args)
+    recurrent = is_recurrent(args.network) and not args.train_rpl
 
     # ---- data ---------------------------------------------------------
     offsets = offsets_dev = None
     ivectors = ivectors_dev = None
-    if args.train_fold is not None:
-        x, y, offsets, ivectors = _load_fold_train_data(args, True)
+    if args.train_rpl:
+        x, y = _load_rpl_data(args)
+        x_dev = y_dev = None
+        if args.use_validation:
+            dev_file = Path(args.data_dir, args.data.format("dev"))
+            if dev_file.is_file():
+                x_dev = np.load(str(dev_file))
+                y_dev = np.load(str(Path(args.target_dir,
+                                         args.targets.format("dev"))))
     else:
-        x = np.load(str(Path(args.data_dir, args.data.format("train"))))
-        y = np.load(str(Path(args.target_dir, args.targets.format("train"))))
-        offsets = np.load(str(Path(args.offset_dir,
-                                   args.offsets.format("train"))))
-        if args.ivector_dir is not None:
-            ivectors = np.load(str(Path(args.ivector_dir,
-                                        args.ivectors.format("train"))))
-    x_dev = y_dev = None
-    if args.use_validation:
-        x_dev = np.load(str(Path(args.data_dir, args.data.format("dev"))))
-        y_dev = np.load(str(Path(args.target_dir, args.targets.format("dev"))))
-        offsets_dev = np.load(str(Path(args.offset_dir,
-                                       args.offsets.format("dev"))))
-        if args.ivector_dir is not None:
-            ivectors_dev = np.load(str(Path(args.ivector_dir,
-                                            args.ivectors.format("dev"))))
+        if args.train_fold is not None:
+            x, y, offsets, ivectors = _load_fold_train_data(args, recurrent)
+        else:
+            x = np.load(str(Path(args.data_dir, args.data.format("train"))))
+            y = np.load(str(Path(args.target_dir,
+                                 args.targets.format("train"))))
+            if recurrent or args.shuffle_sequences:
+                offsets = np.load(str(Path(args.offset_dir,
+                                           args.offsets.format("train"))))
+            if args.ivector_dir is not None:
+                ivectors = np.load(str(Path(args.ivector_dir,
+                                            args.ivectors.format("train"))))
+        x_dev = y_dev = None
+        if args.use_validation:
+            x_dev = np.load(str(Path(args.data_dir, args.data.format("dev"))))
+            y_dev = np.load(str(Path(args.target_dir,
+                                     args.targets.format("dev"))))
+            if recurrent:
+                offsets_dev = np.load(str(Path(args.offset_dir,
+                                               args.offsets.format("dev"))))
+            if args.ivector_dir is not None:
+                ivectors_dev = np.load(str(Path(args.ivector_dir,
+                                                args.ivectors.format("dev"))))
 
-    # splice -> transform -> i-vectors -> time delay (train.py:224-264)
-    splice = effective_splice(args)
-    ft = load_transform(args, splice)
-    x = prepare_features(x, args, splice, ft, ivectors)
-    if x_dev is not None:
-        x_dev = prepare_features(x_dev, args, splice, ft, ivectors_dev)
-    if args.timedelay != 0:
-        x, y, offsets = apply_time_delay(x, y, offsets, args.timedelay)
+        # splice -> transform -> i-vectors -> time delay (train.py:224-264)
+        splice = effective_splice(args)
+        ft = load_transform(args, splice)
+        x = prepare_features(x, args, splice, ft, ivectors)
         if x_dev is not None:
-            x_dev, y_dev, offsets_dev = apply_time_delay(
-                x_dev, y_dev, offsets_dev, args.timedelay)
+            x_dev = prepare_features(x_dev, args, splice, ft, ivectors_dev)
+        if recurrent and args.timedelay != 0:
+            x, y, offsets = apply_time_delay(x, y, offsets, args.timedelay)
+            if x_dev is not None:
+                x_dev, y_dev, offsets_dev = apply_time_delay(
+                    x_dev, y_dev, offsets_dev, args.timedelay)
 
     # ---- model + stages ----------------------------------------------
     stages = build_stages(args.epoch, args.optimizer, args.batch_size,
@@ -205,7 +243,10 @@ def main(arg_list=None):
                          resume_snapshot=bool(args.resume),
                          compute_dtype=args.dtype,
                          shuffle_sequences=args.shuffle_sequences)
-    net = build_network(args, num_classes, x.shape[1], device)
+    if args.train_rpl:
+        net = _RplNet(num_classes, device=device, seed=args.seed)
+    else:
+        net = build_network(args, num_classes, x.shape[1], device)
     if args.resume and args.resume != "auto":
         config.snapshot_path = args.resume
 

@@ -1,9 +1,22 @@
-"""Staged training engine, recurrent (multi-stream TBPTT) stages.
+"""Staged training engine: feed-forward and recurrent (multi-stream
+TBPTT) stages.
 
 Counterpart of ``nnacousticmodeling_tpu/train/engine.py`` (``:46-488``,
-``:492-518``, ``:631-757``), with the behaviour that decides parity kept
-as it is there:
+``:492-757``), with the behaviour that decides parity kept as it is
+there:
 
+* feed-forward (``_make_ff_stage``, JAX ``:525-624``): each epoch draws
+  ``rng_np.permutation(n)[:steps*bs]`` with ``steps = max(n // bs, 1)``
+  (SerialIterator semantics; the final partial batch is dropped), or
+  with ``shuffle_sequences`` one frame from each of ``bs`` streams over
+  the sentence-shuffled corpus a minibatch; one device gather and one
+  update a minibatch; loss the batch-mean softmax cross-entropy;
+  validation in ``eval_chunk``-frame chunks, the loss summed over the
+  dev frames and divided by their count (eager PyTorch compiles nothing
+  per shape, so the tail chunk runs at its own length instead of padded
+  and masked); ``apply_fn(params, xb, generator, train) -> logits`` may
+  replace the network's own forward (the JAX ``apply_fn``), with
+  ``params`` the network's parameters by name;
 * multi-stream truncated BPTT: B streams over the sentence-shuffled
   corpus at stride N//B (``train/streams.py``, the same numpy shuffle as
   the JAX package, so one ``seed`` draws the same minibatches), each
@@ -32,8 +45,11 @@ loop. Dropout masks come from one ``torch.Generator`` seeded with
 ``seed`` (in the place of the JAX key); the two frameworks draw
 different masks.
 
-Out of this slice (they raise ``NotImplementedError``): feed-forward
-stages and the RPL head (``apply_fn``), and the ``mesh`` data/tensor
+``compute_dtype="bfloat16"`` casts the params and inputs inside autograd
+(``models.precision``) in both kinds of stage: bf16 products, float32
+logits, master params and optimizer state (the JAX ``_mixed_apply``).
+
+Not ported (it raises ``NotImplementedError``): the ``mesh`` data/tensor
 parallelism.
 """
 
@@ -50,7 +66,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..models.precision import HalfPrecisionNet
+from ..models.precision import HalfPrecisionNet, cast_params
 from ..utils.device import resolve_device
 from .checkpoint import params_from_arrays
 from .optimizers import make_optimizer
@@ -224,17 +240,14 @@ def train_network(
     """Train ``net`` (moved to ``device``, trained in place) through the
     configured stages. ``init_params`` (a ``state_dict``-style mapping,
     e.g. from ``load_jax_params``) replaces the network's own init.
-    Returns the final params and the per-epoch history."""
+    ``apply_fn(params, xb, generator, train) -> logits`` overrides the
+    network's forward in a feed-forward stage. Returns the final params
+    and the per-epoch history."""
     dev = resolve_device(device)
     if config.mesh is not None:
         raise NotImplementedError("mesh data/tensor parallelism is not "
                                   "ported yet (ROADMAP Queue 1, "
                                   "\"Parallelism\")")
-    if apply_fn is not None or not getattr(net, "is_recurrent", False):
-        raise NotImplementedError(
-            "feed-forward stages and the RPL head are not ported yet "
-            "(ROADMAP Queue 1, \"Feed-forward nets\" and \"RPL heads and "
-            "ensembles\")")
     _compute_dtype(config)
     _check_dispatch(config)
     rng_np = np.random.default_rng(config.seed)
@@ -254,6 +267,7 @@ def train_network(
                                 ).to(dev),
                torch.from_numpy(np.asarray(y_dev, np.int64)).to(dev))
 
+    recurrent = getattr(net, "is_recurrent", False) and apply_fn is None
     history: List[dict] = []
     eval_cache: dict = {}
 
@@ -280,9 +294,15 @@ def train_network(
                 f"{stage.batch_size}, optimizer = {stage.optimizer}, learning "
                 f"rate = {stage.lr}, early stopping = {stage.early_stopping}")
         opt = make_optimizer(stage.optimizer, stage.lr, net.parameters())
-        run_epoch, evaluate, state = _make_rnn_stage(
-            net, opt, xd, yd, offsets, config, stage.batch_size, val,
-            eval_cache, generator)
+        if recurrent:
+            run_epoch, evaluate, state = _make_rnn_stage(
+                net, opt, xd, yd, offsets, config, stage.batch_size, val,
+                eval_cache, generator)
+        else:
+            run_epoch, evaluate = _make_ff_stage(
+                net, opt, xd, yd, offsets, config, stage.batch_size, val,
+                apply_fn, eval_cache, generator)
+            state = None
 
         best_val = None
         best_params = None
@@ -382,6 +402,83 @@ def train_network(
 
     _finalize_history(history)
     return TrainResult(params=_params_copy(net), history=history)
+
+
+# ---------------------------------------------------------------------------
+# feed-forward stage
+# ---------------------------------------------------------------------------
+
+def _make_ff_stage(net, opt, xd, yd, offsets, config, bs, val, apply_fn,
+                   eval_cache, generator):
+    """``run_epoch(state, rng_np) -> (None, loss, acc)`` and the stage's
+    validation ``evaluate() -> (loss, acc)`` (None without a dev set)."""
+    dt = _compute_dtype(config)
+    if apply_fn is None:
+        model = net if dt is None else HalfPrecisionNet(net, dt)
+
+        def apply(xb, train):
+            return model.apply(xb, train=train, generator=generator)
+    else:
+        def apply(xb, train):
+            p = dict(net.named_parameters())
+            if dt is not None:
+                p, xb = cast_params(p, dt), xb.to(dt)
+            return apply_fn(p, xb, generator, train).float()
+    conv = _metric_conv(config)
+    n = int(xd.shape[0])
+    steps = max(n // bs, 1)
+
+    def update(idx):
+        xb, yb = xd[idx], yd[idx]
+        logits = apply(xb, True)
+        loss = F.cross_entropy(logits, yb)
+        acc = (logits.argmax(-1) == yb).float().mean()
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return loss.detach(), acc
+
+    def epoch_indices(rng_np):
+        if config.shuffle_sequences:
+            # the reference's --shuffle-sequences on FF nets: bs streams
+            # over the sentence-shuffled corpus, one frame each a batch
+            return stream_batch_indices(
+                sentence_shuffle_indices(offsets, n, rng_np), bs, 0,
+                steps).T                                  # (steps, bs)
+        perm = rng_np.permutation(n)
+        return perm[:steps * bs].reshape(steps, bs)
+
+    def run_epoch(state, rng_np):
+        idx_dev = torch.from_numpy(np.ascontiguousarray(
+            epoch_indices(rng_np))).to(xd.device)
+        losses, accs = [], []
+        for s in range(steps):
+            loss, acc = update(idx_dev[s])
+            losses.append(loss)
+            accs.append(acc)
+        return (None, conv(torch.stack(losses).mean()),
+                conv(torch.stack(accs).mean()))
+
+    if val is None:
+        return run_epoch, None
+    if "ff" in eval_cache:
+        return run_epoch, eval_cache["ff"]
+    xv, yv = val
+
+    def evaluate():
+        nv = int(xv.shape[0])
+        chunk = config.eval_chunk
+        tot_l = tot_c = 0.0
+        with torch.inference_mode():
+            for beg in range(0, nv, chunk):
+                logits = apply(xv[beg:beg + chunk], False)
+                yb = yv[beg:beg + chunk]
+                tot_l += float(F.cross_entropy(logits, yb, reduction="sum"))
+                tot_c += float((logits.argmax(-1) == yb).float().sum())
+        return tot_l / nv, tot_c / nv
+
+    eval_cache["ff"] = evaluate
+    return run_epoch, evaluate
 
 
 # ---------------------------------------------------------------------------

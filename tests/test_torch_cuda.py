@@ -1000,3 +1000,74 @@ def test_zoneout_lstm_on_card_serves_through_lstm_scan_and_trains_without(
     torch.cuda.synchronize()
     assert dict(kernels.launches) == before
     assert net.cells[0].wh.grad is not None
+
+
+# ---- feed-forward nets and ensembles ----------------------------------------
+# The FF nets have no kernel of their own: their float32 products on the
+# card (cuBLAS / cuDNN, TF32 off by resolve_device) match the CPU's
+# within FF_ATOL (float32 sums in another order), the bf16 route within
+# BF16_FF_ATOL (a value may round to the neighbouring bf16). An ensemble
+# of master + K folds runs K + 1 passes of the net on the kernel route and
+# matches the same ensemble on the plain recurrence within ENS_ATOL
+# (chip_smoke.py's POSTERIOR_ATOL: bf16 h rounding after sums in another
+# order, carried through the output layer).
+FF_ATOL = 1e-4
+BF16_FF_ATOL = 3e-2
+ENS_ATOL = 1e-2
+
+
+@pytest.mark.parametrize("kind,kw,in_dim", [
+    ("ff", {}, 440), ("tdnn", dict(tdnn_ksize=(5, 5, 9, 9)), 25 * 40),
+    ("tdnn", dict(tdnn_ksize=(3, 3)), 5 * 40)])
+def test_ff_nets_on_card_match_cpu(cuda, kind, kw, in_dim):
+    from nnacousticmodeling_tpu_torch.models import (HalfPrecisionNet,
+                                                     get_network)
+    units = [256] * len(kw.get("tdnn_ksize", (0, 0, 0)))
+    cpu = get_network(kind, 3, units, 97, in_dim=in_dim, device="cpu",
+                      seed=5, **kw)
+    card = get_network(kind, 3, units, 97, in_dim=in_dim, device=cuda, **kw)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(300, in_dim, generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        want = cpu.apply(x)
+        got = card.apply(x.to(cuda)).cpu()
+        bf_want = HalfPrecisionNet(cpu).apply(x)
+        bf_got = HalfPrecisionNet(card).apply(x.to(cuda)).cpu()
+    torch.testing.assert_close(got, want, atol=FF_ATOL, rtol=0)
+    torch.testing.assert_close(bf_got, bf_want, atol=BF16_FF_ATOL, rtol=0)
+
+
+def test_lstm_ensemble_passes_run_on_the_kernel(cuda):
+    """Master + 3 folds: ``lstm_scan`` launched 4x as often as for the
+    single net, every pass on the kernel; the plain recurrence gives the
+    same posteriors within ENS_ATOL."""
+    from unittest import mock
+
+    from nnacousticmodeling_tpu_torch.infer import (ensemble_log_posteriors,
+                                                    rnn_log_posteriors)
+    from nnacousticmodeling_tpu_torch.models import (Ensemble, get_network,
+                                                     get_rpl, networks,
+                                                     stack_fold_params)
+    nets = [get_network("lstm", 2, [64], 23, in_dim=12, scan_impl="pallas",
+                        device=cuda, seed=s) for s in range(4)]
+    params = [{k: v.detach().clone() for k, v in n.state_dict().items()}
+              for n in nets]
+    rpl = get_rpl(4, 23, device=cuda)
+    ens = Ensemble(network=nets[0], rpl=rpl, num_folds=3)
+    p = {"master": params[0], "folds": stack_fold_params(params[1:]),
+         "rpl": {k: v.detach() + 0.1 for k, v in rpl.state_dict().items()}}
+    offsets = np.array([0, 40, 77, 90, 160])
+    x = np.random.default_rng(0).standard_normal((160, 12)).astype(
+        np.float32)
+    kernels.reset_launches()
+    rnn_log_posteriors(nets[0], x, offsets, batch=4)
+    single = kernels.launches["lstm_scan"]
+    kernels.reset_launches()
+    got = ensemble_log_posteriors(ens, p, x, offsets=offsets, batch=4)
+    assert single == 2 and kernels.launches["lstm_scan"] == 4 * single
+    before = dict(kernels.launches)
+    with mock.patch.object(networks, "lstm_scan", lstm_scan_reference):
+        plain = ensemble_log_posteriors(ens, p, x, offsets=offsets, batch=4)
+    assert dict(kernels.launches) == before
+    assert np.isfinite(got).all() and got.shape == (160, 23)
+    np.testing.assert_allclose(got, plain, atol=ENS_ATOL, rtol=0)

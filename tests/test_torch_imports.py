@@ -18,9 +18,14 @@ import nnacousticmodeling_tpu_torch as port
 from nnacousticmodeling_tpu_torch.decoder.image import make_synthetic_image
 from nnacousticmodeling_tpu_torch.decoder.viterbi import ViterbiDecoder
 from nnacousticmodeling_tpu_torch.decoder.viterbi_cube import CubeViterbi
-from nnacousticmodeling_tpu_torch.models import get_network
+from nnacousticmodeling_tpu_torch.models import get_network, get_rpl
 from nnacousticmodeling_tpu_torch.ops.features import fbank, fbank_cuda, mfcc
-from nnacousticmodeling_tpu_torch.pipeline import evaluate, train_cli
+from nnacousticmodeling_tpu_torch.pipeline import (
+    evaluate,
+    master,
+    predict_folds,
+    train_cli,
+)
 from nnacousticmodeling_tpu_torch.train import (
     TrainConfig,
     TrainStage,
@@ -60,7 +65,9 @@ def test_port_files_found():
                 "models/cells.py", "models/networks.py",
                 "ops/timedelay.py", "pipeline/train_cli.py",
                 "decoder/viterbi_cube.py", "ops/features.py",
-                "pipeline/synth_data.py"):
+                "pipeline/synth_data.py", "models/rpl.py",
+                "models/ensemble.py", "pipeline/generate_folds.py",
+                "pipeline/predict_folds.py", "pipeline/master.py"):
         assert f"nnacousticmodeling_tpu_torch/{mod}" in names
     for src in ("gated_persistent.cuh", "gated_scan.cu", "gated_train.cu",
                 "peephole_persistent.cuh", "peephole_scan.cu",
@@ -94,6 +101,10 @@ def _entry_points(tmp_path):
             "zoneoutlstm", 1, [4], 5, in_dim=3),
         "get_network zoneoutdropoutlstm": lambda: get_network(
             "zoneoutdropoutlstm", 1, [4], 5, in_dim=3),
+        "get_network ff": lambda: get_network("ff", 1, [4], 5, in_dim=3),
+        "get_network tdnn": lambda: get_network("tdnn", 1, [4], 5,
+                                                tdnn_ksize=(3,), in_dim=3),
+        "get_rpl": lambda: get_rpl(4, 5),
         "ViterbiDecoder": lambda: ViterbiDecoder(img),
         "ViterbiDecoder pallas": lambda: ViterbiDecoder(img,
                                                         backend="pallas"),
@@ -108,6 +119,14 @@ def _entry_points(tmp_path):
         "train_cli.main": lambda: train_cli.main(
             ["-n", "lstm", "--data-dir", str(tmp_path),
              "--out", str(tmp_path / "out")]),
+        "train_cli.main ff": lambda: train_cli.main(
+            ["-n", "ff", "--data-dir", str(tmp_path),
+             "--out", str(tmp_path / "out")]),
+        "predict_folds.main": lambda: predict_folds.main(
+            ["-n", "ff", "--fold-output-dir", str(tmp_path / "o"),
+             "--fold-model-dir", str(tmp_path)]),
+        "master.main": lambda: master.main(
+            ["--output-dir", str(tmp_path / "results")]),
         "train_network": lambda: train_network(
             get_network("lstm", 1, [4], 5, in_dim=3, device="cpu"),
             np.zeros((8, 3), np.float32), np.zeros(8, np.int32),
@@ -121,11 +140,14 @@ def _entry_points(tmp_path):
                                   "get_network peepholelstm",
                                   "get_network zoneoutlstm",
                                   "get_network zoneoutdropoutlstm",
+                                  "get_network ff", "get_network tdnn",
+                                  "get_rpl",
                                   "ViterbiDecoder", "ViterbiDecoder pallas",
                                   "CubeViterbi", "fbank", "fbank_cuda",
                                   "mfcc", "load_jax_params",
                                   "evaluate.main", "train_cli.main",
-                                  "train_network"])
+                                  "train_cli.main ff", "predict_folds.main",
+                                  "master.main", "train_network"])
 def test_default_device_is_cuda(tmp_path, name):
     call = _entry_points(tmp_path)[name]
     if torch.cuda.is_available():
@@ -137,8 +159,9 @@ def test_default_device_is_cuda(tmp_path, name):
 def test_cpu_on_request():
     assert resolve_device("cpu").type == "cpu"
     for name in ("lstm", "gru", "mgrurelu", "mgrurelur", "peepholelstm",
-                 "zoneoutlstm", "zoneoutdropoutlstm"):
-        net = get_network(name, 1, [4], 5, in_dim=3, device="cpu")
+                 "zoneoutlstm", "zoneoutdropoutlstm", "ff", "tdnn"):
+        net = get_network(name, 1, [4], 5, tdnn_ksize=(3,), in_dim=3,
+                          device="cpu")
         assert net.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_network("ff", 1, [4], 5, in_dim=3, device="cpu")
+    for variant in range(5):
+        assert get_rpl(variant, 5, device="cpu").device.type == "cpu"

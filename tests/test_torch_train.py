@@ -283,15 +283,6 @@ def test_config_errors(corpus, kw, exc, match):
         _port_run(corpus, None, "xla", stages=STAGES[:1], layers=1, **kw)
 
 
-def test_non_recurrent_training_not_ported(corpus):
-    class FF:
-        is_recurrent = False
-    cfg = TrainConfig(stages=[TrainStage(**STAGES[0])], log=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_network(FF(), corpus.train.data, corpus.train.targets, cfg,
-                      device="cpu")
-
-
 # ---- numpy copies, optimizers, dropout, checkpoint ------------------------
 
 def test_stages_equal_jax():

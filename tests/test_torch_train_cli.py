@@ -109,9 +109,8 @@ def test_port_trained_model_decodes_identically(tree, trained, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--train-rpl"], ["--train-all-folds"], ["--mesh", "data=2"],
+    ["--train-all-folds"], ["--mesh", "data=2"],
     ["--distributed"], ["--coordinator", "localhost:1234"],
-    ["-n", "ff"],
 ])
 def test_unported_options_raise(tree, tmp_path, extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
