@@ -182,15 +182,43 @@ Phases (each one that fails ends the run with a non-zero exit):
     (K + 1 passes, every layer on the kernel), the plain route
     (``--scan-impl xla``, the same ensemble) within POSTERIOR_ATOL, the
     plain Viterbi's segments and PER identical; audio-s/s of the 6-net
-    ensemble beside the master alone and phase 5's single net.
+    ensemble beside the master alone and phase 5's single net;
+30. fold-parallel training: ``train_cli --train-all-folds`` on phase
+    28's fold tree at its spec (LSTM 4x1024 ``--timedelay 5 -d 0.2``, 5
+    folds, the master's two 1-epoch stages), timed beside phase 28's five
+    sequential fold trainings: the LSTM training kernels launched 5 folds
+    x 4 layers x the updates, ``lstm_scan`` 5 x 4 a validation, every
+    fold's loss finite and lower in stage 2, the five ``fold_k.npz``
+    loading into the serving net with the returned params; then 3 updates
+    of ``train_folds_parallel`` (5 folds, dropout 0) on the kernels
+    against the plain versions, per fold and update within
+    E2E_LOSS_RTOL, and every parameter's change in every fold within
+    E2E_CHANGE_RTOL of the plain change's largest magnitude;
+31. the native decoder (``native/``, built by ``build_native`` into
+    ``build/native/`` during phase 30): one utterance of phase 5's
+    posteriors timed on one host thread, its segments phase 5's card
+    decode; then ``evaluate --decoder native`` on the first N test
+    utterances (N from that time, 8 to 128), its MLF and PER identical to
+    ``evaluate --decoder tpu``'s; ``--lm-from-mlf`` (a bigram from the
+    train and dev transcripts) through the card decoder, its MLF
+    identical to the plain decode's on the same LM image;
+32. CTC: ``BiRNNCTC`` over an LSTM 4x1024 (48 phones + blank) on phase
+    5's 128 training utterances as one padded batch, labels from the
+    reference MLF: 5 Adam steps on the training kernels (2 directions x
+    4 layers launches a step), the loss finite and falling, the first
+    step's loss within E2E_LOSS_RTOL of the plain route's and its
+    gradients of every parameter within CTC_GRAD_RTOL of the plain
+    gradient's largest magnitude.
 
 Output: progress lines, then the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 A fuller JSON report (stage times, profile, timings) goes to stderr.
 """
 
+import contextlib
 import functools
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -229,6 +257,22 @@ RES_RTOL = 2.0 ** -7
 BWD_RTOL = 1e-2
 DW_RTOL = 3e-3
 E2E_LOSS_RTOL = 1e-3
+# Three fold-parallel updates against three plain ones: each parameter's
+# change (after minus before) is lr times a sum of gradients, each built
+# from dproj (within BWD_RTOL) or dW (within DW_RTOL), so it is held
+# within BWD_RTOL of the plain change's largest magnitude (observed on an
+# H100: 1.8e-3, a cells.*.wh; a dropped dW reads 1.0). A CTC step's
+# gradients (T=470 reverse steps, both directions) within DW_RTOL of the
+# plain gradient's largest magnitude (observed: 7.8e-4 and 8.0e-4 in two
+# runs, fwd.cells.0.wx), and its loss within E2E_LOSS_RTOL (observed:
+# 7.5e-8). Later losses are no kernel check: Adam's first step moves each
+# weight by about lr times the sign of its gradient, so weights whose
+# gradient is near zero step either way with the order of a sum (the
+# second loss read 3.5e-4 and 5.5e-4 from plain in two runs, and moved
+# 2.1e-4 between two kernel runs: F.ctc_loss's backward sums with
+# atomics).
+E2E_CHANGE_RTOL = BWD_RTOL
+CTC_GRAD_RTOL = DW_RTOL
 T_TRAIN = 20
 # gated kernels: the LSTM's reasoning (bf16 rounding flips after sums in
 # another order) with every tolerance taken relative to the largest value
@@ -2263,6 +2307,14 @@ def decoder_audio_phases(torch, np, dev, card, img, corpus, lp_rand, lens,
 FF_LAYERS, FF_UNITS, FF_SPLICE, FF_BATCH = 8, 2048, 5, 1024
 TDNN_KSIZE, TDNN_UNITS, TDNN_BATCH = (5, 5, 9, 9), 1024, 256
 NUM_FOLDS, FOLD_SPEAKERS = 5, 40
+# phases 30-32: the epoch lines of train_folds_parallel's log; the host
+# seconds phase 31's native decode may take (utterances = this x threads
+# / one utterance's seconds, 8 to 128); CTC Adam steps
+FOLD_LINE = re.compile(r"stage=(\d+) epoch=(\d+) folds=\[(.*?)\] "
+                       r"loss=\[(.*?)\]", re.S)
+NATIVE_BUDGET_S = 12.0
+FOLD_BATCHES = (256, 128)         # the master's two stages (master.py:49)
+CTC_STEPS = 5
 
 
 def numpy_mlp_params(seed, in_dim):
@@ -2715,9 +2767,426 @@ def ff_ensemble_phases(torch, np, dev, card, img, corpus, dec, tput5,
                        for tag, r in runs.items()}
     out["ensemble"]["posterior_err"] = post_err
     phase_done(29)
-    tmp_dir.cleanup()
     out["phase_s"] = phase_s
     report["ff_ensemble"] = out
+    return dict(tmp_dir=tmp_dir, tree=tree, corpus_k=corpus_k,
+                results_dir=results_dir,
+                fold_train_s=per_phase["train folds"][1])
+
+
+def patched(target, mapping):
+    """``mock.patch.multiple(target, **mapping)``, nothing when empty."""
+    return (mock.patch.multiple(target, **mapping) if mapping
+            else contextlib.nullcontext())
+
+
+def fold_loss_rows(np, text):
+    """(stage, epoch, folds, per-fold losses) of each epoch line that
+    ``train_folds_parallel`` logged in ``text``."""
+    rows = []
+    for m in FOLD_LINE.finditer(text):
+        rows.append((int(m.group(1)), int(m.group(2)), m.group(3),
+                     np.array(m.group(4).split(), np.float64)))
+    return rows
+
+
+def fold_updates(torch, np, dev, corpus, plain):
+    """3 updates of ``train_folds_parallel`` on 5 LSTM 4x1024 folds
+    (dropout 0, momentumsgd lr 1e-2, no validation): 5 pseudo-utterances
+    of 640 frames of phase 5's training set, one a fold, so every fold's
+    universe is B x L = 2,560 frames and an epoch is one update. With
+    ``plain`` (``rnn_cuda`` name -> plain function) patched in. Returns
+    the (3, 5) per-update, per-fold losses (logged at full precision),
+    the 5 trained param maps and the 5 inits."""
+    from nnacousticmodeling_tpu_torch.models import get_network
+    from nnacousticmodeling_tpu_torch.ops import rnn_cuda
+    from nnacousticmodeling_tpu_torch.train import (
+        TrainConfig, TrainStage, load_jax_params)
+    from nnacousticmodeling_tpu_torch.train.fold_parallel import (
+        train_folds_parallel)
+
+    per = B_MAIN * T_TRAIN // (NUM_FOLDS - 1)
+    n = NUM_FOLDS * per
+    x, y = corpus.train.data[:n], corpus.train.targets[:n]
+    logs = []
+    cfg = TrainConfig(
+        stages=[TrainStage(epoch=3, optimizer="momentumsgd",
+                           batch_size=B_MAIN, lr=0.01, early_stopping=False)],
+        bprop_len=T_TRAIN, seed=0, log=logs.append, use_validation=False)
+    net = get_network("lstm", LAYERS, [H_MAIN], CLASSES, in_dim=DIM,
+                      scan_impl="pallas", device=dev)
+    inits = [load_jax_params(numpy_lstm_params(20 + k), device=dev)
+             for k in range(NUM_FOLDS)]
+    full = functools.partial(np.array2string, precision=9,
+                             max_line_width=10 ** 6)
+    with patched(rnn_cuda, plain), mock.patch.object(
+            np, "array2string", lambda a, precision=None: full(a)):
+        params = train_folds_parallel(net, x, y, np.arange(0, n + 1, per),
+                                      np.arange(NUM_FOLDS), NUM_FOLDS, cfg,
+                                      init_params=inits, device=dev)
+    torch.cuda.synchronize()
+    return (np.stack([r[3] for r in fold_loss_rows(np, "\n".join(logs))]),
+            params, inits)
+
+
+def change_errors(before, got, want):
+    """name -> max |(got - before) - (want - before)| / max |want -
+    before|: how far a kernel run's change of each parameter is from the
+    plain run's, relative to the plain change's largest magnitude."""
+    out = {}
+    for name, b in before.items():
+        d_want = want[name].float() - b.float()
+        scale = float(d_want.abs().max())
+        diff = float((got[name].float() - want[name].float()).abs().max())
+        out[name] = diff / scale if scale > 0 else float("inf")
+    return out
+
+
+def grad_errors(got, want):
+    """name -> max |got - want| / max |want| of two gradient maps."""
+    return {name: float((got[name] - w).abs().max() / w.abs().max())
+            for name, w in want.items()}
+
+
+def fold_native_ctc_phases(torch, np, dev, card, img, corpus, lp5, results5,
+                           ctx, report):
+    """Phases 30-32: fold-parallel training through ``train_cli
+    --train-all-folds`` on phase 28's fold tree, the native decoder
+    through ``evaluate --decoder native`` (and ``--lm-from-mlf`` on the
+    card decoder), and CTC on the LSTM training kernels. ``lp5`` /
+    ``results5`` are phase 5's posteriors and its collapsed decode;
+    ``ctx`` phase 28's tree and fold-training seconds."""
+    import io
+    import os
+    import threading
+
+    from nnacousticmodeling_tpu_torch import kernels
+    from nnacousticmodeling_tpu_torch.decoder import native
+    from nnacousticmodeling_tpu_torch.decoder import viterbi_collapsed as vc
+    from nnacousticmodeling_tpu_torch.decoder.image import save_image
+    from nnacousticmodeling_tpu_torch.io import write_mlf
+    from nnacousticmodeling_tpu_torch.models import get_network
+    from nnacousticmodeling_tpu_torch.models.ctc import (
+        BiRNNCTC, make_ctc_train_step)
+    from nnacousticmodeling_tpu_torch.ops import rnn_cuda
+    from nnacousticmodeling_tpu_torch.pipeline import evaluate, train_cli
+    from nnacousticmodeling_tpu_torch.train import (
+        load_jax_params, make_optimizer, save_pytree)
+
+    phase_s = {}
+    phase_done = phase_timer(phase_s)
+    out = {}
+    tree, tmp = ctx["tree"], Path(ctx["tmp_dir"].name)
+    # the native decoder builds on host cores while phase 30 trains
+    built = {}
+
+    def build():
+        try:
+            t0 = time.perf_counter()
+            native.build_native()
+            built["s"] = time.perf_counter() - t0
+        except Exception as e:  # reported in phase 31
+            built["error"] = e
+
+    native_build = threading.Thread(target=build)
+    native_build.start()
+
+    # ---- 30. fold-parallel training ------------------------------------
+    fold_dir = ctx["results_dir"] / "fold_data" / str(NUM_FOLDS) / "data"
+    models = tmp / "fold_parallel"
+    argv = ["--tri", "--noplot", "--seed", "0", "--num-classes",
+            str(CLASSES), "-b"] + [str(b) for b in FOLD_BATCHES] + [
+            "--epoch", "1", "-o", "adam",
+            "momentumsgd", "--lr", "1e-2", "1e-3", "--early-stopping",
+            "True", "--bproplen", str(T_TRAIN), "--data-dir",
+            f"{tree}/data", "--offset-dir",
+            f"{tree}/data", "--target-dir", f"{tree}/data",
+            "--train-all-folds", "--fold-data-dir", str(fold_dir),
+            "--fold-model-dir", str(models), "--out", str(tmp / "fp_out"),
+            "-n", "lstm", "-l", str(LAYERS), "-u", str(H_MAIN),
+            "--timedelay", "5", "-d", "0.2", "--device", "cuda"]
+    buf = io.StringIO()
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        fold_params = train_cli.main(argv)
+    torch.cuda.synchronize()
+    fp_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    print(f"[fold-parallel] train_cli log:\n{buf.getvalue()}",
+          file=sys.stderr)
+    log(f"[fold-parallel] main-path launches: {launches}")
+    # updates a stage: every fold's universe (the other folds' frames,
+    # each utterance 5 frames longer for --timedelay) over bs x L
+    frames = []
+    for k in range(NUM_FOLDS):
+        off = np.load(fold_dir / f"offsets_{k}.npy")
+        frames.append(int(off[-1]) + 5 * (len(off) - 1))
+    universe = min(sum(frames) - f for f in frames)
+    updates = sum(max(universe // (bs * T_TRAIN), 1) for bs in FOLD_BATCHES)
+    want = NUM_FOLDS * LAYERS * updates
+    for name in ("lstm_train_forward", "lstm_train_backward",
+                 "lstm_train_dw"):
+        if launches.get(name, 0) != want:
+            fail(f"fold-parallel training launched {name} "
+                 f"{launches.get(name, 0)} times, not {NUM_FOLDS} folds x "
+                 f"{LAYERS} layers x {updates} updates = {want}")
+    if launches.get("lstm_scan", 0) != 2 * NUM_FOLDS * LAYERS:
+        fail(f"fold-parallel validation launched lstm_scan "
+             f"{launches.get('lstm_scan', 0)} times, not 2 stages x "
+             f"{NUM_FOLDS} folds x {LAYERS} layers")
+    rows = fold_loss_rows(np, buf.getvalue())
+    if [(r[0], r[1]) for r in rows] != [(0, 1), (1, 1)] or not all(
+            np.isfinite(r[3]).all() and len(r[3]) == NUM_FOLDS
+            for r in rows):
+        fail(f"fold-parallel log malformed: {buf.getvalue()}")
+    if not (rows[1][3] < rows[0][3]).all():
+        fail(f"fold-parallel losses did not fall in every fold: "
+             f"{rows[0][3]} -> {rows[1][3]}")
+    serving = get_network("lstm", LAYERS, [H_MAIN], CLASSES, in_dim=DIM,
+                          scan_impl="pallas", device=dev)
+    for k in range(NUM_FOLDS):
+        serving.load_state_dict(load_jax_params(models / f"fold_{k}.npz",
+                                                device=dev))
+        if not torch.equal(serving.cells[1].wh, fold_params[k]["cells.1.wh"]):
+            fail(f"fold_{k}.npz does not hold fold {k}'s trained params")
+    del serving, fold_params
+    kernels.reset_launches()
+    k_hist, k_params, inits = fold_updates(torch, np, dev, corpus, {})
+    for name in ("lstm_train_forward", "lstm_train_backward",
+                 "lstm_train_dw"):
+        if kernels.launches.get(name, 0) != 3 * NUM_FOLDS * LAYERS:
+            fail(f"3 fold-parallel updates launched {name} "
+                 f"{kernels.launches.get(name, 0)} times, not 3 x "
+                 f"{NUM_FOLDS} folds x {LAYERS} layers")
+    before = dict(kernels.launches)
+    p_hist, p_params, _ = fold_updates(torch, np, dev, corpus, dict(
+        lstm_train_forward=rnn_cuda.lstm_train_forward_reference,
+        lstm_train_backward=rnn_cuda.lstm_train_backward_reference))
+    if dict(kernels.launches) != before:
+        fail("the plain fold-parallel run launched a kernel")
+    err = float(np.abs(k_hist / p_hist - 1).max())
+    if k_hist.shape != (3, NUM_FOLDS) or not np.isfinite(k_hist).all() \
+            or not err <= E2E_LOSS_RTOL:
+        fail(f"3 fold-parallel kernel updates {k_hist.tolist()} differ from "
+             f"3 plain ones {p_hist.tolist()} (tolerance {E2E_LOSS_RTOL} "
+             f"relative)")
+    # every parameter of every fold: its change over the 3 updates on the
+    # kernels against the plain run's (a dropped dW, or a gradient in
+    # another fold's slice, is an error of ~1)
+    change_err = [change_errors(inits[k], k_params[k], p_params[k])
+                  for k in range(NUM_FOLDS)]
+    worst = {name: max(e[name] for e in change_err)
+             for name in change_err[0]}
+    log(f"[fold-parallel] per-parameter change, kernel against plain, worst "
+        f"fold: {json.dumps({k: float(f'{v:.3e}') for k, v in worst.items()})}")
+    bad = {name: v for name, v in worst.items() if not v <= E2E_CHANGE_RTOL}
+    if bad:
+        fail(f"3 fold-parallel kernel updates changed parameters unlike the "
+             f"plain ones: {bad} (tolerance {E2E_CHANGE_RTOL} of the plain "
+             f"change's largest magnitude)")
+    change_max = max(worst.values())
+    del k_params, p_params, inits
+    log(f"[fold-parallel] train_cli --train-all-folds, LSTM {LAYERS}x{H_MAIN}"
+        f" --timedelay 5 -d 0.2, {NUM_FOLDS} folds, stages adam b"
+        f"{FOLD_BATCHES[0]} / momentumsgd b{FOLD_BATCHES[1]}: {fp_s:.1f} s "
+        f"(phase 28's {NUM_FOLDS} sequential "
+        f"fold trainings {ctx['fold_train_s']:.1f} s); {updates} updates x "
+        f"{NUM_FOLDS} folds x {LAYERS} layers = {want} training forwards, "
+        f"backwards and dW launches; losses {rows[0][3].tolist()} -> "
+        f"{rows[1][3].tolist()}; each fold_k.npz loads into the serving net; "
+        f"3 updates x {NUM_FOLDS} folds on the kernel within {err:.3e} "
+        f"relative of plain (tolerance {E2E_LOSS_RTOL}), every parameter's "
+        f"change within {change_max:.3e} of plain's (tolerance "
+        f"{E2E_CHANGE_RTOL}) [{card}]")
+    out["fold_parallel"] = dict(
+        seconds=fp_s, sequential_s=ctx["fold_train_s"], updates=updates,
+        launches=launches, losses=[r[3].tolist() for r in rows],
+        e2e=dict(kernel=k_hist.tolist(), plain=p_hist.tolist(), err=err,
+                 change_err=worst))
+    phase_done(30)
+
+    # ---- 31. the native decoder ----------------------------------------
+    native_build.join()
+    if "error" in built:
+        fail(f"the native decoder did not build: {built['error']}")
+    offsets = corpus.test.offsets
+    image_path = tree / "recog" / "kaldiTri1909.img"
+    nat = native.NativeDecoder(str(image_path), pip=20.0, lmw=1.0)
+    t0 = time.perf_counter()
+    first = nat.decode_one(lp5[offsets[0]:offsets[1]])
+    one_s = time.perf_counter() - t0
+    if first.segments != results5[0].segments:
+        fail("the native decoder's segments of utterance 0 differ from "
+             "phase 5's card decode of the same posteriors")
+    threads = os.cpu_count() or 1
+    n_utts = int(min(NUM_TEST, max(8, NATIVE_BUDGET_S * threads / one_s)))
+    # the first n_utts test utterances as a tree of their own
+    sub = tmp / "native_tree"
+    (sub / "data").mkdir(parents=True)
+    (sub / "recog").mkdir()
+    ck = ctx["corpus_k"]
+    end = int(ck.test.offsets[n_utts])
+    np.save(sub / "data" / "data_test.npy", ck.test.data[:end])
+    np.save(sub / "data" / "offsets_test.npy", ck.test.offsets[:n_utts + 1])
+    (sub / "data" / "test.list").write_text(
+        "\n".join(ck.test.utt_names[:n_utts]) + "\n")
+    write_mlf(str(sub / "recog" / "test_ref.mlf"),
+              ck.ref_mlf["test"][:n_utts])
+    save_image(str(sub / "recog" / "kaldiTri1909.img"), img)
+    np.save(sub / "recog" / "log_ap_Kaldi1909.npy", ck.log_priors)
+    model = sub / "lstm"
+    save_pytree(str(model), load_jax_params(numpy_lstm_params(0),
+                                            device="cpu"))
+    ev = ["-n", "lstm", "-l", str(LAYERS), "-u", str(H_MAIN), "--tri",
+          "--num-classes", str(CLASSES), "--model", str(model),
+          "--data-dir", f"{sub}/data", "--offset-dir", f"{sub}/data",
+          "--utt-list-dir", f"{sub}/data", "--recog-dir", f"{sub}/recog",
+          "--device", "cuda"]
+    runs = {}
+    lm_mlfs = [str(tree / "recog" / f"{s}_ref.mlf") for s in ("train", "dev")]
+    for tag, extra, patch in (
+            ("native", ["--decoder", "native"], {}),
+            ("card", [], {}),
+            ("card lm", ["--lm-from-mlf"] + lm_mlfs, {}),
+            ("plain lm", ["--lm-from-mlf"] + lm_mlfs, dict(
+                collapsed_viterbi_forward=vc.collapsed_viterbi_reference))):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with patched(vc, patch), contextlib.redirect_stdout(io.StringIO()):
+            per = evaluate.main(ev + extra + ["--out-mlf",
+                                              str(tmp / f"{tag}.mlf")])
+        runs[tag] = dict(per=per, seconds=time.perf_counter() - t0,
+                         launches=dict(kernels.launches),
+                         mlf=(tmp / f"{tag}.mlf").read_text())
+    log(f"[native] launches: " + "; ".join(
+        f"{t} {r['launches']}" for t, r in runs.items()))
+    if runs["native"]["launches"].get("collapsed_viterbi_forward", 0) or \
+            runs["native"]["launches"].get("lstm_scan", 0) <= 0:
+        fail(f"evaluate --decoder native: launches "
+             f"{runs['native']['launches']}: posteriors on the card, no "
+             f"card decode")
+    if runs["native"]["mlf"] != runs["card"]["mlf"] or \
+            runs["native"]["per"] != runs["card"]["per"]:
+        fail(f"the native decoder's MLF differs from the card's on "
+             f"{n_utts} utterances")
+    if runs["card lm"]["launches"].get("collapsed_viterbi_forward", 0) <= 0:
+        fail("evaluate --lm-from-mlf did not launch the collapsed Viterbi")
+    if runs["plain lm"]["launches"].get("collapsed_viterbi_forward", 0):
+        fail("the plain --lm-from-mlf decode launched the Viterbi kernel")
+    if runs["card lm"]["mlf"] != runs["plain lm"]["mlf"] or \
+            runs["card lm"]["per"] != runs["plain lm"]["per"]:
+        fail("--lm-from-mlf: the card decoder's MLF differs from the plain "
+             "decode's on the same LM image")
+    nat_s = runs["native"]["seconds"]
+    log(f"[native] native library built in {built['s']:.1f} s (during phase "
+        f"30); one utterance ({offsets[1] - offsets[0]} frames, the "
+        f"{img.num_triphones}-triphone image) {one_s:.3f} s on one host "
+        f"thread, segments = phase 5's card decode; evaluate --decoder "
+        f"native on the first {n_utts} test utterances ({threads} threads) "
+        f"{nat_s:.1f} s, MLF and PER ({runs['native']['per']:.2f} %) "
+        f"identical to --decoder tpu ({runs['card']['seconds']:.1f} s); "
+        f"--lm-from-mlf on the card decoder PER {runs['card lm']['per']:.2f}"
+        f" % ({runs['card lm']['seconds']:.1f} s), MLF identical to the "
+        f"plain decode [{card}]")
+    out["native"] = dict(build_s=built["s"], one_utterance_s=one_s,
+                         utterances=n_utts, threads=threads,
+                         runs={t: {k: v for k, v in r.items() if k != "mlf"}
+                               for t, r in runs.items()})
+    phase_done(31)
+
+    # ---- 32. CTC -------------------------------------------------------
+    c = corpus.train
+    lengths = c.utt_lengths
+    t_max = int(lengths.max())
+    xs_np = np.zeros((c.num_utts, t_max, DIM), np.float32)
+    for u in range(c.num_utts):
+        xs_np[u, :lengths[u]] = c.utt(u)
+    labels = [[int(p[1:]) + 1 for _, _, p in segs]
+              for _, segs in corpus.ref_mlf["train"]]
+    y_lens = np.array([len(v) for v in labels])
+    ys_np = np.zeros((c.num_utts, int(y_lens.max())), np.int64)
+    for u, v in enumerate(labels):
+        ys_np[u, :len(v)] = v
+    xs = torch.from_numpy(xs_np).to(dev)
+    ys = torch.from_numpy(ys_np).to(dev)
+
+    def ctc_model():
+        return BiRNNCTC(get_network("lstm", LAYERS, [H_MAIN], 1, in_dim=DIM,
+                                    scan_impl="pallas", device=dev, seed=3),
+                        PHONES, seed=3)
+
+    def ctc_steps(n, plain):
+        """n steps; the losses, step seconds and the first step's
+        gradients (every parameter but the stacks' own unused heads)."""
+        model = ctc_model()
+        step = make_ctc_train_step(model, make_optimizer(
+            "adam", 1e-3, model.parameters()))
+        losses, secs = [], []
+        with patched(rnn_cuda, plain):
+            for i in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(float(step(xs, lengths, ys, y_lens)))
+                secs.append(time.perf_counter() - t0)
+                if i == 0:
+                    grads = {name: q.grad.detach().clone()
+                             for name, q in model.named_parameters()
+                             if q.grad is not None}
+        del model, step
+        return losses, secs, grads
+
+    kernels.reset_launches()
+    k_losses, k_secs, k_grads = ctc_steps(CTC_STEPS, {})
+    launches = dict(kernels.launches)
+    log(f"[ctc] main-path launches: {launches}")
+    for name in ("lstm_train_forward", "lstm_train_backward",
+                 "lstm_train_dw"):
+        if launches.get(name, 0) != 2 * LAYERS * CTC_STEPS:
+            fail(f"CTC launched {name} {launches.get(name, 0)} times, not 2 "
+                 f"directions x {LAYERS} layers x {CTC_STEPS} steps")
+    if not np.isfinite(k_losses).all() or not k_losses[-1] < k_losses[0]:
+        fail(f"CTC losses not finite or not falling: {k_losses}")
+    before = dict(kernels.launches)
+    p_losses, p_secs, p_grads = ctc_steps(1, dict(
+        lstm_train_forward=rnn_cuda.lstm_train_forward_reference,
+        lstm_train_backward=rnn_cuda.lstm_train_backward_reference))
+    if dict(kernels.launches) != before:
+        fail("the plain CTC step launched a kernel")
+    ctc_err = abs(k_losses[0] / p_losses[0] - 1)
+    if not ctc_err <= E2E_LOSS_RTOL:
+        fail(f"CTC first-step loss {k_losses[0]} differs from the plain "
+             f"route's {p_losses[0]} (tolerance {E2E_LOSS_RTOL} relative)")
+    # the first step's gradients of both directions, every layer: the 8
+    # training backwards and dW launches against their plain versions
+    g_err = grad_errors(k_grads, p_grads)
+    log(f"[ctc] first-step gradients, kernel against plain: "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in g_err.items()})}")
+    bad = {name: v for name, v in g_err.items() if not v <= CTC_GRAD_RTOL}
+    if bad:
+        fail(f"CTC first-step gradients on the kernels differ from plain: "
+             f"{bad} (tolerance {CTC_GRAD_RTOL} of the plain gradient's "
+             f"largest magnitude)")
+    g_max = max(g_err.values())
+    del k_grads, p_grads
+    log(f"[ctc] BiRNNCTC over LSTM {LAYERS}x{H_MAIN}, {PHONES} phones + "
+        f"blank, {c.num_utts} utterances padded to T={t_max} ({int(
+            lengths.sum())} frames, labels {int(y_lens.min())}-"
+        f"{int(y_lens.max())}): {CTC_STEPS} Adam steps, losses "
+        f"{[round(v, 4) for v in k_losses]}; step times "
+        f"{[round(v * 1e3, 1) for v in k_secs]} ms (plain "
+        f"{p_secs[0] * 1e3:.1f} ms); first-step loss within {ctc_err:.3e} "
+        f"relative of plain (tolerance {E2E_LOSS_RTOL}), its gradients within "
+        f"{g_max:.3e} of plain's largest (tolerance {CTC_GRAD_RTOL}); "
+        f"{2 * LAYERS} training forwards, backwards and dW a step [{card}]")
+    out["ctc"] = dict(losses=k_losses, step_s=k_secs, plain_loss=p_losses[0],
+                      plain_step_s=p_secs[0], err=ctc_err, grad_err=g_err,
+                      launches=launches, t_max=t_max)
+    phase_done(32)
+    out["phase_s"] = phase_s
+    report["fold_native_ctc"] = out
 
 
 def main():
@@ -2960,7 +3429,11 @@ def main():
     decoder_audio_kernels = decoder_audio_phases(
         torch, np, dev, card, img, corpus, lp_rand, lens, lp, results, per,
         stages["decode_ms"], report)
-    ff_ensemble_phases(torch, np, dev, card, img, corpus, dec, tput, report)
+    ctx = ff_ensemble_phases(torch, np, dev, card, img, corpus, dec, tput,
+                             report)
+    fold_native_ctc_phases(torch, np, dev, card, img, corpus, lp, results,
+                           ctx, report)
+    ctx["tmp_dir"].cleanup()
 
     report.update(
         lstm=dict(err=lstm_err, ms=lstm_ms, plain_ms=lstm_plain_ms,

@@ -1,3 +1,4 @@
+from .binio import load_bin, save_bin
 from .mlf import load_mlf, write_mlf, MlfEntry
 from .kaldi import (
     load_feature_transform,
@@ -10,6 +11,8 @@ from .corpus import RaggedCorpus, load_corpus, load_utt_list
 from .phone_map import load_phone_map, map_phones
 
 __all__ = [
+    "load_bin",
+    "save_bin",
     "load_mlf",
     "write_mlf",
     "MlfEntry",

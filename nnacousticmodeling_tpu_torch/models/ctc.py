@@ -1,0 +1,159 @@
+"""End-to-end CTC phone recognition: a bidirectional wrapper over any
+recurrent stack of the zoo feeds a phone + blank softmax trained with
+CTC; greedy best-path decoding collapses repeats and removes blanks.
+
+Counterpart of ``nnacousticmodeling_tpu/models/ctc.py``. ``BiRNNCTC`` is
+an ``nn.Module`` whose ``fwd`` and ``bwd`` stacks are two modules of the
+base's class and whose ``out`` is a fresh dense layer from the two
+directions' concatenated last-layer states to ``num_phones + 1`` classes
+(blank = 0); its ``state_dict`` names are the JAX params' paths
+(``fwd.cells.0.wx``, ..., ``out.w``), so JAX params load through
+``load_jax_params``. Each direction runs its stack's ``hidden_sequence``,
+so with ``scan_impl="pallas"`` both run on the recurrence kernels: the
+differentiable ``lstm_scan_train`` / ``gated_scan_train`` /
+``peephole_scan_train`` when training, under autograd, the inference
+kernels otherwise. The backward direction reads each utterance reversed
+within its own length.
+
+``ctc_loss`` is the JAX ``optax.ctc_loss(...).mean()``: the batch mean
+of each sequence's negative log-likelihood. ``F.ctc_loss`` takes
+log-probabilities (so the logits go through ``log_softmax``) and its
+``reduction="mean"`` would divide by the target lengths, so it runs with
+``reduction="none"`` and the mean is taken here. The two differ only on
+an alignment that cannot fit (more labels than frames allow): optax
+clamps its log-likelihoods at ``log_epsilon`` (-1e5) and returns a
+large finite loss, ``F.ctc_loss`` returns ``inf``.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import List, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from . import cells
+from .networks import _Dense, _RecurrentStack, redraw_params
+
+BLANK_ID = 0
+
+
+def _reverse_within_length(x: torch.Tensor, lengths) -> torch.Tensor:
+    """Reverse (B, T, D) along T inside each row's length; padded
+    positions keep their index (their content is masked downstream)."""
+    t = x.shape[1]
+    pos = torch.arange(t, device=x.device)[None, :]
+    lens = torch.as_tensor(lengths, device=x.device).long()[:, None]
+    idx = torch.where(pos < lens, lens - 1 - pos, pos)          # (B, T)
+    return torch.gather(x, 1, idx[:, :, None].expand(-1, -1, x.shape[2]))
+
+
+class BiRNNCTC(nn.Module):
+    """Bidirectional recurrent CTC model over ``base``, a stack of
+    ``models.networks`` (its own output layer is kept, unused, as in the
+    JAX params). ``bwd`` is a second stack of the same architecture with
+    its own draw of weights (``redraw_params`` from ``seed + 1``); ``out``
+    is drawn from ``seed``."""
+
+    def __init__(self, base: _RecurrentStack, num_phones: int, *,
+                 seed: int = 0):
+        super().__init__()
+        self.num_phones = num_phones
+        self.fwd = base
+        self.bwd = copy.deepcopy(base)
+        self.bwd.load_state_dict(redraw_params(base, seed + 1))
+        gen = torch.Generator().manual_seed(seed)
+        self.out = _Dense(cells.dense_init(2 * base.units, self.num_classes,
+                                           gen))
+        self.to(base.device)
+
+    @property
+    def num_classes(self) -> int:
+        return self.num_phones + 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.out.w.device
+
+    def apply_sequence(self, xs: torch.Tensor, lengths=None,
+                       train: bool = False,
+                       generator: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
+        """(B, T, D) -> (B, T, num_phones + 1) logits.
+
+        ``lengths`` (B,) makes the backward pass reverse each sequence
+        within its own length, so logits on valid frames do not depend
+        on the batch's padding; without it the whole padded axis
+        reverses (right only for unpadded batches)."""
+        h_fwd, _ = self.fwd.hidden_sequence(xs, train=train,
+                                            generator=generator)
+        if lengths is None:
+            bwd_in = xs.flip(1)
+        else:
+            bwd_in = _reverse_within_length(xs, lengths)
+        h_bwd, _ = self.bwd.hidden_sequence(bwd_in, train=train,
+                                            generator=generator)
+        if lengths is None:
+            h_bwd = h_bwd.flip(1)
+        else:
+            h_bwd = _reverse_within_length(h_bwd, lengths)
+        h = torch.cat([h_fwd, h_bwd], dim=-1)
+        b, t, _ = h.shape
+        logits = cells.dense({"w": self.out.w, "b": self.out.b},
+                             h.reshape(b * t, -1))
+        return logits.reshape(b, t, -1)
+
+    forward = apply_sequence
+
+
+def ctc_loss(logits: torch.Tensor, logit_lengths, labels,
+             label_lengths) -> torch.Tensor:
+    """Mean CTC loss over a padded batch (blank = 0): logits (B, T, C),
+    labels (B, S) padded, the lengths (B,)."""
+    dev = logits.device
+    logp = F.log_softmax(logits.float(), dim=-1).transpose(0, 1)
+    per_seq = F.ctc_loss(
+        logp, torch.as_tensor(labels, device=dev).long(),
+        torch.as_tensor(logit_lengths, device=dev).long(),
+        torch.as_tensor(label_lengths, device=dev).long(),
+        blank=BLANK_ID, reduction="none", zero_infinity=False)
+    return per_seq.mean()
+
+
+def greedy_decode(logits: torch.Tensor, lengths: Sequence[int]
+                  ) -> List[List[int]]:
+    """Best-path decode: framewise argmax, collapse repeats, drop
+    blanks. Returns phone-id sequences (ids are 1-based; 0 = blank)."""
+    path = logits.argmax(dim=-1).cpu().numpy()
+    out = []
+    for b in range(path.shape[0]):
+        seq = []
+        prev = -1
+        for t in range(int(lengths[b])):
+            s = int(path[b, t])
+            if s != prev and s != BLANK_ID:
+                seq.append(s)
+            prev = s
+        out.append(seq)
+    return out
+
+
+def make_ctc_train_step(model: BiRNNCTC, opt: torch.optim.Optimizer):
+    """``step(xs, x_lens, labels, y_lens, generator=None) -> loss``: one
+    update of ``model`` in place by ``opt`` (built over its parameters,
+    e.g. ``train.make_optimizer("adam", lr, model.parameters())``) on
+    the CTC loss of the training-mode logits; the JAX step's
+    ``(params, opt_state)`` are the module and the optimizer here."""
+
+    def step(xs, x_lens, labels, y_lens, generator=None):
+        logits = model.apply_sequence(xs, lengths=x_lens, train=True,
+                                      generator=generator)
+        loss = ctc_loss(logits, x_lens, labels, y_lens)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return step

@@ -50,7 +50,7 @@ TDNN kernels ``(k, d_in, d_out)``); nothing is transposed at rest.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -534,6 +534,26 @@ class MGRUNet(_RecurrentStack):
             h_t, hs = scan(proj, w1, None, h, kind="mgru",
                            activation=self.activation)
         return (h_t, torch.zeros_like(fresh)), hs
+
+
+def redraw_params(net: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
+    """A new draw of ``net``'s parameters (``state_dict`` names, its
+    devices and dtypes) from ``seed``, by the zoo's init rule: every
+    matrix or kernel normal over sqrt(fan_in), its leading dims (the
+    ``dense_init`` / cell inits / TDNN kernels above); every bias the
+    net's own (the inits' constants: zero, the LSTM's forget bias 1).
+    What the JAX package gets from a fresh ``net.init(key)``: another
+    init of the same architecture."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for name, p in net.state_dict().items():
+        if p.dim() >= 2:
+            w = torch.randn(tuple(p.shape), generator=gen) / math.sqrt(
+                math.prod(p.shape[:-1]))
+            out[name] = w.to(p.device, p.dtype)
+        else:
+            out[name] = p.detach().clone()
+    return out
 
 
 def get_network(network: str, layers: int, units: Sequence[int],

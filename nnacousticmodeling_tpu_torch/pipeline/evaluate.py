@@ -8,20 +8,29 @@ same argv surface plus ``--device``: feed-forward nets (frame chunks, no
 offsets) and recurrent nets, ``--rpl`` ensembles through
 ``assemble_params``. As in the JAX package, the posteriors decode with
 ``timedelay=0`` even for a net trained with ``--timedelay`` (the
-reference's eval path does not compensate it). Not ported yet (they
-raise): ``--decoder native`` and ``--lm-from-mlf``.
+reference's eval path does not compensate it). ``--decoder native``
+decodes with the C++ host decoder (``decoder/native.py``) on host
+threads, the posteriors still computed on the device; ``--lm-from-mlf``
+estimates a phone bigram from transcripts (``decoder/graph.py``) and
+decodes with it on either decoder, the native one reading the rebuilt
+image from a temporary directory, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import tempfile
 from pathlib import Path
 
 import numpy as np
 
 from ..decoder import ViterbiDecoder, compute_per
 from ..decoder.corpus_decode import decode_corpus
-from ..decoder.image import load_image
+from ..decoder.graph import (cube_phone_names, estimate_bigram_lm,
+                             image_with_bigram_lm)
+from ..decoder.image import load_image, save_image
+from ..decoder.native import NativeDecoder
 from ..infer import ensemble_log_posteriors
 from ..io import load_mlf, load_phone_map, load_utt_list, write_mlf
 from ..io.mlf import MlfEntry
@@ -63,14 +72,16 @@ def build_parser():
                         help="write the decoded MLF here")
     parser.add_argument("--decoder", default="tpu",
                         choices=["tpu", "native"],
-                        help="decode in-process on the device (tpu); the "
-                             "C++ host library (native) is not ported yet")
+                        help="decode on the device (tpu) or with the C++ "
+                             "host library on host threads (native)")
     parser.add_argument("--beam", type=float, default=0,
                         help="beam width: prune biphone scores below "
                              "(frame max - beam) each frame; 0 = exact "
                              "Viterbi")
     parser.add_argument("--lm-from-mlf", nargs="+", default=None,
-                        help="not ported yet")
+                        help="estimate a phone-bigram LM from these MLF "
+                             "transcript files and decode with it "
+                             "instead of the image's stored LM")
     parser.add_argument("--no-progress", action="store_true")
     return parser
 
@@ -128,17 +139,6 @@ def main(arg_list=None):
     parser = build_parser()
     args = parser.parse_args(list(map(str, arg_list)) if arg_list is not None
                              else None)
-    if args.decoder == "native":
-        raise NotImplementedError("--decoder native is not ported yet "
-                                  "(ROADMAP Queue 1, \"The native decoder, "
-                                  "the graph helpers and the rest of "
-                                  "io/\")")
-    if args.lm_from_mlf:
-        raise NotImplementedError("--lm-from-mlf needs decoder/graph.py's "
-                                  "bigram helpers, not the native decoder; "
-                                  "they are not ported yet (ROADMAP Queue "
-                                  "1, \"The native decoder, the graph "
-                                  "helpers and the rest of io/\")")
     device = resolve_device(args.device)
     num_classes = num_classes_for(args)
     split = args.test_or_dev
@@ -175,12 +175,41 @@ def main(arg_list=None):
     # the reference's eval path does not compensate --timedelay
     # (evaluateModelForTest.py:36), so the unshifted sequence decodes
 
-    # ---- decode on the device -----------------------------------------
+    # ---- decode --------------------------------------------------------
     beam = args.beam if args.beam and args.beam > 0 else None
-    img = load_image(str(Path(args.recog_dir, args.image)))
-    dec = ViterbiDecoder(img, pip=args.PIP, lmw=args.LMW, beam=beam,
-                         device=device)
-    results = decode_corpus(dec, lp, offsets)
+    image_path = str(Path(args.recog_dir, args.image))
+    # the native decoder reads the image file itself
+    img = (load_image(image_path)
+           if args.decoder != "native" or args.lm_from_mlf else None)
+    if args.lm_from_mlf:
+        # a phone bigram from transcripts, counted through the 48->39 map
+        # when the recog dir has one (JAX evaluate.py:163-178)
+        words = {}
+        for f in args.lm_from_mlf:
+            words.update({u: e.words for u, e in load_mlf(f).items()})
+        pm_path = Path(args.recog_dir, args.phone_map)
+        img = image_with_bigram_lm(img, estimate_bigram_lm(
+            words, cube_phone_names(img),
+            str(pm_path) if args.phone_map != "-" and pm_path.is_file()
+            else None))
+    if args.decoder == "native":
+        with contextlib.ExitStack() as stack:
+            if args.lm_from_mlf:
+                # the native decoder reads an image file: the rebuilt one
+                # lives as long as this block
+                tmpd = stack.enter_context(
+                    tempfile.TemporaryDirectory(prefix="nnam_lm_"))
+                image_path = str(Path(tmpd) / "lm_image.img")
+                save_image(image_path, img)
+            dec = NativeDecoder(image_path, pip=args.PIP, lmw=args.LMW,
+                                beam=beam)
+            results = dec.decode_batch(
+                [np.ascontiguousarray(lp[offsets[u]:offsets[u + 1]])
+                 for u in range(len(utt_list))])
+    else:
+        dec = ViterbiDecoder(img, pip=args.PIP, lmw=args.LMW, beam=beam,
+                             device=device)
+        results = decode_corpus(dec, lp, offsets)
 
     # ---- 48->39 mapping + scoring (evaluateModelForTest.py:128-133) ---
     pm = None

@@ -9,8 +9,9 @@ of the reference's ``scripts/common/master_script.py``) with the same
 argv, plus what every CLI of this package has: ``--device`` (default
 ``cuda``) and ``--scan-impl``, forwarded to every phase that runs a
 network. ``main`` returns ``{(split, tag): PER}`` of the evaluation
-sweep. Not ported yet (they raise ``NotImplementedError``):
-``--fold-parallel`` and ``--mesh``.
+sweep. ``--fold-parallel`` trains the K folds in one ``train_cli
+--train-all-folds`` call. Not ported yet (it raises
+``NotImplementedError``, ROADMAP Queue 1, "Parallelism"): ``--mesh``.
 
 Run: ``python -m nnacousticmodeling_tpu_torch.pipeline.master [args]``.
 """
@@ -94,8 +95,9 @@ def build_parser():
                              "reference (master_script.py:103,137,177), so "
                              "this flag is implied")
     parser.add_argument("--fold-parallel", action="store_true",
-                        help="train all K fold networks as one program; "
-                             "not ported yet")
+                        help="train all K fold networks together in one "
+                             "train_cli --train-all-folds call instead of "
+                             "one call a fold")
     parser.add_argument("--mesh", default="",
                         help="device mesh spec forwarded to training; not "
                              "ported yet")
@@ -113,10 +115,6 @@ def main(arg_list=None):
     parser = build_parser()
     args = parser.parse_args(list(map(str, arg_list)) if arg_list is not None
                              else None)
-    if args.fold_parallel:
-        raise NotImplementedError("--fold-parallel is not ported yet "
-                                  "(ROADMAP Queue 1, \"Fold-parallel "
-                                  "training\")")
     if args.mesh:
         raise NotImplementedError("--mesh is not ported yet (ROADMAP Queue 1, "
                                   "\"Parallelism\")")
@@ -215,9 +213,14 @@ def main(arg_list=None):
         # the derived results tree, not CWD
         "--out", str(Path(args.fold_model_dir) / "result_fold_tmp")]
     if args.num_folds > 0 and not args.no_train_folds:
-        for fold in range(args.num_folds):
-            print(f"==== Training fold {fold}")
-            train_main(train_cmd(["--train-fold", fold] + fold_cmd_common))
+        if args.fold_parallel:
+            print(f"==== Training all {args.num_folds} folds in parallel")
+            train_main(train_cmd(["--train-all-folds"] + fold_cmd_common))
+        else:
+            for fold in range(args.num_folds):
+                print(f"==== Training fold {fold}")
+                train_main(train_cmd(["--train-fold", fold]
+                                     + fold_cmd_common))
     else:
         print("==== Skipping training folds")
 

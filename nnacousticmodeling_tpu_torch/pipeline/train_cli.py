@@ -8,9 +8,12 @@ same argv surface plus ``--device`` (default ``cuda``; ``--device cpu``
 runs without a card): every network of the zoo (feed-forward and
 recurrent), the master and ``--train-fold`` data paths, ``--train-rpl``
 (RPL4 on the fold outputs, validated on the dev-set fold average),
+``--train-all-folds`` (all K fold networks in one update loop,
+``train/fold_parallel.py``; each fold's model written to
+``--fold-model-dir`` under ``--fold-network-pattern``),
 ``--shuffle-sequences``, ``--resume``, ``--dtype``, ``--timedelay``. Not
-ported yet (they raise ``NotImplementedError``): ``--train-all-folds``,
-``--mesh``, ``--distributed`` / ``--coordinator``.
+ported yet (they raise ``NotImplementedError``, ROADMAP Queue 1,
+"Parallelism"): ``--mesh``, ``--distributed`` / ``--coordinator``.
 
 Run: ``python -m nnacousticmodeling_tpu_torch.pipeline.train_cli [args]``.
 """
@@ -27,6 +30,7 @@ import numpy as np
 from ..models import RPL4, is_recurrent
 from ..ops.timedelay import apply_time_delay
 from ..train import TrainConfig, build_stages, save_pytree, train_network
+from ..train.fold_parallel import train_folds_parallel
 from ..utils.device import resolve_device
 from .common import (
     add_data_args, add_network_args, build_network, dump_args,
@@ -75,7 +79,10 @@ def build_parser() -> argparse.ArgumentParser:
     # fold / RPL training modes (train.py:59-70)
     parser.add_argument("--train-fold", type=int)
     parser.add_argument("--train-all-folds", action="store_true",
-                        help="fold-parallel training; not ported yet")
+                        help="train ALL K fold networks together in one "
+                             "update loop (K passes of one module an "
+                             "update) instead of the reference's "
+                             "sequential per-fold loop")
     parser.add_argument("--train-rpl", action="store_true")
     parser.add_argument("--fold-data-dir", default="fold_data")
     parser.add_argument("--fold-output-dir", default="fold_data_out")
@@ -92,10 +99,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _check_ported(args) -> None:
-    if args.train_all_folds:
-        raise NotImplementedError("--train-all-folds is not ported yet "
-                                  "(ROADMAP Queue 1, \"Fold-parallel "
-                                  "training\")")
     if args.mesh:
         raise NotImplementedError("--mesh is not ported yet (ROADMAP Queue 1, "
                                   "\"Parallelism\")")
@@ -134,6 +137,41 @@ def _load_rpl_data(args):
     if fold == 0:
         raise FileNotFoundError("No fold data found")
     return np.concatenate(xs, axis=0), np.concatenate(ys, axis=0)
+
+
+def _load_all_fold_data(args):
+    """Every fold's data concatenated fold-ascending, plus each
+    utterance's fold: the shared corpus of fold-parallel training
+    (``train/fold_parallel.py`` builds each fold's training-set index
+    universe from it, as train.py:162-206 concatenates it)."""
+    xs, ys, ivs, utt_folds = [], [], [], []
+    offsets = [0]
+    num = 0
+    fold = 0
+    while True:
+        x_file = Path(args.fold_data_dir, args.fold_data_pattern.format(fold))
+        if not x_file.is_file():
+            break
+        print(f"Loading fold {fold} data")
+        x_fold = np.load(str(x_file))
+        xs.append(x_fold)
+        off = np.load(str(Path(args.fold_data_dir,
+                               args.fold_offset_pattern.format(fold))))
+        offsets.extend((off[1:] + num).tolist())
+        utt_folds.extend([fold] * (len(off) - 1))
+        ys.append(np.load(str(Path(args.fold_data_dir,
+                                   args.fold_target_pattern.format(fold)))))
+        if args.ivector_dir is not None:
+            ivs.append(np.load(str(Path(args.fold_data_dir,
+                                        args.fold_ivector_pattern.format(fold)))))
+        num += x_fold.shape[0]
+        fold += 1
+    if not xs:
+        raise FileNotFoundError("No fold data found")
+    return (np.concatenate(xs, axis=0), np.concatenate(ys, axis=0),
+            np.asarray(offsets, dtype=np.int64),
+            np.concatenate(ivs, axis=0) if ivs else None,
+            np.asarray(utt_folds, dtype=np.int64), fold)
 
 
 def _load_fold_train_data(args, recurrent: bool):
@@ -195,7 +233,10 @@ def main(arg_list=None):
                 y_dev = np.load(str(Path(args.target_dir,
                                          args.targets.format("dev"))))
     else:
-        if args.train_fold is not None:
+        if args.train_all_folds:
+            (x, y, offsets, ivectors, utt_folds,
+             num_folds) = _load_all_fold_data(args)
+        elif args.train_fold is not None:
             x, y, offsets, ivectors = _load_fold_train_data(args, recurrent)
         else:
             x = np.load(str(Path(args.data_dir, args.data.format("train"))))
@@ -243,6 +284,19 @@ def main(arg_list=None):
                          resume_snapshot=bool(args.resume),
                          compute_dtype=args.dtype,
                          shuffle_sequences=args.shuffle_sequences)
+    if args.train_all_folds:
+        # the K fold networks in one update loop, in the place of the
+        # reference's sequential loop (master_script.py:134-170)
+        net = build_network(args, num_classes, x.shape[1], device)
+        fold_params = train_folds_parallel(
+            net, x, y, offsets, utt_folds, num_folds, config, x_dev=x_dev,
+            y_dev=y_dev, device=device)
+        Path(args.fold_model_dir).mkdir(exist_ok=True, parents=True)
+        for k, p in enumerate(fold_params):
+            save_pytree(str(Path(args.fold_model_dir,
+                                 args.fold_network_pattern.format(k))), p)
+        return fold_params
+
     if args.train_rpl:
         net = _RplNet(num_classes, device=device, seed=args.seed)
     else:

@@ -1071,3 +1071,131 @@ def test_lstm_ensemble_passes_run_on_the_kernel(cuda):
     assert dict(kernels.launches) == before
     assert np.isfinite(got).all() and got.shape == (160, 23)
     np.testing.assert_allclose(got, plain, atol=ENS_ATOL, rtol=0)
+
+
+# ---- fold-parallel training and CTC ----------------------------------------
+# Both run the LSTM training kernels in configurations no single-net phase
+# drives: K weight sets through the same kernels in one update, and both
+# directions of a CTC model on inputs reversed within each length. Three
+# kernel updates against three plain ones: per-fold (or per-step) losses
+# within E2E_LOSS_RTOL, chip_smoke.py's bound for the same comparison;
+# each parameter's change (fold-parallel) or first-step gradient (CTC)
+# within E2E_CHANGE_RTOL of the plain one's largest magnitude, the bound
+# of chip_smoke.py's phases 30 and 32 (there: a sum of gradients each
+# built from dproj or dW, held within 1e-2 of their largest values).
+E2E_LOSS_RTOL = 1e-3
+E2E_CHANGE_RTOL = 1e-2
+PLAIN_LSTM_TRAIN = dict(
+    lstm_train_forward=lstm_train_forward_reference,
+    lstm_train_backward=lstm_train_backward_reference)
+
+
+def test_fold_parallel_updates_on_the_kernel_match_plain(cuda):
+    """3 folds of an LSTM 2x64, 3 updates (one an epoch, so each epoch's
+    logged loss is one update's): the training kernels launch once a
+    fold, a layer and an update, and the losses and every parameter's
+    change in every fold match the plain run's."""
+    import functools
+    import re
+    from unittest import mock
+
+    from nnacousticmodeling_tpu_torch.models import get_network, redraw_params
+    from nnacousticmodeling_tpu_torch.ops import rnn_cuda
+    from nnacousticmodeling_tpu_torch.train import TrainConfig, TrainStage
+    from nnacousticmodeling_tpu_torch.train.fold_parallel import (
+        train_folds_parallel)
+    k, layers, b, t = 3, 2, 8, 5
+    rng = np.random.default_rng(0)
+    # 6 utterances of 10 frames, 2 a fold: every fold's universe holds
+    # b*t = 40 frames, one update an epoch
+    x = rng.standard_normal((60, 12)).astype(np.float32)
+    y = rng.integers(0, 11, len(x)).astype(np.int32)
+    offsets = np.arange(0, 61, 10)
+    utt_folds = np.arange(6) % k
+    net = get_network("lstm", layers, [64], 11, in_dim=12,
+                      scan_impl="pallas", device=cuda)
+    inits = [redraw_params(net, s) for s in range(k)]
+    cfg = TrainConfig(stages=[TrainStage(3, "momentumsgd", b, 0.1, False)],
+                      bprop_len=t, seed=0, use_validation=False)
+    orig = np.array2string
+
+    def run():
+        logs = []
+        cfg.log = logs.append
+        with mock.patch.object(np, "array2string", functools.partial(
+                lambda a, precision=None: orig(a, precision=9))):
+            params = train_folds_parallel(net, x, y, offsets, utt_folds, k,
+                                          cfg, init_params=inits)
+        losses = [np.array(m.split("loss=[")[1].split("]")[0].split(),
+                           float) for m in logs if "loss=[" in m]
+        return params, np.stack(losses)
+
+    kernels.reset_launches()
+    params, got = run()
+    torch.cuda.synchronize()
+    assert kernels.launches["lstm_train_forward"] == 3 * k * layers
+    assert kernels.launches["lstm_train_backward"] == 3 * k * layers
+    assert kernels.launches["lstm_train_dw"] == 3 * k * layers
+    before = dict(kernels.launches)
+    with mock.patch.multiple(rnn_cuda, **PLAIN_LSTM_TRAIN):
+        plain, want = run()
+    assert dict(kernels.launches) == before
+    assert got.shape == (3, k) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=E2E_LOSS_RTOL)
+    assert not torch.equal(params[0]["cells.0.wh"], params[1]["cells.0.wh"])
+    for fold in range(k):
+        for name, p0 in inits[fold].items():
+            change = plain[fold][name] - p0.to(cuda)
+            assert change.abs().max() > 0, (fold, name)
+            err = (params[fold][name] - plain[fold][name]).abs().max()
+            assert err <= E2E_CHANGE_RTOL * change.abs().max(), (fold, name)
+
+
+def test_ctc_steps_on_the_kernel_match_plain(cuda):
+    """BiRNNCTC over an LSTM 2x64: 3 Adam steps launch the training
+    kernels twice a layer (both directions) a step, and the losses and
+    the first step's gradients match the plain run's."""
+    from unittest import mock
+
+    from nnacousticmodeling_tpu_torch.models import get_network
+    from nnacousticmodeling_tpu_torch.models.ctc import (
+        BiRNNCTC, make_ctc_train_step)
+    from nnacousticmodeling_tpu_torch.ops import rnn_cuda
+    from nnacousticmodeling_tpu_torch.train import make_optimizer
+    rng = np.random.default_rng(1)
+    x_lens = np.array([37, 20, 29, 8])
+    xs = torch.from_numpy(rng.standard_normal((4, 37, 12)).astype(
+        np.float32)).to(cuda)
+    y_lens = np.array([9, 5, 7, 2])
+    labels = torch.from_numpy(rng.integers(1, 6, (4, 9))).to(cuda)
+
+    def run():
+        model = BiRNNCTC(get_network("lstm", 2, [64], 1, in_dim=12,
+                                     scan_impl="pallas", device=cuda), 5)
+        step = make_ctc_train_step(model, make_optimizer(
+            "adam", 1e-3, model.parameters()))
+        losses = [float(step(xs, x_lens, labels, y_lens))]
+        # the stacks' own heads are unused (no gradient)
+        grads = {n: q.grad.clone() for n, q in model.named_parameters()
+                 if q.grad is not None}
+        losses += [float(step(xs, x_lens, labels, y_lens)) for _ in range(2)]
+        return losses, grads
+
+    kernels.reset_launches()
+    got, got_grads = run()
+    torch.cuda.synchronize()
+    for name in ("lstm_train_forward", "lstm_train_backward",
+                 "lstm_train_dw"):
+        assert kernels.launches[name] == 3 * 2 * 2, name
+    before = dict(kernels.launches)
+    with mock.patch.multiple(rnn_cuda, **PLAIN_LSTM_TRAIN):
+        want, want_grads = run()
+    assert dict(kernels.launches) == before
+    assert np.isfinite(got).all() and got[-1] < got[0]
+    np.testing.assert_allclose(got, want, rtol=E2E_LOSS_RTOL)
+    assert len(want_grads) == 2 * 2 * 3 + 2 and set(got_grads) == set(
+        want_grads)
+    for name, g in want_grads.items():
+        assert g.abs().max() > 0, name
+        err = (got_grads[name] - g).abs().max()
+        assert err <= E2E_CHANGE_RTOL * g.abs().max(), name

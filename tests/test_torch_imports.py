@@ -23,6 +23,7 @@ from nnacousticmodeling_tpu_torch.ops.features import fbank, fbank_cuda, mfcc
 from nnacousticmodeling_tpu_torch.pipeline import (
     evaluate,
     master,
+    parity,
     predict_folds,
     train_cli,
 )
@@ -67,7 +68,11 @@ def test_port_files_found():
                 "decoder/viterbi_cube.py", "ops/features.py",
                 "pipeline/synth_data.py", "models/rpl.py",
                 "models/ensemble.py", "pipeline/generate_folds.py",
-                "pipeline/predict_folds.py", "pipeline/master.py"):
+                "pipeline/predict_folds.py", "pipeline/master.py",
+                "train/fold_parallel.py", "decoder/native.py",
+                "decoder/graph.py", "io/binio.py", "io/kaldi_mdl.py",
+                "io/kaldi_tree.py", "models/convert.py", "models/ctc.py",
+                "pipeline/parity.py"):
         assert f"nnacousticmodeling_tpu_torch/{mod}" in names
     for src in ("gated_persistent.cuh", "gated_scan.cu", "gated_train.cu",
                 "peephole_persistent.cuh", "peephole_scan.cu",
@@ -127,6 +132,12 @@ def _entry_points(tmp_path):
              "--fold-model-dir", str(tmp_path)]),
         "master.main": lambda: master.main(
             ["--output-dir", str(tmp_path / "results")]),
+        "train_cli.main all folds": lambda: train_cli.main(
+            ["-n", "lstm", "--train-all-folds", "--fold-data-dir",
+             str(tmp_path), "--out", str(tmp_path / "out")]),
+        "parity.main": lambda: parity.main(
+            ["--checkpoint", str(tmp_path / "m.npz"), "-n", "lstm",
+             "--data-dir", str(tmp_path)]),
         "train_network": lambda: train_network(
             get_network("lstm", 1, [4], 5, in_dim=3, device="cpu"),
             np.zeros((8, 3), np.float32), np.zeros(8, np.int32),
@@ -147,7 +158,8 @@ def _entry_points(tmp_path):
                                   "mfcc", "load_jax_params",
                                   "evaluate.main", "train_cli.main",
                                   "train_cli.main ff", "predict_folds.main",
-                                  "master.main", "train_network"])
+                                  "master.main", "train_cli.main all folds",
+                                  "parity.main", "train_network"])
 def test_default_device_is_cuda(tmp_path, name):
     call = _entry_points(tmp_path)[name]
     if torch.cuda.is_available():

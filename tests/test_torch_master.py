@@ -186,7 +186,7 @@ def test_master_without_folds_evaluates_the_master_alone(corpus_root):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--fold-parallel"], "Fold-parallel training"),
+    (["--fold-parallel", "--mesh", "fold=2"], "Parallelism"),
     (["--mesh", "fold=2"], "Parallelism"),
 ])
 def test_master_unported_options_raise(corpus_root, tmp_path, extra, match):
@@ -196,7 +196,22 @@ def test_master_unported_options_raise(corpus_root, tmp_path, extra, match):
     assert not any(tmp_path.iterdir())
 
 
-def test_evaluate_native_decoder_raises(corpus_root):
-    with pytest.raises(NotImplementedError, match="native decoder"):
-        evaluate.main(["-n", "ff", "--recog-dir", f"{corpus_root}/recog",
-                       "--decoder", "native", "--device", "cpu"])
+def test_evaluate_native_decoder_raises(corpus_root, jax_run, tmp_path,
+                                       monkeypatch):
+    """With no toolchain to build the native decoder, ``evaluate
+    --decoder native`` raises instead of decoding on another route."""
+    from nnacousticmodeling_tpu_torch.decoder import native
+    out_j, _ = jax_run
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native, "LIB_PATH", tmp_path / "lib.so")
+    monkeypatch.setattr(native.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="no native toolchain"):
+        evaluate.main([
+            "-n", "ff", "-l", "2", "-u", "32", "--splice", "2",
+            "--num-classes", "17",
+            "--model", out_j / "models" / "master" / "2" / "m" / "model",
+            "--data-dir", f"{corpus_root}/data",
+            "--offset-dir", f"{corpus_root}/data",
+            "--utt-list-dir", f"{corpus_root}/data",
+            "--recog-dir", f"{corpus_root}/recog", "--PIP", "5",
+            "--decoder", "native", "--device", "cpu"])

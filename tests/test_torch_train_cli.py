@@ -109,7 +109,7 @@ def test_port_trained_model_decodes_identically(tree, trained, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--train-all-folds"], ["--mesh", "data=2"],
+    ["--train-all-folds", "--mesh", "fold=2"], ["--mesh", "data=2"],
     ["--distributed"], ["--coordinator", "localhost:1234"],
 ])
 def test_unported_options_raise(tree, tmp_path, extra):
