@@ -208,7 +208,34 @@ Phases (each one that fails ends the run with a non-zero exit):
     4 layers launches a step), the loss finite and falling, the first
     step's loss within E2E_LOSS_RTOL of the plain route's and its
     gradients of every parameter within CTC_GRAD_RTOL of the plain
-    gradient's largest magnitude.
+    gradient's largest magnitude;
+33. data and tensor parallel training across RANKS gloo ranks
+    time-sharing the card (the script re-invoked as ``--rank-worker R
+    DIR`` for each rank; one launch runs 33-35's multi-rank parts, each
+    rank's process group with a 60 s timeout, the launch with
+    RANK_TIMEOUT_S, the children killed after it): ``train_cli --mesh
+    data=2`` at phase 9's spec for 1 epoch (64 rows a rank on the kernel
+    route), rank 0's model against the single-process run of the same
+    epoch (losses within E2E_LOSS_RTOL, every leaf's change within
+    E2E_CHANGE_RTOL of the single run's largest, 19 updates x 4 layers
+    launches of each training kernel); one FF 8x2048 -> 1909 update
+    (phase 27's spec) at ``data=1,model=2``, its hidden layers
+    column-parallel, against the single update with the same gates (and
+    both against a float64 twin, logged);
+34. ``train_folds_parallel`` on 4 LSTM 4x1024 folds at ``fold=2``, 3
+    updates on the kernels, against the single-process 4-fold run with
+    phase 30's gates; ``make_sharded_ensemble_forward`` at ``fold=2`` over
+    the 4 nets on ENS_UTTS test utterances: posteriors within
+    POSTERIOR_ATOL of the single-process ``Ensemble``, the Viterbi
+    segments identical;
+35. ``PipelinedMLP`` over FF 8x2048 at ``stage=2``, 4 microbatches: the
+    logits against ``net.apply`` and one backward's gradients against
+    the MLP's on the same microbatches, within PIPE_RTOL; a one-rank
+    NCCL world (``initialize_distributed`` must pick nccl) whose
+    ``data=1`` FF update equals the plain one bit for bit;
+    ``utils.profiling.trace`` around a 32-utterance serving batch, whose
+    trace must name the ``lstm_scan`` kernel. The times of time-shared
+    ranks say nothing of scaling.
 
 Output: progress lines, then the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -3189,7 +3216,575 @@ def fold_native_ctc_phases(torch, np, dev, card, img, corpus, lp5, results5,
     report["fold_native_ctc"] = out
 
 
+# ---------------------------------------------------------------------------
+# phases 33-35: parallelism across ranks, NCCL, profiling
+# ---------------------------------------------------------------------------
+
+RANKS = 2                          # gloo ranks time-sharing the one card
+RANK_TIMEOUT_S = 300               # the rank launch, children killed after
+FOLDS_34 = 4
+ENS_UTTS = 16                      # test utterances of phase 34's ensemble
+# PipelinedMLP against the single-device MLP. Its logits, each
+# microbatch's float32 products (TF32 off), are held within PIPE_RTOL of
+# the full-batch MLP's largest logit (cuBLAS may sum another row count's
+# products in another order). Its gradients are held within PIPE_RTOL of
+# the largest of the single-device MLP's run on the same 4 microbatches
+# (the hops move values, they add no arithmetic; only the order in which
+# the microbatches' dW accumulate may differ). Against the full-batch
+# gradients no tight gate holds: in this 8-layer relu stack a relu that
+# flips on a last-bit difference moves a hidden layer's float32
+# gradient by up to ~1e-2 of its largest, as far as the full-batch
+# float32 gradient itself lies from a float64 twin (both logged).
+PIPE_RTOL = 1e-4
+TRAIN_KERNELS = ("lstm_train_forward", "lstm_train_backward",
+                 "lstm_train_dw")
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase33_argv(tree):
+    """Phase 9's training slice, 1 epoch."""
+    return ["-n", "lstm", "-l", str(LAYERS), "-u", str(H_MAIN),
+            "--num-classes", str(CLASSES), "-b", str(B_MAIN), "--bproplen",
+            str(T_TRAIN), "-o", "momentumsgd", "--lr", "0.01",
+            "--early-stopping", "false", "--noplot", "-e", "1",
+            "--data-dir", f"{tree}/data", "--offset-dir", f"{tree}/data",
+            "--target-dir", f"{tree}/data"]
+
+
+def fold34_data(np, tree):
+    """FOLDS_34 pseudo-utterances of phase 5's training frames, one a
+    fold, so every fold's universe holds B x L frames (phase 30's
+    layout): an epoch is one update."""
+    per = -(-B_MAIN * T_TRAIN // (FOLDS_34 - 1))
+    n = FOLDS_34 * per
+    x = np.load(f"{tree}/data/data_train.npy")[:n]
+    y = np.load(f"{tree}/data/targets_train.npy")[:n]
+    return x, y, np.arange(0, n + 1, per), np.arange(FOLDS_34)
+
+
+def rank_worker(rank, work):
+    """One of RANKS processes of phases 33-35 (``chip_smoke.py
+    --rank-worker RANK DIR``): a gloo rank on the card. Rank 0 writes
+    ``ranks.json``; nothing is printed as a result line."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a card")
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from torch.func import functional_call
+
+    from nnacousticmodeling_tpu_torch import kernels
+    from nnacousticmodeling_tpu_torch.infer import rnn_log_posteriors
+    from nnacousticmodeling_tpu_torch.infer.posteriors import (
+        ensemble_log_posteriors)
+    from nnacousticmodeling_tpu_torch.models import get_network
+    from nnacousticmodeling_tpu_torch.models.ensemble import (
+        Ensemble, stack_fold_params)
+    from nnacousticmodeling_tpu_torch.parallel import (
+        make_mesh, make_sharded_ensemble_forward, param_shardings, sync)
+    from nnacousticmodeling_tpu_torch.parallel.comm import all_reduce_
+    from nnacousticmodeling_tpu_torch.parallel.pipeline import PipelinedMLP
+    from nnacousticmodeling_tpu_torch.pipeline import train_cli
+    from nnacousticmodeling_tpu_torch.train import (
+        TrainConfig, TrainStage, load_jax_params, train_network)
+    from nnacousticmodeling_tpu_torch.train.fold_parallel import (
+        train_folds_parallel)
+
+    meta = json.loads((work / "meta.json").read_text())
+    tree = meta["tree"]
+    dev = torch.device("cuda", 0)
+    out = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    # ---- 33a. train_cli --mesh data=2 at phase 9's spec ----------------
+    kernels.reset_launches()
+    res, s = timed(lambda: train_cli.main(phase33_argv(tree) + [
+        "--mesh", f"data={RANKS}", "--coordinator",
+        f"localhost:{meta['port']}", "--num-processes", str(RANKS),
+        "--process-id", str(rank), "--out", str(work / "m33")]))
+    out["33a"] = dict(s=s, launches=dict(kernels.launches),
+                      history=res.history)
+
+    # ---- 33b. one FF update, hidden layers column-parallel -------------
+    ff = np.load(work / "ff.npz")
+    x_ff, y_ff = ff["x"], ff["y"]
+    init = load_jax_params(numpy_mlp_params(33, x_ff.shape[1]), device=dev)
+
+    def ff_net(dropout):
+        return get_network("ff", FF_LAYERS, [FF_UNITS], CLASSES, "relu",
+                           dropout=[dropout], in_dim=x_ff.shape[1],
+                           device=dev)
+
+    def ff_cfg(mesh):
+        return TrainConfig(
+            stages=[TrainStage(1, "momentumsgd", FF_BATCH, 0.01, False)],
+            seed=0, log=None, use_validation=False, mesh=mesh,
+            model_axis="model" if mesh is not None else None)
+
+    mesh = make_mesh({"data": 1, "model": RANKS}, device=dev)
+    net = ff_net(0.2)
+    specs = param_shardings(mesh, net.state_dict(), "model")
+    tp, s = timed(lambda: train_network(net, x_ff, y_ff, ff_cfg(mesh),
+                                        init_params=init, device=dev))
+    out["33b"] = dict(s=s, loss=tp.history[0]["main/loss"],
+                      sharded=sorted(k for k, v in specs.items() if v))
+    if rank == 0:
+        single, s1 = timed(lambda: train_network(
+            ff_net(0.2), x_ff, y_ff, ff_cfg(None), init_params=init,
+            device=dev))
+        # the same update in float64: the engine's row order (seed 0's
+        # permutation) and dropout masks (a generator seeded 0), one
+        # momentumsgd step (-lr * g)
+        net64 = ff_net(0.2).double()
+        q = {k: v.double().requires_grad_(True) for k, v in init.items()}
+        rows = np.random.default_rng(0).permutation(len(x_ff))[:FF_BATCH]
+        logits = functional_call(
+            net64, q, (torch.from_numpy(x_ff[rows]).to(dev).double(),),
+            {"train": True,
+             "generator": torch.Generator(device=dev).manual_seed(0)})
+        F.cross_entropy(logits, torch.from_numpy(y_ff[rows]).to(dev).long()
+                        ).backward()
+        want64 = {k: v.detach() - 0.01 * v.grad for k, v in q.items()}
+        out["33b"].update(single_loss=single.history[0]["main/loss"],
+                          single_s=s1, change_err=change_errors(
+                              init, tp.params, single.params),
+                          single_vs_f64=change_errors(init, single.params,
+                                                      want64),
+                          tp_vs_f64=change_errors(init, tp.params, want64))
+        del net64, q, logits, want64
+    del net, tp
+    sync()
+
+    # ---- 34. fold-sharded training and ensemble ------------------------
+    x, y, offsets, utt_folds = fold34_data(np, tree)
+    inits = [load_jax_params(numpy_lstm_params(20 + k), device=dev)
+             for k in range(FOLDS_34)]
+    full = functools.partial(np.array2string, precision=9,
+                             max_line_width=10 ** 6)
+
+    def folds(mesh):
+        logs = []
+        cfg = TrainConfig(
+            stages=[TrainStage(3, "momentumsgd", B_MAIN, 0.01, False)],
+            bprop_len=T_TRAIN, seed=0, log=logs.append,
+            use_validation=False)
+        net = get_network("lstm", LAYERS, [H_MAIN], CLASSES, in_dim=DIM,
+                          scan_impl="pallas", device=dev)
+        with mock.patch.object(np, "array2string",
+                               lambda a, precision=None: full(a)):
+            params = train_folds_parallel(
+                net, x, y, offsets, utt_folds, FOLDS_34, cfg,
+                init_params=inits, device=dev, mesh=mesh)
+        rows = [(r[2], r[3].tolist()) for r in
+                fold_loss_rows(np, "\n".join(logs))]
+        return net, params, rows
+
+    fold_mesh = make_mesh({"fold": RANKS}, device=dev)
+    kernels.reset_launches()
+    (net, params, rows), s = timed(lambda: folds(fold_mesh))
+    out["34"] = dict(s=s, launches=dict(kernels.launches))
+    every = [None] * RANKS
+    dist.all_gather_object(every, rows)
+    if rank == 0:
+        # the K folds' losses a row, in fold order, from the two ranks
+        got = np.concatenate([np.array([r[1] for r in rk]) for rk in every],
+                             axis=1)
+        (_, p_single, rows_1), s1 = timed(lambda: folds(None))
+        want = np.array([r[1] for r in rows_1])
+        out["34"].update(
+            losses=got.tolist(), single_losses=want.tolist(), single_s=s1,
+            loss_err=float(np.max(np.abs(got - want) / np.abs(want))),
+            change_err=[change_errors(inits[k], params[k], p_single[k])
+                        for k in range(FOLDS_34)])
+        del p_single
+
+    ens = Ensemble(network=net, num_folds=FOLDS_34)
+    shard_folds, forward = make_sharded_ensemble_forward(ens, fold_mesh)
+    stacked = stack_fold_params(params)
+    local = shard_folds(stacked)
+
+    class Sharded:
+        device = dev
+
+        def apply_sequence(self, xs, state=None):
+            return forward({"master": None, "folds": local, "rpl": None},
+                           xs), None
+
+    xt = np.load(f"{tree}/data/data_test.npy")
+    off = np.load(f"{tree}/data/offsets_test.npy")[:ENS_UTTS + 1]
+    xt = xt[:off[-1]]
+    ap = np.load(f"{tree}/recog/log_priors.npy")
+    kernels.reset_launches()
+    lp_s, s = timed(lambda: rnn_log_posteriors(Sharded(), xt, off, ap=ap,
+                                               batch=B_MAIN))
+    out["34b"] = dict(s=s, launches=dict(kernels.launches))
+    if rank == 0:
+        lp_1, s1 = timed(lambda: ensemble_log_posteriors(
+            ens, {"master": None, "folds": stacked, "rpl": None}, xt, off,
+            ap=ap, batch=B_MAIN))
+        out["34b"].update(single_s=s1,
+                          err=float(np.abs(lp_s - lp_1).max()))
+        np.save(work / "lp_sharded.npy", lp_s)
+        np.save(work / "lp_single.npy", lp_1)
+    del net, params, stacked, local, ens
+    sync()
+
+    # ---- 35. PipelinedMLP over FF 8x2048 -------------------------------
+    stage_mesh = make_mesh({"stage": RANKS}, device=dev)
+    net = ff_net(0.0)
+    p0 = load_jax_params(numpy_mlp_params(35, x_ff.shape[1]), device=dev)
+    xt = torch.from_numpy(x_ff).to(dev)
+    yt = torch.from_numpy(y_ff).to(dev).long()
+    pipe = PipelinedMLP(net, stage_mesh, num_micro=4)
+
+    def pipelined():
+        p = {k: v.clone().requires_grad_(True) for k, v in p0.items()}
+        logits = pipe.apply(p, xt)
+        F.cross_entropy(logits, yt).backward()
+        return logits.detach(), p
+
+    pipelined()                                   # warm-up
+    (logits, p), s = timed(pipelined)
+    grads = {k: all_reduce_(v.grad if v.grad is not None
+                            else torch.zeros_like(v), stage_mesh, "stage")
+             for k, v in p.items()}
+    out["35"] = dict(ms=s * 1e3, layers=pipe.stage_layers(rank))
+    if rank == 0:
+        def plain(micro=1, dtype=torch.float32):
+            q = {k: v.to(dtype).clone().requires_grad_(True)
+                 for k, v in p0.items()}
+            m = FF_BATCH // micro
+            ref = torch.cat([functional_call(
+                net, q, (xt[i * m:(i + 1) * m].to(dtype),))
+                for i in range(micro)])
+            F.cross_entropy(ref, yt).backward()
+            return ref.detach(), {k: v.grad for k, v in q.items()}
+
+        def rel(a, b):
+            return {k: float((a[k].double() - b[k].double()).abs().max()
+                             / b[k].double().abs().max()) for k in b}
+
+        plain()
+        (ref, g1), s1 = timed(plain)
+        _, g4 = plain(4)
+        _, g64 = plain(1, torch.float64)
+        out["35"].update(
+            plain_ms=s1 * 1e3,
+            logits_err=float((logits - ref).abs().max()
+                             / ref.abs().max()),
+            grad_err=rel(grads, g4), grad_vs_full=rel(grads, g1),
+            full_vs_f64=rel(g1, g64))
+    every = [None] * RANKS
+    dist.all_gather_object(every, {k: out[k].get("launches", {})
+                                   for k in ("33a", "33b", "34", "34b")})
+    out["rank_launches"] = every
+    sync()
+    if rank == 0:
+        (work / "ranks.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+
+
+def parallel_phases(torch, np, dev, card, corpus, dec, report):
+    """Phases 33-35: data and tensor parallel training, fold-sharded
+    training and ensemble, the pipeline (RANKS gloo ranks time-sharing
+    the card, one launch of this script's worker mode), a one-rank NCCL
+    world and ``utils.profiling.trace``. Returns the ranks' launches of
+    the LSTM kernels for the ``{"kernels": [...]}`` line."""
+    import torch.distributed as dist
+
+    from nnacousticmodeling_tpu_torch import kernels
+    from nnacousticmodeling_tpu_torch.decoder.corpus_decode import (
+        decode_corpus)
+    from nnacousticmodeling_tpu_torch.infer import rnn_log_posteriors
+    from nnacousticmodeling_tpu_torch.models import get_network
+    from nnacousticmodeling_tpu_torch.ops.splice import splice_flat
+    from nnacousticmodeling_tpu_torch.parallel import (
+        initialize_distributed, make_mesh, sync)
+    from nnacousticmodeling_tpu_torch.pipeline import train_cli
+    from nnacousticmodeling_tpu_torch.train import (
+        TrainConfig, TrainStage, load_jax_params, train_network)
+    from nnacousticmodeling_tpu_torch.utils.profiling import trace
+    from nnacousticmodeling_tpu_torch.utils.synthetic import (
+        write_corpus_tree)
+
+    phase_s = {}
+    phase_done = phase_timer(phase_s)
+    out = {}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_")
+    work = Path(tmp.name)
+    tree = work / "tree"
+    write_corpus_tree(corpus, str(tree))
+    x_ff = splice_flat(corpus.train.data, range(-FF_SPLICE, FF_SPLICE + 1)
+                       )[:FF_BATCH]
+    y_ff = corpus.train.targets[:FF_BATCH]
+    np.savez(work / "ff.npz", x=x_ff, y=y_ff)
+    (work / "meta.json").write_text(json.dumps(dict(port=free_port(),
+                                                    tree=str(tree))))
+
+    # ---- the ranks: 33a, 33b, 34 and 35's pipeline in one launch -------
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--rank-worker",
+         str(r), str(work)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(RANKS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=RANK_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.communicate()
+        fail(f"the {RANKS} ranks of phases 33-35 ran out of their "
+             f"{RANK_TIMEOUT_S} s")
+    ranks_s = time.perf_counter() - t0
+    for r, text in enumerate(logs):
+        print(f"[ranks] rank {r} output:\n{text[-6000:]}", file=sys.stderr)
+    rcs = [p.returncode for p in procs]
+    if rcs != [0] * RANKS:
+        fail(f"phases 33-35: the ranks exited {rcs}; rank output tails: "
+             + " | ".join(t[-1500:] for t in logs))
+    res = json.loads((work / "ranks.json").read_text())
+    backends = [f"rank {r} of {RANKS}, backend gloo" in t
+                for r, t in enumerate(logs)]
+    if not all(backends):
+        fail(f"the ranks did not all report the gloo backend: {backends}")
+    log(f"[ranks] {RANKS} gloo ranks on one card ran phases 33-35's "
+        f"multi-rank parts in {ranks_s:.1f} s (each rank: 33a "
+        f"{res['33a']['s']:.1f} s, 33b {res['33b']['s']:.1f} s, 34 "
+        f"{res['34']['s']:.1f} s + ensemble {res['34b']['s']:.1f} s, 35 "
+        f"pipeline {res['35']['ms']:.1f} ms; time-shared ranks, no "
+        f"scaling figure) [{card}]")
+
+    # ---- 33a. data-parallel training against the single-process run ----
+    la = res["33a"]["launches"]
+    n_train = int(corpus.train.data.shape[0])
+    updates = n_train // (B_MAIN * T_TRAIN)
+    for name in TRAIN_KERNELS:
+        if la.get(name, 0) != updates * LAYERS:
+            fail(f"phase 33: rank 0 launched {name} {la.get(name, 0)} "
+                 f"times, not {updates} updates x {LAYERS} layers")
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    single = train_cli.main(phase33_argv(tree) + ["--out",
+                                                  str(work / "s33")])
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t1
+    before = get_network("lstm", LAYERS, [H_MAIN], CLASSES, in_dim=DIM,
+                         scan_impl="pallas", device=dev, seed=0).state_dict()
+    got = load_jax_params(str(work / "m33" / "model.npz"), device=dev)
+    want = single.params
+    h_got, h_want = res["33a"]["history"][0], single.history[0]
+    loss_err = max(abs(h_got[k] - h_want[k]) / abs(h_want[k])
+                   for k in ("main/loss", "validation/main/loss"))
+    ch = change_errors(before, got, want)
+    if not (loss_err <= E2E_LOSS_RTOL
+            and max(ch.values()) <= E2E_CHANGE_RTOL):
+        fail(f"phase 33: --mesh data={RANKS} differs from the single run: "
+             f"losses {h_got} vs {h_want} (tolerance {E2E_LOSS_RTOL} "
+             f"relative), changes {ch} (tolerance {E2E_CHANGE_RTOL})")
+    log(f"[33 data-parallel] train_cli --mesh data={RANKS}, LSTM "
+        f"{LAYERS}x{H_MAIN} -> {CLASSES}, TBPTT b{B_MAIN} L{T_TRAIN} "
+        f"({B_MAIN // RANKS} rows a rank), 1 epoch of {updates} updates: "
+        f"rank 0 launched " + ", ".join(f"{n} {la[n]}" for n in
+                                        TRAIN_KERNELS)
+        + f", lstm_scan {la.get('lstm_scan', 0)}; loss "
+        f"{h_got['main/loss']:.6f} (val {h_got['validation/main/loss']:.6f})"
+        f" against the single run's {h_want['main/loss']:.6f} (val "
+        f"{h_want['validation/main/loss']:.6f}): {loss_err:.3e} relative "
+        f"(tolerance {E2E_LOSS_RTOL}); every leaf's change within "
+        f"{max(ch.values()):.3e} of the single run's largest (tolerance "
+        f"{E2E_CHANGE_RTOL}); ranks {res['33a']['s']:.1f} s, single "
+        f"{single_s:.1f} s [{card}]")
+    del before, got, want, single
+
+    # ---- 33b. one column-parallel FF update ----------------------------
+    b = res["33b"]
+    hidden = sorted(f"hidden.{i}.{leaf}" for i in range(FF_LAYERS)
+                    for leaf in ("w", "b"))
+    if b["sharded"] != hidden:
+        fail(f"phase 33: the column-parallel leaves are {b['sharded']}, "
+             f"not the hidden layers' {hidden}")
+    ff_err = abs(b["loss"] - b["single_loss"]) / abs(b["single_loss"])
+    ff_ch = max(b["change_err"].values())
+    f64 = (max(b["single_vs_f64"].values()), max(b["tp_vs_f64"].values()))
+    if not (ff_err <= E2E_LOSS_RTOL and ff_ch <= E2E_CHANGE_RTOL):
+        fail(f"phase 33: the --mesh data=1,model={RANKS} FF update differs "
+             f"from the single update: loss {b['loss']} vs "
+             f"{b['single_loss']}, changes {b['change_err']}")
+    log(f"[33 tensor-parallel] FF {FF_LAYERS}x{FF_UNITS} relu -> {CLASSES}"
+        f" -d 0.2, one update of b{FF_BATCH} at data=1,model={RANKS}: the "
+        f"{FF_LAYERS} hidden layers column-parallel (out replicated: "
+        f"{CLASSES} does not divide), loss {b['loss']:.6f} against "
+        f"{b['single_loss']:.6f} ({ff_err:.3e} relative), every leaf's "
+        f"change within {ff_ch:.3e} of the single update's largest (the "
+        f"float64 update: single {f64[0]:.3e}, tensor-parallel "
+        f"{f64[1]:.3e}); {b['s']:.2f} s on the ranks, {b['single_s']:.2f} "
+        f"s alone [{card}]")
+    phase_done(33)
+
+    # ---- 34. fold-sharded training and ensemble -------------------------
+    f34 = res["34"]
+    per_rank = FOLDS_34 // RANKS
+    for r, counts in enumerate(res["rank_launches"]):
+        for name in TRAIN_KERNELS:
+            if counts["34"].get(name, 0) != 3 * per_rank * LAYERS:
+                fail(f"phase 34: rank {r} launched {name} "
+                     f"{counts['34'].get(name, 0)} times, not 3 updates x "
+                     f"{per_rank} folds x {LAYERS} layers")
+    worst = max(max(c.values()) for c in f34["change_err"])
+    if not (np.isfinite(f34["losses"]).all()
+            and np.array(f34["losses"]).shape == (3, FOLDS_34)
+            and f34["loss_err"] <= E2E_LOSS_RTOL
+            and worst <= E2E_CHANGE_RTOL):
+        fail(f"phase 34: fold=2 training differs from the single run: "
+             f"losses {f34['losses']} vs {f34['single_losses']} "
+             f"(tolerance {E2E_LOSS_RTOL}), worst change {worst} "
+             f"(tolerance {E2E_CHANGE_RTOL})")
+    log(f"[34 fold-sharded] train_folds_parallel, {FOLDS_34} LSTM "
+        f"{LAYERS}x{H_MAIN} folds at fold={RANKS} ({per_rank} a rank), 3 "
+        f"updates on the kernels: per-fold losses within "
+        f"{f34['loss_err']:.3e} relative of the single 4-fold run "
+        f"(tolerance {E2E_LOSS_RTOL}), every parameter's change within "
+        f"{worst:.3e} (tolerance {E2E_CHANGE_RTOL}); each rank launched "
+        f"the three training kernels {3 * per_rank * LAYERS} times; ranks "
+        f"{f34['s']:.1f} s, single {f34['single_s']:.1f} s [{card}]")
+    e = res["34b"]
+    scans = [c["34b"].get("lstm_scan", 0) for c in res["rank_launches"]]
+    if e["err"] > POSTERIOR_ATOL or min(scans) <= 0 or scans[0] % (
+            per_rank * LAYERS):
+        fail(f"phase 34: sharded ensemble posteriors within {e['err']} "
+             f"(tolerance {POSTERIOR_ATOL}), lstm_scan launches {scans}")
+    off = corpus.test.offsets[:ENS_UTTS + 1]
+    lp_s = np.load(work / "lp_sharded.npy")
+    lp_1 = np.load(work / "lp_single.npy")
+    seg_s = decode_corpus(dec, lp_s, off, batch=B_MAIN)
+    seg_1 = decode_corpus(dec, lp_1, off, batch=B_MAIN)
+    same = sum(a.segments == b.segments for a, b in zip(seg_s, seg_1))
+    if same != ENS_UTTS or not all(r.segments for r in seg_s):
+        fail(f"phase 34: the sharded ensemble's decode differs in "
+             f"{ENS_UTTS - same} of {ENS_UTTS} utterances")
+    log(f"[34 ensemble] make_sharded_ensemble_forward at fold={RANKS} over "
+        f"those {FOLDS_34} nets, {ENS_UTTS} test utterances: posteriors "
+        f"within {e['err']:.3e} of the single-process Ensemble (tolerance "
+        f"{POSTERIOR_ATOL}), Viterbi segments of all {same} identical; "
+        f"lstm_scan launches a rank {scans}; ranks {e['s']:.2f} s, single "
+        f"{e['single_s']:.2f} s [{card}]")
+    phase_done(34)
+
+    # ---- 35. pipeline, NCCL, profiling ----------------------------------
+    pp = res["35"]
+    g_worst = max(pp["grad_err"].values())
+    g_full = max(pp["grad_vs_full"].values())
+    g_f64 = max(pp["full_vs_f64"].values())
+    if not (pp["logits_err"] <= PIPE_RTOL and g_worst <= PIPE_RTOL):
+        fail(f"phase 35: PipelinedMLP differs from the MLP: logits "
+             f"{pp['logits_err']}, gradients {pp['grad_err']} (tolerance "
+             f"{PIPE_RTOL} of max)")
+    log(f"[35 pipeline] PipelinedMLP FF {FF_LAYERS}x{FF_UNITS} -> {CLASSES}"
+        f", stage={RANKS}, 4 microbatches of {FF_BATCH // 4} (stage 0 "
+        f"layers {pp['layers']}, host-staged gloo hops): logits within "
+        f"{pp['logits_err']:.3e} of the MLP's largest, every gradient "
+        f"within {g_worst:.3e} of the largest of the MLP's on the same "
+        f"microbatches (tolerance {PIPE_RTOL}; of the full batch's "
+        f"{g_full:.3e}, which lies {g_f64:.3e} from a float64 twin); "
+        f"forward+backward {pp['ms']:.1f} ms on time-shared ranks, "
+        f"{pp['plain_ms']:.1f} ms on one [{card}]")
+
+    # a one-rank NCCL world: one data=1 update equals the plain one
+    backend = initialize_distributed(f"localhost:{free_port()}", 1, 0,
+                                     device="cuda")
+    try:
+        if backend != "nccl":
+            fail(f"a one-rank world on the card picked {backend}, not nccl")
+        ones = torch.ones(4, device=dev)
+        dist.all_reduce(ones)
+        sync("nccl")
+        init = load_jax_params(numpy_mlp_params(36, x_ff.shape[1]),
+                               device=dev)
+        runs = []
+        for mesh in (make_mesh({"data": 1}), None):
+            net = get_network("ff", FF_LAYERS, [FF_UNITS], CLASSES,
+                              in_dim=x_ff.shape[1], device=dev)
+            cfg = TrainConfig(
+                stages=[TrainStage(1, "momentumsgd", FF_BATCH, 0.01, False)],
+                log=None, use_validation=False, mesh=mesh)
+            runs.append(train_network(net, x_ff, y_ff, cfg,
+                                      init_params=init, device=dev).params)
+    finally:
+        dist.destroy_process_group()
+    if not (torch.equal(ones, torch.ones_like(ones)) and all(
+            torch.equal(runs[0][k], runs[1][k]) for k in runs[1])):
+        fail("phase 35: the one-rank NCCL world's data=1 update differs "
+             "from the plain update")
+    log("[35 nccl] initialize_distributed picked nccl for a one-rank world "
+        "on the card; an all-reduce, a barrier and one data=1 FF update "
+        "(params broadcast from rank 0 over NCCL) equal to the plain update "
+        "bit for bit")
+
+    # utils.profiling.trace around one phase-5 serving batch
+    net = get_network("lstm", LAYERS, [H_MAIN], CLASSES, in_dim=DIM,
+                      scan_impl="pallas", device=dev)
+    net.load_state_dict(load_jax_params(numpy_lstm_params(0), device=dev))
+    off = corpus.test.offsets[:33]
+    x5 = corpus.test.data[:off[-1]]
+    rnn_log_posteriors(net, x5, off, ap=corpus.log_priors, batch=B_MAIN)
+    # the profiler now and then drops a session's device events (see
+    # profiled_calls): up to three sessions, each into its own directory
+    for attempt in range(3):
+        tdir = work / f"trace{attempt}"
+        with trace(str(tdir)):
+            rnn_log_posteriors(net, x5, off, ap=corpus.log_priors,
+                               batch=B_MAIN)
+            torch.cuda.synchronize()
+        files = sorted(tdir.glob("*.pt.trace.json"))
+        events = (json.loads(files[0].read_text())["traceEvents"]
+                  if files else [])
+        scan_events = [e for e in events if e.get("cat") == "kernel"
+                       and "lstm_scan" in str(e.get("name"))]
+        if scan_events:
+            break
+    if not scan_events:
+        fail(f"phase 35: the trace ({[f.name for f in files]}) names no "
+             f"lstm_scan kernel")
+    log(f"[35 profiling] utils.profiling.trace around one serving batch "
+        f"(32 utterances), session {attempt + 1}: {files[0].name}, "
+        f"{files[0].stat().st_size} "
+        f"bytes, {len(scan_events)} lstm_scan kernel events "
+        f"({scan_events[0]['name'][:50]}) [{card}]")
+    phase_done(35)
+    tmp.cleanup()
+    out.update(ranks=res, ranks_s=ranks_s, phase_s=phase_s,
+               single33_s=single_s)
+    report["parallel"] = out
+    return {name: {"phase33_rank0": res["33a"]["launches"].get(name, 0),
+                   "phase34_ranks": sum(c["34"].get(name, 0)
+                                        for c in res["rank_launches"]),
+                   "phase34_ensemble_ranks": sum(
+                       c["34b"].get(name, 0) for c in res["rank_launches"])}
+            for name in TRAIN_KERNELS + ("lstm_scan",)}
+
+
 def main():
+    if len(sys.argv) == 4 and sys.argv[1] == "--rank-worker":
+        rank_worker(int(sys.argv[2]), Path(sys.argv[3]))
+        return
     t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
@@ -3434,6 +4029,8 @@ def main():
     fold_native_ctc_phases(torch, np, dev, card, img, corpus, lp, results,
                            ctx, report)
     ctx["tmp_dir"].cleanup()
+    rank_launches = parallel_phases(torch, np, dev, card, corpus, dec,
+                                    report)
 
     report.update(
         lstm=dict(err=lstm_err, ms=lstm_ms, plain_ms=lstm_plain_ms,
@@ -3456,6 +4053,9 @@ def main():
         "nnacousticmodeling_tpu/decoder/viterbi_collapsed.py:347", launches,
         vit["exact"], vit_bound, vit_by) + train_kernels + gated_kernels
         + peephole_kernels + decoder_audio_kernels}
+    for entry in kernels_line["kernels"]:
+        if entry["name"] in rank_launches:
+            entry["rank_launches"] = rank_launches[entry["name"]]
     report["kernels"] = kernels_line["kernels"]
     report["total_s"] = time.perf_counter() - t_start
     print(f"[report] {json.dumps(report)}", file=sys.stderr)

@@ -82,10 +82,24 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
 
 
 class _Dense(nn.Module):
+    """A dense layer, ``x @ w + b`` (``parallel.mesh`` swaps it for a
+    column-parallel one over a ``model`` axis)."""
+
     def __init__(self, params):
         super().__init__()
         self.w = nn.Parameter(params["w"])
         self.b = nn.Parameter(params["b"])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.w + self.b
+
+
+class _Conv(_Dense):
+    """A TDNN layer: the VALID cross-correlation of (N, d_in, W) with the
+    ``(k, d_in, d_out)`` kernel, plus the bias."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv1d(x, self.w.permute(2, 1, 0)) + self.b[:, None]
 
 
 class _Layer(nn.Module):
@@ -169,9 +183,8 @@ class MLP(nn.Module):
         """(N, D) -> (N, C) logits."""
         act = ACTIVATIONS[self.activation]
         for layer in self.hidden:
-            x = dropout(act(x @ layer.w + layer.b), self.dropout, train,
-                        generator)
-        return x @ self.out.w + self.out.b
+            x = dropout(act(layer(x)), self.dropout, train, generator)
+        return self.out(x)
 
     forward = apply
 
@@ -214,7 +227,7 @@ class TDNN(nn.Module):
         conv = []
         for u, k in zip(self.units, self.ksize):
             w = torch.randn(k, d, u, generator=gen) / math.sqrt(k * d)
-            conv.append(_Dense({"w": w, "b": torch.zeros(u)}))
+            conv.append(_Conv({"w": w, "b": torch.zeros(u)}))
             d = u
         self.conv = nn.ModuleList(conv)
         self.out = _Dense(cells.dense_init(d, num_classes, gen))
@@ -239,10 +252,9 @@ class TDNN(nn.Module):
         else:
             x = x.reshape(n, winlen, -1).transpose(1, 2)    # (N, D, W)
         for layer in self.conv:
-            x = F.conv1d(x, layer.w.permute(2, 1, 0)) + layer.b[:, None]
-            x = dropout(act(x), self.dropout, train, generator)
+            x = dropout(act(layer(x)), self.dropout, train, generator)
         x = x.reshape(n, -1)                     # the window collapsed to 1
-        return x @ self.out.w + self.out.b
+        return self.out(x)
 
     forward = apply
 
@@ -317,7 +329,7 @@ class _RecurrentStack(nn.Module):
             carry, x = self._cell_step(p, state[l],
                                        self._cell_input_proj(p, x))
             new_state.append(carry)
-        return new_state, cells.dense({"w": self.out.w, "b": self.out.b}, x)
+        return new_state, self.out(x)
 
     def hidden_sequence(self, xs: torch.Tensor, state=None,
                         train: bool = False,
@@ -359,8 +371,7 @@ class _RecurrentStack(nn.Module):
         """(B, T, D) -> ((B, T, C) logits, state)."""
         b, t, _ = xs.shape
         hs, new_state = self.hidden_sequence(xs, state, train, generator)
-        logits = cells.dense({"w": self.out.w, "b": self.out.b},
-                             hs.reshape(b * t, -1))
+        logits = self.out(hs.reshape(b * t, -1))
         return logits.reshape(b, t, -1), new_state
 
     forward = apply_sequence

@@ -10,8 +10,15 @@ argv, plus what every CLI of this package has: ``--device`` (default
 ``cuda``) and ``--scan-impl``, forwarded to every phase that runs a
 network. ``main`` returns ``{(split, tag): PER}`` of the evaluation
 sweep. ``--fold-parallel`` trains the K folds in one ``train_cli
---train-all-folds`` call. Not ported yet (it raises
-``NotImplementedError``, ROADMAP Queue 1, "Parallelism"): ``--mesh``.
+--train-all-folds`` call. ``--mesh`` is forwarded to every training call
+(JAX ``master.py:173-174``) and checked against the world first. Across
+ranks (``--distributed``: the process group from ``torchrun``'s
+environment, or one the caller set up), every rank runs the
+training phases (rank 0 writes their models), rank 0 alone runs the
+phases that only read and write files and the card (fold generation,
+predictions, evaluation), and the other ranks wait for it
+(``parallel.distributed.host_phase_barrier``); rank 0 returns the PERs,
+the others an empty dict.
 
 Run: ``python -m nnacousticmodeling_tpu_torch.pipeline.master [args]``.
 """
@@ -21,6 +28,8 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
+from ..parallel.distributed import host_phase_barrier, initialize_distributed
+from ..parallel.mesh import check_world, parse_mesh_spec
 from ..utils.device import resolve_device
 from .common import str2bool
 from .evaluate import main as evaluate_main
@@ -99,8 +108,12 @@ def build_parser():
                              "train_cli --train-all-folds call instead of "
                              "one call a fold")
     parser.add_argument("--mesh", default="",
-                        help="device mesh spec forwarded to training; not "
-                             "ported yet")
+                        help="rank mesh spec forwarded to training, e.g. "
+                             "data=2,model=2 (see train_cli --mesh)")
+    parser.add_argument("--distributed", action="store_true",
+                        help="join the torch.distributed process group "
+                             "(env:// as torchrun sets it) before any "
+                             "phase")
     parser.add_argument("--device", default="cuda",
                         help="torch device every phase runs on (default "
                              "cuda; pass cpu to run without a card)")
@@ -115,10 +128,13 @@ def main(arg_list=None):
     parser = build_parser()
     args = parser.parse_args(list(map(str, arg_list)) if arg_list is not None
                              else None)
-    if args.mesh:
-        raise NotImplementedError("--mesh is not ported yet (ROADMAP Queue 1, "
-                                  "\"Parallelism\")")
+    if args.distributed:
+        initialize_distributed(device=args.device)
     resolve_device(args.device)
+    if args.mesh:
+        # a mesh the world cannot hold fails here, before any phase
+        check_world(parse_mesh_spec(args.mesh))
+    host, wait = host_phase_barrier()
     run_on = ["--device", args.device, "--scan-impl", args.scan_impl]
 
     # derived directory layout (master_script.py:62-75)
@@ -144,7 +160,7 @@ def main(arg_list=None):
     results = {}
 
     # phase 1: generate folds
-    if args.num_folds > 0 and args.gen_folds:
+    if args.num_folds > 0 and args.gen_folds and host:
         print("==== Generating folds")
         cmd = ["-n", args.num_folds,
                "--data-dir", args.data_dir,
@@ -164,8 +180,9 @@ def main(arg_list=None):
             cmd += ["--ivector-dir", args.ivector_dir[0],
                     "--fold-ivector-pattern", args.fold_ivector_pattern]
         generate_folds_main(cmd)
-    else:
+    elif host:
         print("==== Skipping fold data generation")
+    wait()
 
     def _classes():
         return (["--num-classes", args.num_classes]
@@ -192,6 +209,8 @@ def main(arg_list=None):
             cmd += ["--ivector-dir", args.ivector_dir[0]]
         if args.no_progress:
             cmd += ["--no-progress"]
+        if args.mesh:
+            cmd += ["--mesh", args.mesh]
         return cmd
 
     # phase 2: train master
@@ -225,7 +244,7 @@ def main(arg_list=None):
         print("==== Skipping training folds")
 
     # phase 4: predict fold outputs (train folds, then dev)
-    if args.num_folds > 0 and not args.no_predict:
+    if args.num_folds > 0 and not args.no_predict and host:
         print("==== Predicting training data")
         cmd = ["--tri"] + _classes() + ["--ft", args.ft,
                "--data-dir", args.data_dir,
@@ -257,8 +276,9 @@ def main(arg_list=None):
             cmd += ["--ivector-dir", args.ivector_dir[0],
                     "--fold-ivector-pattern", args.fold_ivector_pattern]
         predict_folds_main(cmd)
-    else:
+    elif host:
         print("==== Skipping predicting training and development data")
+    wait()
 
     # phase 5: train RPL
     if args.num_folds > 0 and not args.no_train_rpl:
@@ -279,7 +299,7 @@ def main(arg_list=None):
         print("==== Skipping training RPL layer")
 
     # phase 6: evaluate the 2^3 ensemble combinations
-    if not args.no_eval:
+    if not args.no_eval and host:
         for eval_data in args.eval_data:
             print(f"==== Evaluating {eval_data} data")
             for eval_folds in [False, True]:
@@ -323,8 +343,9 @@ def main(arg_list=None):
                             cmd += ["--ivector-dir", args.ivector_dir[1]]
                         per = evaluate_main(cmd)
                         results[(eval_data, tag)] = per
-    else:
+    elif host:
         print("==== Skipping evaluation")
+    wait()
     return results
 
 

@@ -11,9 +11,15 @@ recurrent), the master and ``--train-fold`` data paths, ``--train-rpl``
 ``--train-all-folds`` (all K fold networks in one update loop,
 ``train/fold_parallel.py``; each fold's model written to
 ``--fold-model-dir`` under ``--fold-network-pattern``),
-``--shuffle-sequences``, ``--resume``, ``--dtype``, ``--timedelay``. Not
-ported yet (they raise ``NotImplementedError``, ROADMAP Queue 1,
-"Parallelism"): ``--mesh``, ``--distributed`` / ``--coordinator``.
+``--shuffle-sequences``, ``--resume``, ``--dtype``, ``--timedelay``,
+and the ranks of ``torch.distributed``: ``--distributed`` (the process
+group from ``torchrun``'s environment) or ``--coordinator HOST:PORT
+--num-processes N --process-id R`` (one process per rank), and
+``--mesh`` (``data=2,model=2``, ``fold=2,data=2``: ``parallel.mesh``;
+like JAX, a mesh without a ``data`` axis reaches only
+``--train-all-folds``). Each rank runs on its ``--device`` (``cuda`` is
+``cuda:{LOCAL_RANK % device_count}``); only rank 0 writes the model,
+logs and snapshots.
 
 Run: ``python -m nnacousticmodeling_tpu_torch.pipeline.train_cli [args]``.
 """
@@ -26,6 +32,7 @@ import shutil
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from ..models import RPL4, is_recurrent
 from ..ops.timedelay import apply_time_delay
@@ -58,12 +65,15 @@ def build_parser() -> argparse.ArgumentParser:
                         help="compute dtype for forward/backward; master "
                              "params and optimizer state stay float32")
     parser.add_argument("--mesh", default="",
-                        help="device mesh spec; not ported yet")
+                        help="rank mesh spec, e.g. data=4,model=2 or "
+                             "fold=2,data=2 (the product is the world size)")
     parser.add_argument("--distributed", action="store_true",
-                        help="multi-host bring-up; not ported yet")
+                        help="join the torch.distributed process group "
+                             "(env:// as torchrun sets it, or "
+                             "--coordinator) before any device use")
     parser.add_argument("--coordinator", default="",
-                        help="coordinator address for --distributed; not "
-                             "ported yet")
+                        help="HOST:PORT of rank 0 for the process group "
+                             "(with --num-processes and --process-id)")
     parser.add_argument("--num-processes", type=int, default=None)
     parser.add_argument("--process-id", type=int, default=None)
     parser.add_argument("--out", default="result")
@@ -98,14 +108,16 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _check_ported(args) -> None:
-    if args.mesh:
-        raise NotImplementedError("--mesh is not ported yet (ROADMAP Queue 1, "
-                                  "\"Parallelism\")")
-    if args.distributed or args.coordinator:
-        raise NotImplementedError("--distributed / --coordinator are not "
-                                  "ported yet (ROADMAP Queue 1, "
-                                  "\"Parallelism\")")
+def _build_mesh(spec: str, device):
+    """``--mesh`` spec -> (Mesh | None, model_axis | None) (JAX
+    ``train_cli.py:181-189``)."""
+    if not spec:
+        return None, None
+    from ..parallel import make_mesh, parse_mesh_spec
+    axes = parse_mesh_spec(spec)
+    mesh = make_mesh(axes, device=device)
+    model_axis = "model" if axes.get("model", 1) > 1 else None
+    return mesh, model_axis
 
 
 class _RplNet(RPL4):
@@ -214,9 +226,20 @@ def main(arg_list=None):
     parser = build_parser()
     args = parser.parse_args(list(map(str, arg_list)) if arg_list is not None
                              else None)
-    _check_ported(args)
-    device = resolve_device(args.device)
-    dump_args(args, args.out)
+    if args.distributed or args.coordinator:
+        # the process group before any device use (JAX :196-201)
+        from ..parallel import initialize_distributed
+        initialize_distributed(args.coordinator or None, args.num_processes,
+                               args.process_id, device=args.device)
+    from ..parallel.distributed import rank_device
+    from ..parallel.mesh import is_primary
+    device = rank_device(resolve_device(args.device))
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)      # this rank's card
+    primary = is_primary()   # only rank 0 writes artifacts
+    mesh, model_axis = _build_mesh(args.mesh, device)
+    if primary:
+        dump_args(args, args.out)
     num_classes = num_classes_for(args)
     recurrent = is_recurrent(args.network) and not args.train_rpl
 
@@ -275,6 +298,10 @@ def main(arg_list=None):
     # ---- model + stages ----------------------------------------------
     stages = build_stages(args.epoch, args.optimizer, args.batch_size,
                           args.lr, args.early_stopping)
+    # the engine takes data/model axes; a mesh without a data axis
+    # reaches only --train-all-folds (JAX :264-290)
+    engine_mesh = (mesh if mesh is not None
+                   and "data" in mesh.axis_names else None)
     config = TrainConfig(stages=stages, bprop_len=args.bproplen,
                          seed=args.seed,
                          use_validation=args.use_validation
@@ -283,14 +310,21 @@ def main(arg_list=None):
                          snapshot_path=str(Path(args.out) / "snapshot.npz"),
                          resume_snapshot=bool(args.resume),
                          compute_dtype=args.dtype,
+                         mesh=engine_mesh,
+                         model_axis=model_axis if engine_mesh is not None
+                         else None,
                          shuffle_sequences=args.shuffle_sequences)
     if args.train_all_folds:
         # the K fold networks in one update loop, in the place of the
         # reference's sequential loop (master_script.py:134-170)
         net = build_network(args, num_classes, x.shape[1], device)
+        fold_mesh = (mesh if mesh is not None
+                     and "fold" in mesh.axis_names else None)
         fold_params = train_folds_parallel(
             net, x, y, offsets, utt_folds, num_folds, config, x_dev=x_dev,
-            y_dev=y_dev, device=device)
+            y_dev=y_dev, device=device, mesh=fold_mesh)
+        if not primary:
+            return fold_params
         Path(args.fold_model_dir).mkdir(exist_ok=True, parents=True)
         for k, p in enumerate(fold_params):
             save_pytree(str(Path(args.fold_model_dir,
@@ -308,6 +342,8 @@ def main(arg_list=None):
                            x_dev=x_dev, y_dev=y_dev, device=device)
 
     # ---- save (train.py:393-395) --------------------------------------
+    if not primary:
+        return result
     Path(args.out).mkdir(exist_ok=True, parents=True)
     save_pytree(str(Path(args.out) / "model"), result.params)
     if args.train_fold is not None:

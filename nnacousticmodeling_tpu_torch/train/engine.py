@@ -49,8 +49,18 @@ different masks.
 (``models.precision``) in both kinds of stage: bf16 products, float32
 logits, master params and optimizer state (the JAX ``_mixed_apply``).
 
-Not ported (it raises ``NotImplementedError``): the ``mesh`` data/tensor
-parallelism.
+``mesh`` (a ``parallel.Mesh`` over the ranks of the process group, in
+the place of the JAX ``_batch_constrainer`` / ``_mesh_place``): each
+``data_axis`` rank takes its rows of every minibatch index block (its
+stream states hold only those rows), the gradients are all-reduced over
+``data_axis`` and divided by its size before every optimizer step, and
+with a ``model_axis`` the dense layers are column-parallel
+(``parallel.mesh.shard_net``). Every rank runs the whole dev set, and
+rank 0's validation numbers decide early stopping and the best-model
+reload on every rank (a rank that decided otherwise would deadlock the
+next collective). Only rank 0 logs and writes snapshots; they hold the
+whole params, optimizer state and stream state. Every rank returns the
+whole params.
 """
 
 from __future__ import annotations
@@ -67,6 +77,10 @@ import torch
 import torch.nn.functional as F
 
 from ..models.precision import HalfPrecisionNet, cast_params
+from ..parallel.mesh import (
+    DataSplit, gather_leaves, is_primary, local_leaves, replicate, shard_net,
+    unshard_net,
+)
 from ..utils.device import resolve_device
 from .checkpoint import params_from_arrays
 from .optimizers import make_optimizer
@@ -139,16 +153,17 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def _save_snapshot(path, net, opt, stage, epoch, best_val, generator,
+def _save_snapshot(path, params, opt_sd, stage, epoch, best_val, generator,
                    rng_np, best_params=None, stopped=False, rnn_state=None):
     """Full training state: params (by JAX path keys), the optimizer's
-    per-parameter state, progress markers, the numpy bit-generator
-    state, the dropout generator state, the running best-validation
-    params and the stream state, so a resumed run replays the epochs an
-    uninterrupted run would have made."""
+    per-parameter state (``opt_sd``, an optimizer ``state_dict``),
+    progress markers, the numpy bit-generator state, the dropout
+    generator state, the running best-validation params and the stream
+    state, so a resumed run replays the epochs an uninterrupted run would
+    have made."""
     path = _snapshot_file(path)
-    blob = {k.replace(".", "/"): _np(v) for k, v in net.state_dict().items()}
-    for pi, st in opt.state_dict()["state"].items():
+    blob = {k.replace(".", "/"): _np(v) for k, v in params.items()}
+    for pi, st in opt_sd["state"].items():
         for name, v in st.items():
             if v is not None:
                 blob[f"__opt_{pi}_{name}__"] = (
@@ -190,7 +205,10 @@ def _load_snapshot(path):
         return None
 
 
-def _restore_opt_state(blob, opt):
+def _restore_opt_state(blob, opt, cut=None):
+    """Load the snapshot's optimizer state into ``opt``; ``cut(pi, t)``
+    (a mesh run's) takes this rank's part of parameter ``pi``'s whole
+    state tensor ``t``."""
     sd = opt.state_dict()
     params = [p for g in opt.param_groups for p in g["params"]]
     state: Dict[int, dict] = {}
@@ -199,12 +217,78 @@ def _restore_opt_state(blob, opt):
             continue
         pi, name = key[len("__opt_"):-2].split("_", 1)
         pi = int(pi)
-        if name != "step" and arr.shape != tuple(params[pi].shape):
+        t = torch.from_numpy(arr.copy())
+        if name != "step" and cut is not None:
+            t = cut(pi, t)
+        if name != "step" and tuple(t.shape) != tuple(params[pi].shape):
             raise ValueError(f"snapshot optimizer state {key}: shape "
-                             f"{arr.shape} != {tuple(params[pi].shape)}")
-        state.setdefault(pi, {})[name] = torch.from_numpy(arr.copy())
+                             f"{tuple(t.shape)} != {tuple(params[pi].shape)}")
+        state.setdefault(pi, {})[name] = t
     sd["state"] = state
     opt.load_state_dict(sd)
+
+
+# ---------------------------------------------------------------------------
+# mesh runs
+# ---------------------------------------------------------------------------
+
+class _MeshRun:
+    """What a ``config.mesh`` changes in a run (the JAX
+    ``_batch_constrainer`` and ``_mesh_place``, ``engine.py:223-262``):
+    the data axis (``data``, a ``parallel.mesh.DataSplit``), the
+    column-parallel layers over the model axis, and the whole params and
+    states that rank 0's snapshots and every rank's result hold."""
+
+    def __init__(self, config):
+        self.mesh = config.mesh
+        self.model_axis = config.model_axis
+        self.data = DataSplit(config.mesh, config.data_axis,
+                              [s.batch_size for s in config.stages])
+        self.primary = is_primary()
+        self.sharded = {}
+        self.names = []
+
+    def setup(self, net) -> None:
+        """Rank 0's params on every rank, then the model-axis split."""
+        net.load_state_dict(replicate(self.mesh, net.state_dict()))
+        self.sharded = shard_net(net, self.mesh, self.model_axis)
+        self.names = [n for n, _ in net.named_parameters()]
+
+    def finish(self, net) -> None:
+        unshard_net(net)
+
+    # whole <-> local ------------------------------------------------------
+    def whole(self, params: Dict[str, torch.Tensor]):
+        return gather_leaves(params, self.sharded, self.mesh,
+                             self.model_axis)
+
+    def local(self, params: Dict[str, torch.Tensor]):
+        return local_leaves(params, self.sharded, self.mesh,
+                            self.model_axis)
+
+    def whole_template(self, net) -> Dict[str, torch.Tensor]:
+        m = self.mesh.size(self.model_axis) if self.sharded else 1
+        return {n: torch.empty(v.shape[:-1] + (v.shape[-1] * m,)
+                               if n in self.sharded else v.shape,
+                               dtype=v.dtype, device=v.device)
+                for n, v in net.state_dict().items()}
+
+    def whole_opt(self, opt) -> dict:
+        sd = opt.state_dict()
+        state = {}
+        for pi, st in sd["state"].items():
+            name = self.names[pi]
+            state[pi] = {k: (self.whole({name: v})[name]
+                             if torch.is_tensor(v) and v.dim() > 0 else v)
+                         for k, v in st.items()}
+        return {"state": state, "param_groups": sd["param_groups"]}
+
+    def cut_opt(self, pi: int, t: torch.Tensor) -> torch.Tensor:
+        name = self.names[pi]
+        return self.local({name: t})[name]
+
+    def whole_state(self, state):
+        return [tuple(self.data.gather(a) for a in layer) for layer in state]
 
 
 # ---------------------------------------------------------------------------
@@ -214,6 +298,13 @@ def _restore_opt_state(blob, opt):
 def _metric_conv(config):
     """float (blocking fetch) or identity (deferred device scalar)."""
     return (lambda v: v) if config.defer_metrics else float
+
+
+def _epoch_mean(values, split):
+    """The epoch's mean of per-update metrics; a mesh run's averaged over
+    the data axis (every rank's updates cover equal rows)."""
+    m = torch.stack(values).mean()
+    return m if split is None else split.mean(m)
 
 
 def _finalize_history(history):
@@ -244,20 +335,21 @@ def train_network(
     network's forward in a feed-forward stage. Returns the final params
     and the per-epoch history."""
     dev = resolve_device(device)
-    if config.mesh is not None:
-        raise NotImplementedError("mesh data/tensor parallelism is not "
-                                  "ported yet (ROADMAP Queue 1, "
-                                  "\"Parallelism\")")
     _compute_dtype(config)
     _check_dispatch(config)
+    par = _MeshRun(config) if config.mesh is not None else None
+    split = None if par is None else par.data
     rng_np = np.random.default_rng(config.seed)
     generator = torch.Generator(device=dev).manual_seed(config.seed)
-    log = config.log or (lambda s: None)
+    quiet = config.log is None or (par is not None and not par.primary)
+    log = (lambda s: None) if quiet else config.log
 
     net.to(dev)
     if init_params is not None:
         net.load_state_dict({k: torch.as_tensor(v)
                              for k, v in init_params.items()})
+    if par is not None:
+        par.setup(net)
     xd = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
     yd = torch.from_numpy(np.asarray(y, np.int64)).to(dev)
     use_val = config.use_validation and x_dev is not None
@@ -297,11 +389,11 @@ def train_network(
         if recurrent:
             run_epoch, evaluate, state = _make_rnn_stage(
                 net, opt, xd, yd, offsets, config, stage.batch_size, val,
-                eval_cache, generator)
+                eval_cache, generator, split)
         else:
             run_epoch, evaluate = _make_ff_stage(
                 net, opt, xd, yd, offsets, config, stage.batch_size, val,
-                apply_fn, eval_cache, generator)
+                apply_fn, eval_cache, generator, split)
             state = None
 
         best_val = None
@@ -315,27 +407,37 @@ def train_network(
             # rebuilds both). Snapshots hold epoch-end params, so the
             # stage-end best-model rule covers the epochs after the resume
             # point and the best params the snapshot carried.
-            net.load_state_dict(params_from_arrays(resume_blob, net))
+            if par is None:
+                net.load_state_dict(params_from_arrays(resume_blob, net))
+            else:
+                net.load_state_dict(par.local(params_from_arrays(
+                    resume_blob, par.whole_template(net))))
             generator.set_state(torch.from_numpy(
                 resume_blob["__gen_state__"].copy()))
             rng_np.bit_generator.state = json.loads(
                 resume_blob["__rng_state__"].tobytes().decode())
-            template = net.state_dict()
+            template = (net.state_dict() if par is None
+                        else par.whole_template(net))
             if all("__best__" + k.replace(".", "/") in resume_blob
                    for k in template):
                 best_params = params_from_arrays(resume_blob, template,
                                                  "__best__")
+                if par is not None:
+                    best_params = par.local(best_params)
             stage_stopped = bool(resume_blob.get("__stopped__",
                                                  np.asarray(False)))
             bv = float(resume_blob["__best_val__"])
             best_val = bv if np.isfinite(bv) else None
             if resume_epoch < stage.epoch and not stage_stopped:
-                _restore_opt_state(resume_blob, opt)
+                _restore_opt_state(resume_blob, opt,
+                                   None if par is None else par.cut_opt)
                 if "__st_0__" in resume_blob:
                     leaves = _flat_state(state)
                     restored = [torch.from_numpy(resume_blob[f"__st_{i}__"]
                                                  ).to(a.device, a.dtype)
                                 for i, a in enumerate(leaves)]
+                    if par is not None:
+                        restored = [split.rows(a) for a in restored]
                     state = [tuple(restored[2 * l:2 * l + 2])
                              for l in range(len(state))]
                 start_epoch = resume_epoch
@@ -352,10 +454,14 @@ def train_network(
                      "elapsed_time": time.time() - t0}
             if use_val:
                 val_loss, val_acc = evaluate()
+                if split is not None:
+                    val_loss, val_acc = split.agree(torch.tensor(
+                        [val_loss, val_acc], dtype=torch.float64,
+                        device=dev)).tolist()
                 entry["validation/main/loss"] = val_loss
                 entry["validation/main/accuracy"] = val_acc
             history.append(entry)
-            if config.log is not None:
+            if not quiet:
                 def _fmt(k, v):
                     if isinstance(v, (bool, int, str)):
                         return f"{k}={v}"
@@ -385,11 +491,21 @@ def train_network(
 
             if config.snapshot_path:
                 # saved after the best-model update, so a resume replays
-                # the uninterrupted trajectory exactly
-                _save_snapshot(config.snapshot_path, net, opt, si, epoch + 1,
-                               best_val, generator, rng_np,
-                               best_params=best_params, stopped=stop,
-                               rnn_state=state)
+                # the uninterrupted trajectory exactly; a mesh run
+                # gathers the whole state (collective); in a world of
+                # ranks, rank 0 alone writes (JAX engine.py:463-466)
+                snap = (net.state_dict(), opt.state_dict(), best_params,
+                        state)
+                if par is not None:
+                    snap = (par.whole(snap[0]), par.whole_opt(opt),
+                            None if best_params is None
+                            else par.whole(best_params),
+                            None if state is None else par.whole_state(state))
+                if is_primary():
+                    _save_snapshot(config.snapshot_path, snap[0], snap[1], si,
+                                   epoch + 1, best_val, generator, rng_np,
+                                   best_params=snap[2], stopped=stop,
+                                   rnn_state=snap[3])
             if config.epoch_hook is not None:
                 config.epoch_hook(si, epoch + 1)
             if stop:
@@ -401,6 +517,8 @@ def train_network(
             net.load_state_dict(best_params)
 
     _finalize_history(history)
+    if par is not None:
+        par.finish(net)
     return TrainResult(params=_params_copy(net), history=history)
 
 
@@ -409,9 +527,11 @@ def train_network(
 # ---------------------------------------------------------------------------
 
 def _make_ff_stage(net, opt, xd, yd, offsets, config, bs, val, apply_fn,
-                   eval_cache, generator):
+                   eval_cache, generator, split=None):
     """``run_epoch(state, rng_np) -> (None, loss, acc)`` and the stage's
-    validation ``evaluate() -> (loss, acc)`` (None without a dev set)."""
+    validation ``evaluate() -> (loss, acc)`` (None without a dev set).
+    ``split``: a mesh run's ``DataSplit`` (this rank's rows of every
+    minibatch, gradients averaged over the data axis)."""
     dt = _compute_dtype(config)
     if apply_fn is None:
         model = net if dt is None else HalfPrecisionNet(net, dt)
@@ -429,12 +549,16 @@ def _make_ff_stage(net, opt, xd, yd, offsets, config, bs, val, apply_fn,
     steps = max(n // bs, 1)
 
     def update(idx):
+        if split is not None:
+            idx = split.rows(idx)
         xb, yb = xd[idx], yd[idx]
         logits = apply(xb, True)
         loss = F.cross_entropy(logits, yb)
         acc = (logits.argmax(-1) == yb).float().mean()
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        if split is not None:
+            split.reduce(net.parameters())
         opt.step()
         return loss.detach(), acc
 
@@ -456,8 +580,8 @@ def _make_ff_stage(net, opt, xd, yd, offsets, config, bs, val, apply_fn,
             loss, acc = update(idx_dev[s])
             losses.append(loss)
             accs.append(acc)
-        return (None, conv(torch.stack(losses).mean()),
-                conv(torch.stack(accs).mean()))
+        return (None, conv(_epoch_mean(losses, split)),
+                conv(_epoch_mean(accs, split)))
 
     if val is None:
         return run_epoch, None
@@ -486,11 +610,14 @@ def _make_ff_stage(net, opt, xd, yd, offsets, config, bs, val, apply_fn,
 # ---------------------------------------------------------------------------
 
 def _make_rnn_stage(net, opt, xd, yd, offsets, config, bs, val, eval_cache,
-                    generator):
+                    generator, split=None):
     """``run_epoch(state, rng_np) -> (state, loss, acc)``, the stage's
     validation ``evaluate() -> (loss, acc)`` (None without a dev set) and
-    the stage's initial stream state."""
+    the stage's initial stream state. ``split``: a mesh run's ``DataSplit``
+    (this rank's streams: its rows of every (bs, L) index block, a state
+    of those rows only)."""
     L = config.bprop_len
+    b_loc = bs if split is None else bs // split.d
     n = int(xd.shape[0])
     dt = _compute_dtype(config)
     # bf16 compute: params and inputs cast inside autograd, float32
@@ -500,18 +627,23 @@ def _make_rnn_stage(net, opt, xd, yd, offsets, config, bs, val, eval_cache,
     conv = _metric_conv(config)
 
     def update(state, idx):
+        if split is not None:
+            idx = split.rows(idx)
         flat = idx.reshape(-1)
-        xb = xd[flat].reshape(bs, L, -1)
-        yb = yd[flat].reshape(bs, L)
+        xb = xd[flat].reshape(b_loc, L, -1)
+        yb = yd[flat].reshape(b_loc, L)
         logits, new_state = model.apply_sequence(xb, state, train=True,
                                                  generator=generator)
-        loss = F.cross_entropy(logits.reshape(bs * L, -1), yb.reshape(-1),
-                               reduction="none").reshape(bs, L)
+        loss = F.cross_entropy(logits.reshape(b_loc * L, -1),
+                               yb.reshape(-1),
+                               reduction="none").reshape(b_loc, L)
         # Chainer BPTTUpdater: sum over bprop steps of the batch-mean loss
         total = loss.mean(dim=0).sum()
         acc = (logits.argmax(-1) == yb).float().mean()
         opt.zero_grad(set_to_none=True)
         total.backward()
+        if split is not None:
+            split.reduce(net.parameters())
         opt.step()
         new_state = [tuple(a.detach() for a in layer) for layer in new_state]
         return new_state, total.detach() / L, acc
@@ -531,10 +663,10 @@ def _make_rnn_stage(net, opt, xd, yd, offsets, config, bs, val, eval_cache,
             state, loss, acc = update(state, idx_dev[s])
             losses.append(loss)
             accs.append(acc)
-        return (state, conv(torch.stack(losses).mean()),
-                conv(torch.stack(accs).mean()))
+        return (state, conv(_epoch_mean(losses, split)),
+                conv(_epoch_mean(accs, split)))
 
-    state0 = model.init_state(bs)
+    state0 = model.init_state(b_loc)
     if val is None:
         return run_epoch, None, state0
     if ("rnn", bs) in eval_cache:

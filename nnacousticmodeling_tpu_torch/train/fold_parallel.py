@@ -42,9 +42,18 @@ the recurrent loss is the batch mean summed over the L steps (reported
 log lines are the JAX ones. Dropout masks come from one
 ``torch.Generator`` a fold, seeded from ``config.seed`` and the fold.
 Like the JAX function, this one ignores ``compute_dtype``,
-``shuffle_sequences`` and the snapshot fields of the config. The JAX
-``mesh`` / ``fold_axis`` sharding is not ported (it raises
-``NotImplementedError``).
+``shuffle_sequences``, the snapshot fields and ``mesh`` of the config.
+
+``mesh`` (a ``parallel.Mesh`` with a ``fold_axis`` of size f dividing K;
+JAX ``:121-128``): each fold rank trains its own K/f folds (fold rank r
+the folds ``r*K/f ..``). Every rank keeps all K index universes and
+draws every shuffle in fold order from the one ``rng_np``, so each fold
+reads the minibatches of the single-process run. A ``data`` axis of the
+mesh splits each fold's batch rows as the engine does (the one
+``parallel.mesh.DataSplit``: gradients averaged over it, the fold
+group's data rank 0 deciding early stopping and logging). At the end the
+params are gathered over the fold axis, so every rank returns the K maps
+in fold order (JAX ``:389-397``).
 """
 
 from __future__ import annotations
@@ -58,6 +67,8 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from ..models.networks import redraw_params
+from ..parallel.comm import all_gather_cat, all_reduce_
+from ..parallel.mesh import DataSplit
 from ..utils.device import resolve_device
 from .engine import TrainConfig
 from .optimizers import make_optimizer
@@ -178,13 +189,24 @@ def train_folds_parallel(
     the K inits, which are otherwise K draws of ``redraw_params`` from
     ``config.seed``. ``device``: where to train (default: the device
     ``net`` is on; a network is built on the card unless asked
-    otherwise)."""
-    if mesh is not None or config.mesh is not None:
-        raise NotImplementedError(
-            f"fold-axis sharding ({fold_axis!r}) is not ported yet "
-            f"(ROADMAP Queue 1, \"Parallelism\")")
+    otherwise). ``mesh``: see the module docstring."""
+    split = None
+    if mesh is not None:
+        if fold_axis not in mesh.axis_sizes:
+            raise ValueError(f"mesh has no {fold_axis!r} axis")
+        f, r_f = mesh.size(fold_axis), mesh.rank(fold_axis)
+        if num_folds % f != 0:
+            raise ValueError(f"num_folds {num_folds} not divisible by "
+                             f"fold-axis size {f}")
+        # the ranks of a fold group (every axis but fold) train its folds
+        split = DataSplit(mesh, "data" if "data" in mesh.axis_sizes
+                          else None, [s.batch_size for s in config.stages],
+                          [a for a in mesh.axis_names if a != fold_axis])
+    own = (np.arange(num_folds) if mesh is None else
+           np.arange(r_f * num_folds // f, (r_f + 1) * num_folds // f))
     dev = resolve_device(device) if device is not None else net.device
-    log = config.log or (lambda s: None)
+    log = (config.log if config.log is not None
+           and (split is None or split.r == 0) else (lambda s: None))
     recurrent = getattr(net, "is_recurrent", False)
     rng_np = np.random.default_rng(config.seed)
     net.to(dev)
@@ -201,8 +223,8 @@ def train_folds_parallel(
                        for k in range(num_folds)]
     if len(init_params) != num_folds:
         raise ValueError(f"{len(init_params)} inits for {num_folds} folds")
-    stacked = {n: torch.stack([torch.as_tensor(p[n]).to(dev, torch.float32)
-                               for p in init_params]) for n in names}
+    stacked = {n: torch.stack([torch.as_tensor(init_params[k][n]).to(
+        dev, torch.float32) for k in own]) for n in names}
     gens = [torch.Generator(device=dev).manual_seed(_fold_seed(config.seed,
                                                                k))
             for k in range(num_folds)]
@@ -219,23 +241,27 @@ def train_folds_parallel(
             f"epoch = {stage.epoch}, bs = {stage.batch_size}, "
             f"opt = {stage.optimizer}")
         bs = stage.batch_size
+        b_loc = bs if split is None else bs // split.d
         params = {n: v.detach().clone().requires_grad_(True)
                   for n, v in stacked.items()}
         opt = make_optimizer(stage.optimizer, stage.lr, params.values())
-        states = ([net.init_state(bs) for _ in range(num_folds)]
+        states = ({int(k): net.init_state(b_loc) for k in own}
                   if recurrent else None)
         n_steps = max(min(len(u[0]) for u in universes) // (bs * L), 1)
         # fold_ids maps rows of the (compacted) stacks back to
         # fold indices; stopped folds move to ``stash``
-        fold_ids = np.arange(num_folds)
+        fold_ids = own.copy()
         stash: Dict[int, Params] = {}
-        active = np.ones(num_folds, dtype=bool)
+        active = np.ones(len(own), dtype=bool)
         best_vals = np.full(num_folds, np.inf)
         best_params: Optional[Params] = None
 
         def update(idx: torch.Tensor) -> torch.Tensor:
             """One update of the stacked folds on the (k, bs[, L]) index
-            block; returns the k losses (/ L for recurrent nets)."""
+            block (this data rank's rows of it); returns the k losses (/
+            L for recurrent nets)."""
+            if split is not None:
+                idx = split.rows(idx, 1)
             views = {n: p.unbind(0) for n, p in params.items()}
             xb, yb = xd[idx], yd[idx]
             losses = []
@@ -247,16 +273,18 @@ def train_folds_parallel(
                                                  kw)
                     states[k] = [tuple(a.detach() for a in layer)
                                  for layer in st]
-                    ce = F.cross_entropy(logits.reshape(bs * L, -1),
+                    ce = F.cross_entropy(logits.reshape(b_loc * L, -1),
                                          yb[i].reshape(-1), reduction="none")
                     # Chainer's BPTTUpdater: the batch mean summed over L
-                    losses.append(ce.reshape(bs, L).mean(dim=0).sum())
+                    losses.append(ce.reshape(b_loc, L).mean(dim=0).sum())
                 else:
                     logits = functional_call(net, p, (xb[i],), kw)
                     losses.append(F.cross_entropy(logits, yb[i]))
             loss = torch.stack(losses)
             opt.zero_grad(set_to_none=True)
             loss.sum().backward()
+            if split is not None:
+                split.reduce(params.values())
             opt.step()
             return loss.detach() / L
 
@@ -265,64 +293,84 @@ def train_folds_parallel(
             # shuffle ALL folds (the shared host rng), so trajectories do
             # not depend on compaction
             glob = _epoch_indices(universes, uni_dev, rng_np, bs, n_steps, L)
-            rows = glob[torch.from_numpy(fold_ids).to(dev)]
-            losses = []
-            for s in range(n_steps):
-                idx = rows[:, s]
-                if not recurrent:
-                    idx = idx.reshape(len(fold_ids), bs * L)[:, :bs]
-                losses.append(update(idx))
-            mean_loss = torch.stack(losses).cpu().numpy().mean(axis=0)
-            msg = (f"  stage={si} epoch={epoch + 1} "
-                   f"folds={[int(k) for k in fold_ids]} "
-                   f"loss={np.array2string(mean_loss, precision=3)} "
-                   f"({time.time() - t0:.1f}s)")
-            if use_val:
-                vals = evaluate(params, len(fold_ids))
-                msg += f" val={np.array2string(vals, precision=3)}"
-                if stage.early_stopping:
+            if len(fold_ids):
+                rows = glob[torch.from_numpy(fold_ids).to(dev)]
+                losses = []
+                for s in range(n_steps):
+                    idx = rows[:, s]
+                    if not recurrent:
+                        idx = idx.reshape(len(fold_ids), bs * L)[:, :bs]
+                    losses.append(update(idx))
+                mean_loss = torch.stack(losses).mean(dim=0)
+                if split is not None:
+                    mean_loss = split.mean(mean_loss)
+                mean_loss = mean_loss.cpu().numpy()
+                msg = (f"  stage={si} epoch={epoch + 1} "
+                       f"folds={[int(k) for k in fold_ids]} "
+                       f"loss={np.array2string(mean_loss, precision=3)} "
+                       f"({time.time() - t0:.1f}s)")
+                if use_val:
+                    vals = evaluate(params, len(fold_ids))
+                    if split is not None:
+                        # the fold group's data rank 0 decides for all
+                        vals = split.agree(torch.from_numpy(vals).to(
+                            dev)).cpu().numpy()
+                    msg += f" val={np.array2string(vals, precision=3)}"
+                    if stage.early_stopping:
+                        for i, k in enumerate(fold_ids):
+                            v = float(vals[i])
+                            if np.isfinite(best_vals[k]) \
+                                    and best_vals[k] - v < -0.001:
+                                active[i] = False
+                            best_vals[k] = min(best_vals[k], v)
+                    else:
+                        # fixed-epoch stages keep each fold's best-
+                        # validation params (the sequential path's rule); no
+                        # stop, so no compaction on this path
+                        improved = vals < best_vals[fold_ids]
+                        best_vals[fold_ids] = np.minimum(
+                            best_vals[fold_ids], vals)
+                        mask = torch.from_numpy(improved).to(dev)
+                        with torch.no_grad():
+                            if best_params is None:
+                                best_params = {n: p.detach().clone()
+                                               for n, p in params.items()}
+                            else:
+                                best_params = {
+                                    n: torch.where(mask.reshape(
+                                        (-1,) + (1,) * (p.dim() - 1)),
+                                        p.detach(), best_params[n])
+                                    for n, p in params.items()}
+                log(msg)
+                if not active.any():
                     for i, k in enumerate(fold_ids):
-                        v = float(vals[i])
-                        if np.isfinite(best_vals[k]) \
-                                and best_vals[k] - v < -0.001:
-                            active[i] = False
-                        best_vals[k] = min(best_vals[k], v)
-                else:
-                    # fixed-epoch stages keep each fold's best-validation
-                    # params (the sequential path's rule); no stop, so no
-                    # compaction on this path
-                    improved = vals < best_vals
-                    best_vals = np.minimum(best_vals, vals)
-                    mask = torch.from_numpy(improved).to(dev)
-                    with torch.no_grad():
-                        if best_params is None:
-                            best_params = {n: p.detach().clone()
-                                           for n, p in params.items()}
-                        else:
-                            best_params = {
-                                n: torch.where(mask.reshape(
-                                    (-1,) + (1,) * (p.dim() - 1)),
-                                    p.detach(), best_params[n])
-                                for n, p in params.items()}
-            log(msg)
-            if not active.any():
-                for i, k in enumerate(fold_ids):
-                    stash[int(k)] = {n: p.detach()[i] for n, p in
-                                     params.items()}
-                fold_ids = np.arange(0)
+                        stash[int(k)] = {n: p.detach()[i] for n, p in
+                                         params.items()}
+                    fold_ids = fold_ids[:0]
+                    active = active[:0]
+                if not active.all():
+                    keep = torch.from_numpy(np.nonzero(active)[0]).to(dev)
+                    for i in np.nonzero(~active)[0]:
+                        stash[int(fold_ids[i])] = {
+                            n: p.detach()[i] for n, p in params.items()}
+                    new = {n: p.detach()[keep].clone().requires_grad_(True)
+                           for n, p in params.items()}
+                    opt = _compacted_optimizer(stage, opt, params, new,
+                                               keep)
+                    params = new
+                    fold_ids = fold_ids[active]
+                    active = active[active]
+                    log(f"  compacted to folds "
+                        f"{[int(k) for k in fold_ids]}")
+            # every fold stopped: the run ends (with a mesh, when every
+            # fold rank's folds have; until then a rank whose folds all
+            # stopped draws the shuffles only, keeping rng_np in step)
+            live = len(fold_ids)
+            if mesh is not None:
+                live = int(all_reduce_(torch.tensor([live], device=dev),
+                                       mesh, fold_axis))
+            if not live:
                 break
-            if not active.all():
-                keep = torch.from_numpy(np.nonzero(active)[0]).to(dev)
-                for i in np.nonzero(~active)[0]:
-                    stash[int(fold_ids[i])] = {n: p.detach()[i] for n, p in
-                                               params.items()}
-                new = {n: p.detach()[keep].clone().requires_grad_(True)
-                       for n, p in params.items()}
-                opt = _compacted_optimizer(stage, opt, params, new, keep)
-                params = new
-                fold_ids = fold_ids[active]
-                active = active[active]
-                log(f"  compacted to folds {[int(k) for k in fold_ids]}")
 
         if not stage.early_stopping and best_params is not None:
             params = best_params
@@ -331,9 +379,11 @@ def train_folds_parallel(
         per_fold = dict(stash)
         for i, k in enumerate(fold_ids):
             per_fold[int(k)] = {n: p.detach()[i] for n, p in params.items()}
-        stacked = {n: torch.stack([per_fold[k][n]
-                                   for k in range(num_folds)])
+        stacked = {n: torch.stack([per_fold[int(k)][n] for k in own])
                    for n in names}
 
+    if mesh is not None:
+        stacked = {n: all_gather_cat(v, mesh, fold_axis, 0)
+                   for n, v in stacked.items()}
     return [{n: stacked[n][k].clone() for n in names}
             for k in range(num_folds)]

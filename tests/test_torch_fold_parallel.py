@@ -204,13 +204,22 @@ def test_compact_false_gives_the_same_params(corpus):
 
 
 def test_mesh_raises():
+    """The JAX checks (``fold_parallel.py:121-128``): K must divide over
+    the fold axis, and the mesh must have one (also the batch over a
+    data axis), before any collective."""
+    from nnacousticmodeling_tpu_torch.parallel.mesh import Mesh
+
     net = get_network("ff", 1, [8], 4, in_dim=4, device="cpu")
     cfg = TrainConfig(stages=[TrainStage(1, "sgd", 4, 1e-2, False)],
                       log=None, use_validation=False)
-    with pytest.raises(NotImplementedError, match="Parallelism"):
-        train_folds_parallel(net, np.zeros((12, 4), np.float32),
-                             np.zeros(12, np.int32), None,
-                             np.zeros(1, np.int64), 3, cfg, mesh=object())
+    args = (net, np.zeros((12, 4), np.float32), np.zeros(12, np.int32), None,
+            np.zeros(1, np.int64), 3, cfg)
+    for mesh, match in ((Mesh({"fold": 2}), "num_folds 3 not divisible"),
+                        (Mesh({"data": 2}), "has no 'fold' axis"),
+                        (Mesh({"fold": 1, "data": 3}),
+                         "batch size 4 not divisible")):
+        with pytest.raises(ValueError, match=match):
+            train_folds_parallel(*args, mesh=mesh)
 
 
 # ---- the CLIs -------------------------------------------------------------

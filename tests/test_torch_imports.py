@@ -8,6 +8,7 @@ on the CPU.
 """
 
 import ast
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -19,6 +20,11 @@ from nnacousticmodeling_tpu_torch.decoder.image import make_synthetic_image
 from nnacousticmodeling_tpu_torch.decoder.viterbi import ViterbiDecoder
 from nnacousticmodeling_tpu_torch.decoder.viterbi_cube import CubeViterbi
 from nnacousticmodeling_tpu_torch.models import get_network, get_rpl
+from nnacousticmodeling_tpu_torch.parallel import (
+    make_mesh,
+    make_sharded_train_step,
+)
+from nnacousticmodeling_tpu_torch.parallel.pipeline import PipelinedMLP
 from nnacousticmodeling_tpu_torch.ops.features import fbank, fbank_cuda, mfcc
 from nnacousticmodeling_tpu_torch.pipeline import (
     evaluate,
@@ -31,6 +37,7 @@ from nnacousticmodeling_tpu_torch.train import (
     TrainConfig,
     TrainStage,
     load_jax_params,
+    make_optimizer,
     train_network,
 )
 from nnacousticmodeling_tpu_torch.utils.device import resolve_device
@@ -72,7 +79,10 @@ def test_port_files_found():
                 "train/fold_parallel.py", "decoder/native.py",
                 "decoder/graph.py", "io/binio.py", "io/kaldi_mdl.py",
                 "io/kaldi_tree.py", "models/convert.py", "models/ctc.py",
-                "pipeline/parity.py"):
+                "pipeline/parity.py", "parallel/__init__.py",
+                "parallel/mesh.py", "parallel/pipeline.py",
+                "parallel/distributed.py", "parallel/comm.py",
+                "utils/profiling.py"):
         assert f"nnacousticmodeling_tpu_torch/{mod}" in names
     for src in ("gated_persistent.cuh", "gated_scan.cu", "gated_train.cu",
                 "peephole_persistent.cuh", "peephole_scan.cu",
@@ -143,6 +153,16 @@ def _entry_points(tmp_path):
             np.zeros((8, 3), np.float32), np.zeros(8, np.int32),
             TrainConfig(stages=[TrainStage(1, "sgd", 2, 0.1, False)],
                         log=None)),
+        "make_sharded_train_step": lambda: make_sharded_train_step(
+            get_network("ff", 1, [4], 5, in_dim=3),
+            functools.partial(make_optimizer, "sgd", 0.1),
+            make_mesh({"data": 1})),
+        "PipelinedMLP.apply": lambda: PipelinedMLP(
+            get_network("ff", 2, [4], 5, in_dim=3),
+            make_mesh({"stage": 1})).apply({}, np.zeros((4, 3))),
+        "train_cli.main --mesh": lambda: train_cli.main(
+            ["-n", "lstm", "--mesh", "data=1", "--data-dir", str(tmp_path),
+             "--out", str(tmp_path / "out")]),
     }
 
 
@@ -159,7 +179,10 @@ def _entry_points(tmp_path):
                                   "evaluate.main", "train_cli.main",
                                   "train_cli.main ff", "predict_folds.main",
                                   "master.main", "train_cli.main all folds",
-                                  "parity.main", "train_network"])
+                                  "parity.main", "train_network",
+                                  "make_sharded_train_step",
+                                  "PipelinedMLP.apply",
+                                  "train_cli.main --mesh"])
 def test_default_device_is_cuda(tmp_path, name):
     call = _entry_points(tmp_path)[name]
     if torch.cuda.is_available():

@@ -59,7 +59,7 @@ from nnacousticmodeling_tpu_torch.ops.rnn_cuda import (
 )
 
 HS = [32, 40, 64, 1024, 2048]
-BS = [1, 3, 33, 128]
+BS = [1, 3, 33, 64, 128]
 #: co-resident blocks of the scan on a 132-SM H100: one block an SM with
 #: W_h resident (~218 KB of shared memory at H=1024), two streamed
 H100_BLOCKS = {True: 132, False: 264}

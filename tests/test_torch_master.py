@@ -186,11 +186,13 @@ def test_master_without_folds_evaluates_the_master_alone(corpus_root):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--fold-parallel", "--mesh", "fold=2"], "Parallelism"),
-    (["--mesh", "fold=2"], "Parallelism"),
+    (["--fold-parallel", "--mesh", "fold=2"], "need 2 ranks, have 1"),
+    (["--mesh", "fold=2"], "need 2 ranks, have 1"),
 ])
 def test_master_unported_options_raise(corpus_root, tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """A ``--mesh`` larger than the world (one rank here) fails before
+    any phase writes."""
+    with pytest.raises(ValueError, match=match):
         master(_master_args(corpus_root, tmp_path, "x") + ["--device", "cpu"]
                + extra)
     assert not any(tmp_path.iterdir())

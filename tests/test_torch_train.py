@@ -51,6 +51,7 @@ from nnacousticmodeling_tpu_torch.infer import rnn_log_posteriors
 from nnacousticmodeling_tpu_torch.models import HalfPrecisionNet, get_network
 from nnacousticmodeling_tpu_torch.models.networks import dropout
 from nnacousticmodeling_tpu_torch.ops.timedelay import apply_time_delay
+from nnacousticmodeling_tpu_torch.parallel.mesh import Mesh
 from nnacousticmodeling_tpu_torch.train import (
     TrainConfig,
     TrainStage,
@@ -276,9 +277,13 @@ def test_defer_metrics_and_dispatch_modes_same_history(corpus):
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(compute_dtype="float16"), ValueError, "unsupported compute dtype"),
     (dict(dispatch="graph"), ValueError, "dispatch"),
-    (dict(mesh=object()), NotImplementedError, "ROADMAP"),
+    (dict(mesh=Mesh({"data": 3})), ValueError, "not divisible"),
+    (dict(mesh=Mesh({"model": 1})), ValueError, "has no 'data' axis"),
 ])
 def test_config_errors(corpus, kw, exc, match):
+    """Bad configs raise before any update; a mesh (here one that needs
+    no process group to be checked) whose data axis does not divide the
+    batch, or that has none, as JAX ``_mesh_place`` does."""
     with pytest.raises(exc, match=match):
         _port_run(corpus, None, "xla", stages=STAGES[:1], layers=1, **kw)
 

@@ -108,14 +108,62 @@ def test_port_trained_model_decodes_identically(tree, trained, tmp_path):
     assert per_t == per_j
 
 
+RAISES = {
+    "--train-all-folds --mesh fold=2": "need 2 ranks, have 1",
+    "--mesh data=2": "need 2 ranks, have 1",
+    "--distributed": "MASTER_ADDR",
+    "--coordinator localhost:1234": "--num-processes and --process-id",
+}
+
+
 @pytest.mark.parametrize("extra", [
     ["--train-all-folds", "--mesh", "fold=2"], ["--mesh", "data=2"],
     ["--distributed"], ["--coordinator", "localhost:1234"],
 ])
-def test_unported_options_raise(tree, tmp_path, extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unported_options_raise(tree, tmp_path, extra, monkeypatch):
+    """The parallel options refuse what this process cannot do, before
+    any training: a mesh larger than the world (one rank here), an
+    env:// world without its address, a coordinator without the world
+    size and rank."""
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match=RAISES[" ".join(extra)]):
         train_cli.main(_train_args(tree, tmp_path) + ["--device", "cpu"]
                        + extra)
+
+
+def test_one_rank_mesh_and_world_equal_plain_run(tree, tmp_path,
+                                                  monkeypatch):
+    """``--mesh data=1,model=1`` and ``--distributed`` over a one-rank
+    gloo world (env:// as torchrun sets it) give the model of the plain
+    run, bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    runs = {}
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    monkeypatch.setenv("MASTER_ADDR", "localhost")
+    monkeypatch.setenv("MASTER_PORT", str(port))
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("RANK", "0")
+    for tag, extra in (("plain", []), ("mesh", ["--mesh", "data=1,model=1"]),
+                       ("world", ["--distributed", "--mesh", "data=1"])):
+        out = tmp_path / tag
+        try:
+            train_cli.main(_train_args(tree, out) + ["--device", "cpu"]
+                           + extra)
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        with np.load(out / "model.npz") as data:
+            runs[tag] = {k: data[k] for k in data.files}
+    for tag in ("mesh", "world"):
+        assert sorted(runs[tag]) == sorted(runs["plain"])
+        for k, v in runs["plain"].items():
+            np.testing.assert_array_equal(runs[tag][k], v, err_msg=k)
 
 
 def test_train_fold_and_resume(tree, tmp_path):
