@@ -235,7 +235,27 @@ Phases (each one that fails ends the run with a non-zero exit):
     ``data=1`` FF update equals the plain one bit for bit;
     ``utils.profiling.trace`` around a 32-utterance serving batch, whose
     trace must name the ``lstm_scan`` kernel. The times of time-shared
-    ranks say nothing of scaling.
+    ranks say nothing of scaling;
+36. the fused serving path (run right after phase 6, on phase 5's net,
+    decoder and corpus): the 128 test utterances padded once into one
+    (128, 512, 40) device batch with device lengths, then
+    ``net.apply_sequence`` on the kernel route -> ``- ap`` ->
+    ``log_softmax`` -> ``dec.decode_arrays_fn()``, with no host copy of
+    the posteriors, in f32 and in bf16 (``HalfPrecisionNet``). Gates: the
+    f32 posteriors within POSTERIOR_ATOL of phase 5's, its segments and
+    PER identical to phase 5's, ``lstm_scan`` launched once a layer and
+    the collapsed Viterbi once on its cluster route; the callable's
+    segments those of ``decode_batch`` on the same posteriors (f32 and
+    bf16); FUSED_ROUNDS pipelined rounds of each program under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no synchronising call),
+    each giving the first call's segments; a profiled repeat with no
+    device-to-host or host-to-device copy, one ``lstm_scan`` kernel a
+    layer and ``collapsed_viterbi_cluster_kernel`` alone; ``decode_fn()``
+    (the scan twin) giving ``decode_batch``'s segments on the untied
+    image of phase 23 and phase 5's on the tied one. Logged: the bf16
+    segment parity flag (a record, as ``bench.py``'s), each program's
+    audio-s/s beside phase 5's, the profile's busy share and the device
+    operations and host time of one ``decode_arrays_fn`` call.
 
 Output: progress lines, then the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -3224,6 +3244,7 @@ RANKS = 2                          # gloo ranks time-sharing the one card
 RANK_TIMEOUT_S = 300               # the rank launch, children killed after
 FOLDS_34 = 4
 ENS_UTTS = 16                      # test utterances of phase 34's ensemble
+FUSED_ROUNDS = 6                   # phase 36's pipelined rounds (bench.py's)
 # PipelinedMLP against the single-device MLP. Its logits, each
 # microbatch's float32 products (TF32 off), are held within PIPE_RTOL of
 # the full-batch MLP's largest logit (cuBLAS may sum another row count's
@@ -3781,6 +3802,214 @@ def parallel_phases(torch, np, dev, card, corpus, dec, report):
             for name in TRAIN_KERNELS + ("lstm_scan",)}
 
 
+def fused_phase(torch, np, dev, card, net, dec, corpus, lp5, results5, per5,
+                tput5, report):
+    """Phase 36: the fused serving path on phase 5's ``net``, ``dec`` and
+    test set (``lp5``/``results5``/``per5``/``tput5``: its posteriors,
+    decode, PER and audio-s/s). Returns the launches of the first f32
+    call, the path's run for the ``{"kernels": [...]}`` line."""
+    import traceback
+
+    from nnacousticmodeling_tpu_torch import kernels
+    from nnacousticmodeling_tpu_torch.decoder.image import (
+        make_synthetic_image)
+    from nnacousticmodeling_tpu_torch.decoder.viterbi import ViterbiDecoder
+    from nnacousticmodeling_tpu_torch.io import load_mlf, write_mlf
+    from nnacousticmodeling_tpu_torch.models.precision import (
+        HalfPrecisionNet)
+    from nnacousticmodeling_tpu_torch.ops.numerics import log_softmax
+
+    phase_s = {}
+    phase_done = phase_timer(phase_s)
+    offsets = corpus.test.offsets
+    lengths = np.diff(offsets)
+    audio_s = float(lengths.sum()) / 100.0
+    if len(lengths) != B_MAIN or lengths.max() > T_MAIN:
+        fail(f"phase 36 needs {B_MAIN} test utterances of at most {T_MAIN} "
+             f"frames, got {len(lengths)} of at most {lengths.max()}")
+    # one padded batch, as rnn_log_posteriors padded phase 5's (one
+    # T_MAIN bucket of B_MAIN rows); made outside every timed window
+    xs = np.zeros((B_MAIN, T_MAIN, DIM), np.float32)
+    for u in range(B_MAIN):
+        xs[u, :lengths[u]] = corpus.test.data[offsets[u]:offsets[u + 1]]
+    x_dev = torch.from_numpy(xs).to(dev)
+    lens_dev = torch.from_numpy(lengths.astype(np.int32)).to(dev)
+    ap_dev = torch.from_numpy(np.asarray(corpus.log_priors, np.float32)
+                              ).to(dev)
+    decode = dec.decode_arrays_fn()
+    nets = {"f32": net, "bf16": HalfPrecisionNet(net)}
+
+    def program(model):
+        with torch.inference_mode():
+            y, _ = model.apply_sequence(x_dev)
+            lp = log_softmax(y - ap_dev, dim=-1)
+            return lp, decode(lp, lens_dev)
+
+    def results_of(d, out):
+        return d._to_results(out[0].cpu().numpy(), out[1].cpu().numpy())
+
+    def segments_differ(got, want):
+        return sum(a.segments != b.segments for a, b in zip(got, want))
+
+    # ---- (a) f32: phase 5's posteriors, segments and PER; (b) ---------
+    kernels.reset_launches()
+    lp32, out32 = program(net)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    log(f"[fused] main-path launches: {launches}")
+    if (launches.get("lstm_scan", 0) != LAYERS
+            or launches.get("collapsed_viterbi_forward", 0) != 1
+            or launches.get("collapsed_viterbi_forward.global", 0)):
+        fail(f"the fused program launched {launches}: not lstm_scan once a "
+             f"layer and the collapsed Viterbi once on its cluster route")
+    lp32_host = lp32.cpu().numpy()
+    post_diff = max(float(np.abs(lp32_host[u, :n] - lp5[o:o + n]).max())
+                    for u, (o, n) in enumerate(zip(offsets, lengths)))
+    if not post_diff <= POSTERIOR_ATOL:
+        fail(f"fused f32 posteriors differ from phase 5's by {post_diff} "
+             f"(tolerance {POSTERIOR_ATOL})")
+    res32 = results_of(dec, out32)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fused_") as tmp:
+        ref_path = Path(tmp, "test_ref.mlf")
+        write_mlf(str(ref_path), corpus.ref_mlf["test"])
+        per32 = per_of(corpus, res32, Path(tmp, "fused.mlf"),
+                       load_mlf(str(ref_path)))
+    diff = segments_differ(res32, results5)
+    if diff or per32 != per5:
+        fail(f"the fused f32 decode differs from phase 5's: {diff} "
+             f"utterances, PER {per32} vs {per5}")
+    batch32 = dec.decode_batch(lp32_host, lengths)
+    diff = segments_differ(res32, batch32)
+    if diff:
+        fail(f"decode_arrays_fn differs from decode_batch on the fused f32 "
+             f"posteriors in {diff} utterances")
+    log(f"[fused] f32: posteriors within {post_diff:.3e} of phase 5's "
+        f"(tolerance {POSTERIOR_ATOL}); segments of all {B_MAIN} utterances "
+        f"and PER ({per32:.2f} %) identical to phase 5's and to "
+        f"decode_batch's")
+
+    # bf16 through HalfPrecisionNet; the parity flag as bench.py:324-330
+    lp16, out16 = program(nets["bf16"])
+    batch16 = dec.decode_batch(lp16, lengths)
+    diff = segments_differ(results_of(dec, out16), batch16)
+    if diff:
+        fail(f"decode_arrays_fn differs from decode_batch on the fused bf16 "
+             f"posteriors in {diff} utterances")
+    bf16_parity = segments_differ(batch32, batch16) == 0
+    bf16_diff = float((lp16 - lp32).abs().amax())
+    log(f"[fused] bf16: decode_arrays_fn = decode_batch; bf16 decoded-"
+        f"segment parity {bf16_parity} ({segments_differ(batch32, batch16)} "
+        f"utterances differ from f32), posteriors {bf16_diff:.3e} from f32 "
+        f"(a record, not a gate)")
+    firsts = {"f32": out32, "bf16": out16}
+    del lp32, lp16, lp32_host, batch16
+
+    # ---- (c) pipelined rounds with no synchronising call ---------------
+    rounds = {}
+    for tag, model in nets.items():
+        outs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            torch.cuda.set_sync_debug_mode("error")
+            for _ in range(FUSED_ROUNDS):
+                outs.append(program(model)[1])
+        except RuntimeError as e:
+            traceback.print_exc()
+            fail(f"the fused {tag} program made a synchronising call: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / FUSED_ROUNDS
+        first = firsts[tag]
+        if not all(torch.equal(o[0], first[0]) and torch.equal(o[1], first[1])
+                   for o in outs):
+            fail(f"a pipelined {tag} round gave other segments than its "
+                 f"first call")
+        rounds[tag] = dict(round_ms=ms, audio_s_per_s=audio_s / ms * 1e3)
+    log(f"[fused] {FUSED_ROUNDS} pipelined rounds each under "
+        f"set_sync_debug_mode('error'), no synchronising call: " + "; ".join(
+            f"{k} {v['round_ms']:.1f} ms a round, {v['audio_s_per_s']:.1f} "
+            f"audio-s/s" for k, v in rounds.items())
+        + f" ({audio_s:.2f} audio-s a round); phase 5's host-copy path "
+        f"{tput5:.1f} audio-s/s [{card}]")
+
+    # ---- (d) the profiled repeat: no copy between host and device ------
+    wall_ms, busy_ms, top, counts = device_profile(
+        torch, lambda: program(net), launches_of=(
+            "lstm_scan", "collapsed_viterbi_cluster",
+            "collapsed_viterbi_kernel", "Memcpy DtoH", "Memcpy HtoD", ""))
+    log_profile("fused profile", wall_ms, busy_ms, top, card)
+    if counts["Memcpy DtoH"] or counts["Memcpy HtoD"]:
+        fail(f"the fused program copied between host and device: {counts}")
+    if counts["lstm_scan"] != LAYERS:
+        fail(f"the fused program ran {counts['lstm_scan']} lstm_scan device "
+             f"kernels, not one a layer ({LAYERS})")
+    if (counts["collapsed_viterbi_cluster"] != 1
+            or counts["collapsed_viterbi_kernel"]):
+        fail(f"the fused program's Viterbi device kernels: {counts}, not "
+             f"one collapsed_viterbi_cluster_kernel alone")
+    # one decode_arrays_fn call alone: its device operations (the Viterbi
+    # kernel and the backtrace's T hops) and how long the host takes to
+    # queue them
+    lp_dec = program(net)[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode(lp_dec, lens_dev)
+    queued_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    done_ms = (time.perf_counter() - t0) * 1e3
+    dec_wall, dec_busy, dec_top, dec_counts = device_profile(
+        torch, lambda: decode(lp_dec, lens_dev),
+        launches_of=("", "collapsed_viterbi_cluster"))
+    log(f"[fused] profiled repeat: no Memcpy DtoH / HtoD, {counts['']} "
+        f"device operations, lstm_scan {counts['lstm_scan']} kernels, "
+        f"collapsed_viterbi_cluster_kernel 1; one decode_arrays_fn call "
+        f"alone (T={T_MAIN}: {T_MAIN} backtrace hops): {dec_counts['']} "
+        f"device operations ({dec_counts['collapsed_viterbi_cluster']} "
+        f"of them the Viterbi kernel), {dec_busy:.1f} ms device busy, "
+        f"queued in {queued_ms:.1f} ms, done after {done_ms:.1f} ms "
+        f"[{card}]")
+    log_profile("decode_arrays_fn profile", dec_wall, dec_busy, dec_top,
+                card)
+    del lp_dec
+
+    # ---- (e) decode_fn: the scan twin ----------------------------------
+    lp32, _ = program(net)
+    lp32_host = lp32.cpu().numpy()
+    res_twin = results_of(dec, dec.decode_fn()(lp32, lens_dev))
+    diff = segments_differ(res_twin, results5)
+    if diff:
+        fail(f"decode_fn (the cube scan twin) differs from phase 5's "
+             f"segments in {diff} utterances")
+    untied = make_synthetic_image(num_phones=PHONES, num_states=CLASSES)
+    dec_x = ViterbiDecoder(untied, pip=20.0, lmw=1.0, backend="xla",
+                           device=dev)
+    res_u = results_of(dec_x, dec_x.decode_fn()(lp32, lens_dev))
+    want_u = dec_x.decode_batch(lp32_host, lengths)
+    diff = segments_differ(res_u, want_u)
+    if diff or not all(r.segments for r in res_u):
+        fail(f"decode_fn on the untied image differs from decode_batch "
+             f"(backend='xla') in {diff} utterances")
+    log(f"[fused] decode_fn: phase 5's segments on the tied image; "
+        f"decode_batch's (backend='xla') on phase 23's untied image")
+    del lp32, lp32_host
+    phase_done(36)
+    report["fused"] = dict(
+        posterior_diff=post_diff, per=per32, bf16_parity=bf16_parity,
+        bf16_posterior_diff=bf16_diff, rounds=rounds,
+        phase5_audio_s_per_s=tput5, launches=launches,
+        profile=dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                     top_device_ms=top, counts=counts),
+        decode_call=dict(device_ops=dec_counts[""], device_busy_ms=dec_busy,
+                         viterbi_kernels=dec_counts[
+                             "collapsed_viterbi_cluster"],
+                         top_device_ms=dec_top, profiled_wall_ms=dec_wall,
+                         queued_ms=queued_ms, done_ms=done_ms),
+        seconds=phase_s[36])
+    return launches
+
+
 def main():
     if len(sys.argv) == 4 and sys.argv[1] == "--rank-worker":
         rank_worker(int(sys.argv[2]), Path(sys.argv[3]))
@@ -4015,6 +4244,10 @@ def main():
         f"layers, one persistent launch a call; the decode ran "
         f"{counts['collapsed_viterbi_cluster']} collapsed_viterbi_cluster_"
         f"kernel ({vit_dev:.2f} ms device) and no device-memory route")
+
+    # ---- 36. the fused serving path, while phase 5's state lives -------
+    fused_launches = fused_phase(torch, np, dev, card, net, dec, corpus, lp,
+                                 results, per, tput, report)
     del net, dec_beam
 
     train_kernels = train_phases(torch, np, dev, card, corpus, report)
@@ -4056,6 +4289,8 @@ def main():
     for entry in kernels_line["kernels"]:
         if entry["name"] in rank_launches:
             entry["rank_launches"] = rank_launches[entry["name"]]
+        if entry["name"] in fused_launches:
+            entry["fused_launches"] = fused_launches[entry["name"]]
     report["kernels"] = kernels_line["kernels"]
     report["total_s"] = time.perf_counter() - t_start
     print(f"[report] {json.dumps(report)}", file=sys.stderr)

@@ -15,7 +15,10 @@ JAX decoder's three backends:
   them in XLA, outside any kernel.
 
 Every backend's backtrace runs on the same device, batched over
-utterances, with no host round-trip per frame.
+utterances, with no host round-trip per frame. ``decode_arrays_fn`` and
+``decode_fn`` return the forward plus backtrace as a callable on device
+tensors that makes no synchronising call, so a caller can queue it
+behind the acoustic model and fetch only the segments.
 
 Decode-relevant quirks preserved: initial mass ``lm[start_p] - log(P)``
 on each phone's start biphone (phone_recog.cpp:148), the phone
@@ -262,7 +265,7 @@ class ViterbiDecoder:
         tp_self = self._tp_self.reshape(P, P, P, 3)
         tp_trans = self._tp_trans.reshape(P, P, P, 3)
         lm = self._lm.reshape(P, P)                # [center, right]
-        pip = torch.tensor(self.pip, dtype=torch.float32, device=dev)
+        pip = torch.full((), self.pip, dtype=torch.float32, device=dev)
         iota = torch.arange(P, device=dev)
         if order == "abc":
             tri_rest = (iota[:, None] * P + iota[None, :]).to(torch.int32)
@@ -304,7 +307,7 @@ class ViterbiDecoder:
             if self.beam is not None:
                 rowmax = p_new.amax(dim=(1, 2), keepdim=True)
                 p_new = torch.where(p_new >= rowmax - self.beam, p_new,
-                                    torch.tensor(NEG_INF, device=dev))
+                                    torch.full((), NEG_INF, device=dev))
             packed[:, k] = (tri * pack + (best_t + 1)).reshape(U, -1)
             end[:, k] = p_new.reshape(U, -1)[:, self._end_idxs]
             p_mat = p_new
@@ -321,8 +324,8 @@ class ViterbiDecoder:
         dev = lp.device
         t3 = self.image.num_triphones
         pack = self._time_pack_for(T)
-        pip = torch.tensor(self.pip, dtype=torch.float32, device=dev)
-        neg = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
+        pip = torch.full((), self.pip, dtype=torch.float32, device=dev)
+        neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
         rows = torch.arange(U, device=dev)[:, None]
 
         p = self._p0.expand(U, -1)
@@ -370,15 +373,21 @@ class ViterbiDecoder:
 
     # ---- backtraces ---------------------------------------------------
     def _walk(self, packed: torch.Tensor, end_scores: torch.Tensor,
-              lengths: torch.Tensor, end_map: torch.Tensor, lane_of, step):
+              lengths: torch.Tensor, end_map: torch.Tensor, lane_of, step,
+              early_exit: bool = True):
         """The backtrace loop of every backend (C++ :224-244), all
         utterances at once on their device. The walk starts at the end
         of ``end_map[first max of the last end row]``; each hop reads
         ``packed[t, lane_of(cur)]`` and ``step(entry, cur)`` gives
         (triphone, entry time, next ``cur``). Returns segs (U, T, 3)
         int32 [begin, end, triphone] filled from index 0 = LAST segment,
-        and counts (U,). At most max(lengths) hops; the host checks for
-        completion once every few hops, not per hop."""
+        and counts (U,). Every hop moves an unfinished utterance to an
+        earlier frame, so T hops finish every walk. With ``early_exit``
+        the host reads whether any walk is left once every
+        ``_BACKTRACE_SYNC_EVERY`` hops and stops when none is (a
+        synchronising read); without it the walk runs all T hops, each
+        a no-op for finished utterances, and never waits for the
+        device."""
         U, T, _ = packed.shape
         dev = packed.device
         lengths = lengths.to(device=dev, dtype=torch.int64)
@@ -390,7 +399,8 @@ class ViterbiDecoder:
         segs = torch.zeros((U, T, 3), dtype=torch.int32, device=dev)
         minus1 = torch.full_like(t, -1)
         for hop in range(T):
-            if hop % _BACKTRACE_SYNC_EVERY == 0 and not bool((t >= 0).any()):
+            if (early_exit and hop % _BACKTRACE_SYNC_EVERY == 0
+                    and not bool((t >= 0).any())):
                 break
             active = t >= 0
             # a finished (or empty) utterance reads a row the kernels may
@@ -410,7 +420,7 @@ class ViterbiDecoder:
         return segs, k
 
     def _device_backtrace(self, packed, end_scores, lengths, end_map=None,
-                          bi_map=None):
+                          bi_map=None, early_exit=True):
         """Backtrace over ``tri * pack + t_entry + 1`` rows. ``end_map``
         / ``bi_map`` translate (end phone -> packed lane) and (triphone
         -> predecessor lane); they default to the original biphone
@@ -425,15 +435,17 @@ class ViterbiDecoder:
             return tri, torch.remainder(entry, pack) - 1, bi_map[tri]
 
         return self._walk(packed, end_scores, lengths, end_map,
-                          lambda cur: cur, step)
+                          lambda cur: cur, step, early_exit)
 
-    def _pallas_backtrace(self, packed, end_scores, lengths):
+    def _pallas_backtrace(self, packed, end_scores, lengths,
+                          early_exit=True):
         """Backtrace over the cube kernel's right-major packed rows."""
         return self._device_backtrace(
             packed, end_scores, lengths, end_map=self._pallas_fwd.end_lane,
-            bi_map=self._pallas_fwd.bi_in_lane)
+            bi_map=self._pallas_fwd.bi_in_lane, early_exit=early_exit)
 
-    def _collapsed_backtrace(self, packed, end_scores, lengths):
+    def _collapsed_backtrace(self, packed, end_scores, lengths,
+                             early_exit=True):
         """Backtrace over the collapsed per-lane ``a* * pack + t_entry +
         1`` rows. The collapsed lane loses the right context, but the
         walk always knows the real biphone it traces (the first hop
@@ -455,7 +467,7 @@ class ViterbiDecoder:
             return tri, torch.remainder(entry, pack) - 1, a * P + b
 
         return self._walk(packed, end_scores, lengths, self._end_idxs,
-                          lambda bi: bi2lane[bi], step)
+                          lambda bi: bi2lane[bi], step, early_exit)
 
     # ------------------------------------------------------------------
     def _to_results(self, segs: np.ndarray, counts: np.ndarray
@@ -469,21 +481,33 @@ class ViterbiDecoder:
                 (int(b), int(e), names[int(tri)]) for b, e, tri in rows]))
         return out
 
-    def _decode_arrays(self, lp: torch.Tensor, lengths: torch.Tensor):
-        """Forward + backtrace on the device -> (segs, counts) tensors.
-        The collapsed kernel covers any length through per-pack
-        instances; the cube kernel packs whole triphone ids at the fixed
-        minimum factor, so longer utterances take the scan twin, as in
-        the JAX package."""
+    def _decode_arrays(self, lp: torch.Tensor, lengths: torch.Tensor,
+                       early_exit: bool = True):
+        """Forward + backtrace on the device -> (segs, counts) tensors,
+        the one route of ``decode_batch``, ``decode_one`` and
+        ``decode_arrays_fn``. The collapsed kernel covers any length
+        through per-pack instances; the cube kernel packs whole
+        triphone ids at the fixed minimum factor, so longer utterances
+        take the scan twin, as in the JAX package (``viterbi.py:574-588``,
+        ``:590-603``)."""
         if self._collapsed_fwd is not None:
             ck = self._collapsed_for_t(lp.shape[1])
             packed, end_scores = ck.forward(lp, lengths)
-            return self._collapsed_backtrace(packed, end_scores, lengths)
+            return self._collapsed_backtrace(packed, end_scores, lengths,
+                                             early_exit)
         if self._pallas_fwd is not None and lp.shape[1] < TIME_PACK - 1:
             packed, end_scores = self._pallas_fwd.forward(lp, lengths)
-            return self._pallas_backtrace(packed, end_scores, lengths)
+            return self._pallas_backtrace(packed, end_scores, lengths,
+                                          early_exit)
+        return self._decode_scan(lp, lengths, early_exit)
+
+    def _decode_scan(self, lp: torch.Tensor, lengths: torch.Tensor,
+                     early_exit: bool = True):
+        """The scan twin and its backtrace (the JAX ``vmap(
+        _decode_device)``)."""
         packed, end_scores = self._forward_scan(lp)
-        return self._device_backtrace(packed, end_scores, lengths)
+        return self._device_backtrace(packed, end_scores, lengths,
+                                      early_exit=early_exit)
 
     def _as_input(self, log_probs, lengths):
         lp = torch.as_tensor(log_probs, dtype=torch.float32,
@@ -491,6 +515,79 @@ class ViterbiDecoder:
         lens = torch.as_tensor(lengths, dtype=torch.int32,
                                device=self.device)
         return lp, lens
+
+    def _device_input(self, lp: torch.Tensor, lengths, check_frames):
+        """``lp`` and ``lengths`` checked for the device callables: ``lp``
+        a (U, T, S) floating tensor on the decoder's device (no move)
+        whose T passes ``check_frames``, ``lengths`` U lengths as int32
+        on it."""
+        dev = self._p0.device          # the tables' device, index resolved
+        if not isinstance(lp, torch.Tensor) or lp.device != dev:
+            where = lp.device if isinstance(lp, torch.Tensor) else type(lp)
+            raise ValueError(f"lp on {where}; this decoder decodes on "
+                             f"{dev}: move it there first")
+        if (lp.dim() != 3 or lp.shape[2] != self.image.num_states
+                or not lp.is_floating_point()):
+            raise ValueError(f"lp must be a floating (U, T, "
+                             f"{self.image.num_states}) tensor, got "
+                             f"{lp.dtype} {tuple(lp.shape)}")
+        U, T = lp.shape[:2]
+        check_frames(T)
+        if isinstance(lengths, torch.Tensor):
+            if lengths.device != dev:
+                raise ValueError(f"lengths on {lengths.device}; this "
+                                 f"decoder decodes on {dev}")
+            if lengths.shape != (U,) or lengths.is_floating_point():
+                raise ValueError(f"lengths must be {U} integers, got "
+                                 f"{lengths.dtype} {tuple(lengths.shape)}")
+            lens = lengths.to(torch.int32)
+        else:
+            host = np.asarray(lengths)
+            if host.shape != (U,) or not np.issubdtype(host.dtype,
+                                                       np.integer):
+                raise ValueError(f"lengths must be {U} integers, got "
+                                 f"{host.dtype} {host.shape}")
+            if host.size and (host.min() < 0 or host.max() > T):
+                raise ValueError(f"lengths must lie in [0, {T}]")
+            lens = torch.from_numpy(host.astype(np.int32)).to(dev)
+        return lp.to(torch.float32).contiguous(), lens
+
+    def decode_arrays_fn(self):
+        """``(lp, lengths) -> (segs, counts)`` on the device with the
+        decoder's backend: the collapsed kernel at any T, the cube
+        kernel below ``TIME_PACK - 1`` frames, else the scan twin (JAX
+        ``viterbi.py:590-603``).
+
+        ``lp`` is a (U, T, S) float32 tensor on the decoder's device
+        (another device raises ``ValueError``; nothing is moved).
+        ``lengths`` holds U lengths in [0, T]: a tensor on the same
+        device, or a host sequence, which the call copies to the device
+        once (that copy is the caller's, and waits for the host).
+        ``segs`` is (U, T, 3) int32 [begin, end, triphone] from the
+        LAST segment at index 0, ``counts`` (U,) the segments of each
+        utterance; frames past a length are computed and ignored.
+
+        With device lengths the call makes no synchronising call and no
+        host copy: the backtrace runs all T hops with no host check, so
+        a caller can queue several batches behind the acoustic model
+        and read only the results it needs. The first call at a T that
+        needs a larger pack factor builds (and caches) that factor's
+        collapsed tables, a one-time copy."""
+        def fn(lp: torch.Tensor, lengths):
+            lp, lens = self._device_input(lp, lengths, self._validate_frames)
+            return self._decode_arrays(lp, lens, early_exit=False)
+        return fn
+
+    def decode_fn(self):
+        """``(lp, lengths) -> (segs, counts)`` through the scan twin and
+        its device backtrace, whatever the backend (JAX
+        ``viterbi.py:622-625``, ``vmap(_decode_device)``). Arguments,
+        results and the no-synchronisation contract are
+        ``decode_arrays_fn``'s."""
+        def fn(lp: torch.Tensor, lengths):
+            lp, lens = self._device_input(lp, lengths, self._time_pack_for)
+            return self._decode_scan(lp, lens, early_exit=False)
+        return fn
 
     def decode_one(self, log_probs) -> DecodeResult:
         """Decode one utterance's (T, S) log-posterior matrix."""

@@ -426,15 +426,15 @@ def collapsed_viterbi_reference(ck: CollapsedViterbi, lp: torch.Tensor,
     PS, L, Pp, cap, P = ck.PS, ck.L, ck.Pp, ck.cap, ck.P
     dev = lp.device
     lp = lp.float()
-    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
     tps = ck.tps
     has_src = ck.src >= 0
     src = ck.src.clamp(min=0).long()
     pdf = ck.pdf.long().reshape(-1)
-    pip = torch.tensor(ck._pip, dtype=torch.float32, device=dev)
+    pip = torch.full((), ck._pip, dtype=torch.float32, device=dev)
     pack_base = (torch.arange(PS, device=dev, dtype=torch.int32)
                  * ck.pack + 1)[:, None]                      # (PS, 1)
-    int_max = torch.tensor(2 ** 31 - 1, dtype=torch.int32, device=dev)
+    int_max = torch.full((), 2 ** 31 - 1, dtype=torch.int32, device=dev)
 
     pp = torch.full((U, 3, PS, L), NEG_INF, dtype=torch.float32, device=dev)
     tt = torch.zeros((U, 3, PS, L), dtype=torch.int32, device=dev)
@@ -481,7 +481,7 @@ def collapsed_viterbi_reference(ck: CollapsedViterbi, lp: torch.Tensor,
         pnew = mx[:, 0]                                       # (U, L)
         if ck._beam is not None:
             rowm = (pnew + ck.lmmax).amax(dim=1)
-            thr = (rowm - torch.tensor(ck._beam, dtype=torch.float32,
+            thr = (rowm - torch.full((), ck._beam, dtype=torch.float32,
                                        device=dev))[:, None, None]
         endrow = pnew[:, :Pp] + ck.lmend
         if ck._beam is not None:

@@ -208,7 +208,7 @@ def cube_viterbi_reference(cv: CubeViterbi, lp: torch.Tensor,
     lp = lp.float()
     tps = cv.tps
     pdf = cv.pdf.long().reshape(-1)
-    pip = torch.tensor(cv._pip, dtype=torch.float32, device=dev)
+    pip = torch.full((), cv._pip, dtype=torch.float32, device=dev)
     rows = torch.arange(PS, device=dev)[:, None]                 # (PS, 1)
     pad = torch.zeros((U, PS - P, P), dtype=torch.float32, device=dev)
 
@@ -257,7 +257,7 @@ def cube_viterbi_reference(cv: CubeViterbi, lp: torch.Tensor,
         if cv._beam is not None:
             rowmax = pnew.amax(dim=1, keepdim=True)
             pnew = torch.where(pnew >= rowmax - cv._beam, pnew,
-                               torch.tensor(NEG_INF, device=dev))
+                               torch.full((), NEG_INF, device=dev))
         end[:, k] = pnew[:, cv.end_lane]
         pc = pnew
     return packed, end

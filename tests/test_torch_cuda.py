@@ -32,7 +32,9 @@ dense-cube Viterbi forward is bit-equal to its plain version; the fbank
 kernel (an FFT where the plain version takes dense DFT products) is
 within 1e-3 of the plain ``fbank`` in the log domain, its two entries
 (waveform, frames) bit-equal, and on a wide-range waveform no farther
-from a float64 twin than the plain version, plus 1e-4.
+from a float64 twin than the plain version, plus 1e-4. The decoder's
+device callables (``decode_arrays_fn``, ``decode_fn``) run under sync
+debug mode "error" and give the CPU decoder's segments.
 """
 
 import numpy as np
@@ -302,6 +304,40 @@ def test_cube_viterbi_kernel_bit_equal(cuda, num_phones, ends, beam, route):
     before = dict(kernels.launches)
     assert [r.segments for r in xla.decode_batch(lp, lens)] == want
     assert dict(kernels.launches) == before
+
+
+@pytest.mark.parametrize("fn", ["decode_arrays_fn", "decode_fn"])
+@pytest.mark.parametrize("backend,num_phones", [
+    ("collapsed", 4), ("collapsed", 48), ("pallas", 8), ("xla", 4)])
+def test_device_decode_callables(cuda, backend, num_phones, fn):
+    """``decode_arrays_fn`` / ``decode_fn`` on device lengths make no
+    synchronising call (sync debug mode "error") and give the CPU
+    decoder's ``decode_batch`` segments; a CPU ``lp`` raises."""
+    img = _viterbi_image(num_phones)
+    dec = ViterbiDecoder(img, pip=5.0, lmw=1.5, beam=2.0, backend=backend,
+                         device=cuda)
+    cpu = ViterbiDecoder(img, pip=5.0, lmw=1.5, beam=2.0, backend=backend,
+                         device="cpu")
+    rng = np.random.default_rng(num_phones)
+    lens = np.array([37, 0, 1, 2, 20, 36], np.int32)
+    lp = np.log(rng.dirichlet(np.ones(img.num_states), size=(len(lens), 37))
+                ).astype(np.float32)
+    lp_t = torch.from_numpy(lp).to(cuda)
+    lens_t = torch.from_numpy(lens).to(cuda)
+    call = getattr(dec, fn)()
+    call(lp_t, lens_t)                        # builds the kernels first
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        segs, counts = call(lp_t, lens_t)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = dec._to_results(segs.cpu().numpy(), counts.cpu().numpy())
+    want = cpu.decode_batch(lp, lens)
+    assert [r.segments for r in got] == [r.segments for r in want]
+    assert int(counts[1]) == 0
+    with pytest.raises(ValueError):
+        call(torch.from_numpy(lp), lens_t)
 
 
 @pytest.mark.parametrize("kaldi_weights", [False, True])
