@@ -24,11 +24,19 @@ Phases (each one that fails ends the run with a non-zero exit):
 5. the slice: a synthetic corpus of 128 test utterances of about 400
    frames, an LSTM 4x1024 -> 1909 with numpy-seeded weights carried in
    through ``load_jax_params``, prior-subtracted ``rnn_log_posteriors``,
-   ``decode_corpus``, MLF, PER. Both kernels' launch counts must be > 0
-   for that run, the Viterbi's on the cluster route and none on the
-   device-memory route. The plain LSTM's posteriors must agree within the
-   stated tolerance, and the plain Viterbi's decode of the kernel run's
-   posteriors must give identical segments and PER;
+   ``decode_corpus``, MLF, PER. The three kernels' launch counts
+   (``lstm_scan``, the Viterbi, the backtrace) must be > 0 for that run,
+   the Viterbi's on the cluster route and none on the device-memory
+   route. The plain LSTM's posteriors must agree within the stated
+   tolerance, and the plain Viterbi's decode (plain forward and plain
+   backtrace) of the kernel run's posteriors must give identical
+   segments and PER. Then ``viterbi_backtrace`` against its plain walk
+   on the collapsed rows of phase 5's posteriors in one 512-frame batch:
+   segs (padding included) and counts bit-equal, the segments phase 5's;
+   its ms with L2 flushed and warm, the plain walk's ms, the bound; the
+   same on rows of posteriors that favour each frame's target pdf,
+   whose walks have a trained model's length (the random net decodes an
+   utterance to one or two segments);
 6. a profiled repeat of the slice: device busy share and top device ops;
    ``lstm_scan`` must have run as one device kernel a layer, the decode
    as ``collapsed_viterbi_cluster_kernel`` and never as the
@@ -126,15 +134,18 @@ Phases (each one that fails ends the run with a non-zero exit):
     collapsed kernel refuses, at phase 4's shapes, exact and with the
     beam, on both routes as phase 4: packed rows and end scores
     bit-equal within lengths, a second call bit-identical, each route's
-    ms and microseconds a frame;
+    ms and microseconds a frame; ``viterbi_backtrace`` bit-equal to its
+    plain walk on the cube rows of both images;
 23. the decoder's backends on phase 5's LSTM posteriors: ``pallas``
-    launches the cube kernel and not the collapsed one, ``xla`` launches
-    no Viterbi kernel, and both give phase 5's segments and PER;
+    launches the cube kernel and the backtrace, ``xla`` the backtrace
+    and no Viterbi forward kernel, and both give phase 5's segments and
+    PER;
     ``auto`` picks ``pallas`` on the irregular-end copy and ``xla`` on an
     untied-transition 48-phone 1909-pdf image, which decodes every
     utterance; decode-stage ms and audio-s/s of each route; on that
     untied image and phase 4's inputs the cube scan twin and the general
-    one give the same bits, and each is timed;
+    one give the same bits, and each is timed; ``viterbi_backtrace``
+    bit-equal to its plain walk on the scan twin's rows;
 24. the ``fbank`` kernel against its plain version on one seeded
     waveform as long as the test set's audio, with both mel conventions,
     within 1e-3 in the log domain, its frames entry bit-equal to its
@@ -243,19 +254,24 @@ Phases (each one that fails ends the run with a non-zero exit):
     ``log_softmax`` -> ``dec.decode_arrays_fn()``, with no host copy of
     the posteriors, in f32 and in bf16 (``HalfPrecisionNet``). Gates: the
     f32 posteriors within POSTERIOR_ATOL of phase 5's, its segments and
-    PER identical to phase 5's, ``lstm_scan`` launched once a layer and
-    the collapsed Viterbi once on its cluster route; the callable's
+    PER identical to phase 5's, ``lstm_scan`` launched once a layer, the
+    collapsed Viterbi once on its cluster route and the backtrace once;
+    the callable's
     segments those of ``decode_batch`` on the same posteriors (f32 and
     bf16); FUSED_ROUNDS pipelined rounds of each program under
     ``torch.cuda.set_sync_debug_mode("error")`` (no synchronising call),
     each giving the first call's segments; a profiled repeat with no
     device-to-host or host-to-device copy, one ``lstm_scan`` kernel a
-    layer and ``collapsed_viterbi_cluster_kernel`` alone; ``decode_fn()``
+    layer, ``collapsed_viterbi_cluster_kernel`` alone and one
+    ``viterbi_backtrace_kernel``; one ``decode_arrays_fn`` call launching
+    the two decoder kernels once each in at most MAX_DECODE_OPS device
+    operations; ``decode_fn()``
     (the scan twin) giving ``decode_batch``'s segments on the untied
     image of phase 23 and phase 5's on the tied one. Logged: the bf16
     segment parity flag (a record, as ``bench.py``'s), each program's
     audio-s/s beside phase 5's, the profile's busy share and the device
-    operations and host time of one ``decode_arrays_fn`` call.
+    operations, device time and host queue time of one
+    ``decode_arrays_fn`` call.
 
 Output: progress lines, then the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -547,7 +563,6 @@ def serving_slice(torch, np, net, name, scan_name, plain_scan, corpus, dec,
     agree within POSTERIOR_ATOL, and the plain Viterbi's decode of the
     kernel run's posteriors must give identical segments and PER."""
     from nnacousticmodeling_tpu_torch import kernels
-    from nnacousticmodeling_tpu_torch.decoder import viterbi_collapsed as vc
     from nnacousticmodeling_tpu_torch.decoder.corpus_decode import (
         decode_corpus)
     from nnacousticmodeling_tpu_torch.infer import rnn_log_posteriors
@@ -580,9 +595,9 @@ def serving_slice(torch, np, net, name, scan_name, plain_scan, corpus, dec,
             fail(f"the {name} serving path launched {scan_name} "
                  f"{launches.get(scan_name, 0)} times, not once a layer "
                  f"({LAYERS})")
-        if launches.get("collapsed_viterbi_forward", 0) <= 0:
-            fail(f"the {name} serving path did not launch "
-                 f"collapsed_viterbi_forward")
+        for kernel in ("collapsed_viterbi_forward", "viterbi_backtrace"):
+            if launches.get(kernel, 0) <= 0:
+                fail(f"the {name} serving path did not launch {kernel}")
         if lp.shape != (lengths.sum(), CLASSES) or not np.isfinite(lp).all():
             fail(f"{name} posteriors malformed: shape {lp.shape}")
         if not all(r.segments for r in results):
@@ -602,8 +617,7 @@ def serving_slice(torch, np, net, name, scan_name, plain_scan, corpus, dec,
         if not post_err <= POSTERIOR_ATOL:
             fail(f"{name} posteriors differ from the plain net's by "
                  f"{post_err} (tolerance {POSTERIOR_ATOL})")
-        with mock.patch.object(vc, "collapsed_viterbi_forward",
-                               vc.collapsed_viterbi_reference):
+        with plain_viterbi():
             results_plain = decode_corpus(dec, lp, offsets, batch=B_MAIN)
         per_plain = per_of(corpus, results_plain, Path(tmp, "plain.mlf"),
                            ref)
@@ -1965,6 +1979,92 @@ def route_entries(name, source, replaces, launches, res, bound_ms, by):
             for suffix, key in (("", "cluster"), (".global", "global"))]
 
 
+@contextlib.contextmanager
+def plain_viterbi():
+    """The decoder's kernels replaced by their plain versions (both
+    Viterbi forwards and the backtrace): a plain decode on the card."""
+    from nnacousticmodeling_tpu_torch.decoder import viterbi_backtrace as vbt
+    from nnacousticmodeling_tpu_torch.decoder import viterbi_collapsed as vc
+    from nnacousticmodeling_tpu_torch.decoder import viterbi_cube as vcube
+    with mock.patch.object(vc, "collapsed_viterbi_forward",
+                           vc.collapsed_viterbi_reference), \
+            mock.patch.object(vcube, "cube_viterbi_forward",
+                              vcube.cube_viterbi_reference), \
+            mock.patch.object(vbt, "viterbi_backtrace",
+                              vbt.viterbi_backtrace_reference):
+        yield
+
+
+def backtrace_check(torch, tables, packed, end, lens, pack, tag, card,
+                    timed=False):
+    """Phases 5, 22, 23: the backtrace kernel against its plain walk on
+    the same card tensors, segs (padding included) and counts bit-equal.
+    With ``timed``: the kernel's ms with the L2 cache flushed before each
+    launch (CUDA events around each launch, queued behind the flush; the
+    decode runs it right after a forward that wrote far more than L2
+    holds) and with L2 warm (device time under the profiler: back to
+    back, a launch is shorter than its Python call), the plain walk's
+    ms, and the bound: the bytes of the zeroed segs, the
+    counts, the lengths, each walked utterance's last end row and end-map
+    entry, and per hop (the hops these rows need) one packed entry and
+    one table entry; its ~20 integer operations a hop over the float32
+    rate. Returns a dict."""
+    from nnacousticmodeling_tpu_torch.decoder import viterbi_backtrace as vbt
+    args = (tables, packed, end, lens, pack)
+    want = vbt.viterbi_backtrace_reference(*args)
+    got = vbt.viterbi_backtrace(*args)
+    torch.cuda.synchronize()
+    if got[0].dtype != want[0].dtype or got[1].dtype != want[1].dtype:
+        fail(f"[backtrace {tag}] dtypes {got[0].dtype}, {got[1].dtype}, "
+             f"the plain walk's {want[0].dtype}, {want[1].dtype}")
+    bad_rows = int((got[0] != want[0]).any(dim=2).sum())
+    bad_counts = int((got[1] != want[1]).sum())
+    if bad_rows or bad_counts:
+        fail(f"[backtrace {tag}] the kernel differs from the plain walk: "
+             f"{bad_rows} segs rows, {bad_counts} counts")
+    U, T, _ = packed.shape
+    E = end.shape[2]
+    hops = int(want[1].sum())
+    walked = int((lens > 0).sum())
+    err = float(max(int((got[0] - want[0]).abs().max()),
+                    int((got[1] - want[1]).abs().max())))
+    out = dict(err=err, hops=hops, longest_walk=int(want[1].max()),
+               utterances=U, frames=T)
+    msg = (f"[backtrace {tag}] U={U} T={T}: kernel = plain walk bit for "
+           f"bit (segs with padding, counts), {hops} hops (longest walk "
+           f"{out['longest_walk']})")
+    if timed:
+        flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8,
+                            device=packed.device)
+        vbt.viterbi_backtrace(*args)
+        pairs = []
+        for _ in range(20):
+            flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            vbt.viterbi_backtrace(*args)
+            stop.record()
+            pairs.append((start, stop))
+        torch.cuda.synchronize()
+        ms = sum(a.elapsed_time(b) for a, b in pairs) / len(pairs)
+        del flush
+        warm_ms = device_ms(torch, lambda: vbt.viterbi_backtrace(*args), 20)
+        plain_ms = cuda_ms(torch, lambda: vbt.viterbi_backtrace_reference(
+            *args), 1, warm=False)
+        nbytes = 12 * U * T + 8 * U + 4 * U + (4 * E + 4) * walked + 8 * hops
+        b_ms, by = bound(nbytes, 20 * hops + E * walked, F32_FLOPS)
+        out.update(ms=ms, warm_ms=warm_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=by, bytes=nbytes,
+                   us_hop=ms * 1e3 / max(out["longest_walk"], 1))
+        msg += (f"; kernel {ms:.4f} ms L2 flushed, {warm_ms:.4f} ms L2 warm "
+                f"({out['us_hop']:.2f} us a hop of the longest walk), plain "
+                f"walk {plain_ms:.3f} ms, bound {b_ms:.5f} ms ({by}, "
+                f"{nbytes} bytes)")
+    log(msg + f" [{card}]")
+    return out
+
+
 def timed_decode(torch, dec, lp, offsets):
     """``decode_corpus`` of the test set through ``dec``: (results, ms,
     launches)."""
@@ -2141,6 +2241,14 @@ def decoder_audio_phases(torch, np, dev, card, img, corpus, lp_rand, lens,
             torch, d._pallas_fwd, vcube.cube_viterbi_forward,
             vcube.cube_viterbi_reference, vcube.cube_cluster_capacity,
             lp_rand, lens, f"cube {tag}", card)
+    for tag in ("exact", "irregular exact"):
+        d = decs[tag]
+        packed, end = d._pallas_fwd.forward(lp_rand, lens)
+        cube[tag]["backtrace"] = backtrace_check(
+            torch, d._bt_cube, packed, end, lens,
+            d._time_pack_for(lp_rand.shape[1]), f"phase 22 cube {tag} rows",
+            card)
+        del packed, end
     cv = decs["exact"]._pallas_fwd
     frames = int(lens.sum())
     cells = frames * cv.PS * cv.B
@@ -2171,11 +2279,11 @@ def decoder_audio_phases(torch, np, dev, card, img, corpus, lp_rand, lens,
             if d.backend != backend:
                 fail(f"backend={backend!r} built {d.backend!r}")
             res, ms, launches = timed_decode(torch, d, lp, offsets)
-            want = ({"cube_viterbi_forward"} if backend == "pallas"
-                    else set())
+            want = ({"cube_viterbi_forward", "viterbi_backtrace"}
+                    if backend == "pallas" else {"viterbi_backtrace"})
             if {k for k, v in launches.items() if v} != want:
                 fail(f"the {backend} route launched {launches}, expected "
-                     f"{sorted(want) or 'no kernel'}")
+                     f"{sorted(want)}")
             per_b = per_of(corpus, res, Path(tmp, f"{backend}.mlf"), ref)
             same = sum(a.segments == b.segments for a, b in zip(res, results))
             if same != len(results) or per_b != per:
@@ -2195,7 +2303,8 @@ def decoder_audio_phases(torch, np, dev, card, img, corpus, lp_rand, lens,
                  f"not 'xla'")
         res_u, ms_u, launches_u = timed_decode(torch, auto_untied, lp,
                                                offsets)
-        if any(launches_u.values()) or not all(r.segments for r in res_u):
+        if ({k for k, v in launches_u.items() if v} != {"viterbi_backtrace"}
+                or not all(r.segments for r in res_u)):
             fail(f"untied decode: launches {launches_u}, "
                  f"{sum(not r.segments for r in res_u)} empty utterances")
         routes["untied auto -> xla"] = dict(
@@ -2211,6 +2320,10 @@ def decoder_audio_phases(torch, np, dev, card, img, corpus, lp_rand, lens,
                 twin_ms[tag] = cuda_ms(
                     torch, lambda: auto_untied._forward_scan(lp_rand), 1,
                     warm=False)
+        twin_bt = backtrace_check(
+            torch, auto_untied._bt_scan, *twins["cube"], lens,
+            auto_untied._time_pack_for(lp_rand.shape[1]),
+            "phase 23 scan-twin rows", card)
         if not all(torch.equal(a, b) for a, b in zip(twins["cube"],
                                                      twins["general"])):
             fail("the cube and general scan twins differ on the untied image")
@@ -2260,7 +2373,8 @@ def decoder_audio_phases(torch, np, dev, card, img, corpus, lp_rand, lens,
         t4 = time.perf_counter()
         launches = dict(kernels.launches)
         log(f"[audio slice] main-path launches: {launches}")
-        for name in ("fbank", "lstm_scan", "cube_viterbi_forward"):
+        for name in ("fbank", "lstm_scan", "cube_viterbi_forward",
+                     "viterbi_backtrace"):
             if launches.get(name, 0) <= 0:
                 fail(f"the raw-audio path did not launch {name}")
         if launches.get("cube_viterbi_forward.global", 0):
@@ -2309,8 +2423,7 @@ def decoder_audio_phases(torch, np, dev, card, img, corpus, lp_rand, lens,
         if not post_err <= POSTERIOR_ATOL:
             fail(f"raw-audio posteriors differ from the plain route's by "
                  f"{post_err} (tolerance {POSTERIOR_ATOL})")
-        with mock.patch.object(vcube, "cube_viterbi_forward",
-                               vcube.cube_viterbi_reference):
+        with plain_viterbi():
             res_p = decode_corpus(dec, lp_a, offsets, batch=B_MAIN)
         per_p = per_of(corpus, res_p, Path(tmp, "plain.mlf"), ref)
         same = sum(a.segments == b.segments for a, b in zip(res_a, res_p))
@@ -2327,7 +2440,7 @@ def decoder_audio_phases(torch, np, dev, card, img, corpus, lp_rand, lens,
 
     report["decoder_audio"] = dict(
         cube=cube, cube_bound_ms=cube_bound, cube_state_mb=state_mb,
-        routes=routes, scan_twin_ms=twin_ms,
+        routes=routes, scan_twin_ms=twin_ms, scan_twin_backtrace=twin_bt,
         fbank=dict(fbk, batch_device_ms=fb_batch_ms),
         audio_slice=dict(per=per_a, audio_s=audio_s, audio_s_per_s=tput,
                          fbank_err=fb_main_err, feature_err=feat_err,
@@ -2487,7 +2600,6 @@ def ff_ensemble_phases(torch, np, dev, card, img, corpus, dec, tput5,
     through ``evaluate --rpl``. ``corpus``/``dec`` are phase 5's,
     ``tput5`` its audio-s/s."""
     from nnacousticmodeling_tpu_torch import kernels
-    from nnacousticmodeling_tpu_torch.decoder import viterbi_collapsed as vc
     from nnacousticmodeling_tpu_torch.decoder.corpus_decode import (
         decode_corpus)
     from nnacousticmodeling_tpu_torch.decoder.image import (
@@ -2563,8 +2675,7 @@ def ff_ensemble_phases(torch, np, dev, card, img, corpus, dec, tput5,
     if not post_err <= POSTERIOR_ATOL:
         fail(f"FF posteriors on the card differ from the CPU's by {post_err} "
              f"(tolerance {POSTERIOR_ATOL})")
-    with mock.patch.object(vc, "collapsed_viterbi_forward",
-                           vc.collapsed_viterbi_reference):
+    with plain_viterbi():
         results_plain = decode_corpus(dec, lp, offsets, batch=B_MAIN)
     per_plain = per_of(corpus, results_plain, tmp / "ff_plain.mlf", ref)
     same = sum(a.segments == b.segments for a, b in zip(results,
@@ -2786,8 +2897,7 @@ def ff_ensemble_phases(torch, np, dev, card, img, corpus, dec, tput5,
     dec_k = ViterbiDecoder(load_image(str(tree / "recog" /
                                           "kaldiTri1909.img")),
                            pip=20.0, lmw=1.0, device=dev)
-    with mock.patch.object(vc, "collapsed_viterbi_forward",
-                           vc.collapsed_viterbi_reference):
+    with plain_viterbi():
         res_plain = decode_corpus(dec_k, ens["lp"], corpus_k.test.offsets)
     per_plain = per_of(corpus_k, res_plain, tmp / "ens_plain.mlf", load_mlf(
         str(tree / "recog" / "test_ref.mlf")))
@@ -3245,6 +3355,7 @@ RANK_TIMEOUT_S = 300               # the rank launch, children killed after
 FOLDS_34 = 4
 ENS_UTTS = 16                      # test utterances of phase 34's ensemble
 FUSED_ROUNDS = 6                   # phase 36's pipelined rounds (bench.py's)
+MAX_DECODE_OPS = 32                # device operations of one decode call
 # PipelinedMLP against the single-device MLP. Its logits, each
 # microbatch's float32 products (TF32 off), are held within PIPE_RTOL of
 # the full-batch MLP's largest logit (cuBLAS may sum another row count's
@@ -3859,9 +3970,11 @@ def fused_phase(torch, np, dev, card, net, dec, corpus, lp5, results5, per5,
     log(f"[fused] main-path launches: {launches}")
     if (launches.get("lstm_scan", 0) != LAYERS
             or launches.get("collapsed_viterbi_forward", 0) != 1
-            or launches.get("collapsed_viterbi_forward.global", 0)):
+            or launches.get("collapsed_viterbi_forward.global", 0)
+            or launches.get("viterbi_backtrace", 0) != 1):
         fail(f"the fused program launched {launches}: not lstm_scan once a "
-             f"layer and the collapsed Viterbi once on its cluster route")
+             f"layer, the collapsed Viterbi once on its cluster route and "
+             f"the backtrace once")
     lp32_host = lp32.cpu().numpy()
     post_diff = max(float(np.abs(lp32_host[u, :n] - lp5[o:o + n]).max())
                     for u, (o, n) in enumerate(zip(offsets, lengths)))
@@ -3938,7 +4051,8 @@ def fused_phase(torch, np, dev, card, net, dec, corpus, lp5, results5, per5,
     wall_ms, busy_ms, top, counts = device_profile(
         torch, lambda: program(net), launches_of=(
             "lstm_scan", "collapsed_viterbi_cluster",
-            "collapsed_viterbi_kernel", "Memcpy DtoH", "Memcpy HtoD", ""))
+            "collapsed_viterbi_kernel", "viterbi_backtrace_kernel",
+            "Memcpy DtoH", "Memcpy HtoD", ""))
     log_profile("fused profile", wall_ms, busy_ms, top, card)
     if counts["Memcpy DtoH"] or counts["Memcpy HtoD"]:
         fail(f"the fused program copied between host and device: {counts}")
@@ -3946,30 +4060,43 @@ def fused_phase(torch, np, dev, card, net, dec, corpus, lp5, results5, per5,
         fail(f"the fused program ran {counts['lstm_scan']} lstm_scan device "
              f"kernels, not one a layer ({LAYERS})")
     if (counts["collapsed_viterbi_cluster"] != 1
-            or counts["collapsed_viterbi_kernel"]):
-        fail(f"the fused program's Viterbi device kernels: {counts}, not "
-             f"one collapsed_viterbi_cluster_kernel alone")
-    # one decode_arrays_fn call alone: its device operations (the Viterbi
-    # kernel and the backtrace's T hops) and how long the host takes to
-    # queue them
+            or counts["collapsed_viterbi_kernel"]
+            or counts["viterbi_backtrace_kernel"] != 1):
+        fail(f"the fused program's decoder device kernels: {counts}, not "
+             f"one collapsed_viterbi_cluster_kernel alone and one "
+             f"viterbi_backtrace_kernel")
+    # one decode_arrays_fn call alone: one launch of each decoder kernel,
+    # at most MAX_DECODE_OPS device operations, and how long the host
+    # takes to queue them
     lp_dec = program(net)[0]
     torch.cuda.synchronize()
+    kernels.reset_launches()
     t0 = time.perf_counter()
     decode(lp_dec, lens_dev)
     queued_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     done_ms = (time.perf_counter() - t0) * 1e3
+    dec_launches = dict(kernels.launches)
+    if dec_launches != {"collapsed_viterbi_forward": 1,
+                        "viterbi_backtrace": 1}:
+        fail(f"one decode_arrays_fn call launched {dec_launches}, not the "
+             f"collapsed Viterbi and the backtrace once each")
     dec_wall, dec_busy, dec_top, dec_counts = device_profile(
         torch, lambda: decode(lp_dec, lens_dev),
-        launches_of=("", "collapsed_viterbi_cluster"))
+        launches_of=("", "collapsed_viterbi_cluster",
+                     "viterbi_backtrace_kernel"))
+    if dec_counts[""] > MAX_DECODE_OPS:
+        fail(f"one decode_arrays_fn call is {dec_counts['']} device "
+             f"operations, more than {MAX_DECODE_OPS}")
     log(f"[fused] profiled repeat: no Memcpy DtoH / HtoD, {counts['']} "
         f"device operations, lstm_scan {counts['lstm_scan']} kernels, "
-        f"collapsed_viterbi_cluster_kernel 1; one decode_arrays_fn call "
-        f"alone (T={T_MAIN}: {T_MAIN} backtrace hops): {dec_counts['']} "
-        f"device operations ({dec_counts['collapsed_viterbi_cluster']} "
-        f"of them the Viterbi kernel), {dec_busy:.1f} ms device busy, "
-        f"queued in {queued_ms:.1f} ms, done after {done_ms:.1f} ms "
-        f"[{card}]")
+        f"collapsed_viterbi_cluster_kernel 1, viterbi_backtrace_kernel 1; "
+        f"one decode_arrays_fn call alone (T={T_MAIN}): launches "
+        f"{dec_launches}, {dec_counts['']} device operations (at most "
+        f"{MAX_DECODE_OPS}; {dec_counts['collapsed_viterbi_cluster']} "
+        f"Viterbi kernel, {dec_counts['viterbi_backtrace_kernel']} "
+        f"backtrace kernel), {dec_busy:.3f} ms device busy, queued in "
+        f"{queued_ms:.3f} ms, done after {done_ms:.3f} ms [{card}]")
     log_profile("decode_arrays_fn profile", dec_wall, dec_busy, dec_top,
                 card)
     del lp_dec
@@ -4002,8 +4129,11 @@ def fused_phase(torch, np, dev, card, net, dec, corpus, lp5, results5, per5,
         profile=dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                      top_device_ms=top, counts=counts),
         decode_call=dict(device_ops=dec_counts[""], device_busy_ms=dec_busy,
+                         launches=dec_launches,
                          viterbi_kernels=dec_counts[
                              "collapsed_viterbi_cluster"],
+                         backtrace_kernels=dec_counts[
+                             "viterbi_backtrace_kernel"],
                          top_device_ms=dec_top, profiled_wall_ms=dec_wall,
                          queued_ms=queued_ms, done_ms=done_ms),
         seconds=phase_s[36])
@@ -4176,7 +4306,8 @@ def main():
         t3 = time.perf_counter()
         launches = dict(kernels.launches)
         log(f"[slice] main-path launches: {launches}")
-        for name in ("lstm_scan", "collapsed_viterbi_forward"):
+        for name in ("lstm_scan", "collapsed_viterbi_forward",
+                     "viterbi_backtrace"):
             if launches.get(name, 0) <= 0:
                 fail(f"the main path did not launch {name}")
         if launches.get("collapsed_viterbi_forward.global", 0):
@@ -4203,9 +4334,9 @@ def main():
         if not post_err <= POSTERIOR_ATOL:
             fail(f"posteriors differ from the plain LSTM's by {post_err} "
                  f"(tolerance {POSTERIOR_ATOL})")
-        # plain Viterbi on the card, decoding the kernel run's posteriors
-        with mock.patch.object(vc, "collapsed_viterbi_forward",
-                               vc.collapsed_viterbi_reference):
+        # plain Viterbi forward and backtrace on the card, decoding the
+        # kernel run's posteriors
+        with plain_viterbi():
             results_plain = decode_corpus(dec, lp, offsets, batch=B_MAIN)
         per_plain = per_of(corpus, results_plain, Path(tmp, "plain.mlf"),
                            ref)
@@ -4217,6 +4348,40 @@ def main():
         log(f"[slice] plain LSTM posteriors within {post_err:.3e} "
             f"(tolerance {POSTERIOR_ATOL}); plain Viterbi: segments of all "
             f"{same} utterances and PER identical")
+
+    # ---- 5. the backtrace kernel on phase 5's collapsed rows -----------
+    # the posteriors in one T_MAIN-frame batch (phase 36's shape)
+    lens5 = torch.from_numpy(lengths.astype(np.int32)).to(dev)
+
+    def collapsed_rows(frame_lp):
+        lp_pad = torch.zeros((len(lengths), T_MAIN, CLASSES), device=dev)
+        for u, (o, n) in enumerate(zip(offsets, lengths)):
+            lp_pad[u, :n] = frame_lp[o:o + n]
+        return dec._collapsed_fwd.forward(lp_pad, lens5)
+
+    packed5, end5 = collapsed_rows(torch.from_numpy(lp).to(dev))
+    bt = backtrace_check(torch, dec._bt_collapsed, packed5, end5, lens5,
+                         dec._collapsed_fwd.pack, "phase 5 collapsed rows",
+                         card, timed=True)
+    segs5, counts5 = dec._collapsed_backtrace(packed5, end5, lens5)
+    res_bt = dec._to_results(segs5.cpu().numpy(), counts5.cpu().numpy())
+    if any(a.segments != b.segments for a, b in zip(res_bt, results)):
+        fail("the backtrace kernel on phase 5's rows in one batch gives "
+             "other segments than phase 5's decode")
+    del packed5, end5, segs5, counts5
+    # the random net decodes an utterance to one or two segments; walks of
+    # a trained model's length come from posteriors that favour each
+    # frame's target pdf (seeded noise)
+    targets = torch.from_numpy(corpus.test.targets.astype(np.int64)).to(dev)
+    logits = torch.randn((len(targets), CLASSES), device=dev,
+                         generator=torch.Generator(dev).manual_seed(5))
+    logits[torch.arange(len(targets), device=dev), targets] += 6.0
+    packed5, end5 = collapsed_rows(torch.log_softmax(logits, dim=1))
+    del logits, targets
+    bt_long = backtrace_check(torch, dec._bt_collapsed, packed5, end5,
+                              lens5, dec._collapsed_fwd.pack,
+                              "phase 5 target rows", card, timed=True)
+    del packed5, end5
 
     # ---- 6. where the time goes: the main path once more, profiled ------
     def serve():
@@ -4271,7 +4436,8 @@ def main():
         viterbi=vit, viterbi_bound_ms=vit_bound,
         viterbi_state_bytes=state_bytes, slice=dict(
             per=per, audio_s=audio_s, audio_s_per_s=tput, posterior_err=
-            post_err, launches=launches, **stages))
+            post_err, launches=launches, **stages), backtrace=bt,
+        backtrace_target_rows=bt_long)
     kernels_line = {"kernels": [
         {"name": "lstm_scan", "route": "cuda",
          "source": "nnacousticmodeling_tpu_torch/csrc/lstm_scan.cu",
@@ -4284,7 +4450,16 @@ def main():
         "collapsed_viterbi_forward",
         "nnacousticmodeling_tpu_torch/csrc/viterbi_collapsed.cu",
         "nnacousticmodeling_tpu/decoder/viterbi_collapsed.py:347", launches,
-        vit["exact"], vit_bound, vit_by) + train_kernels + gated_kernels
+        vit["exact"], vit_bound, vit_by) + [
+        {"name": "viterbi_backtrace", "route": "cuda",
+         "source": "nnacousticmodeling_tpu_torch/csrc/viterbi_backtrace.cu",
+         "replaces": "nnacousticmodeling_tpu/decoder/viterbi.py:217 (a "
+                     "lax.while_loop, no pallas_call)",
+         "launches": launches["viterbi_backtrace"], "max_abs_err": bt["err"],
+         "tolerance": 0.0, "ms": bt["ms"], "plain_ms": bt["plain_ms"],
+         "bound_ms": bt["bound_ms"], "bound_by": bt["bound_by"],
+         "library_ms": None},
+    ] + train_kernels + gated_kernels
         + peephole_kernels + decoder_audio_kernels}
     for entry in kernels_line["kernels"]:
         if entry["name"] in rank_launches:

@@ -14,8 +14,9 @@ JAX decoder's three backends:
   over utterances with a Python loop over frames. The JAX package runs
   them in XLA, outside any kernel.
 
-Every backend's backtrace runs on the same device, batched over
-utterances, with no host round-trip per frame. ``decode_arrays_fn`` and
+Every backend's backtrace is one launch of the ``viterbi_backtrace``
+kernel on the card (``viterbi_backtrace.py``; its plain version for CPU
+tensors), batched over utterances. ``decode_arrays_fn`` and
 ``decode_fn`` return the forward plus backtrace as a callable on device
 tensors that makes no synchronising call, so a caller can queue it
 behind the acoustic model and fetch only the segments.
@@ -38,14 +39,19 @@ import torch
 
 from ..utils.device import resolve_device
 from .image import HmmImage
+from .viterbi_backtrace import (
+    COLLAPSED_ABC,
+    COLLAPSED_BAC,
+    LANES,
+    backtrace,
+    backtrace_tables,
+)
 from .viterbi_collapsed import NEG_INF, CollapsedViterbi, UnsupportedImage
 from .viterbi_cube import CubeViterbi
 
 TIME_PACK = 2048    # minimum packing: (a* or tri) * pack + (t_entry + 1);
                     # grows per decode as the next power of two > T+1
 BACKENDS = ("auto", "collapsed", "pallas", "xla")
-#: host checks for finished backtraces once per this many hops
-_BACKTRACE_SYNC_EVERY = 16
 
 
 @dataclass
@@ -161,6 +167,19 @@ class ViterbiDecoder:
                 except UnsupportedImage:
                     if backend == "pallas":
                         raise
+        # the backtrace's tables, int32 copies for its kernel included
+        P = img.num_phones
+        self._bt_scan = backtrace_tables(LANES, P, self._end_idxs,
+                                         self._biphone_in)
+        self._bt_cube = self._bt_collapsed = None
+        if self._pallas_fwd is not None:
+            self._bt_cube = backtrace_tables(
+                LANES, P, self._pallas_fwd.end_lane,
+                self._pallas_fwd.bi_in_lane)
+        if self._collapsed_fwd is not None:
+            self._bt_collapsed = backtrace_tables(
+                COLLAPSED_BAC if self._cube_order == "bac" else
+                COLLAPSED_ABC, P, self._end_idxs, self._collapsed_fwd.bi2lane)
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -372,102 +391,28 @@ class ViterbiDecoder:
         return packed, end
 
     # ---- backtraces ---------------------------------------------------
-    def _walk(self, packed: torch.Tensor, end_scores: torch.Tensor,
-              lengths: torch.Tensor, end_map: torch.Tensor, lane_of, step,
-              early_exit: bool = True):
-        """The backtrace loop of every backend (C++ :224-244), all
-        utterances at once on their device. The walk starts at the end
-        of ``end_map[first max of the last end row]``; each hop reads
-        ``packed[t, lane_of(cur)]`` and ``step(entry, cur)`` gives
-        (triphone, entry time, next ``cur``). Returns segs (U, T, 3)
-        int32 [begin, end, triphone] filled from index 0 = LAST segment,
-        and counts (U,). Every hop moves an unfinished utterance to an
-        earlier frame, so T hops finish every walk. With ``early_exit``
-        the host reads whether any walk is left once every
-        ``_BACKTRACE_SYNC_EVERY`` hops and stops when none is (a
-        synchronising read); without it the walk runs all T hops, each
-        a no-op for finished utterances, and never waits for the
-        device."""
-        U, T, _ = packed.shape
-        dev = packed.device
-        lengths = lengths.to(device=dev, dtype=torch.int64)
-        rows = torch.arange(U, device=dev)
-        last = end_scores[rows, (lengths - 1).clamp(min=0)]      # (U, P)
-        cur = end_map[last.argmax(dim=1)]                # first max wins
-        t = lengths - 1
-        k = torch.zeros(U, dtype=torch.int64, device=dev)
-        segs = torch.zeros((U, T, 3), dtype=torch.int32, device=dev)
-        minus1 = torch.full_like(t, -1)
-        for hop in range(T):
-            if (early_exit and hop % _BACKTRACE_SYNC_EVERY == 0
-                    and not bool((t >= 0).any())):
-                break
-            active = t >= 0
-            # a finished (or empty) utterance reads a row the kernels may
-            # have left unwritten: give its step a harmless entry (tri 0)
-            entry = torch.where(
-                active, packed[rows, t.clamp(min=0), lane_of(cur)].long(), 1)
-            tri, t_new, nxt = step(entry, cur)
-            row = torch.stack([t_new + 1, t + 1, tri], dim=1).to(torch.int32)
-            slot = k.clamp(max=T - 1)
-            segs[rows, slot] = torch.where(active[:, None], row,
-                                           segs[rows, slot])
-            cur = torch.where(active, nxt, cur)
-            k = k + active.long()
-            # degenerate guard: the native decoder loops forever when no
-            # complete path exists (< 3 frames); this walk stops instead
-            t = torch.where(active, torch.where(t_new >= t, minus1, t_new), t)
-        return segs, k
-
-    def _device_backtrace(self, packed, end_scores, lengths, end_map=None,
-                          bi_map=None, early_exit=True):
-        """Backtrace over ``tri * pack + t_entry + 1`` rows. ``end_map``
-        / ``bi_map`` translate (end phone -> packed lane) and (triphone
-        -> predecessor lane); they default to the original biphone
-        indexing of the scan twins, and the cube kernel supplies its
-        right-major lane maps."""
-        pack = self._time_pack_for(packed.shape[1])
-        bi_map = self._biphone_in if bi_map is None else bi_map
-        end_map = self._end_idxs if end_map is None else end_map
-
-        def step(entry, cur):
-            tri = torch.div(entry, pack, rounding_mode="floor")
-            return tri, torch.remainder(entry, pack) - 1, bi_map[tri]
-
-        return self._walk(packed, end_scores, lengths, end_map,
-                          lambda cur: cur, step, early_exit)
+    def _device_backtrace(self, packed, end_scores, lengths, tables=None,
+                          early_exit=True):
+        """Backtrace over ``tri * pack + t_entry + 1`` rows, by default
+        in the scan twins' original biphone indexing; the cube kernel's
+        tables map its right-major lanes."""
+        return backtrace(self._bt_scan if tables is None else tables,
+                         packed, end_scores, lengths,
+                         self._time_pack_for(packed.shape[1]), early_exit)
 
     def _pallas_backtrace(self, packed, end_scores, lengths,
                           early_exit=True):
         """Backtrace over the cube kernel's right-major packed rows."""
-        return self._device_backtrace(
-            packed, end_scores, lengths, end_map=self._pallas_fwd.end_lane,
-            bi_map=self._pallas_fwd.bi_in_lane, early_exit=early_exit)
+        return self._device_backtrace(packed, end_scores, lengths,
+                                      self._bt_cube, early_exit)
 
     def _collapsed_backtrace(self, packed, end_scores, lengths,
                              early_exit=True):
         """Backtrace over the collapsed per-lane ``a* * pack + t_entry +
-        1`` rows. The collapsed lane loses the right context, but the
-        walk always knows the real biphone it traces (the first hop
-        starts from an end biphone, each hop's predecessor is (a*,
-        center)), so the triphone id is rebuilt arithmetically."""
-        P = self.image.num_phones
-        # the pack factor of the instance that PRODUCED these rows
+        1`` rows, at the pack factor of the instance that PRODUCED them."""
         pack = self._collapsed_for_t(packed.shape[1]).pack
-        bi2lane = self._collapsed_fwd.bi2lane
-
-        def step(entry, bi):
-            a = torch.div(entry, pack, rounding_mode="floor")
-            b = torch.div(bi, P, rounding_mode="floor")
-            cc = torch.remainder(bi, P)
-            if self._cube_order == "bac":
-                tri = b * (P * P) + a * P + cc
-            else:
-                tri = a * (P * P) + b * P + cc
-            return tri, torch.remainder(entry, pack) - 1, a * P + b
-
-        return self._walk(packed, end_scores, lengths, self._end_idxs,
-                          lambda bi: bi2lane[bi], step, early_exit)
+        return backtrace(self._bt_collapsed, packed, end_scores, lengths,
+                         pack, early_exit)
 
     # ------------------------------------------------------------------
     def _to_results(self, segs: np.ndarray, counts: np.ndarray
@@ -568,9 +513,10 @@ class ViterbiDecoder:
         utterance; frames past a length are computed and ignored.
 
         With device lengths the call makes no synchronising call and no
-        host copy: the backtrace runs all T hops with no host check, so
-        a caller can queue several batches behind the acoustic model
-        and read only the results it needs. The first call at a T that
+        host copy (the backtrace is one kernel launch; on the CPU its
+        plain version runs all T hops with no host check), so a caller
+        can queue several batches behind the acoustic model and read
+        only the results it needs. The first call at a T that
         needs a larger pack factor builds (and caches) that factor's
         collapsed tables, a one-time copy."""
         def fn(lp: torch.Tensor, lengths):

@@ -35,6 +35,7 @@ SOURCES = {
     "lstm_train": "lstm_train.cu",
     "peephole_scan": "peephole_scan.cu",
     "peephole_train": "peephole_train.cu",
+    "viterbi_backtrace": "viterbi_backtrace.cu",
     "viterbi_collapsed": "viterbi_collapsed.cu",
     "viterbi_cube": "viterbi_cube.cu",
 }

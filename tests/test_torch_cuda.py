@@ -282,7 +282,8 @@ def test_collapsed_viterbi_kernel_bit_equal(cuda, num_phones, beam, route):
 def test_cube_viterbi_kernel_bit_equal(cuda, num_phones, ends, beam, route):
     """Both routes bit-equal to the plain version (9 phones: 81 lanes, the
     plan's device-memory route either way); segments equal to the CPU
-    decoder's and the scan twin's, which launches no kernel."""
+    decoder's and the scan twin's, which launches no Viterbi forward
+    kernel, only the backtrace kernel."""
     from nnacousticmodeling_tpu_torch.decoder import viterbi_cube as vcube
     img = _viterbi_image(num_phones, ends)
     dec = ViterbiDecoder(img, pip=5.0, lmw=1.5, beam=beam, backend="pallas",
@@ -303,7 +304,148 @@ def test_cube_viterbi_kernel_bit_equal(cuda, num_phones, ends, beam, route):
                          device=cuda)
     before = dict(kernels.launches)
     assert [r.segments for r in xla.decode_batch(lp, lens)] == want
-    assert dict(kernels.launches) == before
+    counted = {k: v - before.get(k, 0) for k, v in kernels.launches.items()
+               if v != before.get(k, 0)}
+    assert counted == {"viterbi_backtrace": 1}
+
+
+# ---- the backtrace kernel -------------------------------------------------
+def _to_bac(img):
+    """The same model with triphones enumerated center-major (idx =
+    b*P^2 + a*P + c), the graph builder's 'bac' order."""
+    import dataclasses
+    from nnacousticmodeling_tpu_torch.decoder.image import (
+        _csr_from_biphone_out)
+    P = img.num_phones
+    b, a, c = np.meshgrid(np.arange(P), np.arange(P), np.arange(P),
+                          indexing="ij")
+    old = (a * P * P + b * P + c).reshape(-1)
+    bi_out = img.biphone_out[old]
+    offsets, values = _csr_from_biphone_out(bi_out, img.num_biphones)
+    return dataclasses.replace(
+        img, biphone_in=img.biphone_in[old], biphone_out=bi_out,
+        state_idxs=img.state_idxs[old], tp_selfloop=img.tp_selfloop[old],
+        tp_transition=img.tp_transition[old], out_offsets=offsets,
+        out_values=values,
+        phone_names=[img.phone_names[i] for i in old]).validate()
+
+
+def _backtrace_tables(dec, backend):
+    return {"collapsed": dec._bt_collapsed, "pallas": dec._bt_cube,
+            "xla": dec._bt_scan}[backend]
+
+
+def _check_backtrace_kernel(tables, packed, end, lens, pack):
+    """The kernel (one launch, no synchronising call) against the plain
+    walk on the same card tensors: segs bit-equal padding included,
+    counts equal. Returns the counts."""
+    from nnacousticmodeling_tpu_torch.decoder import viterbi_backtrace as vbt
+    want = vbt.viterbi_backtrace_reference(tables, packed, end, lens, pack)
+    torch.cuda.synchronize()
+    before = kernels.launches["viterbi_backtrace"]
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        got = vbt.backtrace(tables, packed, end, lens, pack)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert kernels.launches["viterbi_backtrace"] == before + 1
+    assert got[0].dtype == torch.int32 and got[1].dtype == torch.int64
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    return got[1]
+
+
+@pytest.mark.parametrize("pack_t", [23, 2100])
+@pytest.mark.parametrize("backend", ["collapsed", "pallas", "xla"])
+@pytest.mark.parametrize("order", ["abc", "bac"])
+def test_backtrace_kernel_bit_equal_on_adversarial_rows(cuda, order, backend,
+                                                        pack_t):
+    """Rows no forward makes: random predecessors, entry times at or after
+    their own frame (the guard), ties in every last end row, lengths 0, 1,
+    2 and T; both cube orders; T=2100 grows the pack factor to 4096."""
+    img = _viterbi_image(8)
+    if order == "bac":
+        img = _to_bac(img)
+    dec = ViterbiDecoder(img, pip=5.0, lmw=1.5, backend=backend, device=cuda)
+    assert dec.backend == backend and dec._cube_order == order
+    tables = _backtrace_tables(dec, backend)
+    rng = np.random.default_rng(len(order) * 10 + len(backend) + pack_t)
+    t = pack_t
+    if backend == "collapsed":
+        pack, lanes, top = (dec._collapsed_for_t(t).pack,
+                            dec._collapsed_for_t(t).L, img.num_phones)
+    else:
+        pack = dec._time_pack_for(t)
+        lanes, top = img.num_biphones, img.num_triphones
+    assert pack == (2048 if t < 2047 else 4096)
+    lens = np.array([t, 0, 1, 2] + list(rng.integers(0, t + 1, 5)),
+                    np.int32)
+    u = len(lens)
+    frame = np.arange(t)[None, :, None]
+    t_entry = rng.integers(-1, frame + 1, size=(u, t, lanes))
+    late = rng.random((u, t, lanes)) < 0.35
+    t_entry = np.where(late, frame + rng.integers(0, 3, (u, t, lanes)),
+                       t_entry)
+    packed = (rng.integers(0, top, (u, t, lanes)) * pack
+              + np.minimum(t_entry, pack - 2) + 1).astype(np.int32)
+    end = rng.choice(np.asarray([-3.0, -1.5, -1.5], np.float32),
+                     size=(u, t, img.num_phones))
+    counts = _check_backtrace_kernel(
+        tables, torch.from_numpy(packed).to(cuda),
+        torch.from_numpy(end).to(cuda), torch.from_numpy(lens).to(cuda),
+        pack)
+    assert counts[1] == 0 and (counts[[0, 2, 3]] > 0).all()
+
+
+@pytest.mark.parametrize("backend,num_phones,route", [
+    ("collapsed", 4, None), ("collapsed", 4, "global"),
+    ("collapsed", 48, None), ("collapsed", 48, "global"),
+    ("pallas", 8, None), ("pallas", 8, "global"), ("pallas", 9, None),
+    ("pallas", 8, "twin"), ("xla", 4, None), ("xla", 48, None)])
+def test_backtrace_kernel_bit_equal_on_forward_rows(cuda, backend,
+                                                    num_phones, route):
+    """Rows of the collapsed and cube kernels (the plan's route and the
+    device-memory route) and of the scan twin (``route="twin"`` on a cube
+    decoder, as ``decode_fn``): the kernel equals the plain walk, the
+    decoder's backtrace launches it once a call, and the segments are the
+    CPU decoder's."""
+    from nnacousticmodeling_tpu_torch.decoder import viterbi_collapsed as vc
+    from nnacousticmodeling_tpu_torch.decoder import viterbi_cube as vcube
+    img = _viterbi_image(num_phones)
+    dec = ViterbiDecoder(img, pip=5.0, lmw=1.5, beam=2.0, backend=backend,
+                         device=cuda)
+    rng = np.random.default_rng(num_phones + 3)
+    t = 37
+    lens = np.array([t, 0, 1, 2, 20, 36, 9], np.int32)
+    lp = torch.from_numpy(np.log(rng.dirichlet(
+        np.ones(img.num_states), size=(len(lens), t))).astype(
+            np.float32)).to(cuda)
+    lens_t = torch.from_numpy(lens).to(cuda)
+    if route == "twin" or backend == "xla":
+        packed, end = dec._forward_scan(lp)
+        tables, pack = dec._bt_scan, dec._time_pack_for(t)
+        walk = dec._device_backtrace
+    elif backend == "collapsed":
+        packed, end = vc.collapsed_viterbi_forward(dec._collapsed_fwd, lp,
+                                                   lens_t, route=route)
+        tables, pack = dec._bt_collapsed, dec._collapsed_fwd.pack
+        walk = dec._collapsed_backtrace
+    else:
+        packed, end = vcube.cube_viterbi_forward(dec._pallas_fwd, lp, lens_t,
+                                                 route=route)
+        tables, pack = dec._bt_cube, dec._time_pack_for(t)
+        walk = dec._pallas_backtrace
+    counts = _check_backtrace_kernel(tables, packed, end, lens_t, pack)
+    assert counts[1] == 0 and (counts[[0, 4, 5, 6]] > 0).all()
+    before = kernels.launches["viterbi_backtrace"]
+    segs, counts2 = walk(packed, end, lens_t)
+    assert kernels.launches["viterbi_backtrace"] == before + 1
+    assert torch.equal(counts2, counts)
+    cpu = ViterbiDecoder(img, pip=5.0, lmw=1.5, beam=2.0, backend=backend,
+                         device="cpu")
+    want = cpu.decode_batch(lp.cpu().numpy(), lens)
+    got = dec._to_results(segs.cpu().numpy(), counts2.cpu().numpy())
+    assert [r.segments for r in got] == [r.segments for r in want]
 
 
 @pytest.mark.parametrize("fn", ["decode_arrays_fn", "decode_fn"])
