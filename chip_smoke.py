@@ -272,6 +272,19 @@ Phases (each one that fails ends the run with a non-zero exit):
     audio-s/s beside phase 5's, the profile's busy share and the device
     operations, device time and host queue time of one
     ``decode_arrays_fn`` call.
+37. every training update as one CUDA graph (``train_network``
+    captures a stage's update after its first, direct-call update and
+    replays it for every later one; every one-card, mesh-less
+    ``train_network`` run of the phases above trains so): LSTM 4x1024
+    f32 and bf16 and the GRU, PeepholeLSTM and ZoneoutLSTM of phases 14,
+    19 and 20 at TBPTT b128 L20, phase 27's FF 8x2048 (f32, bf16) and
+    TDNN, GRAPH_STEPS x 3 updates by graph replays against the same
+    updates by direct call (``cuda_graph=False``), one seed and init:
+    params, history and kernel launch counts bit-equal (cuDNN
+    deterministic for both), one ``cudaGraphLaunch`` an update in the
+    profiled third epoch; each run's ms per update (epoch 2), the capture
+    ms and the profiled epoch's device busy share logged, for the nets of
+    phases 9, 14, 19, 20 and 27.
 
 Output: progress lines, then the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -481,6 +494,23 @@ def numpy_gated_params(network, seed):
                                     "b": np.zeros(CLASSES, np.float32)}}
 
 
+def device_time(prof):
+    """Device busy ms and the top device ops of a finished profile
+    (device-side events only: a host op's device time repeats the time of
+    the kernels it launched)."""
+    from torch.autograd import DeviceType
+    dev_us = {}
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us > 0:
+            dev_us[ev.key] = dev_us.get(ev.key, 0) + us
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]
+    return sum(dev_us.values()) / 1e3, {k: v / 1e3 for k, v in top}
+
+
 def device_profile(torch, fn, launches_of=None):
     """Run ``fn`` under the profiler; returns wall ms, device busy ms and
     the top device ops (device-side events only: a host op's device time
@@ -495,17 +525,7 @@ def device_profile(torch, fn, launches_of=None):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_us = {}
-    for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) != DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0))
-        if us > 0:
-            dev_us[ev.key] = dev_us.get(ev.key, 0) + us
-    busy_ms = sum(dev_us.values()) / 1e3
-    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]
-    top = {k: v / 1e3 for k, v in top}
+    busy_ms, top = device_time(prof)
     if launches_of is None:
         return wall_ms, busy_ms, top
     counts = {name: sum(ev.count for ev in prof.key_averages()
@@ -4140,6 +4160,168 @@ def fused_phase(torch, np, dev, card, net, dec, corpus, lp5, results5, per5,
     return launches
 
 
+GRAPH_STEPS = 3      # phase 37: updates an epoch, three epochs a run
+
+
+def graph_run(torch, dev, net_of, x, y, bs, dtype, cuda_graph, profiled):
+    """Three epochs of GRAPH_STEPS updates of the net ``net_of()``
+    (momentum SGD lr 1e-2, no validation, seed 0) through
+    ``train_network``, the updates captured as a CUDA graph or
+    (``cuda_graph`` false) direct calls; cuDNN deterministic, so that two
+    runs give the same bits. Epoch 2 is timed; with ``profiled`` epoch 3
+    runs under the profiler, from the hook after epoch 2 to the hook
+    after it. Returns the result, the launch counts, the capture ms and
+    the profile (wall ms, busy ms, top device ops, cudaGraphLaunch
+    calls) or None."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnacousticmodeling_tpu_torch import kernels
+    from nnacousticmodeling_tpu_torch.train import (
+        TrainConfig, TrainStage, engine, train_network)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    marks = []
+
+    def hook(stage, epoch):
+        if profiled and epoch >= 2:
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            (prof.start if epoch == 2 else prof.stop)()
+
+    capture_ms = []
+    real_capture = engine._capture_update
+
+    def timed_capture(step, generator):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_capture(step, generator)
+        torch.cuda.synchronize()
+        capture_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    cfg = TrainConfig(
+        stages=[TrainStage(epoch=3, optimizer="momentumsgd", batch_size=bs,
+                           lr=0.01, early_stopping=False)],
+        bprop_len=T_TRAIN, seed=0, log=None, use_validation=False,
+        compute_dtype=dtype, epoch_hook=hook)
+    net = net_of()
+    kernels.reset_launches()
+    with mock.patch.object(engine, "_capture_update", timed_capture), \
+            torch.backends.cudnn.flags(deterministic=True):
+        result = train_network(net, x, y, cfg, device=dev,
+                               cuda_graph=cuda_graph)
+    torch.cuda.synchronize()
+    prof_out = None
+    if profiled:
+        wall_ms = (marks[1] - marks[0]) * 1e3
+        busy_ms, top = device_time(prof)
+        replays = sum(ev.count for ev in prof.key_averages()
+                      if ev.key == "cudaGraphLaunch")
+        prof_out = (wall_ms, busy_ms, top, replays)
+    return result, dict(kernels.launches), capture_ms, prof_out
+
+
+def graph_phase(torch, np, dev, card, corpus, report):
+    """Phase 37: each training update as one CUDA graph replay against
+    the direct call (``train_network(..., cuda_graph=False)``) at full
+    width, for the nets of phases 9, 14, 19, 20 and 27: LSTM 4x1024 ->
+    1909 in float32 and bf16 (dropout 0.2), the GRU (dropout 0.2), the
+    PeepholeLSTM and the ZoneoutLSTM in the SPECOM configuration (``-d
+    0.2``: zoneout c 0.2, h 0.5) at TBPTT b128 L20 on the first
+    GRAPH_STEPS x 128 x 20 training frames; the MLP 8x2048 relu -> 1909
+    f32 and bf16 (b1024, spliced +-5, dropout 0.2) and the TDNN 5 5 9 9 x
+    1024 (b256, dropout 0.2). Each net three epochs of GRAPH_STEPS
+    updates from one seed and init, by graph and by direct call (cuDNN
+    deterministic in both, so the TDNN's times are not phase 27's).
+    Gates: params and history bit-equal, the same kernel launch counts,
+    every loss finite, one ``cudaGraphLaunch`` an update in the graph
+    run's profiled third epoch. Logged: each run's ms per update (epoch
+    2, unprofiled), the capture ms of the stage, the busy share of the
+    profiled epoch and its device ms an update against the unprofiled
+    graph update."""
+    from nnacousticmodeling_tpu_torch.models import get_network
+    from nnacousticmodeling_tpu_torch.ops.splice import splice_flat
+
+    def recurrent(name, dropout):
+        n = GRAPH_STEPS * B_MAIN * T_TRAIN
+        x, y = corpus.train.data[:n], corpus.train.targets[:n]
+
+        def net_of():
+            return get_network(name, LAYERS, [H_MAIN], CLASSES,
+                               dropout=dropout, in_dim=DIM,
+                               scan_impl="pallas", device=dev)
+        return net_of, x, y, B_MAIN
+
+    def feed_forward(name, units, splice, bs, **kw):
+        n = GRAPH_STEPS * bs
+        x = splice_flat(corpus.train.data, range(-splice, splice + 1))[:n]
+
+        def net_of():
+            return get_network(name, len(units), units, CLASSES, "relu",
+                               dropout=[0.2], in_dim=x.shape[1], device=dev,
+                               **kw)
+        return net_of, x, corpus.train.targets[:n], bs
+
+    tdnn_splice = (sum(TDNN_KSIZE) - len(TDNN_KSIZE)) // 2
+    cases = [
+        ("LSTM f32", "float32", recurrent("lstm", [0.2])),
+        ("LSTM bf16", "bfloat16", recurrent("lstm", [0.2])),
+        ("GRU", "float32", recurrent("gru", [0.2])),
+        ("PeepholeLSTM", "float32", recurrent("peepholelstm", [0.0])),
+        ("ZoneoutLSTM SPECOM", "float32", recurrent("zoneoutlstm", [0.2])),
+        ("FF 8x2048 f32", "float32",
+         feed_forward("ff", [FF_UNITS] * FF_LAYERS, FF_SPLICE, FF_BATCH)),
+        ("FF 8x2048 bf16", "bfloat16",
+         feed_forward("ff", [FF_UNITS] * FF_LAYERS, FF_SPLICE, FF_BATCH)),
+        ("TDNN", "float32",
+         feed_forward("tdnn", [TDNN_UNITS] * len(TDNN_KSIZE), tdnn_splice,
+                      TDNN_BATCH, tdnn_ksize=TDNN_KSIZE)),
+    ]
+    out = {}
+    for tag, dtype, (net_of, x, y, bs) in cases:
+        got, got_launches, capture_ms, prof = graph_run(
+            torch, dev, net_of, x, y, bs, dtype, True, True)
+        want, want_launches, direct_captures, _ = graph_run(
+            torch, dev, net_of, x, y, bs, dtype, False, False)
+        losses = [h["main/loss"] for h in got.history]
+        if (not np.isfinite(losses).all() or len(capture_ms) != 1
+                or direct_captures):
+            fail(f"[graph {tag}] losses {losses}, captures {capture_ms} "
+                 f"(graph run), {direct_captures} (direct run)")
+        diff = [k for k, v in want.params.items()
+                if not torch.equal(got.params[k], v)]
+        hist_diff = [(hg, hw) for hg, hw in zip(got.history, want.history)
+                     if any(hg[k] != hw[k] for k in hw
+                            if k != "elapsed_time")]
+        if diff or hist_diff or got_launches != want_launches:
+            fail(f"[graph {tag}] the graph run differs from the direct "
+                 f"calls: params {diff}, history {hist_diff}, launches "
+                 f"{got_launches} vs {want_launches}")
+        wall_ms, busy_ms, top, replays = prof
+        if replays != GRAPH_STEPS:
+            fail(f"[graph {tag}] the profiled epoch made {replays} graph "
+                 f"launches, not one an update ({GRAPH_STEPS})")
+        ms = {k: r.history[1]["elapsed_time"] / GRAPH_STEPS * 1e3
+              for k, r in (("graph", got), ("direct", want))}
+        # the profiler slows the replays down: the device ms of an update
+        # (profiled epoch) over the unprofiled epoch's ms per update too
+        dev_ms = busy_ms / GRAPH_STEPS
+        out[tag] = dict(graph_ms=ms["graph"], direct_ms=ms["direct"],
+                        capture_ms=capture_ms[0], profile_wall_ms=wall_ms,
+                        profile_busy_ms=busy_ms, device_ms_per_update=dev_ms,
+                        top_device_ms=top, launches=got_launches,
+                        losses=losses)
+        log(f"[graph {tag}] {GRAPH_STEPS} x 3 updates: params, history and "
+            f"launches {got_launches} bit-equal to the direct calls'; ms per "
+            f"update (epoch 2): graph {ms['graph']:.2f}, direct "
+            f"{ms['direct']:.2f}; capture {capture_ms[0]:.1f} ms; profiled "
+            f"epoch 3: {replays} cudaGraphLaunch, {wall_ms:.1f} ms wall, "
+            f"device busy {busy_ms:.1f} ms "
+            f"({100 * busy_ms / wall_ms:.1f} %), {dev_ms:.2f} ms device an "
+            f"update = {100 * dev_ms / ms['graph']:.1f} % of the unprofiled "
+            f"graph update [{card}]")
+    report["graph"] = out
+
+
 def main():
     if len(sys.argv) == 4 and sys.argv[1] == "--rank-worker":
         rank_worker(int(sys.argv[2]), Path(sys.argv[3]))
@@ -4429,6 +4611,7 @@ def main():
     ctx["tmp_dir"].cleanup()
     rank_launches = parallel_phases(torch, np, dev, card, corpus, dec,
                                     report)
+    graph_phase(torch, np, dev, card, corpus, report)
 
     report.update(
         lstm=dict(err=lstm_err, ms=lstm_ms, plain_ms=lstm_plain_ms,

@@ -12,10 +12,14 @@ happen at first use or through ``build()``, never at import.
 the kernel on the card; a kernel with two routes counts them apart
 (``collapsed_viterbi_forward`` and ``collapsed_viterbi_forward.global``).
 Calls that took the plain PyTorch version (CPU tensors) do not count.
+Under CUDA graph capture a wrapper call launches nothing: ``capturing``
+holds the counts of such calls apart, and ``replayed`` adds them once
+for each replay of the graph, so the counts keep their meaning.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -48,6 +52,29 @@ _libs: Dict[str, ctypes.CDLL] = {}
 
 def reset_launches() -> None:
     launches.clear()
+
+
+@contextlib.contextmanager
+def capturing():
+    """Count the wrapper calls made inside (a CUDA graph capture) apart:
+    on exit they are taken out of ``launches`` and left in the yielded
+    Counter, the launches one replay of the graph makes."""
+    before = launches.copy()
+    made: Counter = Counter()
+    try:
+        yield made
+    finally:
+        for name, n in launches.items():
+            if n != before[name]:
+                made[name] = n - before[name]
+        launches.clear()
+        launches.update(before)
+
+
+def replayed(made: Counter) -> None:
+    """Count the launches of one replay of a graph (``capturing``'s
+    Counter)."""
+    launches.update(made)
 
 
 def _nvcc() -> str:

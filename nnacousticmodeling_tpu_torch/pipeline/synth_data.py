@@ -10,9 +10,10 @@ the external TIMIT bundle:
 
 The image is the small synthetic one (``make_synthetic_image(...,
 tied=False)``: context-independent pdfs, transitions not tied to them),
-which the port decodes through the cube scan twin. ``--timit-graph``
-(the regenerated 1909-pdf TIMIT graph) needs ``decoder/graph.py`` and
-the reference bundle, neither of which the port has.
+which the port decodes through the cube scan twin, or with
+``--timit-graph`` the regenerated 1909-pdf TIMIT graph from
+``decoder.graph.build_timit_image`` (it reads the Kaldi tree, model and
+phone map of the reference TIMIT bundle, as the JAX CLI's does).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ..decoder.graph import build_timit_image
 from ..decoder.image import make_synthetic_image, save_image
 from ..utils.synthetic import make_synthetic_corpus, write_corpus_tree
 
@@ -30,8 +32,7 @@ def build_parser():
     parser = argparse.ArgumentParser(description="Generate synthetic corpus")
     parser.add_argument("--root", required=True)
     parser.add_argument("--timit-graph", action="store_true",
-                        help="use the regenerated 1909-pdf TIMIT image "
-                             "(not ported)")
+                        help="use the regenerated 1909-pdf TIMIT image")
     parser.add_argument("--num-phones", type=int, default=6)
     parser.add_argument("--dim", type=int, default=40)
     parser.add_argument("--num-train", type=int, default=128)
@@ -49,13 +50,10 @@ def main(arg_list=None):
     args = parser.parse_args(list(map(str, arg_list)) if arg_list is not None
                              else None)
     if args.timit_graph:
-        raise NotImplementedError(
-            "--timit-graph builds the real TIMIT image from the reference "
-            "bundle, which this repository does not have; it is not queued "
-            "(ROADMAP Queue 1, \"The native decoder, the graph helpers and "
-            "the rest of io/\", lists it as left out)")
-    img = make_synthetic_image(num_phones=args.num_phones, seed=args.seed,
-                               tied=False)
+        img = build_timit_image()
+    else:
+        img = make_synthetic_image(num_phones=args.num_phones,
+                                   seed=args.seed, tied=False)
     corpus = make_synthetic_corpus(
         img, dim=args.dim, num_train=args.num_train, num_dev=args.num_dev,
         num_test=args.num_test, noise=args.noise, seed=args.seed,

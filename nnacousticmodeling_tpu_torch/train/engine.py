@@ -38,12 +38,33 @@ there:
 * per-epoch snapshots (atomic tmp + rename) and bit-exact resume, mid-
   stage and at a stage boundary.
 
-PyTorch runs eagerly, so the JAX ``dispatch`` modes (``scan``: one
-compiled program per epoch; ``per_step``: one per update) have no
-counterpart: all three values are accepted and run the same per-update
-loop. Dropout masks come from one ``torch.Generator`` seeded with
-``seed`` (in the place of the JAX key); the two frameworks draw
-different masks.
+One update is one device program, as one update is one compiled program
+in the JAX package (``dispatch="per_step"``, ``engine.py:566, :692``):
+each stage builds a step function of static buffers (``_Updates``). The
+epoch's index block lies in one device buffer, written once an epoch
+(the JAX scan's ``idx_all`` upload), and a device step counter picks the
+update's row; the stream state lives in static tensors, updated with
+``copy_``; each update writes its loss and accuracy into its slot of an
+epoch buffer, read once at the epoch's end; params and optimizer state
+are updated in place. On CUDA tensors the stage's first update is a
+direct call (its warm-up: kernels built, the optimizer's state made),
+then the step is captured once into a ``torch.cuda.CUDAGraph`` and every
+later update of the stage is one replay; a failed capture or replay
+raises, and nothing goes on eagerly in its place. On CPU tensors, in a
+``mesh`` run (gloo collectives cannot be captured) and with
+``train_network(..., cuda_graph=False)`` every update is a direct call
+of the same step: the graph's plain version. All three ``dispatch``
+values take this path. The counterpart of ``scan`` (one graph an
+epoch) is not built: its node count grows with the epoch (a ZoneoutLSTM
+update alone is thousands of nodes, and the TIMIT corpus gives hundreds
+of updates an epoch at b128 L20), while one graph an update already
+leaves the host out of the update. Validation, snapshots, early stopping
+and the stage-end rule run outside the graph, once an epoch. Dropout
+masks come from one ``torch.Generator`` seeded with ``seed`` (in the
+place of the JAX key), registered with the graph, so that each replay
+draws the masks the direct call would; the two frameworks draw
+different masks. Adam is ``capturable`` on the card (its step count on
+the device, ``optimizers.py``).
 
 ``compute_dtype="bfloat16"`` casts the params and inputs inside autograd
 (``models.precision``) in both kinds of stage: bf16 products, float32
@@ -76,6 +97,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import kernels
 from ..models.precision import HalfPrecisionNet, cast_params
 from ..parallel.mesh import (
     DataSplit, gather_leaves, is_primary, local_leaves, replicate, shard_net,
@@ -301,9 +323,10 @@ def _metric_conv(config):
 
 
 def _epoch_mean(values, split):
-    """The epoch's mean of per-update metrics; a mesh run's averaged over
-    the data axis (every rank's updates cover equal rows)."""
-    m = torch.stack(values).mean()
+    """The epoch's mean of per-update metrics (a ``(steps,)`` buffer); a
+    mesh run's averaged over the data axis (every rank's updates cover
+    equal rows)."""
+    m = values.mean()
     return m if split is None else split.mean(m)
 
 
@@ -314,6 +337,107 @@ def _finalize_history(history):
         for k, v in h.items():
             if not isinstance(v, (bool, int, float, str)):
                 h[k] = float(v)
+
+
+def _record(step_no, losses, accs, loss, acc) -> None:
+    """Write an update's loss and accuracy into their slots of the
+    epoch's ``(steps,)`` buffers and advance the device step counter."""
+    losses.index_copy_(0, step_no, loss.reshape(1))
+    accs.index_copy_(0, step_no, acc.reshape(1))
+    step_no.add_(1)
+
+
+def _capture_update(step, generator):
+    """Capture one call of ``step`` into a CUDA graph, with ``generator``
+    (the dropout and zoneout masks') registered, so that each replay
+    draws fresh masks, those the direct call would draw. Returns the
+    graph and the kernel launches one replay makes (the wrapper calls
+    made under capture launch nothing and leave ``kernels.launches`` as
+    it was)."""
+    g = torch.cuda.CUDAGraph()
+    g.register_generator_state(generator)
+    with kernels.capturing() as launched:
+        with torch.cuda.graph(g):
+            step()
+    return g, launched
+
+
+class _Updates:
+    """A stage's updates: ``step`` (a function of the stage's static
+    buffers that reads its row of the epoch's index block through the
+    device step counter, updates the params, the optimizer state and the
+    stream state in place, writes its loss and accuracy into their slots
+    and advances the counter) once a call.
+
+    Without ``graph`` each call is a direct call of ``step``. With it the
+    first call is a direct call (the warm-up: kernels built and loaded,
+    their co-residency queries cached, the optimizer's state made); the
+    second captures ``step`` (so a stage of one update captures nothing),
+    and it and every later call is one replay, which adds the captured
+    launches to ``kernels.launches``. ``tensors()`` lists what
+    the graph reads and writes in place (params and optimizer state);
+    ``begin_epoch`` raises if one of them was replaced since the capture
+    (a ``Parameter`` rebound by ``load_state_dict(assign=True)`` would
+    leave the graph training the old tensor)."""
+
+    def __init__(self, step, generator, tensors, graph: bool):
+        self.step, self.generator, self.tensors = step, generator, tensors
+        self.use_graph = graph
+        self.warm = False
+        self.graph = None
+        self.launched = None
+        self.ptrs = None
+
+    def begin_epoch(self) -> None:
+        if self.ptrs is not None and self.ptrs != [
+                t.data_ptr() for t in self.tensors()]:
+            raise RuntimeError(
+                "train_network: a parameter or optimizer state tensor was "
+                "replaced since the update was captured as a CUDA graph, "
+                "which would go on training the old one; load new values "
+                "in place")
+
+    def __call__(self) -> None:
+        if self.use_graph and self.warm and self.graph is None:
+            try:
+                self.graph, self.launched = _capture_update(self.step,
+                                                            self.generator)
+            except Exception as e:
+                raise RuntimeError(
+                    f"train_network: capturing the update as a CUDA graph "
+                    f"failed ({type(e).__name__}: {e}); pass "
+                    f"cuda_graph=False to run it by direct call") from e
+            self.ptrs = [t.data_ptr() for t in self.tensors()]
+        if self.graph is None:
+            self.step()
+            self.warm = True
+            return
+        try:
+            self.graph.replay()
+        except RuntimeError as e:
+            raise RuntimeError(f"train_network: replaying the captured "
+                               f"update failed: {e}") from e
+        kernels.replayed(self.launched)
+
+
+def _stage_tensors(net, opt):
+    """``tensors()`` of a stage's ``_Updates``: the params, then the
+    optimizer's state tensors."""
+    def tensors():
+        return list(net.parameters()) + [
+            v for st in opt.state.values() for v in st.values()
+            if torch.is_tensor(v)]
+    return tensors
+
+
+def _epoch_buffers(steps, idx_shape, device):
+    """The static buffers of a stage: the epoch's index block, the step
+    counter, the per-update losses and accuracies."""
+    return (torch.zeros((steps,) + idx_shape, dtype=torch.int64,
+                        device=device),
+            torch.zeros(1, dtype=torch.int64, device=device),
+            torch.zeros(steps, device=device),
+            torch.zeros(steps, device=device))
 
 
 def train_network(
@@ -327,18 +451,22 @@ def train_network(
     init_params: Optional[Mapping[str, Any]] = None,
     apply_fn: Optional[Callable] = None,
     device="cuda",
+    cuda_graph: bool = True,
 ) -> TrainResult:
     """Train ``net`` (moved to ``device``, trained in place) through the
     configured stages. ``init_params`` (a ``state_dict``-style mapping,
     e.g. from ``load_jax_params``) replaces the network's own init.
     ``apply_fn(params, xb, generator, train) -> logits`` overrides the
-    network's forward in a feed-forward stage. Returns the final params
-    and the per-epoch history."""
+    network's forward in a feed-forward stage. ``cuda_graph=False``
+    makes every update a direct call on the card as well (the plain
+    version the captured update is held against). Returns the final
+    params and the per-epoch history."""
     dev = resolve_device(device)
     _compute_dtype(config)
     _check_dispatch(config)
     par = _MeshRun(config) if config.mesh is not None else None
     split = None if par is None else par.data
+    graph = cuda_graph and dev.type == "cuda" and par is None
     rng_np = np.random.default_rng(config.seed)
     generator = torch.Generator(device=dev).manual_seed(config.seed)
     quiet = config.log is None or (par is not None and not par.primary)
@@ -389,11 +517,11 @@ def train_network(
         if recurrent:
             run_epoch, evaluate, state = _make_rnn_stage(
                 net, opt, xd, yd, offsets, config, stage.batch_size, val,
-                eval_cache, generator, split)
+                eval_cache, generator, split, graph)
         else:
             run_epoch, evaluate = _make_ff_stage(
                 net, opt, xd, yd, offsets, config, stage.batch_size, val,
-                apply_fn, eval_cache, generator, split)
+                apply_fn, eval_cache, generator, split, graph)
             state = None
 
         best_val = None
@@ -432,14 +560,10 @@ def train_network(
                 _restore_opt_state(resume_blob, opt,
                                    None if par is None else par.cut_opt)
                 if "__st_0__" in resume_blob:
-                    leaves = _flat_state(state)
-                    restored = [torch.from_numpy(resume_blob[f"__st_{i}__"]
-                                                 ).to(a.device, a.dtype)
-                                for i, a in enumerate(leaves)]
-                    if par is not None:
-                        restored = [split.rows(a) for a in restored]
-                    state = [tuple(restored[2 * l:2 * l + 2])
-                             for l in range(len(state))]
+                    # into the stage's static stream state
+                    for i, a in enumerate(_flat_state(state)):
+                        whole = torch.from_numpy(resume_blob[f"__st_{i}__"])
+                        a.copy_(whole if par is None else split.rows(whole))
                 start_epoch = resume_epoch
             else:
                 # stage fully done before the crash (epoch budget spent or
@@ -527,11 +651,12 @@ def train_network(
 # ---------------------------------------------------------------------------
 
 def _make_ff_stage(net, opt, xd, yd, offsets, config, bs, val, apply_fn,
-                   eval_cache, generator, split=None):
+                   eval_cache, generator, split=None, graph=False):
     """``run_epoch(state, rng_np) -> (None, loss, acc)`` and the stage's
     validation ``evaluate() -> (loss, acc)`` (None without a dev set).
     ``split``: a mesh run's ``DataSplit`` (this rank's rows of every
-    minibatch, gradients averaged over the data axis)."""
+    minibatch, gradients averaged over the data axis); ``graph``: each
+    update after the first one replay of a CUDA graph (``_Updates``)."""
     dt = _compute_dtype(config)
     if apply_fn is None:
         model = net if dt is None else HalfPrecisionNet(net, dt)
@@ -548,7 +673,10 @@ def _make_ff_stage(net, opt, xd, yd, offsets, config, bs, val, apply_fn,
     n = int(xd.shape[0])
     steps = max(n // bs, 1)
 
-    def update(idx):
+    idx_all, step_no, losses, accs = _epoch_buffers(steps, (bs,), xd.device)
+
+    def step():
+        idx = idx_all.index_select(0, step_no)[0]
         if split is not None:
             idx = split.rows(idx)
         xb, yb = xd[idx], yd[idx]
@@ -560,7 +688,9 @@ def _make_ff_stage(net, opt, xd, yd, offsets, config, bs, val, apply_fn,
         if split is not None:
             split.reduce(net.parameters())
         opt.step()
-        return loss.detach(), acc
+        _record(step_no, losses, accs, loss.detach(), acc)
+
+    updates = _Updates(step, generator, _stage_tensors(net, opt), graph)
 
     def epoch_indices(rng_np):
         if config.shuffle_sequences:
@@ -573,13 +703,12 @@ def _make_ff_stage(net, opt, xd, yd, offsets, config, bs, val, apply_fn,
         return perm[:steps * bs].reshape(steps, bs)
 
     def run_epoch(state, rng_np):
-        idx_dev = torch.from_numpy(np.ascontiguousarray(
-            epoch_indices(rng_np))).to(xd.device)
-        losses, accs = [], []
-        for s in range(steps):
-            loss, acc = update(idx_dev[s])
-            losses.append(loss)
-            accs.append(acc)
+        updates.begin_epoch()
+        idx_all.copy_(torch.from_numpy(np.ascontiguousarray(
+            epoch_indices(rng_np))))
+        step_no.zero_()
+        for _ in range(steps):
+            updates()
         return (None, conv(_epoch_mean(losses, split)),
                 conv(_epoch_mean(accs, split)))
 
@@ -610,12 +739,15 @@ def _make_ff_stage(net, opt, xd, yd, offsets, config, bs, val, apply_fn,
 # ---------------------------------------------------------------------------
 
 def _make_rnn_stage(net, opt, xd, yd, offsets, config, bs, val, eval_cache,
-                    generator, split=None):
+                    generator, split=None, graph=False):
     """``run_epoch(state, rng_np) -> (state, loss, acc)``, the stage's
     validation ``evaluate() -> (loss, acc)`` (None without a dev set) and
-    the stage's initial stream state. ``split``: a mesh run's ``DataSplit``
-    (this rank's streams: its rows of every (bs, L) index block, a state
-    of those rows only)."""
+    the stage's stream state: static tensors, zero at the stage's start,
+    which every update overwrites with ``copy_`` (so a resume restores
+    into them). ``split``: a mesh run's ``DataSplit`` (this rank's
+    streams: its rows of every (bs, L) index block, a state of those rows
+    only); ``graph``: each update after the first one replay of a CUDA
+    graph (``_Updates``)."""
     L = config.bprop_len
     b_loc = bs if split is None else bs // split.d
     n = int(xd.shape[0])
@@ -626,7 +758,15 @@ def _make_rnn_stage(net, opt, xd, yd, offsets, config, bs, val, eval_cache,
     model = net if dt is None else HalfPrecisionNet(net, dt)
     conv = _metric_conv(config)
 
-    def update(state, idx):
+    steps = max(n // (bs * L), 1)
+    idx_all, step_no, losses, accs = _epoch_buffers(steps, (bs, L),
+                                                    xd.device)
+    # the state's own tensors (an init may hand out one zero tensor twice)
+    state = [tuple(a.clone() for a in layer)
+             for layer in model.init_state(b_loc)]
+
+    def step():
+        idx = idx_all.index_select(0, step_no)[0]
         if split is not None:
             idx = split.rows(idx)
         flat = idx.reshape(-1)
@@ -645,32 +785,31 @@ def _make_rnn_stage(net, opt, xd, yd, offsets, config, bs, val, eval_cache,
         if split is not None:
             split.reduce(net.parameters())
         opt.step()
-        new_state = [tuple(a.detach() for a in layer) for layer in new_state]
-        return new_state, total.detach() / L, acc
+        # carried as a constant into the next update
+        with torch.no_grad():
+            for a, b in zip(_flat_state(state), _flat_state(new_state)):
+                a.copy_(b)
+        _record(step_no, losses, accs, total.detach() / L, acc)
 
-    steps = max(n // (bs * L), 1)
+    updates = _Updates(step, generator, _stage_tensors(net, opt), graph)
 
     def run_epoch(state, rng_np):
+        updates.begin_epoch()
         shuffled = sentence_shuffle_indices(offsets, n, rng_np)
         # [s, b, t] = shuffled[(b*N/B + s*L + t) % N]
-        idx_all = stream_batch_indices(shuffled, bs, 0, steps * L
-                                       ).T.reshape(steps, L, bs
-                                                   ).transpose(0, 2, 1)
-        idx_dev = torch.from_numpy(np.ascontiguousarray(idx_all)).to(
-            xd.device)
-        losses, accs = [], []
-        for s in range(steps):
-            state, loss, acc = update(state, idx_dev[s])
-            losses.append(loss)
-            accs.append(acc)
+        idx_all.copy_(torch.from_numpy(np.ascontiguousarray(
+            stream_batch_indices(shuffled, bs, 0, steps * L).T.reshape(
+                steps, L, bs).transpose(0, 2, 1))))
+        step_no.zero_()
+        for _ in range(steps):
+            updates()
         return (state, conv(_epoch_mean(losses, split)),
                 conv(_epoch_mean(accs, split)))
 
-    state0 = model.init_state(b_loc)
     if val is None:
-        return run_epoch, None, state0
+        return run_epoch, None, state
     if ("rnn", bs) in eval_cache:
-        return run_epoch, eval_cache[("rnn", bs)], state0
+        return run_epoch, eval_cache[("rnn", bs)], state
     xv, yv = val
     nv = int(xv.shape[0])
     vsteps = max(nv // bs, 1)
@@ -691,4 +830,4 @@ def _make_rnn_stage(net, opt, xd, yd, offsets, config, bs, val, eval_cache,
         return float(loss), float(acc)
 
     eval_cache[("rnn", bs)] = evaluate
-    return run_epoch, evaluate, state0
+    return run_epoch, evaluate, state

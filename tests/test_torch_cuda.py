@@ -1377,3 +1377,230 @@ def test_ctc_steps_on_the_kernel_match_plain(cuda):
         assert g.abs().max() > 0, name
         err = (got_grads[name] - g).abs().max()
         assert err <= E2E_CHANGE_RTOL * g.abs().max(), name
+
+
+# ---- the training update as one CUDA graph ----------------------------------
+# ``train_network`` captures each stage's update once, after the stage's
+# first update (a direct call), and replays it for every later update. On
+# one seed and one init the graph run's params and history are bit-equal
+# to the direct-call run's (``cuda_graph=False``), dropout and zoneout
+# masks drawn (the generator registered with the graph draws the direct
+# call's masks), and ``kernels.launches`` counts the same launches. The
+# TDNN's cuDNN convolutions run with ``cudnn.deterministic`` in both runs
+# (the default backward algorithms may sum with atomics).
+GRAPH_CASES = [("lstm", "float32", "momentumsgd", [0.2]),
+               ("lstm", "bfloat16", "adam", [0.2]),
+               ("gru", "float32", "adam", [0.2]),
+               ("mgrurelur", "float32", "momentumsgd", [0.2]),
+               ("peepholelstm", "float32", "adam", [0.2]),
+               ("zoneoutlstm", "float32", "momentumsgd", [0.3, 0.2]),
+               ("zoneoutdropoutlstm", "bfloat16", "adam", [0.2, 0.3, 0.2]),
+               ("ff", "float32", "momentumsgd", [0.2]),
+               ("ff", "bfloat16", "adam", [0.2]),
+               ("tdnn", "float32", "adam", [0.2])]
+
+
+def _graph_data(net):
+    """Three updates an epoch: 8 streams x bprop 5 over 120 frames, or
+    batches of 32 of 96 frames (the TDNN's a 5-frame window of 12)."""
+    rng = np.random.default_rng(4)
+    d = 60 if net == "tdnn" else 12
+    n = 120 if net not in ("ff", "tdnn") else 96
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    y = rng.integers(0, 11, n).astype(np.int32)
+    offsets = np.array([0, 30, 64, 90, n])
+    return x, y, offsets
+
+
+def _graph_run(device, net, dtype, optimizer, dropout, cuda_graph,
+               stages=None, on_net=None, **kw):
+    from nnacousticmodeling_tpu_torch.models import get_network
+    from nnacousticmodeling_tpu_torch.train import (
+        TrainConfig, TrainStage, train_network)
+    x, y, offsets = _graph_data(net)
+    ff = net in ("ff", "tdnn")
+    model = get_network(net, 2, [32, 32] if net == "tdnn" else [64], 11,
+                        dropout=dropout, tdnn_ksize=(3, 3),
+                        in_dim=x.shape[1], scan_impl="pallas", device=device)
+    if on_net is not None:
+        on_net(model)
+    stages = stages or [dict(epoch=2, optimizer=optimizer,
+                             batch_size=32 if ff else 8, lr=1e-2,
+                             early_stopping=False)]
+    cfg = TrainConfig(stages=[TrainStage(**s) for s in stages], bprop_len=5,
+                      seed=0, log=None, compute_dtype=dtype,
+                      use_validation=kw.pop("use_validation", False), **kw)
+    kernels.reset_launches()
+    with torch.backends.cudnn.flags(deterministic=True):
+        res = train_network(model, x, y, cfg,
+                            offsets=None if ff else offsets,
+                            x_dev=x[:60], y_dev=y[:60], device=device,
+                            cuda_graph=cuda_graph)
+    torch.cuda.synchronize()
+    return res, dict(kernels.launches)
+
+
+def _assert_same_training(got, want):
+    assert len(got.history) == len(want.history)
+    for hg, hw in zip(got.history, want.history):
+        for k, v in hw.items():
+            if k != "elapsed_time":
+                assert hg[k] == v, k
+    assert got.params.keys() == want.params.keys()
+    for k, v in want.params.items():
+        assert torch.equal(got.params[k], v), k
+
+
+@pytest.mark.parametrize("net,dtype,optimizer,dropout", GRAPH_CASES,
+                         ids=[f"{c[0]}-{c[1]}-{c[2]}" for c in GRAPH_CASES])
+def test_graph_updates_equal_direct_calls(cuda, net, dtype, optimizer,
+                                          dropout):
+    """Two epochs of three updates (one direct call, one capture, five
+    replays) against six direct calls: the same params, history and
+    kernel launch counts, masks drawn; the params moved."""
+    got, got_launches = _graph_run(cuda, net, dtype, optimizer, dropout,
+                                   True)
+    want, want_launches = _graph_run(cuda, net, dtype, optimizer, dropout,
+                                     False)
+    _assert_same_training(got, want)
+    assert got_launches == want_launches
+    if net in ("lstm", "gru", "mgrurelur", "peepholelstm"):
+        assert min(got_launches.values()) == 6 * 2, got_launches
+    x, _, _ = _graph_data(net)
+    from nnacousticmodeling_tpu_torch.models import get_network
+    init = get_network(net, 2, [32, 32] if net == "tdnn" else [64], 11,
+                       dropout=dropout, tdnn_ksize=(3, 3), in_dim=x.shape[1],
+                       device="cpu").state_dict()
+    assert all(not torch.equal(got.params[k].cpu(), v)
+               for k, v in init.items() if v.dim() == 2)
+
+
+def test_graph_epoch_is_one_graph_launch_an_update(cuda):
+    """The second epoch, profiled (from the hook after the first to the
+    hook after it): three ``cudaGraphLaunch`` calls; kernels launched from
+    the host only the epoch's own few (the step counter's reset, the two
+    means) and, before each replay, PyTorch's fills of the registered
+    generators' seed and offset (two a generator: the engine's and the
+    default one), against hundreds an epoch by direct calls; the training
+    kernels' device runs one forward and one backward a layer an
+    update."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def epoch2(cuda_graph):
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+
+        def hook(stage, epoch):
+            torch.cuda.synchronize()
+            (prof.start if epoch == 1 else prof.stop)()
+
+        _graph_run(cuda, "lstm", "float32", "momentumsgd", [0.2],
+                   cuda_graph, epoch_hook=hook)
+        events = prof.key_averages()
+
+        def count(pred):
+            return sum(ev.count for ev in events if pred(ev.key))
+
+        host = count(lambda k: k in (
+            "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+            "cuLaunchKernelEx", "cudaLaunchCooperativeKernel"))
+        return count, host
+
+    count, host_launches = epoch2(True)
+    _, direct_launches = epoch2(False)
+    assert count(lambda k: k == "cudaGraphLaunch") == 3
+    assert host_launches <= 3 + 3 * 2 * 2, host_launches
+    assert direct_launches >= 100, direct_launches
+    assert count(lambda k: "lstm_train_fwd_persistent" in k) == 3 * 2
+    assert count(lambda k: "lstm_train_bwd_persistent" in k) == 3 * 2
+
+
+def test_graph_trains_reloaded_tensors(cuda, tmp_path):
+    """A fixed-epoch stage whose best validation model is not its last
+    (reloaded in place at the stage's end) followed by a second stage,
+    and a run killed after its first epoch and resumed from its
+    snapshot: each bit-equal to the direct-call run."""
+    stages = [dict(epoch=3, optimizer="momentumsgd", batch_size=8, lr=0.5,
+                   early_stopping=False),
+              dict(epoch=1, optimizer="adam", batch_size=8, lr=1e-2,
+                   early_stopping=False)]
+    got, _ = _graph_run(cuda, "gru", "float32", None, [0.2], True,
+                        stages=stages, use_validation=True)
+    want, _ = _graph_run(cuda, "gru", "float32", None, [0.2], False,
+                         stages=stages, use_validation=True)
+    _assert_same_training(got, want)
+    val = [h["validation/main/loss"] for h in got.history[:3]]
+    assert int(np.argmin(val)) < 2, val
+
+    class Crash(Exception):
+        pass
+
+    def crash(stage, epoch):
+        if (stage, epoch) == (0, 1):
+            raise Crash
+
+    snap = str(tmp_path / "snap.npz")
+    with pytest.raises(Crash):
+        _graph_run(cuda, "gru", "float32", None, [0.2], True, stages=stages,
+                   use_validation=True, snapshot_path=snap, epoch_hook=crash)
+    res, _ = _graph_run(cuda, "gru", "float32", None, [0.2], True,
+                        stages=stages, use_validation=True,
+                        snapshot_path=snap, resume_snapshot=True)
+    assert len(res.history) == 3
+    for hr, hw in zip(res.history, want.history[1:]):
+        for k in ("stage", "epoch", "main/loss", "validation/main/loss"):
+            assert hr[k] == hw[k], k
+    for k, v in want.params.items():
+        assert torch.equal(res.params[k], v), k
+
+
+def test_graph_refuses_replaced_parameter_and_failed_capture(cuda,
+                                                             monkeypatch):
+    """A parameter rebound between epochs (the graph would go on training
+    the old storage) raises at the next epoch; a capture that fails makes
+    ``train_network`` raise, with no eager fallback."""
+    from nnacousticmodeling_tpu_torch.train import engine
+    nets = []
+
+    def rebind(stage, epoch):
+        for p in nets[0].parameters():
+            p.data = p.data.clone()
+
+    with pytest.raises(RuntimeError, match="replaced since the update"):
+        _graph_run(cuda, "lstm", "float32", "momentumsgd", [0.0], True,
+                   on_net=nets.append, epoch_hook=rebind)
+
+    def fail(step, generator):
+        raise RuntimeError("capture refused")
+
+    monkeypatch.setattr(engine, "_capture_update", fail)
+    with pytest.raises(RuntimeError, match="capturing the update as a CUDA "
+                                           "graph failed.*capture refused"):
+        _graph_run(cuda, "lstm", "float32", "momentumsgd", [0.0], True)
+
+
+@pytest.mark.parametrize("name", ["sgd", "momentumsgd", "adam"])
+def test_capturable_optimizer_steps_equal_host_steps(cuda, name):
+    """The engine's optimizer on the card (Adam ``capturable``: its step
+    count and bias corrections on the device) against the host optimizer
+    on CPU params, which ``test_torch_train.py`` holds to optax, within
+    that test's 1e-6."""
+    from nnacousticmodeling_tpu_torch.train import make_optimizer
+    rng = np.random.default_rng(2)
+    p0 = rng.standard_normal((5, 3)).astype(np.float32)
+    grads = [rng.standard_normal((5, 3)).astype(np.float32)
+             for _ in range(3)]
+    p_host = torch.nn.Parameter(torch.from_numpy(p0.copy()))
+    p_card = torch.nn.Parameter(torch.from_numpy(p0.copy()).to(cuda))
+    host = make_optimizer(name, 0.05, [p_host])
+    card = make_optimizer(name, 0.05, [p_card])
+    assert card.param_groups[0].get("capturable", False) == (name == "adam")
+    assert not host.param_groups[0].get("capturable", False)
+    for g in grads:
+        p_host.grad = torch.from_numpy(g)
+        p_card.grad = torch.from_numpy(g).to(cuda)
+        host.step()
+        card.step()
+        np.testing.assert_allclose(p_card.detach().cpu().numpy(),
+                                   p_host.detach().numpy(), rtol=1e-6,
+                                   atol=1e-6)

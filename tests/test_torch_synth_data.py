@@ -51,9 +51,61 @@ def test_same_tree_as_jax(trees):
             assert a.read_bytes() == b.read_bytes(), rel
 
 
-def test_timit_graph_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        synth_data.main(["--root", tmp_path, "--timit-graph"])
+def _dense_cube(image_module):
+    """A stand-in for ``build_timit_image`` from ``image_module`` (either
+    package's ``decoder.image``): a small tied image over the dense
+    triphone cube, as the TIMIT graph is."""
+    return lambda: image_module.make_synthetic_image(
+        num_phones=5, seed=7, full_context=True, tied=True)
+
+
+def test_timit_graph_tree_matches_jax(tmp_path, monkeypatch):
+    """``--timit-graph`` goes through each package's own
+    ``build_timit_image`` (patched in both CLIs' namespaces with one
+    function making a small dense cube): the two CLIs write
+    byte-identical trees, the image that function's."""
+    from nnacousticmodeling_tpu.decoder import image as j_image
+    from nnacousticmodeling_tpu_torch.decoder import image as t_image
+    monkeypatch.setattr(j_synth_data, "build_timit_image",
+                        _dense_cube(j_image))
+    monkeypatch.setattr(synth_data, "build_timit_image", _dense_cube(t_image))
+    argv = ["--timit-graph", "--dim", "8", "--num-train", "3", "--num-dev",
+            "2", "--num-test", "2", "--seed", "5"]
+    j_synth_data.main(["--root", tmp_path / "jax"] + argv)
+    synth_data.main(["--root", tmp_path / "port"] + argv)
+    want = sorted(p.relative_to(tmp_path / "jax")
+                  for p in (tmp_path / "jax").rglob("*") if p.is_file())
+    got = sorted(p.relative_to(tmp_path / "port")
+                 for p in (tmp_path / "port").rglob("*") if p.is_file())
+    assert got == want and len(want) > 10
+    for rel in want:
+        assert (tmp_path / "jax" / rel).read_bytes() == \
+            (tmp_path / "port" / rel).read_bytes(), rel
+    img = load_image(str(tmp_path / "port" / "recog" / "kaldiTri1909.img"))
+    assert img.num_phones == 5
+
+
+def test_timit_graph_not_ported(tmp_path, monkeypatch):
+    """Without the TIMIT bundle ``--timit-graph`` raises what the JAX
+    CLI raises: the missing Kaldi tree (each package's own
+    ``build_timit_image``, its bundle paths pointed at an empty
+    directory)."""
+    import functools
+
+    from nnacousticmodeling_tpu.decoder import graph as j_graph
+    from nnacousticmodeling_tpu_torch.decoder import graph as t_graph
+    missing = tmp_path / "bundle"
+    for cli, graph in ((j_synth_data, j_graph), (synth_data, t_graph)):
+        monkeypatch.setattr(cli, "build_timit_image", functools.partial(
+            graph.build_timit_image, tree_file=str(missing / "kaldi/tree"),
+            mdl_file=str(missing / "kaldi/final.mdl"),
+            phone_map_file=str(missing / "recog/phones.60-48-39.map")))
+    raised = []
+    for cli in (j_synth_data, synth_data):
+        with pytest.raises(FileNotFoundError) as exc:
+            cli.main(["--root", tmp_path / cli.__name__, "--timit-graph"])
+        raised.append(exc.value.filename)
+    assert raised == [str(missing / "kaldi/tree")] * 2
 
 
 def test_evaluate_untied_tree_matches_jax(trees, tmp_path):
