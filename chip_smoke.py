@@ -285,6 +285,21 @@ Phases (each one that fails ends the run with a non-zero exit):
     profiled third epoch; each run's ms per update (epoch 2), the capture
     ms and the profiled epoch's device busy share logged, for the nets of
     phases 9, 14, 19, 20 and 27.
+38. every fold-parallel update as one CUDA graph (``train_folds_parallel``
+    captures the update of a (stage, fold count) after its first,
+    direct-call update, replays it for every later one and captures anew
+    after a stop compacts the folds; phase 30's runs train so):
+    NUM_FOLDS folds of the LSTM 4x1024 at the master's spec
+    (``--timedelay 5 -d 0.2``), the ZoneoutLSTM of phase 20 (``-d 0.2``)
+    at TBPTT b128 L20 and phase 27's FF 8x2048 at b1024, one
+    pseudo-utterance a fold, FOLD_GRAPH_STEPS x 3 updates by graph
+    replays against the same updates by direct call (``cuda_graph=
+    False``), one seed: every fold's logged losses, params and kernel
+    launch counts bit-equal, one capture, one ``cudaGraphLaunch`` an
+    update in the profiled third epoch; each run's ms per update (epoch
+    2, from its log line to the next), the capture ms, the graph's node
+    count and the device ms of an update logged, beside phase 30's
+    ``--train-all-folds`` seconds.
 
 Output: progress lines, then the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -4322,6 +4337,210 @@ def graph_phase(torch, np, dev, card, corpus, report):
     report["graph"] = out
 
 
+FOLD_GRAPH_STEPS = 3     # phase 38: updates an epoch, three epochs a run
+
+
+def graph_nodes(graph):
+    """The node count of a captured ``torch.cuda.CUDAGraph`` built with
+    ``keep_graph=True`` (``libcuda``'s ``cuGraphGetNodes``), or None where
+    this torch or ``libcuda`` does not expose it."""
+    import ctypes
+    try:
+        n = ctypes.c_size_t(0)
+        rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+            ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    except (AttributeError, OSError, RuntimeError, TypeError):
+        return None
+    return int(n.value) if rc == 0 else None
+
+
+def fold_graph_run(torch, np, dev, net_of, x, y, offsets, bs, cuda_graph,
+                   profiled):
+    """Three epochs of FOLD_GRAPH_STEPS updates of NUM_FOLDS folds of the
+    net ``net_of()`` through ``train_folds_parallel`` (momentum SGD lr
+    1e-2, no validation, seed 0: the same K inits in every run), fold k
+    the k-th utterance of ``offsets``, the updates captured as a CUDA
+    graph or (``cuda_graph`` false) direct calls. Epoch 2 is timed from
+    epoch 1's log line to its own (each comes after the epoch's losses
+    reached the host); with ``profiled`` epoch 3 runs under the profiler.
+    Returns the logged per-fold losses (full precision), the K param
+    maps, the launch counts, the captures' ms (instantiation included)
+    and node counts, epoch 2's ms and the profile (busy ms, top device
+    ops, cudaGraphLaunch calls) or None."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnacousticmodeling_tpu_torch import kernels
+    from nnacousticmodeling_tpu_torch.train import (
+        TrainConfig, TrainStage, engine)
+    from nnacousticmodeling_tpu_torch.train.fold_parallel import (
+        train_folds_parallel)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    lines, marks = [], []
+
+    def on_line(msg):
+        lines.append(msg)
+        if FOLD_LINE.search(msg):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            if profiled and len(marks) in (2, 3):
+                (prof.start if len(marks) == 2 else prof.stop)()
+
+    capture_ms, nodes = [], []
+    real_capture = engine._capture_update
+    kept = functools.partial(torch.cuda.CUDAGraph, keep_graph=True)
+
+    def timed_capture(step, generator):
+        # the graph kept for its node count, instantiated here as
+        # capture_end does without keep_graph
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with mock.patch.object(torch.cuda, "CUDAGraph", kept):
+            graph, launched = real_capture(step, generator)
+        graph.instantiate()
+        torch.cuda.synchronize()
+        capture_ms.append((time.perf_counter() - t) * 1e3)
+        nodes.append(graph_nodes(graph))
+        return graph, launched
+
+    cfg = TrainConfig(
+        stages=[TrainStage(epoch=3, optimizer="momentumsgd", batch_size=bs,
+                           lr=0.01, early_stopping=False)],
+        bprop_len=T_TRAIN, seed=0, log=on_line, use_validation=False)
+    full = functools.partial(np.array2string, precision=9,
+                             max_line_width=10 ** 6)
+    kernels.reset_launches()
+    with mock.patch.object(engine, "_capture_update", timed_capture), \
+            mock.patch.object(np, "array2string",
+                              lambda a, precision=None: full(a)):
+        params = train_folds_parallel(
+            net_of(), x, y, offsets, np.arange(NUM_FOLDS), NUM_FOLDS, cfg,
+            device=dev, cuda_graph=cuda_graph)
+    torch.cuda.synchronize()
+    prof_out = None
+    if profiled:
+        busy_ms, top = device_time(prof)
+        replays = sum(ev.count for ev in prof.key_averages()
+                      if ev.key == "cudaGraphLaunch")
+        prof_out = (busy_ms, top, replays)
+    losses = [m.group(4) for m in FOLD_LINE.finditer("\n".join(lines))]
+    return (losses, params, dict(kernels.launches), (capture_ms, nodes),
+            (marks[1] - marks[0]) * 1e3, prof_out)
+
+
+def fold_graph_phase(torch, np, dev, card, corpus, report):
+    """Phase 38: each fold-parallel update as one CUDA graph replay
+    against the direct call (``train_folds_parallel(...,
+    cuda_graph=False)``) at full width, NUM_FOLDS folds: the LSTM 4x1024
+    -> 1909 at the master's spec (dropout 0.2, ``--timedelay 5``
+    through ``apply_time_delay``) and the ZoneoutLSTM of phase 20 (``-d
+    0.2``) at TBPTT b128 L20, fold k training on the other folds'
+    pseudo-utterances of FOLD_GRAPH_STEPS x 128 x 20 / (NUM_FOLDS - 1)
+    frames of the training set, so that an epoch is FOLD_GRAPH_STEPS
+    updates; the FF 8x2048 relu -> 1909 of phase 27 (b1024, spliced +-5,
+    dropout 0.2) likewise. Each net three epochs by graph and by direct
+    call from one seed. Gates: every fold's logged losses, the params
+    and the kernel launch counts bit-equal, every loss finite, one
+    capture in the graph run and none in the direct run, one
+    ``cudaGraphLaunch`` an update in the graph run's profiled third
+    epoch, the LSTM training kernels launched FOLD_GRAPH_STEPS x 3 x
+    NUM_FOLDS x LAYERS times. Logged: each run's ms per update (epoch 2),
+    the capture ms and the graph's node count, the device ms of an update
+    (profiled epoch), and phase 30's ``--train-all-folds`` seconds."""
+    from nnacousticmodeling_tpu_torch.models import get_network
+    from nnacousticmodeling_tpu_torch.ops.splice import splice_flat
+    from nnacousticmodeling_tpu_torch.ops.timedelay import apply_time_delay
+
+    def folds_of(x, y, bs, frames_a_step):
+        per = FOLD_GRAPH_STEPS * bs * frames_a_step // (NUM_FOLDS - 1)
+        n = NUM_FOLDS * per
+        return x[:n], y[:n], np.arange(0, n + 1, per)
+
+    def recurrent(name, timedelay):
+        x, y, offsets = folds_of(corpus.train.data, corpus.train.targets,
+                                 B_MAIN, T_TRAIN)
+        x, y, offsets = apply_time_delay(x, y, offsets, timedelay)
+
+        def net_of():
+            return get_network(name, LAYERS, [H_MAIN], CLASSES,
+                               dropout=[0.2], in_dim=DIM,
+                               scan_impl="pallas", device=dev)
+        return net_of, x, y, offsets, B_MAIN
+
+    def feed_forward():
+        x, y, offsets = folds_of(
+            splice_flat(corpus.train.data, range(-FF_SPLICE, FF_SPLICE + 1)),
+            corpus.train.targets, FF_BATCH, 1)
+
+        def net_of():
+            return get_network("ff", FF_LAYERS, [FF_UNITS] * FF_LAYERS,
+                               CLASSES, "relu", dropout=[0.2],
+                               in_dim=x.shape[1], device=dev)
+        return net_of, x, y, offsets, FF_BATCH
+
+    cases = [("LSTM --timedelay 5 -d 0.2", recurrent("lstm", 5)),
+             ("ZoneoutLSTM -d 0.2", recurrent("zoneoutlstm", 0)),
+             ("FF 8x2048", feed_forward())]
+    out = {}
+    for tag, (net_of, x, y, offsets, bs) in cases:
+        got, got_params, got_launches, (capture_ms, nodes), graph_ms, \
+            prof = fold_graph_run(torch, np, dev, net_of, x, y, offsets, bs,
+                                  True, True)
+        want, want_params, want_launches, (direct_captures, _), direct_ms, \
+            _ = fold_graph_run(torch, np, dev, net_of, x, y, offsets, bs,
+                               False, False)
+        rows = np.array([r.split() for r in got], np.float64)
+        if (rows.shape != (3, NUM_FOLDS) or not np.isfinite(rows).all()
+                or len(capture_ms) != 1 or direct_captures):
+            fail(f"[fold graph {tag}] losses {got}, captures {capture_ms} "
+                 f"(graph run), {direct_captures} (direct run)")
+        diff = [(k, n) for k in range(NUM_FOLDS) for n, v in
+                want_params[k].items() if not torch.equal(got_params[k][n],
+                                                          v)]
+        if diff or got != want or got_launches != want_launches:
+            fail(f"[fold graph {tag}] the graph run differs from the direct "
+                 f"calls: params {diff[:8]}, losses {got} vs {want}, "
+                 f"launches {got_launches} vs {want_launches}")
+        if tag.startswith("LSTM"):
+            want_n = FOLD_GRAPH_STEPS * 3 * NUM_FOLDS * LAYERS
+            if any(got_launches.get(name, 0) != want_n for name in
+                   ("lstm_train_forward", "lstm_train_backward",
+                    "lstm_train_dw")):
+                fail(f"[fold graph {tag}] training kernel launches "
+                     f"{got_launches}, not {FOLD_GRAPH_STEPS} x 3 updates x "
+                     f"{NUM_FOLDS} folds x {LAYERS} layers = {want_n} each")
+        busy_ms, top, replays = prof
+        if replays != FOLD_GRAPH_STEPS:
+            fail(f"[fold graph {tag}] the profiled epoch made {replays} "
+                 f"graph launches, not one an update ({FOLD_GRAPH_STEPS})")
+        ms = {"graph": graph_ms / FOLD_GRAPH_STEPS,
+              "direct": direct_ms / FOLD_GRAPH_STEPS}
+        dev_ms = busy_ms / FOLD_GRAPH_STEPS
+        dev_text = (f"{dev_ms:.2f} ms device an update = "
+                    f"{100 * dev_ms / ms['graph']:.1f} % of the graph "
+                    f"update" if busy_ms > 0 else
+                    "device time not measured (the profiler recorded none)")
+        out[tag] = dict(graph_ms=ms["graph"], direct_ms=ms["direct"],
+                        capture_ms=capture_ms[0], graph_nodes=nodes[0],
+                        profile_busy_ms=busy_ms,
+                        device_ms_per_update=dev_ms, top_device_ms=top,
+                        launches=got_launches, losses=rows.tolist())
+        log(f"[fold graph {tag}] {NUM_FOLDS} folds, {FOLD_GRAPH_STEPS} x 3 "
+            f"updates: every fold's losses, params and launches "
+            f"{got_launches} bit-equal to the direct calls'; ms per "
+            f"fold-parallel update (epoch 2): graph {ms['graph']:.2f}, "
+            f"direct {ms['direct']:.2f}; capture {capture_ms[0]:.1f} ms, "
+            f"{'not exposed' if nodes[0] is None else nodes[0]} graph "
+            f"nodes; profiled epoch 3: {replays} cudaGraphLaunch, {dev_text} "
+            f"[{card}]")
+    fp = report.get("fold_native_ctc", {}).get("fold_parallel", {})
+    if "seconds" in fp:
+        log(f"[fold graph] phase 30's train_cli --train-all-folds (the "
+            f"updates graph replays): {fp['seconds']:.2f} s, phase 28's "
+            f"{NUM_FOLDS} sequential fold trainings "
+            f"{fp['sequential_s']:.2f} s [{card}]")
+    report["fold_graph"] = out
+
+
 def main():
     if len(sys.argv) == 4 and sys.argv[1] == "--rank-worker":
         rank_worker(int(sys.argv[2]), Path(sys.argv[3]))
@@ -4612,6 +4831,7 @@ def main():
     rank_launches = parallel_phases(torch, np, dev, card, corpus, dec,
                                     report)
     graph_phase(torch, np, dev, card, corpus, report)
+    fold_graph_phase(torch, np, dev, card, corpus, report)
 
     report.update(
         lstm=dict(err=lstm_err, ms=lstm_ms, plain_ms=lstm_plain_ms,

@@ -10,7 +10,8 @@ argv, plus what every CLI of this package has: ``--device`` (default
 ``cuda``) and ``--scan-impl``, forwarded to every phase that runs a
 network. ``main`` returns ``{(split, tag): PER}`` of the evaluation
 sweep. ``--fold-parallel`` trains the K folds in one ``train_cli
---train-all-folds`` call. ``--mesh`` is forwarded to every training call
+--train-all-folds`` call (on the card, without ``--mesh``, each update
+one CUDA graph replay). ``--mesh`` is forwarded to every training call
 (JAX ``master.py:173-174``) and checked against the world first. Across
 ranks (``--distributed``: the process group from ``torchrun``'s
 environment, or one the caller set up), every rank runs the

@@ -9,8 +9,9 @@ runs without a card): every network of the zoo (feed-forward and
 recurrent), the master and ``--train-fold`` data paths, ``--train-rpl``
 (RPL4 on the fold outputs, validated on the dev-set fold average),
 ``--train-all-folds`` (all K fold networks in one update loop,
-``train/fold_parallel.py``; each fold's model written to
-``--fold-model-dir`` under ``--fold-network-pattern``),
+``train/fold_parallel.py``, each update one CUDA graph replay on the card
+without a mesh; each fold's model written to ``--fold-model-dir`` under
+``--fold-network-pattern``),
 ``--shuffle-sequences``, ``--resume``, ``--dtype``, ``--timedelay``,
 and the ranks of ``torch.distributed``: ``--distributed`` (the process
 group from ``torchrun``'s environment) or ``--coordinator HOST:PORT

@@ -349,13 +349,15 @@ def _record(step_no, losses, accs, loss, acc) -> None:
 
 def _capture_update(step, generator):
     """Capture one call of ``step`` into a CUDA graph, with ``generator``
-    (the dropout and zoneout masks') registered, so that each replay
-    draws fresh masks, those the direct call would draw. Returns the
-    graph and the kernel launches one replay makes (the wrapper calls
-    made under capture launch nothing and leave ``kernels.launches`` as
-    it was)."""
+    (the dropout and zoneout masks'; or a sequence of them, one a fold)
+    registered, so that each replay draws fresh masks, those the direct
+    call would draw. Returns the graph and the kernel launches one replay
+    makes (the wrapper calls made under capture launch nothing and leave
+    ``kernels.launches`` as it was)."""
     g = torch.cuda.CUDAGraph()
-    g.register_generator_state(generator)
+    for gen in ([generator] if isinstance(generator, torch.Generator)
+                else generator):
+        g.register_generator_state(gen)
     with kernels.capturing() as launched:
         with torch.cuda.graph(g):
             step()
@@ -378,11 +380,14 @@ class _Updates:
     the graph reads and writes in place (params and optimizer state);
     ``begin_epoch`` raises if one of them was replaced since the capture
     (a ``Parameter`` rebound by ``load_state_dict(assign=True)`` would
-    leave the graph training the old tensor)."""
+    leave the graph training the old tensor). ``caller`` names the
+    training function in the errors raised."""
 
-    def __init__(self, step, generator, tensors, graph: bool):
+    def __init__(self, step, generator, tensors, graph: bool,
+                 caller: str = "train_network"):
         self.step, self.generator, self.tensors = step, generator, tensors
         self.use_graph = graph
+        self.caller = caller
         self.warm = False
         self.graph = None
         self.launched = None
@@ -392,7 +397,7 @@ class _Updates:
         if self.ptrs is not None and self.ptrs != [
                 t.data_ptr() for t in self.tensors()]:
             raise RuntimeError(
-                "train_network: a parameter or optimizer state tensor was "
+                f"{self.caller}: a parameter or optimizer state tensor was "
                 "replaced since the update was captured as a CUDA graph, "
                 "which would go on training the old one; load new values "
                 "in place")
@@ -404,7 +409,7 @@ class _Updates:
                                                             self.generator)
             except Exception as e:
                 raise RuntimeError(
-                    f"train_network: capturing the update as a CUDA graph "
+                    f"{self.caller}: capturing the update as a CUDA graph "
                     f"failed ({type(e).__name__}: {e}); pass "
                     f"cuda_graph=False to run it by direct call") from e
             self.ptrs = [t.data_ptr() for t in self.tensors()]
@@ -415,7 +420,7 @@ class _Updates:
         try:
             self.graph.replay()
         except RuntimeError as e:
-            raise RuntimeError(f"train_network: replaying the captured "
+            raise RuntimeError(f"{self.caller}: replaying the captured "
                                f"update failed: {e}") from e
         kernels.replayed(self.launched)
 

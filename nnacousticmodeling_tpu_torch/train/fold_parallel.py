@@ -30,8 +30,30 @@ axis. Here:
   gets no more passes. The JAX ``compact=False`` keeps stopped folds in
   the vmap with a masked update instead; the per-fold math is the same
   either way, so that option is not ported;
+* one update is one device program, as the JAX package runs one
+  jitted vmapped update a step (``:192-234``): each (stage, fold count)
+  builds a step function of static buffers (``_make_fold_epoch``). The
+  epoch's (K, steps, B, L) index block of the active folds lies in one
+  device buffer, written once an epoch, and a device step counter picks
+  the update's row; each active fold's stream state lives in static
+  tensors, updated with ``copy_``; each update writes its K losses into
+  their row of an epoch buffer, read once at the epoch's end; params and
+  optimizer state are updated in place. On CUDA tensors the first update
+  of a (stage, fold count) is a direct call (its warm-up), then the
+  step is captured once into a ``torch.cuda.CUDAGraph`` with the active
+  folds' generators registered (the engine's ``_Updates``), and every
+  later update is one replay; a failed capture or replay raises, and
+  nothing goes on eagerly in its place. A stop that compacts the stacks
+  drops the graph and its memory pool, and the next fold count warms up
+  and captures anew, as JAX recompiles once a stop event (``:14-18``).
+  On CPU tensors, with ``cuda_graph=False`` and in a ``mesh`` run (gloo
+  collectives cannot be captured) every update is a direct call of the
+  same step: the graph's plain version;
 * dev evaluation runs the recurrent dev set as ``eval_batch`` in-order
-  streams over a fresh state, the feed-forward dev set whole.
+  streams over a fresh state, the feed-forward dev set whole, by direct
+  call once an epoch (the JAX package's jitted ``evaluate``,
+  ``:167-182``), as validation, early stopping, compaction and the log
+  lines stay outside the graph.
 
 The numerics that decide parity are the JAX package's: ``rng_np =
 default_rng(config.seed)`` shuffles all K universes every epoch in fold
@@ -70,7 +92,7 @@ from ..models.networks import redraw_params
 from ..parallel.comm import all_gather_cat, all_reduce_
 from ..parallel.mesh import DataSplit
 from ..utils.device import resolve_device
-from .engine import TrainConfig
+from .engine import TrainConfig, _flat_state, _Updates
 from .optimizers import make_optimizer
 from .streams import sentence_shuffle_indices, stream_batch_indices
 
@@ -126,11 +148,95 @@ def _epoch_indices(universes, uni_dev, rng_np, bs: int, n_steps: int,
     return torch.stack(blocks)
 
 
+def _captures(cuda_graph: bool, dev: torch.device, mesh) -> bool:
+    """Whether the updates are captured as a CUDA graph: on the card,
+    without a mesh (its gloo collectives cannot be captured)."""
+    return cuda_graph and dev.type == "cuda" and mesh is None
+
+
+def _make_fold_epoch(net, recurrent, xd, yd, params, opt, states, gens,
+                     fold_ids, n_steps, bs, b_loc, L, split, graph):
+    """``run_epoch(glob) -> (k,)`` mean losses (/ L for recurrent nets)
+    of the ``k`` active folds ``fold_ids`` over one epoch of ``n_steps``
+    updates, ``glob`` being the epoch's (K, n_steps, bs, L) index block of
+    every fold. Built once a (stage, fold count): the update is a step of
+    static buffers (``_Updates``; ``graph``: each update after the first
+    one replay of a CUDA graph) that trains the stacked ``params`` with
+    ``opt`` in place and writes each active fold's new stream state into
+    its static tensors ``states[k]``. ``split``: a mesh run's
+    ``DataSplit`` (this data rank's rows of every index block)."""
+    dev = xd.device
+    k_act = len(fold_ids)
+    idx_all = torch.zeros((k_act, n_steps, bs, L), dtype=torch.int64,
+                          device=dev)
+    step_no = torch.zeros(1, dtype=torch.int64, device=dev)
+    losses = torch.zeros((n_steps, k_act), device=dev)
+    fold_states = [states[int(k)] for k in fold_ids] if recurrent else None
+    fold_gens = [gens[int(k)] for k in fold_ids]
+    rows = torch.from_numpy(np.asarray(fold_ids)).to(dev)
+
+    def step():
+        idx = idx_all.index_select(1, step_no)[:, 0]
+        if not recurrent:
+            idx = idx.reshape(k_act, bs * L)[:, :bs]
+        if split is not None:
+            idx = split.rows(idx, 1)
+        views = {n: p.unbind(0) for n, p in params.items()}
+        xb, yb = xd[idx], yd[idx]
+        fold_losses, new_states = [], []
+        for i in range(k_act):
+            p = {n: v[i] for n, v in views.items()}
+            kw = {"train": True, "generator": fold_gens[i]}
+            if recurrent:
+                logits, st = functional_call(net, p, (xb[i], fold_states[i]),
+                                             kw)
+                new_states.append(st)
+                ce = F.cross_entropy(logits.reshape(b_loc * L, -1),
+                                     yb[i].reshape(-1), reduction="none")
+                # Chainer's BPTTUpdater: the batch mean summed over L
+                fold_losses.append(ce.reshape(b_loc, L).mean(dim=0).sum())
+            else:
+                logits = functional_call(net, p, (xb[i],), kw)
+                fold_losses.append(F.cross_entropy(logits, yb[i]))
+        loss = torch.stack(fold_losses)
+        opt.zero_grad(set_to_none=True)
+        loss.sum().backward()
+        if split is not None:
+            split.reduce(params.values())
+        opt.step()
+        # carried as a constant into the fold's next update
+        with torch.no_grad():
+            for old, new in zip(fold_states or (), new_states):
+                for a, b in zip(_flat_state(old), _flat_state(new)):
+                    a.copy_(b)
+        losses.index_copy_(0, step_no, (loss.detach() / L).reshape(1, -1))
+        step_no.add_(1)
+
+    def tensors():
+        return list(params.values()) + [
+            v for st in opt.state.values() for v in st.values()
+            if torch.is_tensor(v)]
+
+    updates = _Updates(step, fold_gens, tensors, graph,
+                       caller="train_folds_parallel")
+
+    def run_epoch(glob: torch.Tensor) -> torch.Tensor:
+        updates.begin_epoch()
+        idx_all.copy_(glob[rows])
+        step_no.zero_()
+        for _ in range(n_steps):
+            updates()
+        return losses.mean(dim=0)
+
+    return run_epoch
+
+
 def _make_evaluate(net, recurrent, x_dev, y_dev, eval_batch, eval_chunk,
                    dev):
     """``evaluate(params, count) -> (count,) float32`` dev losses of the
     first ``count`` rows of the stacks, built once for every stage (JAX
-    ``:150-182``)."""
+    ``:150-182``). A direct call once an epoch, outside the update's
+    graph."""
     xvd = torch.from_numpy(np.ascontiguousarray(x_dev, np.float32)).to(dev)
     yvd = torch.from_numpy(np.asarray(y_dev, np.int64)).to(dev)
     nv = int(xvd.shape[0])
@@ -180,6 +286,7 @@ def train_folds_parallel(
     device=None,
     mesh: Any = None,
     fold_axis: str = "fold",
+    cuda_graph: bool = True,
 ) -> List[Params]:
     """Train the K fold networks of ``net``'s architecture; returns K
     ``state_dict``-style param maps (the network's names, in its order,
@@ -189,7 +296,9 @@ def train_folds_parallel(
     the K inits, which are otherwise K draws of ``redraw_params`` from
     ``config.seed``. ``device``: where to train (default: the device
     ``net`` is on; a network is built on the card unless asked
-    otherwise). ``mesh``: see the module docstring."""
+    otherwise). ``mesh``: see the module docstring. ``cuda_graph=False``
+    makes every update a direct call on the card as well (the plain
+    version the captured update is held against)."""
     split = None
     if mesh is not None:
         if fold_axis not in mesh.axis_sizes:
@@ -205,6 +314,7 @@ def train_folds_parallel(
     own = (np.arange(num_folds) if mesh is None else
            np.arange(r_f * num_folds // f, (r_f + 1) * num_folds // f))
     dev = resolve_device(device) if device is not None else net.device
+    graph = _captures(cuda_graph, dev, mesh)
     log = (config.log if config.log is not None
            and (split is None or split.r == 0) else (lambda s: None))
     recurrent = getattr(net, "is_recurrent", False)
@@ -245,8 +355,11 @@ def train_folds_parallel(
         params = {n: v.detach().clone().requires_grad_(True)
                   for n, v in stacked.items()}
         opt = make_optimizer(stage.optimizer, stage.lr, params.values())
-        states = ({int(k): net.init_state(b_loc) for k in own}
-                  if recurrent else None)
+        # each fold's own static tensors (an init may hand out one zero
+        # tensor twice)
+        states = ({int(k): [tuple(a.clone() for a in layer)
+                            for layer in net.init_state(b_loc)]
+                   for k in own} if recurrent else None)
         n_steps = max(min(len(u[0]) for u in universes) // (bs * L), 1)
         # fold_ids maps rows of the (compacted) stacks back to
         # fold indices; stopped folds move to ``stash``
@@ -256,52 +369,19 @@ def train_folds_parallel(
         best_vals = np.full(num_folds, np.inf)
         best_params: Optional[Params] = None
 
-        def update(idx: torch.Tensor) -> torch.Tensor:
-            """One update of the stacked folds on the (k, bs[, L]) index
-            block (this data rank's rows of it); returns the k losses (/
-            L for recurrent nets)."""
-            if split is not None:
-                idx = split.rows(idx, 1)
-            views = {n: p.unbind(0) for n, p in params.items()}
-            xb, yb = xd[idx], yd[idx]
-            losses = []
-            for i, k in enumerate(fold_ids):
-                p = {n: views[n][i] for n in names}
-                kw = {"train": True, "generator": gens[k]}
-                if recurrent:
-                    logits, st = functional_call(net, p, (xb[i], states[k]),
-                                                 kw)
-                    states[k] = [tuple(a.detach() for a in layer)
-                                 for layer in st]
-                    ce = F.cross_entropy(logits.reshape(b_loc * L, -1),
-                                         yb[i].reshape(-1), reduction="none")
-                    # Chainer's BPTTUpdater: the batch mean summed over L
-                    losses.append(ce.reshape(b_loc, L).mean(dim=0).sum())
-                else:
-                    logits = functional_call(net, p, (xb[i],), kw)
-                    losses.append(F.cross_entropy(logits, yb[i]))
-            loss = torch.stack(losses)
-            opt.zero_grad(set_to_none=True)
-            loss.sum().backward()
-            if split is not None:
-                split.reduce(params.values())
-            opt.step()
-            return loss.detach() / L
+        def fold_epoch():
+            return _make_fold_epoch(net, recurrent, xd, yd, params, opt,
+                                    states, gens, fold_ids, n_steps, bs,
+                                    b_loc, L, split, graph)
 
+        run_epoch = fold_epoch()
         for epoch in range(stage.epoch):
             t0 = time.time()
             # shuffle ALL folds (the shared host rng), so trajectories do
             # not depend on compaction
             glob = _epoch_indices(universes, uni_dev, rng_np, bs, n_steps, L)
             if len(fold_ids):
-                rows = glob[torch.from_numpy(fold_ids).to(dev)]
-                losses = []
-                for s in range(n_steps):
-                    idx = rows[:, s]
-                    if not recurrent:
-                        idx = idx.reshape(len(fold_ids), bs * L)[:, :bs]
-                    losses.append(update(idx))
-                mean_loss = torch.stack(losses).mean(dim=0)
+                mean_loss = run_epoch(glob)
                 if split is not None:
                     mean_loss = split.mean(mean_loss)
                 mean_loss = mean_loss.cpu().numpy()
@@ -349,6 +429,9 @@ def train_folds_parallel(
                     fold_ids = fold_ids[:0]
                     active = active[:0]
                 if not active.all():
+                    # the old fold count's graph and its memory pool go
+                    # before the next count warms up and captures anew
+                    run_epoch = None
                     keep = torch.from_numpy(np.nonzero(active)[0]).to(dev)
                     for i in np.nonzero(~active)[0]:
                         stash[int(fold_ids[i])] = {
@@ -360,6 +443,7 @@ def train_folds_parallel(
                     params = new
                     fold_ids = fold_ids[active]
                     active = active[active]
+                    run_epoch = fold_epoch()
                     log(f"  compacted to folds "
                         f"{[int(k) for k in fold_ids]}")
             # every fold stopped: the run ends (with a mesh, when every
@@ -371,6 +455,7 @@ def train_folds_parallel(
                                        mesh, fold_axis))
             if not live:
                 break
+        run_epoch = None
 
         if not stage.early_stopping and best_params is not None:
             params = best_params

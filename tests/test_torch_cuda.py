@@ -1604,3 +1604,166 @@ def test_capturable_optimizer_steps_equal_host_steps(cuda, name):
         np.testing.assert_allclose(p_card.detach().cpu().numpy(),
                                    p_host.detach().numpy(), rtol=1e-6,
                                    atol=1e-6)
+
+
+# ---- fold-parallel training's update as one CUDA graph ----------------------
+# ``train_folds_parallel`` captures the update of each (stage, fold count)
+# once, after its first update (a direct call), replays it for every later
+# update, and captures anew after a stop compacts the folds and at each
+# stage boundary. On one seed the graph run's log (every fold's train and
+# dev loss at full precision, the compaction lines), params and launch
+# counts are the direct-call run's (``cuda_graph=False``), masks drawn.
+# The data make one fold stop: fold 2 trains on class 1 alone against a
+# dev set of class 0, the others on both classes.
+FOLD_ES = dict(epoch=4, optimizer="momentumsgd", batch_size=8, lr=0.01,
+               early_stopping=True)
+FOLD_FIXED = dict(epoch=1, optimizer="adam", batch_size=8, lr=0.0,
+                  early_stopping=False)
+FOLD_GRAPH_CASES = [
+    ("lstm", 4, 1024, [0.2], [FOLD_ES, FOLD_FIXED]),
+    ("zoneoutlstm", 2, 64, [0.3, 0.2], [FOLD_ES, FOLD_FIXED]),
+    # adam's state carried over the compaction into the next capture
+    ("ff", 2, 64, [0.2], [dict(FOLD_ES, optimizer="adam", batch_size=32),
+                          dict(FOLD_FIXED, optimizer="momentumsgd",
+                               lr=0.01, batch_size=32)]),
+]
+
+
+def _fold_graph_data():
+    """6 utterances of 30 frames, utterance u in fold u % 3: every fold's
+    universe is 120 frames, three updates an epoch (8 streams x bprop 5,
+    or batches of 32). Fold 2's universe (folds 0 and 1) is class 1, fold
+    2's own utterances class 0, the dev set class 0."""
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((180, 12)).astype(np.float32)
+    offsets = np.arange(0, 181, 30)
+    y = np.zeros(180, np.int32)
+    for u in range(6):
+        if u % 3 != 2:
+            y[offsets[u]:offsets[u + 1]] = 1
+    x_dev = rng.standard_normal((60, 12)).astype(np.float32)
+    return x, y, offsets, np.arange(6) % 3, x_dev, np.zeros(60, np.int32)
+
+
+def _fold_graph_run(device, net, layers, units, dropout, stages, cuda_graph,
+                    use_validation=True, on_line=None):
+    """(log lines without their seconds, the 3 param maps, launch
+    counts) of one ``train_folds_parallel`` run, seed 0."""
+    import functools
+    import re
+    from unittest import mock
+
+    from nnacousticmodeling_tpu_torch.models import get_network
+    from nnacousticmodeling_tpu_torch.train import TrainConfig, TrainStage
+    from nnacousticmodeling_tpu_torch.train.fold_parallel import (
+        train_folds_parallel)
+    x, y, offsets, utt_folds, x_dev, y_dev = _fold_graph_data()
+    model = get_network(net, layers, [units], 11, dropout=dropout,
+                        in_dim=12, scan_impl="pallas", device=device)
+    lines = []
+
+    def log(msg):
+        lines.append(msg)
+        if on_line is not None:
+            on_line(msg)
+
+    cfg = TrainConfig(stages=[TrainStage(**s) for s in stages], bprop_len=5,
+                      seed=0, log=log, use_validation=use_validation)
+    orig = np.array2string
+    kernels.reset_launches()
+    with mock.patch.object(np, "array2string", functools.partial(
+            lambda a, precision=None: orig(a, precision=9,
+                                           max_line_width=10 ** 6))):
+        params = train_folds_parallel(model, x, y, offsets, utt_folds, 3,
+                                      cfg, x_dev=x_dev, y_dev=y_dev,
+                                      eval_batch=8, cuda_graph=cuda_graph)
+    torch.cuda.synchronize()
+    return ([re.sub(r" \([0-9.]+s\)", "", m) for m in lines], params,
+            dict(kernels.launches))
+
+
+@pytest.mark.parametrize("net,layers,units,dropout,stages", FOLD_GRAPH_CASES,
+                         ids=[c[0] for c in FOLD_GRAPH_CASES])
+def test_fold_graph_updates_equal_direct_calls(cuda, net, layers, units,
+                                               dropout, stages):
+    """An early-stopping stage in which fold 2 stops (a compaction, so a
+    second capture), then a fixed-epoch stage (a third): every log line,
+    every fold's params and the launch counts bit-equal to the direct
+    calls'; the LSTM training kernels launched once a fold, a layer and
+    an update."""
+    import re
+    got_log, got, got_launches = _fold_graph_run(
+        cuda, net, layers, units, dropout, stages, True)
+    want_log, want, want_launches = _fold_graph_run(
+        cuda, net, layers, units, dropout, stages, False)
+    assert got_log == want_log
+    assert any("compacted to folds [0, 1]" in m for m in got_log), got_log
+    assert got_launches == want_launches
+    for g, w in zip(got, want):
+        for k, v in w.items():
+            assert torch.equal(g[k], v), k
+    if net == "lstm":
+        fold_updates = sum(
+            3 * len(m.group(1).split(","))
+            for m in map(re.compile(r"folds=\[(.*?)\] loss").search, got_log)
+            if m)
+        for name in ("lstm_train_forward", "lstm_train_backward",
+                     "lstm_train_dw"):
+            assert got_launches[name] == fold_updates * layers, name
+
+
+def test_fold_graph_epoch_is_one_graph_launch_an_update(cuda):
+    """The second epoch of 3 folds of an LSTM 2x64 (no validation),
+    profiled from the first epoch's log line to its own: three
+    ``cudaGraphLaunch`` calls, the training kernels' device runs one
+    forward and one backward a fold, a layer and an update, and far fewer
+    host launches than the same epoch by direct calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def epoch2(cuda_graph):
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        seen = []
+
+        def on_line(msg):
+            if "loss=" in msg:
+                torch.cuda.synchronize()
+                seen.append(msg)
+                if len(seen) in (1, 2):
+                    (prof.start if len(seen) == 1 else prof.stop)()
+
+        _fold_graph_run(cuda, "lstm", 2, 64, [0.2],
+                        [dict(FOLD_ES, epoch=3, early_stopping=False)],
+                        cuda_graph, use_validation=False, on_line=on_line)
+        events = prof.key_averages()
+
+        def count(pred):
+            return sum(ev.count for ev in events if pred(ev.key))
+
+        host = count(lambda k: k in (
+            "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+            "cuLaunchKernelEx", "cudaLaunchCooperativeKernel"))
+        return count, host
+
+    count, host_launches = epoch2(True)
+    _, direct_launches = epoch2(False)
+    assert count(lambda k: k == "cudaGraphLaunch") == 3
+    assert count(lambda k: "lstm_train_fwd_persistent" in k) == 3 * 3 * 2
+    assert count(lambda k: "lstm_train_bwd_persistent" in k) == 3 * 3 * 2
+    assert direct_launches >= 100, direct_launches
+    assert 4 * host_launches < direct_launches, (host_launches,
+                                                 direct_launches)
+
+
+def test_fold_graph_failed_capture_raises(cuda, monkeypatch):
+    """A capture that fails makes ``train_folds_parallel`` raise, naming
+    itself and the cause, with no eager fallback."""
+    from nnacousticmodeling_tpu_torch.train import engine
+
+    def fail(step, generator):
+        raise RuntimeError("capture refused")
+
+    monkeypatch.setattr(engine, "_capture_update", fail)
+    with pytest.raises(RuntimeError, match="train_folds_parallel: capturing "
+                       "the update as a CUDA graph failed.*capture refused"):
+        _fold_graph_run(cuda, "lstm", 2, 64, [0.0], [FOLD_FIXED], True)
