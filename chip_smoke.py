@@ -215,11 +215,24 @@ Phases (each one that fails ends the run with a non-zero exit):
     identical to the plain decode's on the same LM image;
 32. CTC: ``BiRNNCTC`` over an LSTM 4x1024 (48 phones + blank) on phase
     5's 128 training utterances as one padded batch, labels from the
-    reference MLF: 5 Adam steps on the training kernels (2 directions x
-    4 layers launches a step), the loss finite and falling, the first
-    step's loss within E2E_LOSS_RTOL of the plain route's and its
-    gradients of every parameter within CTC_GRAD_RTOL of the plain
-    gradient's largest magnitude;
+    reference MLF: CTC_STEPS Adam steps of ``make_ctc_train_step`` (the
+    first a direct call, the second the capture, the rest CUDA graph
+    replays) on the training kernels (2 directions x 4 layers launches a
+    step) and the CTC loss kernels (one forward and one backward a
+    step), the loss finite and falling; the same steps by direct call
+    (``cuda_graph=False``): losses, params and launch counts bit-equal;
+    the first step's loss within E2E_LOSS_RTOL of the plain route's (the
+    plain recurrences and CTC twins) and its gradients of every
+    parameter within CTC_GRAD_RTOL of the plain gradient's largest
+    magnitude. The CTC loss kernels against their plain twins on the
+    model's log-probabilities and on a copy whose first utterance cannot
+    fit its labels: loss within CTC_LOSS_RTOL, gradient within
+    CTC_LOSS_GRAD_RTOL of the plain one's largest magnitude, all finite
+    (the cut utterance's loss optax's large value), two runs bit-equal.
+    Logged: ms a step by graph and by direct call, the capture step's
+    ms, one profiled replayed step's device ms, each loss kernel's ms,
+    its twin's and ``F.ctc_loss``'s forward and backward (the library
+    yardstick, on the feasible batch);
 33. data and tensor parallel training across RANKS gloo ranks
     time-sharing the card (the script re-invoked as ``--rank-worker R
     DIR`` for each rank; one launch runs 33-35's multi-rank parts, each
@@ -359,11 +372,26 @@ E2E_LOSS_RTOL = 1e-3
 # 7.5e-8). Later losses are no kernel check: Adam's first step moves each
 # weight by about lr times the sign of its gradient, so weights whose
 # gradient is near zero step either way with the order of a sum (the
-# second loss read 3.5e-4 and 5.5e-4 from plain in two runs, and moved
-# 2.1e-4 between two kernel runs: F.ctc_loss's backward sums with
-# atomics).
+# second loss read 3.5e-4 and 5.5e-4 from plain in two runs). Two kernel
+# runs of the step give the same bits: the CTC loss kernels sum in a
+# fixed order, with no atomics (the loss was F.ctc_loss, whose backward
+# sums with atomics, when two kernel runs' second losses differed by
+# 2.1e-4), so phase 32 holds CTC_STEPS graph replays bit-equal to as
+# many direct calls.
 E2E_CHANGE_RTOL = BWD_RTOL
 CTC_GRAD_RTOL = DW_RTOL
+# The CTC loss kernels against their plain twins (optax's recursion in
+# float32): the loss runs the same operations in the same order (rtol
+# 1e-5, the JAX tests' bound); the gradient sums the same terms in
+# another order (1e-4 of the plain gradient's largest magnitude). The
+# operations a lattice position costs a frame, for the bounds: three
+# logaddexps (max, sub, abs, exp, log1p, add) and five adds forward; the
+# backward recomputes them and adds six exps, six products and eight
+# adds.
+CTC_LOSS_RTOL = 1e-5
+CTC_LOSS_GRAD_RTOL = 1e-4
+CTC_FWD_OPS = 23
+CTC_BWD_OPS = 43
 T_TRAIN = 20
 # gated kernels: the LSTM's reasoning (bf16 rounding flips after sums in
 # another order) with every tolerance taken relative to the largest value
@@ -3058,12 +3086,10 @@ def fold_native_ctc_phases(torch, np, dev, card, img, corpus, lp5, results5,
     from nnacousticmodeling_tpu_torch.decoder.image import save_image
     from nnacousticmodeling_tpu_torch.io import write_mlf
     from nnacousticmodeling_tpu_torch.models import get_network
-    from nnacousticmodeling_tpu_torch.models.ctc import (
-        BiRNNCTC, make_ctc_train_step)
     from nnacousticmodeling_tpu_torch.ops import rnn_cuda
     from nnacousticmodeling_tpu_torch.pipeline import evaluate, train_cli
     from nnacousticmodeling_tpu_torch.train import (
-        load_jax_params, make_optimizer, save_pytree)
+        load_jax_params, save_pytree)
 
     phase_s = {}
     phase_done = phase_timer(phase_s)
@@ -3290,6 +3316,26 @@ def fold_native_ctc_phases(torch, np, dev, card, img, corpus, lp5, results5,
     phase_done(31)
 
     # ---- 32. CTC -------------------------------------------------------
+    out["ctc"], ctc_entries = ctc_phase(torch, np, dev, card, corpus)
+    phase_done(32)
+    out["phase_s"] = phase_s
+    report["fold_native_ctc"] = out
+    return ctc_entries
+
+
+def ctc_phase(torch, np, dev, card, corpus):
+    """Phase 32: CTC on phase 5's 128 training utterances as one padded
+    batch. Returns the phase's record and the CTC loss kernels' entries
+    of the ``{"kernels": [...]}`` line."""
+    import torch.nn.functional as F
+
+    from nnacousticmodeling_tpu_torch import kernels
+    from nnacousticmodeling_tpu_torch.models import get_network
+    from nnacousticmodeling_tpu_torch.models.ctc import (
+        BiRNNCTC, make_ctc_train_step)
+    from nnacousticmodeling_tpu_torch.ops import ctc_cuda, rnn_cuda
+    from nnacousticmodeling_tpu_torch.train import make_optimizer
+
     c = corpus.train
     lengths = c.utt_lengths
     t_max = int(lengths.max())
@@ -3304,55 +3350,86 @@ def fold_native_ctc_phases(torch, np, dev, card, img, corpus, lp5, results5,
         ys_np[u, :len(v)] = v
     xs = torch.from_numpy(xs_np).to(dev)
     ys = torch.from_numpy(ys_np).to(dev)
+    plain_rnn = dict(
+        lstm_train_forward=rnn_cuda.lstm_train_forward_reference,
+        lstm_train_backward=rnn_cuda.lstm_train_backward_reference)
+    plain_ctc = dict(ctc_loss_forward=ctc_cuda.ctc_loss_forward_reference,
+                     ctc_loss_backward=ctc_cuda.ctc_loss_backward_reference)
 
     def ctc_model():
         return BiRNNCTC(get_network("lstm", LAYERS, [H_MAIN], 1, in_dim=DIM,
                                     scan_impl="pallas", device=dev, seed=3),
                         PHONES, seed=3)
 
-    def ctc_steps(n, plain):
-        """n steps; the losses, step seconds and the first step's
-        gradients (every parameter but the stacks' own unused heads)."""
+    def ctc_steps(n, plain=False, cuda_graph=True, profiled=False):
+        """n steps from ``ctc_model()``'s init, one generator seed: the
+        losses, each step's seconds (host clock, synchronised), the first
+        step's gradients (every parameter but the stacks' own unused
+        heads), the final params, the run's launch counts and, with
+        ``profiled``, the profile of one more (replayed) step."""
         model = ctc_model()
         step = make_ctc_train_step(model, make_optimizer(
-            "adam", 1e-3, model.parameters()))
-        losses, secs = [], []
-        with patched(rnn_cuda, plain):
+            "adam", 1e-3, model.parameters()), cuda_graph=cuda_graph)
+        gen = torch.Generator(device=dev).manual_seed(11)
+        losses, secs, prof = [], [], None
+        kernels.reset_launches()
+        with patched(rnn_cuda, plain_rnn if plain else {}), \
+                patched(ctc_cuda, plain_ctc if plain else {}):
             for i in range(n):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                losses.append(float(step(xs, lengths, ys, y_lens)))
+                losses.append(step(xs, lengths, ys, y_lens, gen))
+                torch.cuda.synchronize()
                 secs.append(time.perf_counter() - t0)
                 if i == 0:
                     grads = {name: q.grad.detach().clone()
                              for name, q in model.named_parameters()
                              if q.grad is not None}
+            params = {k: v.detach().clone()
+                      for k, v in model.state_dict().items()}
+            launches = dict(kernels.launches)
+            if profiled:
+                prof = device_profile(
+                    torch, lambda: step(xs, lengths, ys, y_lens, gen))
         del model, step
-        return losses, secs, grads
+        return ([float(v) for v in losses], secs, grads, params, launches,
+                prof)
 
-    kernels.reset_launches()
-    k_losses, k_secs, k_grads = ctc_steps(CTC_STEPS, {})
-    launches = dict(kernels.launches)
+    # the main path: CTC_STEPS steps, the first a direct call, the second
+    # the capture, the rest graph replays
+    k_losses, k_secs, k_grads, k_params, launches, prof = ctc_steps(
+        CTC_STEPS, profiled=True)
     log(f"[ctc] main-path launches: {launches}")
     for name in ("lstm_train_forward", "lstm_train_backward",
                  "lstm_train_dw"):
         if launches.get(name, 0) != 2 * LAYERS * CTC_STEPS:
             fail(f"CTC launched {name} {launches.get(name, 0)} times, not 2 "
                  f"directions x {LAYERS} layers x {CTC_STEPS} steps")
+    for name in ("ctc_loss_forward", "ctc_loss_backward"):
+        if launches.get(name, 0) != CTC_STEPS:
+            fail(f"CTC launched {name} {launches.get(name, 0)} times, not "
+                 f"once a step ({CTC_STEPS})")
     if not np.isfinite(k_losses).all() or not k_losses[-1] < k_losses[0]:
         fail(f"CTC losses not finite or not falling: {k_losses}")
-    before = dict(kernels.launches)
-    p_losses, p_secs, p_grads = ctc_steps(1, dict(
-        lstm_train_forward=rnn_cuda.lstm_train_forward_reference,
-        lstm_train_backward=rnn_cuda.lstm_train_backward_reference))
-    if dict(kernels.launches) != before:
-        fail("the plain CTC step launched a kernel")
+    # the same steps by direct call: bit-equal
+    d_losses, d_secs, _, d_params, d_launches, _ = ctc_steps(
+        CTC_STEPS, cuda_graph=False)
+    diff = [k for k, v in d_params.items() if not torch.equal(k_params[k], v)]
+    if d_losses != k_losses or diff or d_launches != launches:
+        fail(f"CTC graph replays differ from direct calls: losses "
+             f"{k_losses} vs {d_losses}, params {diff}, launches "
+             f"{launches} vs {d_launches}")
+    del k_params, d_params
+    p_losses, p_secs, p_grads, _, p_launches, _ = ctc_steps(1, plain=True)
+    if any(p_launches.values()):
+        fail(f"the plain CTC step launched a kernel: {p_launches}")
     ctc_err = abs(k_losses[0] / p_losses[0] - 1)
     if not ctc_err <= E2E_LOSS_RTOL:
         fail(f"CTC first-step loss {k_losses[0]} differs from the plain "
              f"route's {p_losses[0]} (tolerance {E2E_LOSS_RTOL} relative)")
     # the first step's gradients of both directions, every layer: the 8
-    # training backwards and dW launches against their plain versions
+    # training backwards and dW launches and the CTC loss kernels against
+    # their plain versions
     g_err = grad_errors(k_grads, p_grads)
     log(f"[ctc] first-step gradients, kernel against plain: "
         f"{json.dumps({k: float(f'{v:.3e}') for k, v in g_err.items()})}")
@@ -3363,22 +3440,167 @@ def fold_native_ctc_phases(torch, np, dev, card, img, corpus, lp5, results5,
              f"largest magnitude)")
     g_max = max(g_err.values())
     del k_grads, p_grads
+    graph_ms = 1e3 * float(np.mean(k_secs[2:]))
+    direct_ms = 1e3 * float(np.mean(d_secs[1:]))
+    capture_ms = 1e3 * k_secs[1]
+    wall_ms, busy_ms, top = prof
     log(f"[ctc] BiRNNCTC over LSTM {LAYERS}x{H_MAIN}, {PHONES} phones + "
         f"blank, {c.num_utts} utterances padded to T={t_max} ({int(
             lengths.sum())} frames, labels {int(y_lens.min())}-"
         f"{int(y_lens.max())}): {CTC_STEPS} Adam steps, losses "
-        f"{[round(v, 4) for v in k_losses]}; step times "
-        f"{[round(v * 1e3, 1) for v in k_secs]} ms (plain "
+        f"{[round(v, 4) for v in k_losses]} bit-equal to {CTC_STEPS} direct "
+        f"calls' (and the params); step times: graph "
+        f"{[round(v * 1e3, 1) for v in k_secs]} ms, direct "
+        f"{[round(v * 1e3, 1) for v in d_secs]} ms (plain "
         f"{p_secs[0] * 1e3:.1f} ms); first-step loss within {ctc_err:.3e} "
         f"relative of plain (tolerance {E2E_LOSS_RTOL}), its gradients within "
         f"{g_max:.3e} of plain's largest (tolerance {CTC_GRAD_RTOL}); "
-        f"{2 * LAYERS} training forwards, backwards and dW a step [{card}]")
-    out["ctc"] = dict(losses=k_losses, step_s=k_secs, plain_loss=p_losses[0],
-                      plain_step_s=p_secs[0], err=ctc_err, grad_err=g_err,
-                      launches=launches, t_max=t_max)
-    phase_done(32)
-    out["phase_s"] = phase_s
-    report["fold_native_ctc"] = out
+        f"{2 * LAYERS} training forwards, backwards and dW and one CTC loss "
+        f"forward and backward a step [{card}]")
+    log(f"[ctc] ms a step: graph replay {graph_ms:.2f}, direct call "
+        f"{direct_ms:.2f}; the capture step (capture + replay) "
+        f"{capture_ms:.1f}; one replayed step profiled: {wall_ms:.1f} ms "
+        f"wall, device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} "
+        f"%); top: " + "; ".join(f"{k[:50]} {v:.2f} ms"
+                                 for k, v in list(top.items())[:6])
+        + f" [{card}]")
+    record = dict(losses=k_losses, step_s=k_secs, direct_step_s=d_secs,
+                  plain_loss=p_losses[0], plain_step_s=p_secs[0],
+                  err=ctc_err, grad_err=g_err, launches=launches,
+                  t_max=t_max, graph_ms=graph_ms, direct_ms=direct_ms,
+                  capture_ms=capture_ms, profile_wall_ms=wall_ms,
+                  device_ms=busy_ms, top_device_ms=top)
+    record["loss_kernels"], entries = ctc_loss_check(
+        torch, np, F, ctc_cuda, dev, card, ctc_model, xs, lengths, ys, y_lens,
+        launches)
+    return record, entries
+
+
+def ctc_loss_check(torch, np, F, ctc_cuda, dev, card, ctc_model, xs, lengths,
+                   ys, y_lens, launches):
+    """The CTC loss kernels against their plain twins on phase 32's
+    log-probabilities (the model's inference logits, B=128, T=470, 48
+    phones + blank) and on a copy whose first utterance cannot fit its
+    labels: loss within CTC_LOSS_RTOL, gradient (the batch mean's) within
+    CTC_LOSS_GRAD_RTOL of the plain gradient's largest magnitude, all
+    finite, two kernel runs bit-equal. Times each kernel, its twin and
+    ``F.ctc_loss``'s forward and backward (the library yardstick, on the
+    feasible batch only: it gives inf where optax gives its large loss)."""
+    lens = torch.as_tensor(lengths, device=dev).long()
+    ylens = torch.as_tensor(y_lens, device=dev).long()
+    model = ctc_model()
+    with torch.no_grad():
+        logp = torch.log_softmax(
+            model.apply_sequence(xs, lengths=lens).float(), dim=-1)
+    del model
+    B, T, C = logp.shape
+    S = ys.shape[1]
+    cut = lens.clone()
+    cut[0] = int(y_lens[0]) // 2                # cannot fit its labels
+    grad = torch.full((B,), 1.0 / B, device=dev)
+    res = {}
+    for tag, xl in (("feasible", lens), ("infeasible", cut)):
+        want, want_states = ctc_cuda.ctc_loss_forward_reference(
+            logp, ys, xl, ylens)
+        want_g = ctc_cuda.ctc_loss_backward_reference(
+            logp, ys, xl, ylens, want_states, grad)
+        runs = []
+        for _ in range(2):
+            loss, states = ctc_cuda.ctc_loss_forward(logp, ys, xl, ylens)
+            runs.append((loss, ctc_cuda.ctc_loss_backward(
+                logp, ys, xl, ylens, states, grad)))
+        torch.cuda.synchronize()
+        loss, g = runs[0]
+        loss_err = float(((loss - want).abs() / want.abs()).max())
+        g_scale = float(want_g.abs().max())
+        g_abs = float((g - want_g).abs().max())
+        r = res[tag] = dict(loss_rel_err=loss_err,
+                            loss_abs_err=float((loss - want).abs().max()),
+                            grad_abs_err=g_abs, grad_err=g_abs / g_scale,
+                            loss0=float(loss[0]), plain_loss0=float(want[0]))
+        if not (bool(torch.isfinite(loss).all())
+                and bool(torch.isfinite(g).all())):
+            fail(f"[ctc loss {tag}] the kernels' loss or gradient is not "
+                 f"finite")
+        if not loss_err <= CTC_LOSS_RTOL or not r["grad_err"] <= \
+                CTC_LOSS_GRAD_RTOL:
+            fail(f"[ctc loss {tag}] kernel against plain: loss {loss_err:.3e} "
+                 f"relative (tolerance {CTC_LOSS_RTOL}), gradient "
+                 f"{r['grad_err']:.3e} of plain's largest (tolerance "
+                 f"{CTC_LOSS_GRAD_RTOL})")
+        if not (torch.equal(runs[1][0], loss) and torch.equal(runs[1][1], g)):
+            fail(f"[ctc loss {tag}] two kernel runs differ")
+        if tag == "infeasible" and not r["loss0"] > 1e4:
+            fail(f"[ctc loss] the cut utterance's loss {r['loss0']} is not "
+                 f"optax's large finite value")
+        del want_states, runs
+    lab32 = ys.to(torch.int32)
+    lens32, ylens32 = lens.to(torch.int32), ylens.to(torch.int32)
+    _, states = ctc_cuda.ctc_loss_forward(logp, lab32, lens32, ylens32)
+    fwd_ms = cuda_ms(torch, lambda: ctc_cuda.ctc_loss_forward(
+        logp, lab32, lens32, ylens32), 20)
+    bwd_ms = cuda_ms(torch, lambda: ctc_cuda.ctc_loss_backward(
+        logp, lab32, lens32, ylens32, states, grad), 20)
+    plain_fwd_ms = cuda_ms(torch, lambda: ctc_cuda.ctc_loss_forward_reference(
+        logp, ys, lens, ylens), 2)
+    plain_bwd_ms = cuda_ms(torch, lambda: ctc_cuda.ctc_loss_backward_reference(
+        logp, ys, lens, ylens, states, grad), 2)
+    # the library: F.ctc_loss on the (T, B, C) view, host lengths
+    lp_leaf = logp.detach().requires_grad_(True)
+    x_list, y_list = [int(v) for v in lengths], [int(v) for v in y_lens]
+
+    def lib_forward():
+        return F.ctc_loss(lp_leaf.transpose(0, 1), ys, x_list, y_list,
+                          blank=0, reduction="none", zero_infinity=False)
+
+    lib_out = lib_forward()
+    lib_fwd_ms = cuda_ms(torch, lib_forward, 20)
+    lib_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        lib_out, lp_leaf, grad, retain_graph=True), 20)
+    del lib_out, lp_leaf
+    # bounds: the valid frames' log-probability rows read once; each
+    # row's own lattice (2 L + 1 states a valid frame) written by the
+    # forward and read by the backward; the gradient written whole
+    frames = np.minimum(lengths, T)
+    lattice = int(np.sum(frames * (2 * y_lens + 1)))
+    small = 4 * (B * S + 3 * B)                 # labels, lengths, loss
+    fwd_bytes = 4 * (int(frames.sum()) * C + lattice) + small
+    bwd_bytes = 4 * (int(frames.sum()) * C + lattice + B * T * C) + small
+    positions = int(np.sum(frames * (y_lens + 1)))
+    fwd_bound, fwd_by = bound(fwd_bytes, CTC_FWD_OPS * positions, F32_FLOPS)
+    bwd_bound, bwd_by = bound(bwd_bytes, CTC_BWD_OPS * positions, F32_FLOPS)
+    log(f"[ctc loss] kernels against plain on phase 32's log-probabilities "
+        f"(B={B}, T={T}, C={C}, S={S}): "
+        + "; ".join(f"{tag}: loss within {r['loss_rel_err']:.3e} relative, "
+                    f"gradient within {r['grad_err']:.3e} of plain's "
+                    f"largest" for tag, r in res.items())
+        + f"; the cut utterance's loss {res['infeasible']['loss0']:.3f} "
+        f"(plain {res['infeasible']['plain_loss0']:.3f}); two runs "
+        f"bit-equal. forward {fwd_ms:.3f} ms (bound {fwd_bound * 1e3:.2f} us, "
+        f"{fwd_by}; plain {plain_fwd_ms:.1f} ms; F.ctc_loss forward "
+        f"{lib_fwd_ms:.3f} ms), backward {bwd_ms:.3f} ms (bound "
+        f"{bwd_bound * 1e3:.2f} us, {bwd_by}; plain {plain_bwd_ms:.1f} ms; "
+        f"F.ctc_loss backward {lib_bwd_ms:.3f} ms) [{card}]")
+    src = "nnacousticmodeling_tpu_torch/csrc/ctc_loss.cu"
+    replaces = ("nnacousticmodeling_tpu/models/ctc.py:92 (optax.ctc_loss, "
+                "a lax.scan, no pallas_call)")
+    entries = [
+        {"name": "ctc_loss_forward", "route": "cuda", "source": src,
+         "replaces": replaces, "launches": launches["ctc_loss_forward"],
+         "max_abs_err": max(r["loss_abs_err"] for r in res.values()),
+         "tolerance": CTC_LOSS_RTOL, "ms": fwd_ms, "plain_ms": plain_fwd_ms,
+         "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": lib_fwd_ms},
+        {"name": "ctc_loss_backward", "route": "cuda", "source": src,
+         "replaces": replaces, "launches": launches["ctc_loss_backward"],
+         "max_abs_err": max(r["grad_abs_err"] for r in res.values()),
+         "tolerance": CTC_LOSS_GRAD_RTOL, "ms": bwd_ms,
+         "plain_ms": plain_bwd_ms, "bound_ms": bwd_bound, "bound_by": bwd_by,
+         "library_ms": lib_bwd_ms}]
+    record = dict(res, fwd_ms=fwd_ms, bwd_ms=bwd_ms, plain_fwd_ms=plain_fwd_ms,
+                  plain_bwd_ms=plain_bwd_ms, lib_fwd_ms=lib_fwd_ms,
+                  lib_bwd_ms=lib_bwd_ms, fwd_bound_ms=fwd_bound,
+                  bwd_bound_ms=bwd_bound)
+    return record, entries
 
 
 # ---------------------------------------------------------------------------
@@ -4825,8 +5047,8 @@ def main():
         stages["decode_ms"], report)
     ctx = ff_ensemble_phases(torch, np, dev, card, img, corpus, dec, tput,
                              report)
-    fold_native_ctc_phases(torch, np, dev, card, img, corpus, lp, results,
-                           ctx, report)
+    ctc_kernels = fold_native_ctc_phases(torch, np, dev, card, img, corpus,
+                                         lp, results, ctx, report)
     ctx["tmp_dir"].cleanup()
     rank_launches = parallel_phases(torch, np, dev, card, corpus, dec,
                                     report)
@@ -4863,7 +5085,7 @@ def main():
          "bound_ms": bt["bound_ms"], "bound_by": bt["bound_by"],
          "library_ms": None},
     ] + train_kernels + gated_kernels
-        + peephole_kernels + decoder_audio_kernels}
+        + peephole_kernels + decoder_audio_kernels + ctc_kernels}
     for entry in kernels_line["kernels"]:
         if entry["name"] in rank_launches:
             entry["rank_launches"] = rank_launches[entry["name"]]

@@ -32,6 +32,7 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = {
+    "ctc_loss": "ctc_loss.cu",
     "fbank": "fbank.cu",
     "gated_scan": "gated_scan.cu",
     "gated_train": "gated_train.cu",

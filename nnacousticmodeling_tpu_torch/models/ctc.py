@@ -16,24 +16,30 @@ kernels otherwise. The backward direction reads each utterance reversed
 within its own length.
 
 ``ctc_loss`` is the JAX ``optax.ctc_loss(...).mean()``: the batch mean
-of each sequence's negative log-likelihood. ``F.ctc_loss`` takes
-log-probabilities (so the logits go through ``log_softmax``) and its
-``reduction="mean"`` would divide by the target lengths, so it runs with
-``reduction="none"`` and the mean is taken here. The two differ only on
-an alignment that cannot fit (more labels than frames allow): optax
-clamps its log-likelihoods at ``log_epsilon`` (-1e5) and returns a
-large finite loss, ``F.ctc_loss`` returns ``inf``.
+of each sequence's negative log-likelihood, optax's recursion included
+(``ops/ctc_cuda.py``): an alignment that cannot fit its frames gives
+optax's large finite loss and a finite gradient. CUDA tensors take the
+hand-written kernels of ``csrc/ctc_loss.cu``, CPU tensors the plain
+version; no length is read back to the host.
+
+``make_ctc_train_step`` keeps, per input shape, a step of static buffers
+(as ``jax.jit`` keeps one program per shape); on the card it runs
+through the training engine's ``_Updates``, so the step's second call
+captures it as a CUDA graph and every later call is one replay, as the
+JAX step is one jitted program.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import ctc_cuda
+from ..train.engine import _stage_tensors, _Updates
 from . import cells
 from .networks import _Dense, _RecurrentStack, redraw_params
 
@@ -111,15 +117,11 @@ class BiRNNCTC(nn.Module):
 def ctc_loss(logits: torch.Tensor, logit_lengths, labels,
              label_lengths) -> torch.Tensor:
     """Mean CTC loss over a padded batch (blank = 0): logits (B, T, C),
-    labels (B, S) padded, the lengths (B,)."""
-    dev = logits.device
-    logp = F.log_softmax(logits.float(), dim=-1).transpose(0, 1)
-    per_seq = F.ctc_loss(
-        logp, torch.as_tensor(labels, device=dev).long(),
-        torch.as_tensor(logit_lengths, device=dev).long(),
-        torch.as_tensor(label_lengths, device=dev).long(),
-        blank=BLANK_ID, reduction="none", zero_infinity=False)
-    return per_seq.mean()
+    labels (B, S) padded, the lengths (B,) (numpy arrays, lists or
+    tensors)."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    return ctc_cuda.per_sequence_loss(logp, labels, logit_lengths,
+                                      label_lengths).mean()
 
 
 def greedy_decode(logits: torch.Tensor, lengths: Sequence[int]
@@ -140,20 +142,83 @@ def greedy_decode(logits: torch.Tensor, lengths: Sequence[int]
     return out
 
 
-def make_ctc_train_step(model: BiRNNCTC, opt: torch.optim.Optimizer):
+class _StepProgram:
+    """The CTC step at one input shape: static buffers for the features,
+    the two length vectors, the labels and the loss, and ``_Updates``
+    over a function of them (on the card the second call captures it,
+    every later call replays it; elsewhere each call is a direct
+    call)."""
+
+    def __init__(self, model, opt, xs, labels, generator, graph: bool):
+        dev = model.device
+        b = xs.shape[0]
+        self.xs = torch.empty(xs.shape, dtype=xs.dtype, device=dev)
+        self.x_lens = torch.zeros(b, dtype=torch.int64, device=dev)
+        self.labels = torch.zeros(labels.shape, dtype=torch.int64,
+                                  device=dev)
+        self.y_lens = torch.zeros(b, dtype=torch.int64, device=dev)
+        self.loss = torch.zeros((), dtype=torch.float32, device=dev)
+        self.graph = graph
+        self.generator = generator
+
+        def body():
+            logits = model.apply_sequence(self.xs, lengths=self.x_lens,
+                                          train=True,
+                                          generator=self.generator)
+            loss = ctc_loss(logits, self.x_lens, self.labels, self.y_lens)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            with torch.no_grad():
+                self.loss.copy_(loss)
+
+        self.updates = _Updates(
+            body, () if generator is None else generator,
+            _stage_tensors(model, opt), graph, caller="make_ctc_train_step")
+
+    def __call__(self, xs, x_lens, labels, y_lens, generator):
+        if generator is not self.generator:
+            if self.graph:
+                raise ValueError(
+                    "make_ctc_train_step: a step of this shape was captured "
+                    "with another generator; pass the same one (or build "
+                    "the step with cuda_graph=False)")
+            self.generator = generator
+        self.xs.copy_(xs)
+        self.x_lens.copy_(torch.as_tensor(x_lens))
+        self.labels.copy_(labels)
+        self.y_lens.copy_(torch.as_tensor(y_lens))
+        self.updates.begin_epoch()
+        self.updates()
+        return self.loss.clone()
+
+
+def make_ctc_train_step(model: BiRNNCTC, opt: torch.optim.Optimizer,
+                        cuda_graph: bool = True):
     """``step(xs, x_lens, labels, y_lens, generator=None) -> loss``: one
     update of ``model`` in place by ``opt`` (built over its parameters,
     e.g. ``train.make_optimizer("adam", lr, model.parameters())``) on
     the CTC loss of the training-mode logits; the JAX step's
-    ``(params, opt_state)`` are the module and the optimizer here."""
+    ``(params, opt_state)`` are the module and the optimizer here.
+
+    The inputs (tensors, numpy arrays or lists) are copied into static
+    buffers kept per ``(xs.shape, xs.dtype, labels.shape)``. On the card
+    (and unless ``cuda_graph=False``) a shape's first call is a direct
+    call (the warm-up, which also makes Adam's device state), its second
+    captures the step as a CUDA graph with ``generator`` registered, and
+    every later call replays it; a failed capture or replay raises, and
+    so does a later call of that shape with another generator. The loss
+    is a device scalar (no synchronisation)."""
+    programs: Dict[tuple, _StepProgram] = {}
+    graph = cuda_graph and model.device.type == "cuda"
 
     def step(xs, x_lens, labels, y_lens, generator=None):
-        logits = model.apply_sequence(xs, lengths=x_lens, train=True,
-                                      generator=generator)
-        loss = ctc_loss(logits, x_lens, labels, y_lens)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        opt.step()
-        return loss.detach()
+        xs, labels = torch.as_tensor(xs), torch.as_tensor(labels)
+        key = (tuple(xs.shape), xs.dtype, tuple(labels.shape))
+        prog = programs.get(key)
+        if prog is None:
+            prog = programs[key] = _StepProgram(model, opt, xs, labels,
+                                                generator, graph)
+        return prog(xs, x_lens, labels, y_lens, generator)
 
     return step

@@ -51,7 +51,7 @@ from nnacousticmodeling_tpu_torch.decoder.viterbi_cube import (
     cube_viterbi_forward,
     cube_viterbi_reference,
 )
-from nnacousticmodeling_tpu_torch.ops import features
+from nnacousticmodeling_tpu_torch.ops import ctc_cuda, features
 from nnacousticmodeling_tpu_torch.ops.rnn_cuda import (
     gated_scan,
     gated_scan_reference,
@@ -1266,6 +1266,8 @@ E2E_CHANGE_RTOL = 1e-2
 PLAIN_LSTM_TRAIN = dict(
     lstm_train_forward=lstm_train_forward_reference,
     lstm_train_backward=lstm_train_backward_reference)
+PLAIN_CTC = dict(ctc_loss_forward=ctc_cuda.ctc_loss_forward_reference,
+                 ctc_loss_backward=ctc_cuda.ctc_loss_backward_reference)
 
 
 def test_fold_parallel_updates_on_the_kernel_match_plain(cuda):
@@ -1331,8 +1333,10 @@ def test_fold_parallel_updates_on_the_kernel_match_plain(cuda):
 
 def test_ctc_steps_on_the_kernel_match_plain(cuda):
     """BiRNNCTC over an LSTM 2x64: 3 Adam steps launch the training
-    kernels twice a layer (both directions) a step, and the losses and
-    the first step's gradients match the plain run's."""
+    kernels twice a layer (both directions) a step and the CTC loss
+    kernels once each a step, and the losses and the first step's
+    gradients match the plain run's (the plain recurrences and CTC twins,
+    by direct call)."""
     from unittest import mock
 
     from nnacousticmodeling_tpu_torch.models import get_network
@@ -1347,11 +1351,11 @@ def test_ctc_steps_on_the_kernel_match_plain(cuda):
     y_lens = np.array([9, 5, 7, 2])
     labels = torch.from_numpy(rng.integers(1, 6, (4, 9))).to(cuda)
 
-    def run():
+    def run(cuda_graph):
         model = BiRNNCTC(get_network("lstm", 2, [64], 1, in_dim=12,
                                      scan_impl="pallas", device=cuda), 5)
         step = make_ctc_train_step(model, make_optimizer(
-            "adam", 1e-3, model.parameters()))
+            "adam", 1e-3, model.parameters()), cuda_graph=cuda_graph)
         losses = [float(step(xs, x_lens, labels, y_lens))]
         # the stacks' own heads are unused (no gradient)
         grads = {n: q.grad.clone() for n, q in model.named_parameters()
@@ -1360,14 +1364,17 @@ def test_ctc_steps_on_the_kernel_match_plain(cuda):
         return losses, grads
 
     kernels.reset_launches()
-    got, got_grads = run()
+    got, got_grads = run(True)
     torch.cuda.synchronize()
     for name in ("lstm_train_forward", "lstm_train_backward",
                  "lstm_train_dw"):
         assert kernels.launches[name] == 3 * 2 * 2, name
+    for name in ("ctc_loss_forward", "ctc_loss_backward"):
+        assert kernels.launches[name] == 3, name
     before = dict(kernels.launches)
-    with mock.patch.multiple(rnn_cuda, **PLAIN_LSTM_TRAIN):
-        want, want_grads = run()
+    with mock.patch.multiple(rnn_cuda, **PLAIN_LSTM_TRAIN), \
+            mock.patch.multiple(ctc_cuda, **PLAIN_CTC):
+        want, want_grads = run(False)
     assert dict(kernels.launches) == before
     assert np.isfinite(got).all() and got[-1] < got[0]
     np.testing.assert_allclose(got, want, rtol=E2E_LOSS_RTOL)
@@ -1377,6 +1384,156 @@ def test_ctc_steps_on_the_kernel_match_plain(cuda):
         assert g.abs().max() > 0, name
         err = (got_grads[name] - g).abs().max()
         assert err <= E2E_CHANGE_RTOL * g.abs().max(), name
+
+
+# ---- the CTC loss kernels ----------------------------------------------------
+# ``csrc/ctc_loss.cu`` against its plain twins (optax's recursion in
+# float32): the same operations in the same order for the loss (rtol
+# 1e-5), the gradient's sums in another order (within 1e-4 of the plain
+# gradient's largest magnitude); two runs give the same bits (no
+# atomics). Cases: repeats, label lengths 0 and 1, padded frames, an
+# infeasible utterance (its loss above 1e4, finite), a frame-less one,
+# an out-of-range label, more lattice positions than a block's threads.
+CTC_LOSS_RTOL = 1e-5
+CTC_GRAD_RTOL = 1e-4
+
+
+def _ctc_case(b, t, c, s, seed, device):
+    rng = np.random.default_rng(seed)
+    logp = torch.log_softmax(torch.from_numpy(
+        2.0 * rng.standard_normal((b, t, c)).astype(np.float32)), -1)
+    labels = rng.integers(1, c, (b, s))
+    if s > 1:
+        labels[0, 1] = labels[0, 0]             # a repeat
+    y_lens = rng.integers(max(s // 2, 1), s + 1, b)
+    y_lens[-1] = 0
+    if b > 2:
+        y_lens[1] = 1
+        labels[2, s - 1] = c + 3                # out of range (a pad)
+    x_lens = rng.integers(max(t // 2, 1), t + 1, b)
+    x_lens[0] = t
+    if b > 4:
+        x_lens[3] = max(int(y_lens[3]) // 2, 1)  # infeasible
+        x_lens[-2] = 0
+    return (logp.to(device), torch.from_numpy(labels).to(device),
+            torch.from_numpy(x_lens).to(device),
+            torch.from_numpy(y_lens).to(device))
+
+
+@pytest.mark.parametrize("b,t,c,s", [(6, 17, 6, 5), (8, 60, 49, 48),
+                                     (6, 400, 12, 300), (4, 3, 4, 1)])
+def test_ctc_loss_kernels_match_plain(cuda, b, t, c, s):
+    logp, labels, x_lens, y_lens = _ctc_case(b, t, c, s, 0, cuda)
+    grad = torch.linspace(0.5, 1.5, b, device=cuda)
+    want, want_states = ctc_cuda.ctc_loss_forward_reference(
+        logp, labels, x_lens, y_lens)
+    want_g = ctc_cuda.ctc_loss_backward_reference(
+        logp, labels, x_lens, y_lens, want_states, grad)
+    runs = []
+    for _ in range(2):
+        loss, states = ctc_cuda.ctc_loss_forward(logp, labels, x_lens,
+                                                 y_lens)
+        g = ctc_cuda.ctc_loss_backward(logp, labels, x_lens, y_lens, states,
+                                       grad)
+        runs.append((loss, g))
+    torch.cuda.synchronize()
+    loss, g = runs[0]
+    assert torch.isfinite(loss).all() and torch.isfinite(g).all()
+    torch.testing.assert_close(loss, want, rtol=CTC_LOSS_RTOL, atol=0)
+    assert (g - want_g).abs().max() <= CTC_GRAD_RTOL * want_g.abs().max()
+    valid = (torch.arange(t, device=cuda)[None, :]
+             < x_lens.clamp(max=t)[:, None])
+    torch.testing.assert_close(states[valid], want_states[valid],
+                               rtol=CTC_LOSS_RTOL, atol=0)
+    assert (g[~valid] == 0).all()
+    assert torch.equal(runs[1][0], loss) and torch.equal(runs[1][1], g)
+    if b > 4:
+        assert loss[3] > 1e4
+
+
+def test_ctc_loss_on_the_card_is_optax_not_inf(cuda):
+    """``models.ctc.ctc_loss`` on CUDA tensors: the kernels' loss and
+    gradient (one launch each), finite on an infeasible row, against the
+    CPU route."""
+    from nnacousticmodeling_tpu_torch.models.ctc import ctc_loss
+    rng = np.random.default_rng(5)
+    logits = rng.standard_normal((3, 9, 6)).astype(np.float32)
+    labels = np.array([[1, 1, 2, 3], [2, 3, 0, 0], [4, 0, 0, 0]])
+    x_lens, y_lens = np.array([3, 9, 7]), np.array([4, 2, 1])
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        lt = torch.from_numpy(logits).to(dev).requires_grad_(True)
+        before = dict(kernels.launches)
+        loss = ctc_loss(lt, x_lens, labels, y_lens)
+        loss.backward()
+        if dev.type == "cuda":
+            made = {k: kernels.launches[k] - before.get(k, 0)
+                    for k in ("ctc_loss_forward", "ctc_loss_backward")}
+            assert made == {"ctc_loss_forward": 1, "ctc_loss_backward": 1}
+        grads.append((float(loss.detach()), lt.grad.cpu()))
+    (got, got_g), (want, want_g) = grads
+    assert np.isfinite(got) and got > 1e4 / 3
+    np.testing.assert_allclose(got, want, rtol=CTC_LOSS_RTOL)
+    assert torch.isfinite(got_g).all()
+    assert (got_g - want_g).abs().max() <= CTC_GRAD_RTOL * want_g.abs().max()
+
+
+def test_ctc_loss_wrappers_raise(cuda):
+    logp, labels, x_lens, y_lens = _ctc_case(4, 5, 6, 3, 0, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        ctc_cuda.ctc_loss_forward(logp.double(), labels, x_lens, y_lens)
+    with pytest.raises(ValueError, match="label_lengths"):
+        ctc_cuda.ctc_loss_forward(logp, labels, x_lens, y_lens.cpu())
+    _, states = ctc_cuda.ctc_loss_forward(logp, labels, x_lens, y_lens)
+    with pytest.raises(ValueError, match="states"):
+        ctc_cuda.ctc_loss_backward(logp, labels, x_lens, y_lens,
+                                   states[:, :, 1:], torch.ones(4))
+
+
+def _ctc_graph_run(device, cuda_graph, steps, dropout):
+    from nnacousticmodeling_tpu_torch.models import get_network
+    from nnacousticmodeling_tpu_torch.models.ctc import (
+        BiRNNCTC, make_ctc_train_step)
+    from nnacousticmodeling_tpu_torch.train import make_optimizer
+    rng = np.random.default_rng(2)
+    xs = torch.from_numpy(rng.standard_normal((4, 30, 12)).astype(
+        np.float32)).to(device)
+    x_lens = np.array([30, 21, 4, 17])           # the third is infeasible
+    labels = rng.integers(1, 6, (4, 8))
+    y_lens = np.array([8, 5, 6, 3])
+    model = BiRNNCTC(get_network("lstm", 2, [64], 1, in_dim=12,
+                                 dropout=[dropout], scan_impl="pallas",
+                                 device=device), 5)
+    step = make_ctc_train_step(model, make_optimizer(
+        "adam", 1e-3, model.parameters()), cuda_graph=cuda_graph)
+    gen = torch.Generator(device=device).manual_seed(7)
+    kernels.reset_launches()
+    losses = torch.stack([step(xs, x_lens, labels, y_lens, gen)
+                          for _ in range(steps)]).cpu()
+    torch.cuda.synchronize()
+    return (losses, {k: v.detach().cpu() for k, v in
+                     model.state_dict().items()}, dict(kernels.launches),
+            step, (xs, x_lens, labels, y_lens))
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.2])
+def test_ctc_graph_steps_equal_direct_calls(cuda, dropout):
+    """``make_ctc_train_step``: 4 steps by graph replay (the first a
+    direct call, the second the capture) against 4 direct calls, one
+    seed and one init: losses, params and launch counts bit-equal; every
+    loss finite though one utterance cannot fit; a call with another
+    generator raises."""
+    got, got_p, got_l, step, batch = _ctc_graph_run(cuda, True, 4, dropout)
+    want, want_p, want_l, _, _ = _ctc_graph_run(cuda, False, 4, dropout)
+    assert torch.isfinite(got).all() and torch.equal(got, want)
+    for name, v in want_p.items():
+        assert torch.isfinite(got_p[name]).all(), name
+        assert torch.equal(got_p[name], v), name
+    assert got_l == want_l
+    assert got_l["ctc_loss_forward"] == got_l["ctc_loss_backward"] == 4
+    assert got_l["lstm_train_forward"] == 4 * 2 * 2
+    with pytest.raises(ValueError, match="another generator"):
+        step(*batch, torch.Generator(device=cuda).manual_seed(7))
 
 
 # ---- the training update as one CUDA graph ----------------------------------
