@@ -224,15 +224,22 @@ Phases (each one that fails ends the run with a non-zero exit):
     the first step's loss within E2E_LOSS_RTOL of the plain route's (the
     plain recurrences and CTC twins) and its gradients of every
     parameter within CTC_GRAD_RTOL of the plain gradient's largest
-    magnitude. The CTC loss kernels against their plain twins on the
-    model's log-probabilities and on a copy whose first utterance cannot
-    fit its labels: loss within CTC_LOSS_RTOL, gradient within
-    CTC_LOSS_GRAD_RTOL of the plain one's largest magnitude, all finite
-    (the cut utterance's loss optax's large value), two runs bit-equal.
-    Logged: ms a step by graph and by direct call, the capture step's
-    ms, one profiled replayed step's device ms, each loss kernel's ms,
-    its twin's and ``F.ctc_loss``'s forward and backward (the library
-    yardstick, on the feasible batch);
+    magnitude. Six (T, S) shapes of the batch (CTC_SHAPES) through one
+    step function in an interleaved order (CTC_ORDER), by graph and by
+    direct call: losses and params bit-equal, and the memory reserved
+    after the six captures within CTC_POOL_RATIO of the largest shape's
+    alone (the graphs share one pool). The CTC loss kernels' two routes
+    on the model's log-probabilities and on a copy whose first utterance
+    cannot fit its labels: the warp route (the main path's) bit-equal to
+    the block route; each against the plain twins, loss within
+    CTC_LOSS_RTOL, gradient within CTC_LOSS_GRAD_RTOL of the plain one's
+    largest magnitude, all finite (the cut utterance's loss optax's large
+    value), two runs bit-equal; the block route against the twins at S =
+    CTC_LONG_S, past the warp route. Logged: ms a step by graph and by
+    direct call, the capture step's ms, one profiled replayed step's
+    device ms, the reserved GB after each shape's capture, each route's
+    ms and us a frame, the twins' and ``F.ctc_loss``'s forward and
+    backward (the library yardstick, on the feasible batch);
 33. data and tensor parallel training across RANKS gloo ranks
     time-sharing the card (the script re-invoked as ``--rank-worker R
     DIR`` for each rank; one launch runs 33-35's multi-rank parts, each
@@ -3470,22 +3477,112 @@ def ctc_phase(torch, np, dev, card, corpus):
                   t_max=t_max, graph_ms=graph_ms, direct_ms=direct_ms,
                   capture_ms=capture_ms, profile_wall_ms=wall_ms,
                   device_ms=busy_ms, top_device_ms=top)
+    record["shapes"] = ctc_shapes_check(torch, np, dev, card, ctc_model,
+                                        (xs, lengths, ys, y_lens))
     record["loss_kernels"], entries = ctc_loss_check(
         torch, np, F, ctc_cuda, dev, card, ctc_model, xs, lengths, ys, y_lens,
         launches)
     return record, entries
 
 
+# Six (T, S) shapes of phase 32's batch (its first T frames and S label
+# positions), largest first, stepped by one step function in an
+# interleaved order: each shape's first call is direct, its second
+# captures, its third (after every capture) replays. The graphs of one
+# step function share a memory pool, so what they reserve stays within
+# CTC_POOL_RATIO of the largest shape's own (with a pool a graph, it grew
+# by about one pool a shape; bench_ctc_step.py measures both).
+CTC_SHAPES = {"A": (470, 50), "B": (440, 48), "C": (410, 46),
+              "D": (380, 44), "E": (350, 42), "F": (320, 40)}
+CTC_ORDER = "ABACBDCEDFEFABCDEF"
+CTC_POOL_RATIO = 1.25
+
+
+def ctc_shape_steps(torch, np, dev, ctc_model, batch, order,
+                    cuda_graph=True, on_capture=None):
+    """``make_ctc_train_step`` from ``ctc_model()``'s init, one generator
+    seed, through ``order`` (keys of CTC_SHAPES) on ``batch`` (xs, frame
+    lengths, labels, label lengths) cut to each shape: the losses, the
+    final params and the bytes reserved after each shape's second call
+    (its capture), over what was reserved before the model was made;
+    each is also passed to ``on_capture(key, bytes)`` as it is read."""
+    import gc
+
+    from nnacousticmodeling_tpu_torch.models.ctc import make_ctc_train_step
+    from nnacousticmodeling_tpu_torch.train import make_optimizer
+    xs, lengths, ys, y_lens = batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved(dev)
+    model = ctc_model()
+    step = make_ctc_train_step(model, make_optimizer(
+        "adam", 1e-3, model.parameters()), cuda_graph=cuda_graph)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    losses, reserved, calls = [], [], {}
+    for key in order:
+        t, s = CTC_SHAPES[key]
+        losses.append(step(xs[:, :t], np.minimum(lengths, t), ys[:, :s],
+                           np.minimum(y_lens, s), gen))
+        calls[key] = calls.get(key, 0) + 1
+        if calls[key] == 2:
+            torch.cuda.synchronize()
+            reserved.append(torch.cuda.memory_reserved(dev) - base)
+            if on_capture is not None:
+                on_capture(key, reserved[-1])
+    params = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model, step
+    return [float(v) for v in losses], params, reserved
+
+
+def ctc_shapes_check(torch, np, dev, card, ctc_model, batch):
+    """Phase 32's multi-shape check: the largest shape alone (direct,
+    capture, replay), then CTC_ORDER by graph and by direct call: the
+    reserved memory after all six captures within CTC_POOL_RATIO of the
+    largest shape's alone, losses and params bit-equal to the direct
+    calls'."""
+    _, _, alone = ctc_shape_steps(torch, np, dev, ctc_model, batch, "AAA")
+    g_losses, g_params, reserved = ctc_shape_steps(torch, np, dev, ctc_model,
+                                                   batch, CTC_ORDER)
+    d_losses, d_params, _ = ctc_shape_steps(torch, np, dev, ctc_model, batch,
+                                            CTC_ORDER, cuda_graph=False)
+    gb = [r / 1e9 for r in reserved]
+    ratio = reserved[-1] / alone[-1]
+    diff = [k for k, v in d_params.items() if not torch.equal(g_params[k], v)]
+    log(f"[ctc shapes] {len(CTC_SHAPES)} (T, S) shapes "
+        f"{list(CTC_SHAPES.values())} in the order {CTC_ORDER}: reserved GB "
+        f"after each new shape's capture {[round(v, 3) for v in gb]}, the "
+        f"largest shape alone {alone[-1] / 1e9:.3f} GB (ratio {ratio:.3f}, "
+        f"limit {CTC_POOL_RATIO}); {len(g_losses)} losses and the params "
+        f"bit-equal to direct calls: {g_losses == d_losses and not diff} "
+        f"[{card}]")
+    if not np.isfinite(g_losses).all():
+        fail(f"[ctc shapes] losses not finite: {g_losses}")
+    if g_losses != d_losses or diff:
+        fail(f"[ctc shapes] graph replays in the interleaved order differ "
+             f"from direct calls: losses {g_losses} vs {d_losses}, params "
+             f"{diff}")
+    if not ratio <= CTC_POOL_RATIO:
+        fail(f"[ctc shapes] the six shapes' graphs reserve {gb[-1]:.3f} GB, "
+             f"{ratio:.3f}x the largest shape's {alone[-1] / 1e9:.3f} GB "
+             f"(limit {CTC_POOL_RATIO}x)")
+    return dict(order=CTC_ORDER, shapes=CTC_SHAPES, reserved_gb=gb,
+                alone_gb=alone[-1] / 1e9, ratio=ratio, losses=g_losses)
+
+
 def ctc_loss_check(torch, np, F, ctc_cuda, dev, card, ctc_model, xs, lengths,
                    ys, y_lens, launches):
-    """The CTC loss kernels against their plain twins on phase 32's
-    log-probabilities (the model's inference logits, B=128, T=470, 48
-    phones + blank) and on a copy whose first utterance cannot fit its
-    labels: loss within CTC_LOSS_RTOL, gradient (the batch mean's) within
-    CTC_LOSS_GRAD_RTOL of the plain gradient's largest magnitude, all
-    finite, two kernel runs bit-equal. Times each kernel, its twin and
-    ``F.ctc_loss``'s forward and backward (the library yardstick, on the
-    feasible batch only: it gives inf where optax gives its large loss)."""
+    """The CTC loss kernels' two routes on phase 32's log-probabilities
+    (the model's inference logits, B=128, T=470, 48 phones + blank, S=50:
+    the main path's warp route) and on a copy whose first utterance
+    cannot fit its labels: the warp route bit-equal to the block route
+    (loss, the valid frames' states, gradient), each route against the
+    plain twins (loss within CTC_LOSS_RTOL, gradient (the batch mean's)
+    within CTC_LOSS_GRAD_RTOL of the plain gradient's largest magnitude),
+    all finite, two runs of each bit-equal; then a long-label case (S =
+    CTC_LONG_S, which only the block route takes) against the twins.
+    Times each route, the twins and ``F.ctc_loss``'s forward and backward
+    (the library yardstick, on the feasible batch only: it gives inf
+    where optax gives its large loss)."""
     lens = torch.as_tensor(lengths, device=dev).long()
     ylens = torch.as_tensor(y_lens, device=dev).long()
     model = ctc_model()
@@ -3495,52 +3592,78 @@ def ctc_loss_check(torch, np, F, ctc_cuda, dev, card, ctc_model, xs, lengths,
     del model
     B, T, C = logp.shape
     S = ys.shape[1]
+    if ctc_cuda.ctc_route(S, C) != "warp":
+        fail(f"[ctc loss] S={S}, C={C} does not take the warp route")
     cut = lens.clone()
     cut[0] = int(y_lens[0]) // 2                # cannot fit its labels
     grad = torch.full((B,), 1.0 / B, device=dev)
+    valid = torch.arange(T, device=dev)[None, :] < lens[:, None]
     res = {}
     for tag, xl in (("feasible", lens), ("infeasible", cut)):
         want, want_states = ctc_cuda.ctc_loss_forward_reference(
             logp, ys, xl, ylens)
         want_g = ctc_cuda.ctc_loss_backward_reference(
             logp, ys, xl, ylens, want_states, grad)
-        runs = []
-        for _ in range(2):
-            loss, states = ctc_cuda.ctc_loss_forward(logp, ys, xl, ylens)
-            runs.append((loss, ctc_cuda.ctc_loss_backward(
-                logp, ys, xl, ylens, states, grad)))
-        torch.cuda.synchronize()
-        loss, g = runs[0]
-        loss_err = float(((loss - want).abs() / want.abs()).max())
         g_scale = float(want_g.abs().max())
-        g_abs = float((g - want_g).abs().max())
-        r = res[tag] = dict(loss_rel_err=loss_err,
-                            loss_abs_err=float((loss - want).abs().max()),
-                            grad_abs_err=g_abs, grad_err=g_abs / g_scale,
-                            loss0=float(loss[0]), plain_loss0=float(want[0]))
-        if not (bool(torch.isfinite(loss).all())
-                and bool(torch.isfinite(g).all())):
-            fail(f"[ctc loss {tag}] the kernels' loss or gradient is not "
-                 f"finite")
-        if not loss_err <= CTC_LOSS_RTOL or not r["grad_err"] <= \
-                CTC_LOSS_GRAD_RTOL:
-            fail(f"[ctc loss {tag}] kernel against plain: loss {loss_err:.3e} "
-                 f"relative (tolerance {CTC_LOSS_RTOL}), gradient "
-                 f"{r['grad_err']:.3e} of plain's largest (tolerance "
-                 f"{CTC_LOSS_GRAD_RTOL})")
-        if not (torch.equal(runs[1][0], loss) and torch.equal(runs[1][1], g)):
-            fail(f"[ctc loss {tag}] two kernel runs differ")
+        runs = {}
+        for route in (None, "block"):
+            runs[route] = []
+            for _ in range(2):
+                loss, states = ctc_cuda.ctc_loss_forward(logp, ys, xl, ylens,
+                                                         route=route)
+                runs[route].append((loss, states, ctc_cuda.ctc_loss_backward(
+                    logp, ys, xl, ylens, states, grad, route=route)))
+        torch.cuda.synchronize()
+        ok = valid & (torch.arange(T, device=dev)[None, :] < xl[:, None])
+        (loss, states, g), (b_loss, b_states, b_g) = (runs[None][0],
+                                                      runs["block"][0])
+        if not (torch.equal(loss, b_loss) and torch.equal(g, b_g)
+                and torch.equal(states[ok], b_states[ok])):
+            fail(f"[ctc loss {tag}] the warp route differs from the block "
+                 f"route: loss {float((loss - b_loss).abs().max()):.3e}, "
+                 f"gradient {float((g - b_g).abs().max()):.3e}")
+        r = res[tag] = {}
+        for route, name in ((None, "warp"), ("block", "block")):
+            loss, _, g = runs[route][0]
+            loss_err = float(((loss - want).abs() / want.abs()).max())
+            g_abs = float((g - want_g).abs().max())
+            r[name] = dict(loss_rel_err=loss_err,
+                           loss_abs_err=float((loss - want).abs().max()),
+                           grad_abs_err=g_abs, grad_err=g_abs / g_scale)
+            if not (bool(torch.isfinite(loss).all())
+                    and bool(torch.isfinite(g).all())):
+                fail(f"[ctc loss {tag} {name}] the kernels' loss or "
+                     f"gradient is not finite")
+            if not loss_err <= CTC_LOSS_RTOL or not g_abs / g_scale <= \
+                    CTC_LOSS_GRAD_RTOL:
+                fail(f"[ctc loss {tag} {name}] kernel against plain: loss "
+                     f"{loss_err:.3e} relative (tolerance {CTC_LOSS_RTOL}), "
+                     f"gradient {g_abs / g_scale:.3e} of plain's largest "
+                     f"(tolerance {CTC_LOSS_GRAD_RTOL})")
+            if not (torch.equal(runs[route][1][0], loss)
+                    and torch.equal(runs[route][1][2], g)):
+                fail(f"[ctc loss {tag} {name}] two kernel runs differ")
+        r["loss0"], r["plain_loss0"] = float(runs[None][0][0][0]), float(
+            want[0])
         if tag == "infeasible" and not r["loss0"] > 1e4:
             fail(f"[ctc loss] the cut utterance's loss {r['loss0']} is not "
                  f"optax's large finite value")
         del want_states, runs
+    long_res = ctc_long_labels_check(torch, np, ctc_cuda, dev, logp)
     lab32 = ys.to(torch.int32)
     lens32, ylens32 = lens.to(torch.int32), ylens.to(torch.int32)
     _, states = ctc_cuda.ctc_loss_forward(logp, lab32, lens32, ylens32)
-    fwd_ms = cuda_ms(torch, lambda: ctc_cuda.ctc_loss_forward(
-        logp, lab32, lens32, ylens32), 20)
-    bwd_ms = cuda_ms(torch, lambda: ctc_cuda.ctc_loss_backward(
-        logp, lab32, lens32, ylens32, states, grad), 20)
+    times = {}
+    for route, name in ((None, "warp"), ("block", "block")):
+        def fwd():
+            return ctc_cuda.ctc_loss_forward(logp, lab32, lens32, ylens32,
+                                             route=route)
+
+        def bwd():
+            return ctc_cuda.ctc_loss_backward(logp, lab32, lens32, ylens32,
+                                              states, grad, route=route)
+        times[name] = dict(fwd_ms=cuda_ms(torch, fwd, 20),
+                           bwd_ms=cuda_ms(torch, bwd, 20))
     plain_fwd_ms = cuda_ms(torch, lambda: ctc_cuda.ctc_loss_forward_reference(
         logp, ys, lens, ylens), 2)
     plain_bwd_ms = cuda_ms(torch, lambda: ctc_cuda.ctc_loss_backward_reference(
@@ -3569,38 +3692,89 @@ def ctc_loss_check(torch, np, F, ctc_cuda, dev, card, ctc_model, xs, lengths,
     positions = int(np.sum(frames * (y_lens + 1)))
     fwd_bound, fwd_by = bound(fwd_bytes, CTC_FWD_OPS * positions, F32_FLOPS)
     bwd_bound, bwd_by = bound(bwd_bytes, CTC_BWD_OPS * positions, F32_FLOPS)
-    log(f"[ctc loss] kernels against plain on phase 32's log-probabilities "
-        f"(B={B}, T={T}, C={C}, S={S}): "
-        + "; ".join(f"{tag}: loss within {r['loss_rel_err']:.3e} relative, "
-                    f"gradient within {r['grad_err']:.3e} of plain's "
+    t_max = int(frames.max())               # frames of the longest chain
+    log(f"[ctc loss] kernels on phase 32's log-probabilities (B={B}, T={T}, "
+        f"C={C}, S={S}): the warp route bit-equal to the block route (loss, "
+        f"states, gradient; feasible and infeasible); against plain: "
+        + "; ".join(f"{tag}: loss within {r['warp']['loss_rel_err']:.3e} "
+                    f"relative, gradient within {r['warp']['grad_err']:.3e} "
+                    f"(block {r['block']['grad_err']:.3e}) of plain's "
                     f"largest" for tag, r in res.items())
         + f"; the cut utterance's loss {res['infeasible']['loss0']:.3f} "
-        f"(plain {res['infeasible']['plain_loss0']:.3f}); two runs "
-        f"bit-equal. forward {fwd_ms:.3f} ms (bound {fwd_bound * 1e3:.2f} us, "
-        f"{fwd_by}; plain {plain_fwd_ms:.1f} ms; F.ctc_loss forward "
-        f"{lib_fwd_ms:.3f} ms), backward {bwd_ms:.3f} ms (bound "
-        f"{bwd_bound * 1e3:.2f} us, {bwd_by}; plain {plain_bwd_ms:.1f} ms; "
-        f"F.ctc_loss backward {lib_bwd_ms:.3f} ms) [{card}]")
+        f"(plain {res['infeasible']['plain_loss0']:.3f}); two runs of each "
+        f"bit-equal; S={long_res['S']} on the block route: loss within "
+        f"{long_res['loss_rel_err']:.3e}, gradient {long_res['grad_err']:.3e}"
+        f" [{card}]")
+    for kind, lib_ms, plain_ms, b_ms, by in (
+            ("fwd", lib_fwd_ms, plain_fwd_ms, fwd_bound, fwd_by),
+            ("bwd", lib_bwd_ms, plain_bwd_ms, bwd_bound, bwd_by)):
+        per = {name: times[name][f"{kind}_ms"] for name in ("warp", "block")}
+        log(f"[ctc loss] {kind}: "
+            + ", ".join(f"{name} {ms:.4f} ms ({1e3 * ms / t_max:.3f} us a "
+                        f"frame)" for name, ms in per.items())
+            + f", F.ctc_loss {lib_ms:.4f}, plain {plain_ms:.1f}, bound "
+            f"{b_ms * 1e3:.2f} us ({by}) [{card}]")
     src = "nnacousticmodeling_tpu_torch/csrc/ctc_loss.cu"
     replaces = ("nnacousticmodeling_tpu/models/ctc.py:92 (optax.ctc_loss, "
                 "a lax.scan, no pallas_call)")
-    entries = [
-        {"name": "ctc_loss_forward", "route": "cuda", "source": src,
-         "replaces": replaces, "launches": launches["ctc_loss_forward"],
-         "max_abs_err": max(r["loss_abs_err"] for r in res.values()),
-         "tolerance": CTC_LOSS_RTOL, "ms": fwd_ms, "plain_ms": plain_fwd_ms,
-         "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": lib_fwd_ms},
-        {"name": "ctc_loss_backward", "route": "cuda", "source": src,
-         "replaces": replaces, "launches": launches["ctc_loss_backward"],
-         "max_abs_err": max(r["grad_abs_err"] for r in res.values()),
-         "tolerance": CTC_LOSS_GRAD_RTOL, "ms": bwd_ms,
-         "plain_ms": plain_bwd_ms, "bound_ms": bwd_bound, "bound_by": bwd_by,
-         "library_ms": lib_bwd_ms}]
-    record = dict(res, fwd_ms=fwd_ms, bwd_ms=bwd_ms, plain_fwd_ms=plain_fwd_ms,
-                  plain_bwd_ms=plain_bwd_ms, lib_fwd_ms=lib_fwd_ms,
-                  lib_bwd_ms=lib_bwd_ms, fwd_bound_ms=fwd_bound,
-                  bwd_bound_ms=bwd_bound)
+    entries = []
+    for name, key in (("warp", ""), ("block", ".block")):
+        for kind, err, tol, ms, plain_ms, b_ms, by, lib_ms in (
+                ("forward", "loss_abs_err", CTC_LOSS_RTOL,
+                 times[name]["fwd_ms"], plain_fwd_ms, fwd_bound, fwd_by,
+                 lib_fwd_ms),
+                ("backward", "grad_abs_err", CTC_LOSS_GRAD_RTOL,
+                 times[name]["bwd_ms"], plain_bwd_ms, bwd_bound, bwd_by,
+                 lib_bwd_ms)):
+            kname = f"ctc_loss_{kind}{key}"
+            entries.append(
+                {"name": kname, "route": "cuda", "source": src,
+                 "replaces": replaces, "launches": launches.get(kname, 0),
+                 "max_abs_err": max(r[name][err] for r in res.values()),
+                 "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms})
+    record = dict(res, times=times, long_labels=long_res,
+                  plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms,
+                  lib_fwd_ms=lib_fwd_ms, lib_bwd_ms=lib_bwd_ms,
+                  fwd_bound_ms=fwd_bound, bwd_bound_ms=bwd_bound, frames=t_max)
     return record, entries
+
+
+CTC_LONG_S = 300          # label positions past the warp route's 255
+
+
+def ctc_long_labels_check(torch, np, ctc_cuda, dev, logp):
+    """The block route on label rows only it takes: 8 of phase 32's
+    utterances (their first 400 frames), 300 seeded labels each (label
+    lengths 150-300, so some cannot fit), against the plain twins."""
+    rng = np.random.default_rng(32)
+    b, t, S = 8, 400, CTC_LONG_S
+    lp = logp[:b, :t].contiguous()
+    C = lp.shape[2]
+    labels = torch.from_numpy(rng.integers(1, C, (b, S))).to(dev)
+    x_lens = torch.full((b,), t, dtype=torch.int64, device=dev)
+    y_lens = torch.from_numpy(rng.integers(S // 2, S + 1, b)).to(dev)
+    grad = torch.full((b,), 1.0 / b, device=dev)
+    if ctc_cuda.ctc_route(S, C) != "block":
+        fail(f"[ctc loss] S={S} does not take the block route")
+    want, want_states = ctc_cuda.ctc_loss_forward_reference(
+        lp, labels, x_lens, y_lens)
+    want_g = ctc_cuda.ctc_loss_backward_reference(
+        lp, labels, x_lens, y_lens, want_states, grad)
+    loss, states = ctc_cuda.ctc_loss_forward(lp, labels, x_lens, y_lens)
+    g = ctc_cuda.ctc_loss_backward(lp, labels, x_lens, y_lens, states, grad)
+    torch.cuda.synchronize()
+    out = dict(S=S, loss_rel_err=float(((loss - want).abs()
+                                         / want.abs()).max()),
+               grad_err=float((g - want_g).abs().max()
+                              / want_g.abs().max()))
+    if not (bool(torch.isfinite(loss).all())
+            and bool(torch.isfinite(g).all())
+            and out["loss_rel_err"] <= CTC_LOSS_RTOL
+            and out["grad_err"] <= CTC_LOSS_GRAD_RTOL):
+        fail(f"[ctc loss S={S}] the block route against plain: {out} "
+             f"(tolerances {CTC_LOSS_RTOL}, {CTC_LOSS_GRAD_RTOL})")
+    return out
 
 
 # ---------------------------------------------------------------------------

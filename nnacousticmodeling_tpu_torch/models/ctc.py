@@ -26,7 +26,9 @@ version; no length is read back to the host.
 (as ``jax.jit`` keeps one program per shape); on the card it runs
 through the training engine's ``_Updates``, so the step's second call
 captures it as a CUDA graph and every later call is one replay, as the
-JAX step is one jitted program.
+JAX step is one jitted program. The graphs of one step function share
+one memory pool, so the device memory they hold is about the largest
+shape's, not the sum over shapes.
 """
 
 from __future__ import annotations
@@ -147,9 +149,11 @@ class _StepProgram:
     the two length vectors, the labels and the loss, and ``_Updates``
     over a function of them (on the card the second call captures it,
     every later call replays it; elsewhere each call is a direct
-    call)."""
+    call). ``pool``: the graph memory pool shared with the step
+    function's other shapes (``_capture_update``'s; None: its own)."""
 
-    def __init__(self, model, opt, xs, labels, generator, graph: bool):
+    def __init__(self, model, opt, xs, labels, generator, graph: bool,
+                 pool=None):
         dev = model.device
         b = xs.shape[0]
         self.xs = torch.empty(xs.shape, dtype=xs.dtype, device=dev)
@@ -174,7 +178,8 @@ class _StepProgram:
 
         self.updates = _Updates(
             body, () if generator is None else generator,
-            _stage_tensors(model, opt), graph, caller="make_ctc_train_step")
+            _stage_tensors(model, opt), graph, caller="make_ctc_train_step",
+            pool=pool)
 
     def __call__(self, xs, x_lens, labels, y_lens, generator):
         if generator is not self.generator:
@@ -208,9 +213,20 @@ def make_ctc_train_step(model: BiRNNCTC, opt: torch.optim.Optimizer,
     captures the step as a CUDA graph with ``generator`` registered, and
     every later call replays it; a failed capture or replay raises, and
     so does a later call of that shape with another generator. The loss
-    is a device scalar (no synchronisation)."""
+    is a device scalar (no synchronisation).
+
+    The shapes' graphs take their memory from one pool: they never replay
+    at once, and each replay writes its temporaries before it reads them,
+    so one shape's replay may overwrite another's. The gradients are made
+    inside the captured step (``zero_grad(set_to_none=True)``), so after
+    a replay ``param.grad`` holds the last captured shape's buffers, which
+    a later replay of another shape may have overwritten: read gradients
+    only after a direct call. Memory stays near the largest shape's need
+    when the largest shape is captured first; a shape captured after
+    smaller ones cannot reuse their blocks, which stay reserved."""
     programs: Dict[tuple, _StepProgram] = {}
     graph = cuda_graph and model.device.type == "cuda"
+    pool = torch.cuda.graph_pool_handle() if graph else None
 
     def step(xs, x_lens, labels, y_lens, generator=None):
         xs, labels = torch.as_tensor(xs), torch.as_tensor(labels)
@@ -218,7 +234,7 @@ def make_ctc_train_step(model: BiRNNCTC, opt: torch.optim.Optimizer,
         prog = programs.get(key)
         if prog is None:
             prog = programs[key] = _StepProgram(model, opt, xs, labels,
-                                                generator, graph)
+                                                generator, graph, pool)
         return prog(xs, x_lens, labels, y_lens, generator)
 
     return step

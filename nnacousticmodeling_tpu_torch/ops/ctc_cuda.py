@@ -33,8 +33,12 @@ log-probability 0 (optax's one-hot of it is zero).
   ``csrc/ctc_loss.cu`` (the loss and the lattice's states; the gradient
   with respect to the log-probabilities by the adjoint recursion, summed
   in a fixed order), bound by ``per_sequence_loss``'s
-  ``torch.autograd.Function`` on CUDA tensors. ``*_reference`` are their
-  plain twins (same outputs).
+  ``torch.autograd.Function`` on CUDA tensors. Two routes give the same
+  bits: one warp an utterance (label rows up to ``WARP_MAX_LABELS``),
+  and one block an utterance (longer rows, or ``route="block"``), counted
+  apart in ``kernels.launches`` (``ctc_loss_forward`` /
+  ``ctc_loss_forward.block``). ``*_reference`` are their plain twins
+  (same outputs).
 
 Lengths and labels become device tensors once; nothing is read back to
 the host, so the loss can be captured in a CUDA graph.
@@ -43,7 +47,7 @@ the host, so the loss can be captured in a CUDA graph.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -162,6 +166,12 @@ def ctc_loss_backward_reference(logprobs, labels, logit_lengths,
 
 # ---- the kernels -----------------------------------------------------------
 
+#: the warp route's limits (``csrc/ctc_loss.cu``: K = 8 slots of a lane,
+#: WARP_MAX_CLASSES); longer label rows or more classes take the block
+#: route
+WARP_MAX_LABELS = 255
+WARP_MAX_CLASSES = 4096
+
 _FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
     ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
@@ -170,11 +180,28 @@ _BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
 
 def _lib():
     lib = kernels.load("ctc_loss")
-    lib.ctc_loss_forward.argtypes = _FWD_ARGTYPES
-    lib.ctc_loss_forward.restype = ctypes.c_int
-    lib.ctc_loss_backward.argtypes = _BWD_ARGTYPES
-    lib.ctc_loss_backward.restype = ctypes.c_int
+    for route in ("warp", "block"):
+        for entry, argtypes in (("forward", _FWD_ARGTYPES),
+                                ("backward", _BWD_ARGTYPES)):
+            fn = getattr(lib, f"ctc_loss_{entry}_{route}")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
+
+
+def ctc_route(S: int, C: int, route: Optional[str] = None) -> str:
+    """The route of a launch over S labels and C classes: ``"warp"`` (one
+    warp an utterance) where S <= ``WARP_MAX_LABELS`` and C <=
+    ``WARP_MAX_CLASSES``, else ``"block"`` (one block an utterance);
+    ``route="block"`` forces the block route (tests and chip_smoke.py).
+    Both give the same bits."""
+    if route is None:
+        return ("warp" if S <= WARP_MAX_LABELS and C <= WARP_MAX_CLASSES
+                else "block")
+    if route == "block":
+        return route
+    raise ValueError(f"ctc loss: route must be None or 'block', got "
+                     f"{route!r}")
 
 
 def _check_inputs(name, logprobs, labels, logit_lengths, label_lengths):
@@ -208,11 +235,18 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _counted(name, route):
+    """``kernels.launches``' key of a launch: the warp route under the
+    kernel's name, the block route apart (``name.block``)."""
+    return name if route == "warp" else f"{name}.block"
+
+
 def ctc_loss_forward(logprobs: torch.Tensor, labels: torch.Tensor,
                      logit_lengths: torch.Tensor,
-                     label_lengths: torch.Tensor
+                     label_lengths: torch.Tensor, route: Optional[str] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """CUDA kernel wrapper (``csrc/ctc_loss.cu``, one block an
+    """CUDA kernel wrapper (``csrc/ctc_loss.cu``; ``ctc_route`` picks one
+    warp or, with ``route="block"`` or long label rows, one block an
     utterance): (loss (B,), states (B, T, 2S+1)), the states written for
     the frames before each utterance's length."""
     name = "ctc_loss_forward"
@@ -220,33 +254,36 @@ def ctc_loss_forward(logprobs: torch.Tensor, labels: torch.Tensor,
                                           logit_lengths, label_lengths)
     B, T, C = logprobs.shape
     S = lab.shape[1]
+    route = ctc_route(S, C, route)
     dev = logprobs.device
     loss = torch.empty((B,), dtype=torch.float32, device=dev)
     states = torch.empty((B, T, 2 * S + 1), dtype=torch.float32, device=dev)
     if B == 0:
         return loss, states
-    status = _lib().ctc_loss_forward(
+    status = getattr(_lib(), f"ctc_loss_forward_{route}")(
         logprobs.data_ptr(), lab.data_ptr(), lens.data_ptr(),
         label_lens.data_ptr(), loss.data_ptr(), states.data_ptr(), B, T, C,
         S, _stream(dev))
-    kernels.check(status, name)
-    kernels.launches[name] += 1
+    kernels.check(status, _counted(name, route))
+    kernels.launches[_counted(name, route)] += 1
     return loss, states
 
 
 def ctc_loss_backward(logprobs: torch.Tensor, labels: torch.Tensor,
                       logit_lengths: torch.Tensor,
                       label_lengths: torch.Tensor, states: torch.Tensor,
-                      grad: torch.Tensor) -> torch.Tensor:
-    """CUDA kernel wrapper (``csrc/ctc_loss.cu``, one block an
-    utterance): d(sum grad * loss) / dlogprobs (B, T, C), zero on padded
-    frames, from ``ctc_loss_forward``'s states; deterministic (no
-    atomics)."""
+                      grad: torch.Tensor, route: Optional[str] = None
+                      ) -> torch.Tensor:
+    """CUDA kernel wrapper (``csrc/ctc_loss.cu``, routes as
+    ``ctc_loss_forward``'s; either route reads either's states):
+    d(sum grad * loss) / dlogprobs (B, T, C), zero on padded frames, from
+    ``ctc_loss_forward``'s states; deterministic (no atomics)."""
     name = "ctc_loss_backward"
     lab, lens, label_lens = _check_inputs(name, logprobs, labels,
                                           logit_lengths, label_lengths)
     B, T, C = logprobs.shape
     S = lab.shape[1]
+    route = ctc_route(S, C, route)
     dev = logprobs.device
     if (states.dtype != torch.float32 or states.device != dev
             or tuple(states.shape) != (B, T, 2 * S + 1)
@@ -257,12 +294,12 @@ def ctc_loss_backward(logprobs: torch.Tensor, labels: torch.Tensor,
     dlogprobs = torch.empty_like(logprobs)
     if B == 0:
         return dlogprobs
-    status = _lib().ctc_loss_backward(
+    status = getattr(_lib(), f"ctc_loss_backward_{route}")(
         logprobs.data_ptr(), lab.data_ptr(), lens.data_ptr(),
         label_lens.data_ptr(), states.data_ptr(), grad.data_ptr(),
         dlogprobs.data_ptr(), B, T, C, S, _stream(dev))
-    kernels.check(status, name)
-    kernels.launches[name] += 1
+    kernels.check(status, _counted(name, route))
+    kernels.launches[_counted(name, route)] += 1
     return dlogprobs
 
 

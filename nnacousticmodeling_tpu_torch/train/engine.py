@@ -347,19 +347,23 @@ def _record(step_no, losses, accs, loss, acc) -> None:
     step_no.add_(1)
 
 
-def _capture_update(step, generator):
+def _capture_update(step, generator, pool=None):
     """Capture one call of ``step`` into a CUDA graph, with ``generator``
     (the dropout and zoneout masks'; or a sequence of them, one a fold)
     registered, so that each replay draws fresh masks, those the direct
-    call would draw. Returns the graph and the kernel launches one replay
-    makes (the wrapper calls made under capture launch nothing and leave
+    call would draw. ``pool`` (a ``torch.cuda.graph_pool_handle()``)
+    makes the graph take its memory from a pool that other graphs share,
+    where they never replay at once and each writes its temporaries
+    before reading them; by default the graph has a pool of its own.
+    Returns the graph and the kernel launches one replay makes (the
+    wrapper calls made under capture launch nothing and leave
     ``kernels.launches`` as it was)."""
     g = torch.cuda.CUDAGraph()
     for gen in ([generator] if isinstance(generator, torch.Generator)
                 else generator):
         g.register_generator_state(gen)
     with kernels.capturing() as launched:
-        with torch.cuda.graph(g):
+        with torch.cuda.graph(g, pool=pool):
             step()
     return g, launched
 
@@ -381,13 +385,15 @@ class _Updates:
     ``begin_epoch`` raises if one of them was replaced since the capture
     (a ``Parameter`` rebound by ``load_state_dict(assign=True)`` would
     leave the graph training the old tensor). ``caller`` names the
-    training function in the errors raised."""
+    training function in the errors raised; ``pool`` is
+    ``_capture_update``'s (None: the graph's own)."""
 
     def __init__(self, step, generator, tensors, graph: bool,
-                 caller: str = "train_network"):
+                 caller: str = "train_network", pool=None):
         self.step, self.generator, self.tensors = step, generator, tensors
         self.use_graph = graph
         self.caller = caller
+        self.pool = pool
         self.warm = False
         self.graph = None
         self.launched = None
@@ -405,8 +411,9 @@ class _Updates:
     def __call__(self) -> None:
         if self.use_graph and self.warm and self.graph is None:
             try:
-                self.graph, self.launched = _capture_update(self.step,
-                                                            self.generator)
+                shared = {} if self.pool is None else {"pool": self.pool}
+                self.graph, self.launched = _capture_update(
+                    self.step, self.generator, **shared)
             except Exception as e:
                 raise RuntimeError(
                     f"{self.caller}: capturing the update as a CUDA graph "

@@ -63,6 +63,8 @@ CASES = {
                    [2, 2, 4, 0], [3, 2, 3, 3]),
     # padding equal to the last label (optax's repeat mask reads it)
     "pad_equals_last_label": (6, [[2, 3, 3], [1, 1, 1]], [6, 4], [2, 1]),
+    # labels outside [0, C): log-probability 0 (optax's one-hot is zero)
+    "out_of_range_label": (7, [[1, C + 2, 2], [3, -1, 4]], [7, 6], [3, 3]),
 }
 
 
@@ -153,11 +155,72 @@ def _lae(a, b):
     return np.float32(m + np.log1p(np.exp(-np.abs(np.float32(a - b)))))
 
 
-def _kernel_model(logp, labels, x_lens, y_lens, grad):
+def _threads_for(S):
+    """``csrc/ctc_loss.cu``'s block size: the least power of two >= S+1,
+    at least 32, at most 256."""
+    n = 32
+    while n < S + 1 and n < 256:
+        n *= 2
+    return n
+
+
+def _blank_sum(part, S, route):
+    """The blank gradient of a frame from each position's ``gq + gz``
+    (``part``, S+1 values), in the kernel's order: ``"block"`` a tree
+    over ``nt = _threads_for(S)`` threads in shared memory (thread n
+    holds 0 + part[n]); ``"warp"`` the same tree with position n in lane
+    n % 32, slot n // 32: the strides of 32 and more within a lane, then
+    ``__shfl_down_sync`` by 16 .. 1 (a lane past the warp reads its own
+    value)."""
+    f32 = np.float32
+    nt = _threads_for(S)
+    red = np.zeros(nt, f32)
+    for n in range(S + 1):
+        red[n] = f32(f32(0.0) + part[n])
+    if route == "block":
+        off = nt // 2
+        while off > 0:
+            for tid in range(off):
+                red[tid] = f32(red[tid] + red[tid + off])
+            off //= 2
+        return red[0]
+    k = nt // 32
+    lanes = red.reshape(k, 32).T.copy()              # [lane, slot]
+    h = k // 2
+    while h >= 1:
+        for j in range(h):
+            lanes[:, j] = (lanes[:, j] + lanes[:, j + h]).astype(f32)
+        h //= 2
+    v = lanes[:, 0].copy()
+    for off in (16, 8, 4, 2, 1):
+        src = np.array([v[l + off] if l + off < 32 else v[l]
+                        for l in range(32)], f32)
+        v = (v + src).astype(f32)
+    return v[0]
+
+
+def _class_chains(lab, C):
+    """``csrc/ctc_loss.cu``'s warp-route tables over the label positions
+    ``lab`` (those before the label length): head[k], the first position
+    naming class k, and nxt[n], the next one (-1: none)."""
+    head, nxt = [-1] * C, [-1] * len(lab)
+    for n in range(len(lab) - 1, -1, -1):
+        if lab[n] >= 0:
+            nxt[n] = head[lab[n]]
+            head[lab[n]] = n
+    return head, nxt
+
+
+def _kernel_model(logp, labels, x_lens, y_lens, grad, route="block"):
     """numpy transcription of ``csrc/ctc_loss.cu``, per utterance and
     lattice position as the kernels run (float32): the forward's states
     and loss, then the backward's adjoint from the seed at the last
-    frame down, its blank sum and its class sums in the kernel's order."""
+    frame down, its blank sum (``_blank_sum``) and its class sums in the
+    route's order: ``"block"`` walks every label position for each class,
+    ``"warp"`` follows the class's chain (``_class_chains``) over the
+    positions before the label length (the rest have a +0 gradient), and
+    takes a frame's last two logaddexps from the state after the frame
+    where the block route recomputes them."""
     f32 = np.float32
     eps = f32(ctc_cuda.LOG_EPSILON)
     B, T, Cn = logp.shape
@@ -173,6 +236,7 @@ def _kernel_model(logp, labels, x_lens, y_lens, grad):
         e_norep = [eps * (f32(1.0) - r) for r in rep]
         n_t = min(max(int(x_lens[b]), 0), T)
         L = min(max(int(y_lens[b]), 0), S)
+        head, nxt = _class_chains(lab[:L], Cn)
         phi = [f32(0.0)] + [eps] * S
         em = [eps] * S
         states = [(phi, em)]
@@ -206,11 +270,12 @@ def _kernel_model(logp, labels, x_lens, y_lens, grad):
             gE[L - 1] = g * np.exp(em[L - 1] - o)
         for t in range(n_t - 1, -1, -1):
             P, E = states[t]
+            after = states[t + 1]
             row = logp[b, t]
             lb = row[0]
             gP_prev, gY, gle = [None] * (S + 1), [None] * S, [None] * S
             gZ, gA = [f32(0.0)] * (S + 2), [f32(0.0)] * (S + 2)
-            glb = f32(0.0)
+            part = [None] * (S + 1)
             for n in range(S + 1):
                 p = P[n]
                 pp, a = p, None
@@ -221,14 +286,14 @@ def _kernel_model(logp, labels, x_lens, y_lens, grad):
                 gq, gz = gP[n], f32(0.0)
                 if n > 0:
                     z = f32(f32(E[n - 1] + lb) + e_norep[n - 1])
-                    o = _lae(q, z)
+                    o = _lae(q, z) if route == "block" else after[0][n]
                     gq = f32(gP[n] * np.exp(q - o))
                     gz = f32(gP[n] * np.exp(z - o))
                 gpp = gq
                 if n < S:
                     le = row[lab[n]] if lab[n] >= 0 else f32(0.0)
                     x, yv = f32(pp + le), f32(E[n] + le)
-                    o = _lae(x, yv)
+                    o = _lae(x, yv) if route == "block" else after[1][n]
                     gx = f32(gE[n] * np.exp(x - o))
                     gy = f32(gE[n] * np.exp(yv - o))
                     gpp = f32(gpp + gx)
@@ -240,35 +305,123 @@ def _kernel_model(logp, labels, x_lens, y_lens, grad):
                     ga = f32(gpp * np.exp(a - pp))
                 gP_prev[n] = gp
                 gZ[n], gA[n] = gz, ga
-                glb = f32(glb + f32(gq + gz))
+                part[n] = f32(gq + gz)
+            glb = _blank_sum(part, S, route)
             gP = gP_prev
-            gE = [f32(gY[n] + gZ[n + 1] + gA[n + 1]) for n in range(S)] + [
-                f32(0.0)]
+            gE = [f32(f32(gY[n] + gZ[n + 1]) + gA[n + 1])
+                  for n in range(S)] + [f32(0.0)]
             for k in range(Cn):
                 v = glb if k == 0 else f32(0.0)
-                for n in range(S):
-                    if lab[n] == k:
+                if route == "block":
+                    for n in range(S):
+                        if lab[n] == k:
+                            v = f32(v + gle[n])
+                else:
+                    n = head[k]
+                    while n >= 0:
                         v = f32(v + gle[n])
+                        n = nxt[n]
                 dlp[b, t, k] = v
     return loss, dlp
 
 
-@pytest.mark.parametrize("name", ["repeats", "right_padded_frames",
-                                  "infeasible", "pad_equals_last_label"])
-def test_kernel_recursions_match_autograd(name):
-    """The kernels' forward and adjoint recursions, transcribed to numpy,
-    against the plain version's loss and autograd's gradient."""
-    logits, labels, x_lens, y_lens = _case(name, seed=3)
+def _wide_case(seed=4):
+    """Label rows of S=40 (a 64-thread block, two slots a lane) from 9
+    classes, so repeats and long class chains occur, with padded frames,
+    an infeasible row and an out-of-range label."""
+    rng = np.random.default_rng(seed)
+    b, t, s = 3, 60, 40
+    logits = (2.0 * rng.standard_normal((b, t, C + 3))).astype(np.float32)
+    labels = rng.integers(1, C + 3, (b, s)).astype(np.int32)
+    labels[1, 5] = C + 3                         # out of range
+    return (logits, labels, np.array([60, 47, 30], np.int32),
+            np.array([40, 33, 38], np.int32))
+
+
+MODEL_CASES = ["repeats", "right_padded_frames", "infeasible",
+               "pad_equals_last_label", "out_of_range_label", "wide"]
+
+
+def _model_case(name):
+    if name == "wide":
+        logits, labels, x_lens, y_lens = _wide_case()
+    else:
+        logits, labels, x_lens, y_lens = _case(name, seed=3)
     logp = F.log_softmax(torch.from_numpy(logits), dim=-1)
     grad = np.linspace(0.25, 1.5, len(labels)).astype(np.float32)
+    return logp, labels, x_lens, y_lens, grad
+
+
+@pytest.mark.parametrize("name", MODEL_CASES)
+def test_kernel_recursions_match_autograd(name):
+    """The kernels' forward and adjoint recursions, transcribed to numpy
+    (the block route's orders), against the plain version's loss and
+    autograd's gradient."""
+    logp, labels, x_lens, y_lens, grad = _model_case(name)
     loss, dlp = _kernel_model(logp.numpy(), labels, x_lens, y_lens, grad)
     lp = logp.clone().requires_grad_(True)
     want = ctc_cuda.ctc_loss_reference(lp, labels, x_lens, y_lens)
     (want * torch.from_numpy(grad)).sum().backward()
     np.testing.assert_allclose(loss, want.detach().numpy(), rtol=LOSS_RTOL)
     np.testing.assert_allclose(dlp, lp.grad.numpy(), atol=GRAD_ATOL, rtol=0)
-    assert (dlp[np.arange(logits.shape[1])[None, :]
+    assert (dlp[np.arange(logp.shape[1])[None, :]
                 >= x_lens[:, None]] == 0).all()
+
+
+@pytest.mark.parametrize("name", MODEL_CASES)
+def test_warp_route_recursions_equal_block_route(name):
+    """The warp route's transcription (class sums along the chains, the
+    blank sum in lanes and shuffles) gives the block route's bits, and so
+    autograd's gradient within the same tolerance."""
+    logp, labels, x_lens, y_lens, grad = _model_case(name)
+    args = (logp.numpy(), labels, x_lens, y_lens, grad)
+    loss, dlp = _kernel_model(*args, route="warp")
+    want_loss, want_dlp = _kernel_model(*args, route="block")
+    assert np.array_equal(loss, want_loss)
+    assert np.array_equal(dlp, want_dlp)
+    lp = logp.clone().requires_grad_(True)
+    (ctc_cuda.ctc_loss_reference(lp, labels, x_lens, y_lens)
+     * torch.from_numpy(grad)).sum().backward()
+    np.testing.assert_allclose(dlp, lp.grad.numpy(), atol=GRAD_ATOL, rtol=0)
+
+
+def test_blank_sum_orders_and_class_chains():
+    """The warp route's blank sum is the block route's tree, bit for bit,
+    at every block size (S+1 from 1 to 256), and not the sequential sum;
+    the class chains list each class's positions in order of n."""
+    rng = np.random.default_rng(6)
+    seq_differs = False
+    for S in (0, 1, 30, 31, 32, 33, 63, 64, 100, 127, 128, 200, 255):
+        part = (rng.standard_normal(S + 1) * 10.0 ** rng.uniform(
+            -3, 3, S + 1)).astype(np.float32)
+        block = _blank_sum(part, S, "block")
+        assert _blank_sum(part, S, "warp").tobytes() == block.tobytes(), S
+        seq = np.float32(0.0)
+        for v in part:
+            seq = np.float32(seq + v)
+        seq_differs |= seq != block
+    assert seq_differs
+    lab = [3, 1, 3, -1, 0, 3, 1, 0]
+    head, nxt = _class_chains(lab, 5)
+    for k in range(5):
+        chain, n = [], head[k]
+        while n >= 0:
+            chain.append(n)
+            n = nxt[n]
+        assert chain == [n for n, v in enumerate(lab) if v == k], k
+
+
+def test_route_rule():
+    """One warp an utterance up to 255 labels and 4096 classes, else one
+    block; ``route="block"`` forces the block route; nothing else is a
+    route."""
+    assert ctc_cuda.ctc_route(50, 49) == "warp"
+    assert ctc_cuda.ctc_route(255, 4096) == "warp"
+    assert ctc_cuda.ctc_route(256, 49) == "block"
+    assert ctc_cuda.ctc_route(50, 4097) == "block"
+    assert ctc_cuda.ctc_route(50, 49, "block") == "block"
+    with pytest.raises(ValueError, match="route must be"):
+        ctc_cuda.ctc_route(50, 49, "warp")
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -392,3 +545,35 @@ def test_step_program_captures_once_and_pins_its_generator(monkeypatch):
     with pytest.raises(ValueError, match="another generator"):
         prog(torch.from_numpy(xs), x_lens, torch.from_numpy(labels), y_lens,
              torch.Generator().manual_seed(0))
+
+
+def test_interleaved_shapes_match_jax_step_call_for_call():
+    """``make_ctc_train_step`` through three input shapes in an
+    interleaved order (A, B, A, C, B, C): each loss within the file's
+    rtol of the JAX jitted step's on the same call, and the params after
+    the six updates within its atol."""
+    jm, params, pm = _pair()
+    xs, x_lens, labels, y_lens = _infeasible_batch()
+    shapes = {"A": (17, 5), "B": (13, 4), "C": (9, 3)}
+    batches = {}
+    for key, (t, s) in shapes.items():
+        batches[key] = (xs[:, :t], np.minimum(x_lens, t), labels[:, :s],
+                        np.minimum(y_lens, s))
+    opt = j_make_optimizer("adam", 1e-3)
+    opt_state = opt.init(params)
+    j_step = j_make_step(jm, opt)
+    step = make_ctc_train_step(pm, make_optimizer("adam", 1e-3,
+                                                  pm.parameters()))
+    for key in "ABACBC":
+        x, xl, y, yl = batches[key]
+        params, opt_state, j_loss = j_step(
+            params, opt_state, jnp.asarray(x), jnp.asarray(xl),
+            jnp.asarray(y), jnp.asarray(yl), None)
+        loss = step(torch.from_numpy(np.ascontiguousarray(x)), xl, y, yl)
+        np.testing.assert_allclose(float(loss), float(j_loss), rtol=1e-5,
+                                   err_msg=key)
+    got = pm.state_dict()
+    for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
+        key = _path_str(path).replace("/", ".")
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(leaf),
+                                   atol=1e-4, rtol=0, err_msg=key)

@@ -1420,23 +1420,37 @@ def _ctc_case(b, t, c, s, seed, device):
             torch.from_numpy(y_lens).to(device))
 
 
-@pytest.mark.parametrize("b,t,c,s", [(6, 17, 6, 5), (8, 60, 49, 48),
-                                     (6, 400, 12, 300), (4, 3, 4, 1)])
-def test_ctc_loss_kernels_match_plain(cuda, b, t, c, s):
+# label rows around the warp route's slot edges (S+1 = 32, 33, 64, 65,
+# 256: one, two, four and eight slots a lane), S = 300, which only the
+# block route takes, and B = 300, more utterances than an H100's 132 SMs,
+# so the warp route runs several warps a block
+CTC_KERNEL_CASES = [(6, 17, 6, 5), (8, 60, 49, 48), (6, 400, 12, 300),
+                    (4, 3, 4, 1), (6, 40, 12, 31), (6, 40, 12, 32),
+                    (6, 90, 20, 63), (6, 90, 20, 64), (5, 300, 49, 255),
+                    (300, 20, 12, 10)]
+
+
+@pytest.mark.parametrize("route", [None, "block"])
+@pytest.mark.parametrize("b,t,c,s", CTC_KERNEL_CASES)
+def test_ctc_loss_kernels_match_plain(cuda, b, t, c, s, route):
     logp, labels, x_lens, y_lens = _ctc_case(b, t, c, s, 0, cuda)
     grad = torch.linspace(0.5, 1.5, b, device=cuda)
     want, want_states = ctc_cuda.ctc_loss_forward_reference(
         logp, labels, x_lens, y_lens)
     want_g = ctc_cuda.ctc_loss_backward_reference(
         logp, labels, x_lens, y_lens, want_states, grad)
+    kernels.reset_launches()
     runs = []
     for _ in range(2):
         loss, states = ctc_cuda.ctc_loss_forward(logp, labels, x_lens,
-                                                 y_lens)
+                                                 y_lens, route=route)
         g = ctc_cuda.ctc_loss_backward(logp, labels, x_lens, y_lens, states,
-                                       grad)
+                                       grad, route=route)
         runs.append((loss, g))
     torch.cuda.synchronize()
+    suffix = "" if ctc_cuda.ctc_route(s, c, route) == "warp" else ".block"
+    assert kernels.launches == {"ctc_loss_forward" + suffix: 2,
+                                "ctc_loss_backward" + suffix: 2}
     loss, g = runs[0]
     assert torch.isfinite(loss).all() and torch.isfinite(g).all()
     torch.testing.assert_close(loss, want, rtol=CTC_LOSS_RTOL, atol=0)
@@ -1449,6 +1463,31 @@ def test_ctc_loss_kernels_match_plain(cuda, b, t, c, s):
     assert torch.equal(runs[1][0], loss) and torch.equal(runs[1][1], g)
     if b > 4:
         assert loss[3] > 1e4
+
+
+@pytest.mark.parametrize("b,t,c,s", [k for k in CTC_KERNEL_CASES
+                                     if k[3] <= 255])   # the warp route's
+def test_ctc_loss_warp_route_equals_block_route(cuda, b, t, c, s):
+    """The warp route (one warp an utterance) gives the block route's
+    bits: loss, the states of the valid frames, the gradient; each
+    route's backward on the other's states too."""
+    logp, labels, x_lens, y_lens = _ctc_case(b, t, c, s, 1, cuda)
+    grad = torch.linspace(-1.0, 2.0, b, device=cuda)
+    loss, states = ctc_cuda.ctc_loss_forward(logp, labels, x_lens, y_lens)
+    b_loss, b_states = ctc_cuda.ctc_loss_forward(logp, labels, x_lens,
+                                                 y_lens, route="block")
+    g = ctc_cuda.ctc_loss_backward(logp, labels, x_lens, y_lens, states,
+                                   grad)
+    b_g = ctc_cuda.ctc_loss_backward(logp, labels, x_lens, y_lens, b_states,
+                                     grad, route="block")
+    cross = ctc_cuda.ctc_loss_backward(logp, labels, x_lens, y_lens,
+                                       b_states, grad)
+    torch.cuda.synchronize()
+    valid = (torch.arange(t, device=cuda)[None, :]
+             < x_lens.clamp(max=t)[:, None])
+    assert torch.equal(loss, b_loss)
+    assert torch.equal(states[valid], b_states[valid])
+    assert torch.equal(g, b_g) and torch.equal(cross, g)
 
 
 def test_ctc_loss_on_the_card_is_optax_not_inf(cuda):
@@ -1534,6 +1573,82 @@ def test_ctc_graph_steps_equal_direct_calls(cuda, dropout):
     assert got_l["lstm_train_forward"] == 4 * 2 * 2
     with pytest.raises(ValueError, match="another generator"):
         step(*batch, torch.Generator(device=cuda).manual_seed(7))
+
+
+# Six (T, S) shapes of one CTC step function, largest first, stepped in an
+# interleaved order: each shape's first call is direct, its second
+# captures, the rest replay.
+CTC_SHAPES = {"A": (400, 20), "B": (370, 19), "C": (340, 18),
+              "D": (310, 17), "E": (280, 16), "F": (250, 15)}
+CTC_ORDER = "ABACBDCEDFEFABCDEF"
+
+
+def _ctc_shapes_run(device, cuda_graph, order):
+    """``make_ctc_train_step`` over an LSTM 2x256 at B=32 through
+    ``order`` (keys of CTC_SHAPES): the losses, the final params and the
+    reserved bytes after each shape's second call (its capture)."""
+    from nnacousticmodeling_tpu_torch.models import get_network
+    from nnacousticmodeling_tpu_torch.models.ctc import (
+        BiRNNCTC, make_ctc_train_step)
+    from nnacousticmodeling_tpu_torch.train import make_optimizer
+    rng = np.random.default_rng(3)
+    xs = torch.from_numpy(rng.standard_normal((32, 400, 12)).astype(
+        np.float32)).to(device)
+    x_lens = rng.integers(200, 401, 32)
+    labels = rng.integers(1, 6, (32, 20))
+    y_lens = rng.integers(10, 21, 32)
+    model = BiRNNCTC(get_network("lstm", 2, [256], 1, in_dim=12,
+                                 dropout=[0.2], scan_impl="pallas",
+                                 device=device, seed=5), 5, seed=5)
+    step = make_ctc_train_step(model, make_optimizer(
+        "adam", 1e-3, model.parameters()), cuda_graph=cuda_graph)
+    gen = torch.Generator(device=device).manual_seed(9)
+    losses, reserved, calls = [], [], {}
+    for key in order:
+        t, s = CTC_SHAPES[key]
+        losses.append(step(xs[:, :t], np.minimum(x_lens, t), labels[:, :s],
+                           np.minimum(y_lens, s), gen))
+        calls[key] = calls.get(key, 0) + 1
+        if calls[key] == 2:
+            torch.cuda.synchronize()
+            reserved.append(torch.cuda.memory_reserved(device))
+    params = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    return torch.stack(losses).cpu(), params, reserved
+
+
+def test_ctc_step_graphs_share_one_memory_pool(cuda):
+    """The graphs of one CTC step function share one memory pool: after
+    six shapes' captures (largest first, interleaved), the memory the run
+    reserved is within 1.25x of what the largest shape alone reserved
+    (each graph with a pool of its own held about one more largest
+    shape's activations a shape)."""
+    import gc
+
+    def reserved_by(order):
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_reserved(cuda)
+        _, _, reserved = _ctc_shapes_run(cuda, True, order)
+        return [r - base for r in reserved]
+
+    alone = reserved_by("AAA")[-1]
+    six = reserved_by(CTC_ORDER)
+    assert len(six) == 6 and alone > 0
+    assert six[-1] <= 1.25 * alone, (
+        f"reserved after each capture {[r / 2**20 for r in six]} MiB, the "
+        f"largest shape alone {alone / 2**20} MiB")
+
+
+def test_ctc_step_graphs_interleaved_equal_direct_calls(cuda):
+    """Six shapes stepped in an interleaved order by graph replay (one
+    shared pool) against the same calls made directly: losses and params
+    bit-equal, so no replay read memory that another shape's replay
+    overwrote."""
+    got, got_p, _ = _ctc_shapes_run(cuda, True, CTC_ORDER)
+    want, want_p, _ = _ctc_shapes_run(cuda, False, CTC_ORDER)
+    assert torch.isfinite(got).all() and torch.equal(got, want)
+    for name, v in want_p.items():
+        assert torch.equal(got_p[name], v), name
 
 
 # ---- the training update as one CUDA graph ----------------------------------
