@@ -31,12 +31,14 @@ Phases (each one that fails ends the run with a non-zero exit):
    tolerance, and the plain Viterbi's decode (plain forward and plain
    backtrace) of the kernel run's posteriors must give identical
    segments and PER. Then ``viterbi_backtrace`` against its plain walk
-   on the collapsed rows of phase 5's posteriors in one 512-frame batch:
-   segs (padding included) and counts bit-equal, the segments phase 5's;
-   its ms with L2 flushed and warm, the plain walk's ms, the bound; the
-   same on rows of posteriors that favour each frame's target pdf,
-   whose walks have a trained model's length (the random net decodes an
-   utterance to one or two segments);
+   on the collapsed rows of phase 5's posteriors in one 512-frame batch,
+   on the route its rule picks (tables in shared memory) and on the
+   global route: segs (padding included) and counts bit-equal, the
+   segments phase 5's; each route's ms with L2 flushed and warm, the
+   plain walk's ms, the bound; the same on rows of posteriors that
+   favour each frame's target pdf, whose walks have a trained model's
+   length (the random net decodes an utterance to one or two segments),
+   and microseconds a hop as the slope between the two row sets;
 6. a profiled repeat of the slice: device busy share and top device ops;
    ``lstm_scan`` must have run as one device kernel a layer, the decode
    as ``collapsed_viterbi_cluster_kernel`` and never as the
@@ -135,7 +137,9 @@ Phases (each one that fails ends the run with a non-zero exit):
     beam, on both routes as phase 4: packed rows and end scores
     bit-equal within lengths, a second call bit-identical, each route's
     ms and microseconds a frame; ``viterbi_backtrace`` bit-equal to its
-    plain walk on the cube rows of both images;
+    plain walk on the cube rows of both images on both routes (the
+    lane-map table staged as int16, and read from device memory), each
+    timed on the regular image's rows;
 23. the decoder's backends on phase 5's LSTM posteriors: ``pallas``
     launches the cube kernel and the backtrace, ``xla`` the backtrace
     and no Viterbi forward kernel, and both give phase 5's segments and
@@ -144,8 +148,9 @@ Phases (each one that fails ends the run with a non-zero exit):
     untied-transition 48-phone 1909-pdf image, which decodes every
     utterance; decode-stage ms and audio-s/s of each route; on that
     untied image and phase 4's inputs the cube scan twin and the general
-    one give the same bits, and each is timed; ``viterbi_backtrace``
-    bit-equal to its plain walk on the scan twin's rows;
+    one give the same bits, and each is timed, the cube twin also by its
+    device time under the profiler; ``viterbi_backtrace`` bit-equal to
+    its plain walk on the scan twin's rows on both routes, each timed;
 24. the ``fbank`` kernel against its plain version on one seeded
     waveform as long as the test set's audio, with both mel conventions,
     within 1e-3 in the log domain, its frames entry bit-equal to its
@@ -341,6 +346,8 @@ ROOT = Path(__file__).resolve().parent
 
 # card peaks used for the bounds (H100 SXM data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
+#: torch.cuda._sleep's spin before a timed loop of short launches (~5 ms)
+SLEEP_CYCLES = 10 ** 7
 BF16_TENSOR_FLOPS = 989e12
 F32_FLOPS = 67e12
 
@@ -1956,6 +1963,42 @@ def peephole_phases(torch, np, dev, card, corpus, dec, lp_lstm, report):
     ]
 
 
+def random_lp(torch, np, dev):
+    """Phase 4's inputs, the rows of phases 4, 22 and 23: (B_MAIN,
+    T_MAIN, CLASSES) log posteriors drawn from a flat Dirichlet (seed 1)
+    and lengths 320-479."""
+    rng = np.random.default_rng(1)
+    lens = rng.integers(int(0.8 * 400), int(1.2 * 400), B_MAIN
+                        ).astype(np.int32)
+    lp = torch.from_numpy(np.log(rng.dirichlet(
+        np.ones(CLASSES), size=(B_MAIN, T_MAIN))).astype(np.float32)).to(dev)
+    return lp, torch.from_numpy(lens).to(dev)
+
+
+def padded_lp(torch, frame_lp, offsets):
+    """Frame rows (frames, CLASSES) of the utterances at ``offsets`` in one
+    (utterances, T_MAIN, CLASSES) batch, zero past each length."""
+    lengths = offsets[1:] - offsets[:-1]
+    out = torch.zeros((len(lengths), T_MAIN, frame_lp.shape[1]),
+                      device=frame_lp.device)
+    for u, (o, n) in enumerate(zip(offsets, lengths)):
+        out[u, :n] = frame_lp[o:o + n]
+    return out
+
+
+def target_lp(torch, np, dev, corpus):
+    """The test set's target rows, padded as ``padded_lp``: log
+    posteriors that favour each frame's target pdf (seeded noise). The
+    random net decodes an utterance to one or two segments; these give
+    walks of a trained model's length (40-50 segments)."""
+    targets = torch.from_numpy(corpus.test.targets.astype(np.int64)).to(dev)
+    logits = torch.randn((len(targets), CLASSES), device=dev,
+                         generator=torch.Generator(dev).manual_seed(5))
+    logits[torch.arange(len(targets), device=dev), targets] += 6.0
+    return padded_lp(torch, torch.log_softmax(logits, dim=1),
+                     corpus.test.offsets)
+
+
 def irregular_ends(img):
     """``img`` with the end biphone of phone p at (p, (p+1) mod P): no
     common end right context, so the collapsed kernel refuses it."""
@@ -2068,58 +2111,75 @@ def plain_viterbi():
 def backtrace_check(torch, tables, packed, end, lens, pack, tag, card,
                     timed=False):
     """Phases 5, 22, 23: the backtrace kernel against its plain walk on
-    the same card tensors, segs (padding included) and counts bit-equal.
-    With ``timed``: the kernel's ms with the L2 cache flushed before each
-    launch (CUDA events around each launch, queued behind the flush; the
-    decode runs it right after a forward that wrote far more than L2
-    holds) and with L2 warm (device time under the profiler: back to
-    back, a launch is shorter than its Python call), the plain walk's
-    ms, and the bound: the bytes of the zeroed segs, the
-    counts, the lengths, each walked utterance's last end row and end-map
-    entry, and per hop (the hops these rows need) one packed entry and
-    one table entry; its ~20 integer operations a hop over the float32
-    rate. Returns a dict."""
+    the same card tensors, segs (padding included) and counts bit-equal,
+    on every route the tables can take (``backtrace_routes``: the
+    collapsed modes' one, the lane map's two; the rule's pick first).
+    With ``timed``, for each route: the kernel's ms with the L2 cache
+    flushed before each launch (CUDA events around each launch, queued
+    behind the flush, all queued while the card sleeps; the decode runs
+    it right after a forward that wrote far more than L2 holds) and with
+    L2 warm (device time under the profiler: back to back, a launch is
+    shorter than its Python call); the plain walk's ms, and the bound:
+    the bytes of the zeroed segs, the counts, the lengths, each walked
+    utterance's last end row and end-map entry, and per hop (the hops
+    these rows need) one packed entry and one table entry; its ~20
+    integer operations a hop over the float32 rate. Returns a dict (the
+    picked route's times as ``ms`` and ``warm_ms``; where the rule picks
+    another, the global route's as ``global_ms`` and
+    ``global_warm_ms``)."""
     from nnacousticmodeling_tpu_torch.decoder import viterbi_backtrace as vbt
     args = (tables, packed, end, lens, pack)
     want = vbt.viterbi_backtrace_reference(*args)
-    got = vbt.viterbi_backtrace(*args)
-    torch.cuda.synchronize()
-    if got[0].dtype != want[0].dtype or got[1].dtype != want[1].dtype:
-        fail(f"[backtrace {tag}] dtypes {got[0].dtype}, {got[1].dtype}, "
-             f"the plain walk's {want[0].dtype}, {want[1].dtype}")
-    bad_rows = int((got[0] != want[0]).any(dim=2).sum())
-    bad_counts = int((got[1] != want[1]).sum())
-    if bad_rows or bad_counts:
-        fail(f"[backtrace {tag}] the kernel differs from the plain walk: "
-             f"{bad_rows} segs rows, {bad_counts} counts")
+    route = vbt.backtrace_route(tables)
+    routes = vbt.backtrace_routes(tables)
+    err = 0.0
+    for r in routes:
+        got = vbt.viterbi_backtrace(*args, route=r)
+        torch.cuda.synchronize()
+        if got[0].dtype != want[0].dtype or got[1].dtype != want[1].dtype:
+            fail(f"[backtrace {tag}] dtypes {got[0].dtype}, {got[1].dtype}, "
+                 f"the plain walk's {want[0].dtype}, {want[1].dtype}")
+        bad_rows = int((got[0] != want[0]).any(dim=2).sum())
+        bad_counts = int((got[1] != want[1]).sum())
+        if bad_rows or bad_counts:
+            fail(f"[backtrace {tag}] the kernel's {r} route differs from the "
+                 f"plain walk: {bad_rows} segs rows, {bad_counts} counts")
+        err = max(err, float(max(int((got[0] - want[0]).abs().max()),
+                                 int((got[1] - want[1]).abs().max()))))
     U, T, _ = packed.shape
     E = end.shape[2]
     hops = int(want[1].sum())
     walked = int((lens > 0).sum())
-    err = float(max(int((got[0] - want[0]).abs().max()),
-                    int((got[1] - want[1]).abs().max())))
     out = dict(err=err, hops=hops, longest_walk=int(want[1].max()),
-               utterances=U, frames=T)
+               utterances=U, frames=T, route=route)
     msg = (f"[backtrace {tag}] U={U} T={T}: kernel = plain walk bit for "
-           f"bit (segs with padding, counts), {hops} hops (longest walk "
-           f"{out['longest_walk']})")
+           f"bit (segs with padding, counts) on the {' and '.join(routes)} "
+           f"route{'s' if len(routes) > 1 else ''} ({route} picked), {hops} "
+           f"hops (longest walk {out['longest_walk']})")
     if timed:
         flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8,
                             device=packed.device)
-        vbt.viterbi_backtrace(*args)
-        pairs = []
-        for _ in range(20):
-            flush.zero_()
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            vbt.viterbi_backtrace(*args)
-            stop.record()
-            pairs.append((start, stop))
-        torch.cuda.synchronize()
-        ms = sum(a.elapsed_time(b) for a, b in pairs) / len(pairs)
+        times = {}
+        for r in routes:
+            vbt.viterbi_backtrace(*args, route=r)
+            # the card sleeps while the host queues every launch, so no
+            # host time between a flush and its launch is timed
+            torch.cuda._sleep(SLEEP_CYCLES)
+            pairs = []
+            for _ in range(20):
+                flush.zero_()
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                vbt.viterbi_backtrace(*args, route=r)
+                stop.record()
+                pairs.append((start, stop))
+            torch.cuda.synchronize()
+            times[r] = (sum(a.elapsed_time(b) for a, b in pairs) / len(pairs),
+                        device_ms(torch, lambda r=r: vbt.viterbi_backtrace(
+                            *args, route=r), 20))
         del flush
-        warm_ms = device_ms(torch, lambda: vbt.viterbi_backtrace(*args), 20)
+        ms, warm_ms = times[route]
         plain_ms = cuda_ms(torch, lambda: vbt.viterbi_backtrace_reference(
             *args), 1, warm=False)
         nbytes = 12 * U * T + 8 * U + 4 * U + (4 * E + 4) * walked + 8 * hops
@@ -2127,12 +2187,31 @@ def backtrace_check(torch, tables, packed, end, lens, pack, tag, card,
         out.update(ms=ms, warm_ms=warm_ms, plain_ms=plain_ms, bound_ms=b_ms,
                    bound_by=by, bytes=nbytes,
                    us_hop=ms * 1e3 / max(out["longest_walk"], 1))
-        msg += (f"; kernel {ms:.4f} ms L2 flushed, {warm_ms:.4f} ms L2 warm "
-                f"({out['us_hop']:.2f} us a hop of the longest walk), plain "
-                f"walk {plain_ms:.3f} ms, bound {b_ms:.5f} ms ({by}, "
-                f"{nbytes} bytes)")
+        if "global" in times and route != "global":
+            out.update(global_ms=times["global"][0],
+                       global_warm_ms=times["global"][1])
+        msg += "; " + ", ".join(
+            f"{r} route {a:.4f} ms L2 flushed, {b:.4f} ms L2 warm"
+            for r, (a, b) in times.items())
+        msg += (f" ({out['us_hop']:.2f} us a hop of the longest walk, "
+                f"{route} flushed), plain walk {plain_ms:.3f} ms, bound "
+                f"{b_ms:.5f} ms ({by}, {nbytes} bytes)")
     log(msg + f" [{card}]")
     return out
+
+
+def hop_slope(short, long_, tag, card):
+    """Microseconds a hop as the slope of the kernel's time between two
+    row sets of one shape whose longest walks differ (flushed, warm)."""
+    hops = long_["longest_walk"] - short["longest_walk"]
+    slope = {k: (long_[k] - short[k]) * 1e3 / hops if hops > 0 else None
+             for k in ("ms", "warm_ms")}
+    if hops > 0:
+        log(f"[backtrace {tag}] {slope['ms']:.3f} us a hop L2 flushed, "
+            f"{slope['warm_ms']:.3f} us warm: the slope over "
+            f"{short['longest_walk']} -> {long_['longest_walk']} hops of the "
+            f"longest walk [{card}]")
+    return slope
 
 
 def timed_decode(torch, dec, lp, offsets):
@@ -2317,8 +2396,21 @@ def decoder_audio_phases(torch, np, dev, card, img, corpus, lp_rand, lens,
         cube[tag]["backtrace"] = backtrace_check(
             torch, d._bt_cube, packed, end, lens,
             d._time_pack_for(lp_rand.shape[1]), f"phase 22 cube {tag} rows",
-            card)
+            card, timed=tag == "exact")
         del packed, end
+    # walks of a trained model's length through the cube kernel's rows
+    lp_tgt = target_lp(torch, np, dev, corpus)
+    lens_tgt = torch.from_numpy(lengths.astype(np.int32)).to(dev)
+    d = decs["exact"]
+    packed, end = d._pallas_fwd.forward(lp_tgt, lens_tgt)
+    bt_tgt = backtrace_check(
+        torch, d._bt_cube, packed, end, lens_tgt,
+        d._time_pack_for(lp_tgt.shape[1]), "phase 22 cube exact target rows",
+        card, timed=True)
+    bt_tgt["hop_us"] = hop_slope(cube["exact"]["backtrace"], bt_tgt,
+                                 "phase 22 cube", card)
+    cube["exact"]["backtrace_target_rows"] = bt_tgt
+    del packed, end
     cv = decs["exact"]._pallas_fwd
     frames = int(lens.sum())
     cells = frames * cv.PS * cv.B
@@ -2390,14 +2482,24 @@ def decoder_audio_phases(torch, np, dev, card, img, corpus, lp_rand, lens,
                 twin_ms[tag] = cuda_ms(
                     torch, lambda: auto_untied._forward_scan(lp_rand), 1,
                     warm=False)
+        # the cube twin's device time: one profiled call (after a warm-up)
+        twin_ms["cube device"] = profiled_calls(
+            torch, lambda: auto_untied._forward_scan(lp_rand), 1)[0]
         twin_bt = backtrace_check(
             torch, auto_untied._bt_scan, *twins["cube"], lens,
             auto_untied._time_pack_for(lp_rand.shape[1]),
-            "phase 23 scan-twin rows", card)
+            "phase 23 scan-twin rows", card, timed=True)
         if not all(torch.equal(a, b) for a, b in zip(twins["cube"],
                                                      twins["general"])):
             fail("the cube and general scan twins differ on the untied image")
         del twins
+        twin_bt["target_rows"] = backtrace_check(
+            torch, auto_untied._bt_scan, *auto_untied._forward_scan(lp_tgt),
+            lens_tgt, auto_untied._time_pack_for(lp_tgt.shape[1]),
+            "phase 23 scan-twin target rows", card, timed=True)
+        twin_bt["target_rows"]["hop_us"] = hop_slope(
+            twin_bt, twin_bt["target_rows"], "phase 23 scan twin", card)
+    del lp_tgt
     log("[backends] phase 5's posteriors, " + "; ".join(
         f"{k}: decode {v['decode_ms']:.1f} ms, {v['audio_s_per_s']:.1f} "
         f"audio-s/s" for k, v in routes.items())
@@ -2405,8 +2507,10 @@ def decoder_audio_phases(torch, np, dev, card, img, corpus, lp_rand, lens,
         f"auto picks pallas on the irregular-end image, xla on the untied "
         f"one [{card}]")
     log(f"[scan twins] untied image, phase 4's inputs: cube twin "
-        f"{twin_ms['cube']:.1f} ms, general twin {twin_ms['general']:.1f} "
-        f"ms, bit-equal [{card}]")
+        f"{twin_ms['cube']:.1f} ms ({twin_ms['cube device']:.1f} ms device, "
+        f"{100 * twin_ms['cube device'] / twin_ms['cube']:.1f} % of its "
+        f"wall), general twin {twin_ms['general']:.1f} ms, bit-equal "
+        f"[{card}]")
     phase_done(23)
 
     # ---- 24. the fbank kernel against its plain version ----------------
@@ -5046,12 +5150,7 @@ def main():
     log(f"[viterbi] image P={img.num_phones} S={img.num_states} "
         f"triphones={img.num_triphones}: Pp={ck.Pp} L={ck.L} PS={ck.PS} "
         f"(host precompute {time.perf_counter() - t0:.1f} s)")
-    rng = np.random.default_rng(1)
-    lens_np = rng.integers(int(0.8 * 400), int(1.2 * 400), B_MAIN
-                           ).astype(np.int32)
-    lp_rand = torch.from_numpy(np.log(rng.dirichlet(
-        np.ones(CLASSES), size=(B_MAIN, T_MAIN))).astype(np.float32)).to(dev)
-    lens = torch.from_numpy(lens_np).to(dev)
+    lp_rand, lens = random_lp(torch, np, dev)
     vit = {tag: viterbi_routes(
         torch, d._collapsed_fwd, vc.collapsed_viterbi_forward,
         vc.collapsed_viterbi_reference, vc.collapsed_cluster_capacity,
@@ -5149,14 +5248,8 @@ def main():
     # ---- 5. the backtrace kernel on phase 5's collapsed rows -----------
     # the posteriors in one T_MAIN-frame batch (phase 36's shape)
     lens5 = torch.from_numpy(lengths.astype(np.int32)).to(dev)
-
-    def collapsed_rows(frame_lp):
-        lp_pad = torch.zeros((len(lengths), T_MAIN, CLASSES), device=dev)
-        for u, (o, n) in enumerate(zip(offsets, lengths)):
-            lp_pad[u, :n] = frame_lp[o:o + n]
-        return dec._collapsed_fwd.forward(lp_pad, lens5)
-
-    packed5, end5 = collapsed_rows(torch.from_numpy(lp).to(dev))
+    packed5, end5 = dec._collapsed_fwd.forward(
+        padded_lp(torch, torch.from_numpy(lp).to(dev), offsets), lens5)
     bt = backtrace_check(torch, dec._bt_collapsed, packed5, end5, lens5,
                          dec._collapsed_fwd.pack, "phase 5 collapsed rows",
                          card, timed=True)
@@ -5166,19 +5259,13 @@ def main():
         fail("the backtrace kernel on phase 5's rows in one batch gives "
              "other segments than phase 5's decode")
     del packed5, end5, segs5, counts5
-    # the random net decodes an utterance to one or two segments; walks of
-    # a trained model's length come from posteriors that favour each
-    # frame's target pdf (seeded noise)
-    targets = torch.from_numpy(corpus.test.targets.astype(np.int64)).to(dev)
-    logits = torch.randn((len(targets), CLASSES), device=dev,
-                         generator=torch.Generator(dev).manual_seed(5))
-    logits[torch.arange(len(targets), device=dev), targets] += 6.0
-    packed5, end5 = collapsed_rows(torch.log_softmax(logits, dim=1))
-    del logits, targets
+    packed5, end5 = dec._collapsed_fwd.forward(
+        target_lp(torch, np, dev, corpus), lens5)
     bt_long = backtrace_check(torch, dec._bt_collapsed, packed5, end5,
                               lens5, dec._collapsed_fwd.pack,
                               "phase 5 target rows", card, timed=True)
     del packed5, end5
+    bt_long["hop_us"] = hop_slope(bt, bt_long, "phase 5", card)
 
     # ---- 6. where the time goes: the main path once more, profiled ------
     def serve():

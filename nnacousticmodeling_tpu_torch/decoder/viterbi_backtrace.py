@@ -17,23 +17,35 @@ cube kernel's and the scan twins' rows) or ``a* * pack + t_entry + 1``
 ``phone_recog.cpp:224-244``. Results: segs (U, T, 3) int32 [begin,
 end, triphone] from index 0 = LAST segment, zero past the count, and
 counts (U,) int64.
+
+The kernel unpacks with a shift and a mask, so ``pack`` must be a power
+of two (``pack_shift``; the decoder makes no other kind, and the plain
+version stays general). It stages the collapsed modes' tables in shared
+memory once a block. The lane map has two routes, one counter
+(``viterbi_backtrace``): ``shared`` stages an int16 copy of its table
+where it fits (P <= 48), ``global`` reads the int32 table from device
+memory; ``backtrace_route`` picks.
 """
 
 from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from .. import kernels
+from ..ops.rnn_cuda import SMEM_LIMIT
 
 #: walk modes (the kernel's ``mode`` argument)
 LANES, COLLAPSED_BAC, COLLAPSED_ABC = 0, 1, 2
 #: the plain version's host check for finished walks, once per this many
 #: hops (with ``early_exit``)
 _BACKTRACE_SYNC_EVERY = 16
+#: the kernel's routes (its ``route`` argument); the collapsed modes take
+#: ``shared`` only
+ROUTES = {"shared": 0, "global": 1}
 
 
 @dataclass(frozen=True)
@@ -42,7 +54,9 @@ class BacktraceTables:
     end phone -> lane (lane-map mode) or biphone (collapsed modes);
     ``step_map``: triphone -> predecessor lane (lane-map mode) or
     biphone -> collapsed lane (``bi2lane``). The int64 tables index the
-    plain walk; ``end_map32`` / ``step_map32`` are the kernel's copies."""
+    plain walk; ``end_map32`` / ``step_map32`` are the kernel's copies,
+    and ``step_map16`` the lane-map table as int16 for the shared route
+    (None in collapsed modes and where a value does not fit int16)."""
 
     mode: int
     num_phones: int
@@ -50,14 +64,60 @@ class BacktraceTables:
     step_map: torch.Tensor
     end_map32: torch.Tensor
     step_map32: torch.Tensor
+    step_map16: Optional[torch.Tensor] = None
 
 
 def backtrace_tables(mode: int, num_phones: int, end_map: torch.Tensor,
                      step_map: torch.Tensor) -> BacktraceTables:
+    step16 = None
+    if (mode == LANES and step_map.numel()
+            and int(step_map.min()) >= -2 ** 15
+            and int(step_map.max()) < 2 ** 15):
+        step16 = step_map.to(torch.int16).contiguous()
     return BacktraceTables(
         mode, num_phones, end_map, step_map,
         end_map.to(torch.int32).contiguous(),
-        step_map.to(torch.int32).contiguous())
+        step_map.to(torch.int32).contiguous(), step16)
+
+
+def pack_shift(pack: int) -> int:
+    """log2 of the pack factor, which the kernel unpacks with a shift and
+    a mask: a power of two from 1 to 2**30 (``ViterbiDecoder._grow_pack``
+    makes no other kind). ValueError otherwise."""
+    pack = int(pack)
+    if not 0 < pack < 2 ** 31 or pack & (pack - 1):
+        raise ValueError(f"viterbi_backtrace: pack factor {pack} is not a "
+                         f"power of two below 2**31")
+    return pack.bit_length() - 1
+
+
+def shared_table_bytes(tables: BacktraceTables) -> Optional[int]:
+    """Shared memory the shared route stages (end_map, 16-byte aligned,
+    then the step table), or None where it has no table to stage."""
+    step = (tables.step_map16 if tables.mode == LANES
+            else tables.step_map32)
+    if step is None:
+        return None
+    end = -(-4 * tables.end_map32.numel() // 16) * 16
+    return end + step.numel() * step.element_size()
+
+
+def backtrace_route(tables: BacktraceTables) -> str:
+    """``shared`` for the collapsed modes, and for a lane map whose int16
+    copy fits a block's shared memory; else ``global``."""
+    if tables.mode != LANES:
+        return "shared"
+    need = shared_table_bytes(tables)
+    return "shared" if need is not None and need <= SMEM_LIMIT else "global"
+
+
+def backtrace_routes(tables: BacktraceTables) -> Tuple[str, ...]:
+    """Every route a walk of these tables can take: the collapsed modes'
+    one, the lane map's ``global`` and, where its table fits,
+    ``shared``."""
+    if tables.mode != LANES:
+        return ("shared",)
+    return tuple(dict.fromkeys((backtrace_route(tables), "global")))
 
 
 def backtrace(tables: BacktraceTables, packed: torch.Tensor,
@@ -143,7 +203,8 @@ def viterbi_backtrace_reference(tables: BacktraceTables,
     return segs, k
 
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+             + [ctypes.c_void_p])
 
 
 def _lib():
@@ -155,10 +216,14 @@ def _lib():
 
 def viterbi_backtrace(tables: BacktraceTables, packed: torch.Tensor,
                       end_scores: torch.Tensor, lengths: torch.Tensor,
-                      pack: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                      pack: int, route: Optional[str] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """CUDA kernel wrapper (``csrc/viterbi_backtrace.cu``): one warp an
     utterance zeroes its segs row, takes the first max of its last end
-    row and walks. One launch, no host check, no synchronisation."""
+    row and walks, one dependent load of ``packed`` a hop. ``route``:
+    ``backtrace_route``'s pick unless given; the decoder never gives it,
+    the card tests and the benchmarks force each of ``backtrace_routes``.
+    One launch, no host check, no synchronisation."""
     name = "viterbi_backtrace"
     if packed.device.type != "cuda":
         raise ValueError(f"{name}: packed on {packed.device}, needs a CUDA "
@@ -182,8 +247,26 @@ def viterbi_backtrace(tables: BacktraceTables, packed: torch.Tensor,
     if lengths.shape != (U,) or lengths.is_floating_point():
         raise ValueError(f"{name}: lengths must be {U} integers, got "
                          f"{lengths.dtype} {tuple(lengths.shape)}")
-    if not 0 < pack < 2 ** 31:
-        raise ValueError(f"{name}: pack factor {pack} out of range")
+    shift = pack_shift(pack)
+    P = tables.num_phones
+    M = tables.step_map32.numel()
+    if tables.mode != LANES and M != P * P:
+        raise ValueError(f"{name}: a collapsed walk's table holds P*P = "
+                         f"{P * P} biphones, got {M}")
+    route = backtrace_route(tables) if route is None else route
+    if route not in ROUTES:
+        raise ValueError(f"{name}: unknown route {route!r}; one of "
+                         f"{sorted(ROUTES)}")
+    if tables.mode != LANES and route != "shared":
+        raise ValueError(f"{name}: a collapsed walk's tables sit in shared "
+                         f"memory; no {route!r} route")
+    if route == "shared":
+        need = shared_table_bytes(tables)
+        if need is None or need > SMEM_LIMIT:
+            raise ValueError(f"{name}: the tables do not fit the shared "
+                             f"route ({need} bytes, limit {SMEM_LIMIT})")
+    step = (tables.step_map16 if route == "shared" and tables.mode == LANES
+            else tables.step_map32)
     lens = lengths.to(device=dev, dtype=torch.int32).contiguous()
     segs = torch.empty((U, T, 3), dtype=torch.int32, device=dev)
     counts = torch.empty((U,), dtype=torch.int64, device=dev)
@@ -192,10 +275,9 @@ def viterbi_backtrace(tables: BacktraceTables, packed: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = _lib().viterbi_backtrace(
         packed.data_ptr(), end_scores.data_ptr(), lens.data_ptr(),
-        tables.end_map32.data_ptr(), tables.step_map32.data_ptr(),
-        segs.data_ptr(), counts.data_ptr(), U, T, L, E,
-        tables.step_map32.numel(), tables.num_phones, int(pack),
-        tables.mode, stream)
+        tables.end_map32.data_ptr(), step.data_ptr(), segs.data_ptr(),
+        counts.data_ptr(), U, T, L, E, M, P, shift, tables.mode,
+        ROUTES[route], stream)
     kernels.check(status, name)
     kernels.launches[name] += 1
     return segs, counts

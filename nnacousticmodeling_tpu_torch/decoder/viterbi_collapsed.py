@@ -46,6 +46,7 @@ import torch
 
 from .. import kernels
 from ..ops.rnn_cuda import SMEM_LIMIT
+from ..utils.device import resolve_device
 
 NEG_INF = -1.0e20
 TIME_PACK = 2048
@@ -166,7 +167,7 @@ class CollapsedViterbi:
     """
 
     def __init__(self, image, cube_order: str, pip: float, lmw: float,
-                 beam=None, pack: int = TIME_PACK, device="cpu"):
+                 beam=None, pack: int = TIME_PACK, device="cuda"):
         P = image.num_phones
         B = image.num_biphones
         cap = CAP
@@ -179,7 +180,7 @@ class CollapsedViterbi:
         self.PS = _ceil(P, 8)
         PS = self.PS
         self.cube_order = cube_order
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
         # --- cube views in (left, center, right) order ----------------
         def to_lcr(arr3):

@@ -11,8 +11,11 @@ forward produces (entry times at or after the hop's frame, ties in the
 last end row, lengths 0, 1, 2 and T, both cube orders, a pack factor
 above ``TIME_PACK``). The kernel's int32 tables must equal the plain
 walk's int64 ones (and the JAX decoder's), and CPU tensors never build
-or launch the kernel. The kernel itself is held to the plain walk on the
-card (``test_torch_cuda.py``).
+or launch the kernel. ``kernel_model``, the numpy transcription of the
+kernel's hop (``test_torch_backtrace_model.py``), must give the same bits
+on the same rows on each of the kernel's routes, pack factors 2048 to
+8192 included. The kernel itself is held to the plain walk on the card
+(``test_torch_cuda.py``).
 """
 
 import jax
@@ -31,6 +34,7 @@ from nnacousticmodeling_tpu_torch.decoder.viterbi import (
     ViterbiDecoder,
 )
 
+from test_torch_backtrace_model import kernel_model
 from test_torch_viterbi import _to_bac
 
 IMAGES = {
@@ -66,6 +70,24 @@ def _walk_both(port, ref, backend, packed, end, lens):
     return ([np.asarray(a) for a in got], [np.asarray(a) for a in want])
 
 
+def _tables_of(port, backend):
+    return {"collapsed": port._bt_collapsed, "pallas": port._bt_cube,
+            "xla": port._bt_scan}[backend]
+
+
+def _model_each_route(port, backend, packed, end, lens, pack, want):
+    """The kernel's numpy transcription on each route equals ``want``
+    (the collapsed modes' one; the lane map's two)."""
+    tables = _tables_of(port, backend)
+    assert vbt.backtrace_route(tables) == "shared"
+    routes = vbt.backtrace_routes(tables)
+    assert routes == (("shared", "global") if backend != "collapsed"
+                      else ("shared",))
+    for route in routes:
+        _assert_bit_equal(kernel_model(tables, packed, end, lens, pack,
+                                       route), want)
+
+
 def _assert_bit_equal(got, want):
     """segs whole (the zero padding past each count included), counts."""
     (segs, counts), (want_segs, want_counts) = got, want
@@ -99,6 +121,25 @@ def test_plain_walk_equals_jax_on_forward_rows(name, backend, beam):
     got, want = _walk_both(port, ref, backend, packed, end, lens)
     _assert_bit_equal(got, want)
     assert got[1][1] == 0 and (got[1][[0, 4, 5]] > 0).all()
+
+
+@pytest.mark.parametrize("backend", ["collapsed", "pallas", "xla"])
+@pytest.mark.parametrize("name", ["tied4_abc", "tied5_bac"])
+def test_kernel_model_equals_plain_and_jax_on_forward_rows(name, backend):
+    """The kernel's hop (shift and mask, the (b, c) carry, 32-bit tri, the
+    table of each route) on the forwards' own rows, beam or not."""
+    for beam in (None, 3.0):
+        img, port, ref = _pair(name, backend, beam)
+        rng = np.random.default_rng(len(name) + len(backend))
+        lens = np.asarray(LENGTHS, np.int32)
+        lp = np.log(rng.dirichlet(np.ones(img.num_states), size=(
+            len(lens), T_SHORT))).astype(np.float32)
+        packed, end = _forward_rows(port, backend, lp, lens)
+        got, want = _walk_both(port, ref, backend, packed, end, lens)
+        _assert_bit_equal(got, want)
+        pack = (port._collapsed_for_t(T_SHORT).pack if backend == "collapsed"
+                else port._time_pack_for(T_SHORT))
+        _model_each_route(port, backend, packed, end, lens, pack, want)
 
 
 def _adversarial_rows(rng, port, backend, t, lens):
@@ -152,6 +193,24 @@ def test_plain_walk_equals_jax_on_adversarial_rows(name, backend, seed):
 
 @pytest.mark.parametrize("backend", ["collapsed", "pallas", "xla"])
 @pytest.mark.parametrize("name", ["tied4_abc", "tied5_bac"])
+def test_kernel_model_equals_plain_and_jax_on_adversarial_rows(name,
+                                                                backend):
+    """Random predecessors, entries at or after their frame, ties in the
+    last end rows and NaN in some, lengths 0, 1, 2 and T."""
+    img, port, ref = _pair(name, backend)
+    for seed in (0, 1):
+        rng = np.random.default_rng(200 + 10 * seed + len(backend))
+        lens = np.asarray(LENGTHS, np.int32)
+        packed, end, pack = _adversarial_rows(rng, port, backend, T_SHORT,
+                                              lens)
+        end[2, lens[2] - 1, rng.integers(0, img.num_phones)] = np.nan
+        got, want = _walk_both(port, ref, backend, packed, end, lens)
+        _assert_bit_equal(got, want)
+        _model_each_route(port, backend, packed, end, lens, pack, want)
+
+
+@pytest.mark.parametrize("backend", ["collapsed", "pallas", "xla"])
+@pytest.mark.parametrize("name", ["tied4_abc", "tied5_bac"])
 def test_plain_walk_equals_jax_above_time_pack(name, backend):
     """T = 2100 frames: both packages grow the pack factor to 4096."""
     img, port, ref = _pair(name, backend)
@@ -162,6 +221,21 @@ def test_plain_walk_equals_jax_above_time_pack(name, backend):
     assert pack == 2 * TIME_PACK
     got, want = _walk_both(port, ref, backend, packed, end, lens)
     _assert_bit_equal(got, want)
+    _model_each_route(port, backend, packed, end, lens, pack, want)
+
+
+@pytest.mark.parametrize("backend", ["collapsed", "xla"])
+def test_kernel_model_equals_plain_and_jax_at_pack_8192(backend):
+    """T = 4100 frames: both packages grow the pack factor to 8192."""
+    img, port, ref = _pair("tied5_bac", backend)
+    t = 4100
+    rng = np.random.default_rng(81 + len(backend))
+    lens = np.asarray([t, 0, 1, 2, 4097], np.int32)
+    packed, end, pack = _adversarial_rows(rng, port, backend, t, lens)
+    assert pack == 4 * TIME_PACK
+    got, want = _walk_both(port, ref, backend, packed, end, lens)
+    _assert_bit_equal(got, want)
+    _model_each_route(port, backend, packed, end, lens, pack, want)
 
 
 @pytest.mark.parametrize("backend", ["collapsed", "pallas", "xla"])

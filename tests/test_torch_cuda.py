@@ -335,41 +335,53 @@ def _backtrace_tables(dec, backend):
             "xla": dec._bt_scan}[backend]
 
 
-def _check_backtrace_kernel(tables, packed, end, lens, pack):
+def _check_backtrace_kernel(tables, packed, end, lens, pack, routes=None):
     """The kernel (one launch, no synchronising call) against the plain
     walk on the same card tensors: segs bit-equal padding included,
-    counts equal. Returns the counts."""
+    counts equal, on the route the rule picks and on each of ``routes``
+    (default: every route the tables can take). Returns the counts."""
     from nnacousticmodeling_tpu_torch.decoder import viterbi_backtrace as vbt
     want = vbt.viterbi_backtrace_reference(tables, packed, end, lens, pack)
     torch.cuda.synchronize()
-    before = kernels.launches["viterbi_backtrace"]
-    try:
-        torch.cuda.set_sync_debug_mode("error")
-        got = vbt.backtrace(tables, packed, end, lens, pack)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    assert kernels.launches["viterbi_backtrace"] == before + 1
-    assert got[0].dtype == torch.int32 and got[1].dtype == torch.int64
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if routes is None:
+        routes = vbt.backtrace_routes(tables)
+    calls = [lambda: vbt.backtrace(tables, packed, end, lens, pack)] + [
+        (lambda r=r: vbt.viterbi_backtrace(tables, packed, end, lens, pack,
+                                           route=r)) for r in routes]
+    for call in calls:
+        before = kernels.launches["viterbi_backtrace"]
+        try:
+            torch.cuda.set_sync_debug_mode("error")
+            got = call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert kernels.launches["viterbi_backtrace"] == before + 1
+        assert got[0].dtype == torch.int32 and got[1].dtype == torch.int64
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     return got[1]
 
 
-@pytest.mark.parametrize("pack_t", [23, 2100])
+@pytest.mark.parametrize("num_phones,pack_t", [(8, 23), (8, 2100), (8, 4100),
+                                               (48, 23)])
 @pytest.mark.parametrize("backend", ["collapsed", "pallas", "xla"])
 @pytest.mark.parametrize("order", ["abc", "bac"])
 def test_backtrace_kernel_bit_equal_on_adversarial_rows(cuda, order, backend,
-                                                        pack_t):
+                                                        num_phones, pack_t):
     """Rows no forward makes: random predecessors, entry times at or after
-    their own frame (the guard), ties in every last end row, lengths 0, 1,
-    2 and T; both cube orders; T=2100 grows the pack factor to 4096."""
-    img = _viterbi_image(8)
+    their own frame (the guard), ties in every last end row and NaN in
+    one, lengths 0, 1, 2 and T; both cube orders; T=2100 and T=4100 grow
+    the pack factor to 4096 and 8192; at 48 phones the lane-map tables
+    (110,592 triphones: 216 KB as int16) and bi2lane at full size. Every
+    route (the lane map's two)."""
+    img = _viterbi_image(num_phones)
     if order == "bac":
         img = _to_bac(img)
     dec = ViterbiDecoder(img, pip=5.0, lmw=1.5, backend=backend, device=cuda)
     assert dec.backend == backend and dec._cube_order == order
     tables = _backtrace_tables(dec, backend)
-    rng = np.random.default_rng(len(order) * 10 + len(backend) + pack_t)
+    rng = np.random.default_rng(len(order) * 10 + len(backend) + pack_t
+                                + num_phones)
     t = pack_t
     if backend == "collapsed":
         pack, lanes, top = (dec._collapsed_for_t(t).pack,
@@ -377,7 +389,7 @@ def test_backtrace_kernel_bit_equal_on_adversarial_rows(cuda, order, backend,
     else:
         pack = dec._time_pack_for(t)
         lanes, top = img.num_biphones, img.num_triphones
-    assert pack == (2048 if t < 2047 else 4096)
+    assert pack == {23: 2048, 2100: 4096, 4100: 8192}[t]
     lens = np.array([t, 0, 1, 2] + list(rng.integers(0, t + 1, 5)),
                     np.int32)
     u = len(lens)
@@ -390,11 +402,80 @@ def test_backtrace_kernel_bit_equal_on_adversarial_rows(cuda, order, backend,
               + np.minimum(t_entry, pack - 2) + 1).astype(np.int32)
     end = rng.choice(np.asarray([-3.0, -1.5, -1.5], np.float32),
                      size=(u, t, img.num_phones))
+    end[4, max(lens[4] - 1, 0), rng.integers(0, img.num_phones)] = np.nan
     counts = _check_backtrace_kernel(
         tables, torch.from_numpy(packed).to(cuda),
         torch.from_numpy(end).to(cuda), torch.from_numpy(lens).to(cuda),
         pack)
     assert counts[1] == 0 and (counts[[0, 2, 3]] > 0).all()
+
+
+@pytest.mark.parametrize("pack", [2048, 4096, 8192])
+@pytest.mark.parametrize("mode,route", [
+    ("abc", "shared"), ("bac", "shared"), ("lanes", "shared"),
+    ("lanes", "global")])
+def test_backtrace_kernel_ends_walks_at_out_of_range_indices(cuda, mode,
+                                                             route, pack):
+    """Walks planted to end on what no forward makes (negative entries,
+    q < 0, q past its table, a tri past int32, a lane out of range) and
+    in range (the frame guard, frame 0): the kernel gives the plan's rows
+    and the numpy transcription's, bit for bit (the plain walk raises
+    or wraps on such indices)."""
+    from test_torch_backtrace_model import (
+        ENDINGS, MODES, _tables, kernel_model, planted_walks)
+    from nnacousticmodeling_tpu_torch.decoder import viterbi_backtrace as vbt
+    rng = np.random.default_rng(pack + len(mode))
+    P, L, T = (48, 64, 30) if mode == "abc" else (4, 10, 40)
+    tables = _tables(MODES[mode], P, L, rng, bad_lane=True)
+    lens = [T, 0, 1, 2] + [int(n) for n in rng.integers(3, T + 1, 12)]
+    ends = [ENDINGS[u % len(ENDINGS)] for u in range(len(lens))]
+    packed, end, segs, counts = planted_walks(tables, pack, T, L, lens,
+                                              ends, rng)
+    lens = np.asarray(lens, np.int32)
+    model = kernel_model(tables, packed, end, lens, pack, route)
+    np.testing.assert_array_equal(model[0], segs)
+    on = vbt.backtrace_tables(
+        tables.mode, P, tables.end_map.to(cuda), tables.step_map.to(cuda))
+    got = vbt.viterbi_backtrace(
+        on, torch.from_numpy(packed).to(cuda), torch.from_numpy(end).to(cuda),
+        torch.from_numpy(lens).to(cuda), pack, route=route)
+    np.testing.assert_array_equal(got[0].cpu().numpy(), segs)
+    np.testing.assert_array_equal(got[1].cpu().numpy(), counts)
+
+
+def test_backtrace_kernel_refuses_bad_packs_and_routes(cuda):
+    """A pack factor that is not a power of two raises before a launch,
+    as do the shared route for a table that does not fit (a 49-phone
+    lane map), the global route of a collapsed walk and an unknown
+    route."""
+    from nnacousticmodeling_tpu_torch.decoder import viterbi_backtrace as vbt
+    tables = vbt.backtrace_tables(
+        vbt.LANES, 49, torch.arange(49, device=cuda),
+        torch.arange(49 ** 3, device=cuda) % 2401)
+    assert vbt.backtrace_route(tables) == "global"
+    packed = torch.zeros((2, 4, 2401), dtype=torch.int32, device=cuda)
+    end = torch.zeros((2, 4, 49), device=cuda)
+    lens = torch.full((2,), 4, dtype=torch.int32, device=cuda)
+    before = kernels.launches["viterbi_backtrace"]
+    for pack in (3000, 0, 6144):
+        with pytest.raises(ValueError, match="power of two"):
+            vbt.viterbi_backtrace(tables, packed, end, lens, pack)
+    with pytest.raises(ValueError, match="shared route"):
+        vbt.viterbi_backtrace(tables, packed, end, lens, 2048,
+                              route="shared")
+    with pytest.raises(ValueError, match="unknown route"):
+        vbt.viterbi_backtrace(tables, packed, end, lens, 2048, route="smem")
+    bi = vbt.backtrace_tables(
+        vbt.COLLAPSED_ABC, 49, torch.arange(49, device=cuda),
+        torch.arange(49 ** 2, device=cuda) % 2401)
+    with pytest.raises(ValueError, match="no 'global' route"):
+        vbt.viterbi_backtrace(bi, packed, end, lens, 2048, route="global")
+    assert kernels.launches["viterbi_backtrace"] == before
+    segs, counts = vbt.viterbi_backtrace(tables, packed, end, lens, 2048)
+    assert kernels.launches["viterbi_backtrace"] == before + 1
+    # entry 0: t_new = -1 at the first hop, tri 0
+    assert counts.tolist() == [1, 1]
+    assert segs[:, 0].tolist() == [[0, 4, 0], [0, 4, 0]]
 
 
 @pytest.mark.parametrize("backend,num_phones,route", [

@@ -18,6 +18,9 @@ import torch
 import nnacousticmodeling_tpu_torch as port
 from nnacousticmodeling_tpu_torch.decoder.image import make_synthetic_image
 from nnacousticmodeling_tpu_torch.decoder.viterbi import ViterbiDecoder
+from nnacousticmodeling_tpu_torch.decoder.viterbi_collapsed import (
+    CollapsedViterbi,
+)
 from nnacousticmodeling_tpu_torch.decoder.viterbi_cube import CubeViterbi
 from nnacousticmodeling_tpu_torch.models import get_network, get_rpl
 from nnacousticmodeling_tpu_torch.parallel import (
@@ -124,6 +127,8 @@ def _entry_points(tmp_path):
         "ViterbiDecoder pallas": lambda: ViterbiDecoder(img,
                                                         backend="pallas"),
         "CubeViterbi": lambda: CubeViterbi(img, "abc", pip=-5.0, lmw=1.0),
+        "CollapsedViterbi": lambda: CollapsedViterbi(img, "abc", pip=-5.0,
+                                                     lmw=1.0),
         "fbank": lambda: fbank(np.zeros(800, np.float32)),
         "fbank_cuda": lambda: fbank_cuda(np.zeros(800, np.float32)),
         "mfcc": lambda: mfcc(np.zeros(800, np.float32)),
@@ -174,7 +179,8 @@ def _entry_points(tmp_path):
                                   "get_network ff", "get_network tdnn",
                                   "get_rpl",
                                   "ViterbiDecoder", "ViterbiDecoder pallas",
-                                  "CubeViterbi", "fbank", "fbank_cuda",
+                                  "CubeViterbi", "CollapsedViterbi",
+                                  "fbank", "fbank_cuda",
                                   "mfcc", "load_jax_params",
                                   "evaluate.main", "train_cli.main",
                                   "train_cli.main ff", "predict_folds.main",

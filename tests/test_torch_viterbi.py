@@ -26,6 +26,9 @@ from nnacousticmodeling_tpu.decoder.viterbi import (
 )
 from nnacousticmodeling_tpu_torch import kernels
 from nnacousticmodeling_tpu_torch.decoder.viterbi import ViterbiDecoder
+from nnacousticmodeling_tpu_torch.decoder.viterbi_collapsed import (
+    CollapsedViterbi,
+)
 
 
 def _to_bac(img: HmmImage) -> HmmImage:
@@ -151,3 +154,28 @@ def test_former_unported_paths_decode_to_jax_segments(case, backend,
     want = JaxDecoder(img, pip=5.0, backend="xla").decode_batch(lp, lens)
     assert [r.segments for r in port.decode_batch(lp, lens)] == \
         [r.segments for r in want]
+
+
+def test_collapsed_viterbi_runs_on_the_card_unless_asked(monkeypatch):
+    """With no device ``CollapsedViterbi`` takes the card, as
+    ``CubeViterbi`` and ``ViterbiDecoder`` do: without one it raises, and
+    with ``device="cpu"`` it decodes to the decoder's rows."""
+    img = make_synthetic_image(num_phones=4, num_states=14, seed=6,
+                               pdf_tied_transitions=True)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CollapsedViterbi(img, "abc", pip=-5.0, lmw=1.5)
+    cv = CollapsedViterbi(img, "abc", pip=-5.0, lmw=1.5, device="cpu")
+    assert cv.device == torch.device("cpu")
+    rng = np.random.default_rng(4)
+    lp, lens = _posteriors(rng, 3, 11, img.num_states)
+    lp_t, lens_t = torch.from_numpy(lp), torch.from_numpy(lens)
+    packed, end = cv.forward(lp_t, lens_t)
+    port = ViterbiDecoder(img, pip=5.0, lmw=1.5, device="cpu")
+    want_packed, want_end = port._collapsed_fwd.forward(lp_t, lens_t)
+    assert torch.equal(packed, want_packed) and torch.equal(end, want_end)
+    want = JaxDecoder(img, pip=5.0, lmw=1.5, backend="xla").decode_batch(
+        lp, lens)
+    segs, counts = port._collapsed_backtrace(packed, end, lens_t)
+    assert [r.segments for r in port._to_results(
+        segs.numpy(), counts.numpy())] == [r.segments for r in want]
