@@ -141,16 +141,24 @@ Phases (each one that fails ends the run with a non-zero exit):
     lane-map table staged as int16, and read from device memory), each
     timed on the regular image's rows;
 23. the decoder's backends on phase 5's LSTM posteriors: ``pallas``
-    launches the cube kernel and the backtrace, ``xla`` the backtrace
-    and no Viterbi forward kernel, and both give phase 5's segments and
-    PER;
+    launches the cube kernel and the backtrace, ``xla`` the
+    ``viterbi_scan_forward`` kernel and the backtrace, and both give
+    phase 5's segments and PER;
     ``auto`` picks ``pallas`` on the irregular-end copy and ``xla`` on an
     untied-transition 48-phone 1909-pdf image, which decodes every
-    utterance; decode-stage ms and audio-s/s of each route; on that
-    untied image and phase 4's inputs the cube scan twin and the general
-    one give the same bits, and each is timed, the cube twin also by its
-    device time under the profiler; ``viterbi_backtrace`` bit-equal to
-    its plain walk on the scan twin's rows on both routes, each timed;
+    utterance through the scan kernel; decode-stage ms and audio-s/s of
+    each route; on that untied image and phase 4's inputs the scan
+    kernel bit-equal to both plain twins (the cube twin and the general
+    one), and on a copy of 16 utterances with an all-NaN frame, a
+    half-NaN frame and a -inf frame to the general twin, without and
+    with a beam; on a non-cube 48-phone 1909-pdf image
+    (``full_context=False``) at phase 4's inputs to the general twin; the
+    kernel timed (CUDA events and device time) beside the cube twin (wall
+    and device time, once), the general twin (once) and its bounds: the
+    contract's (inputs read and outputs written once) and the floor of
+    its design (the DP state's 48 bytes a slot a frame in device memory);
+    ``viterbi_backtrace`` bit-equal to its plain walk on the scan
+    kernel's rows on both routes, each timed;
 24. the ``fbank`` kernel against its plain version on one seeded
     waveform as long as the test set's audio, with both mel conventions,
     within 1e-3 in the log domain, its frames entry bit-equal to its
@@ -290,13 +298,15 @@ Phases (each one that fails ends the run with a non-zero exit):
     layer, ``collapsed_viterbi_cluster_kernel`` alone and one
     ``viterbi_backtrace_kernel``; one ``decode_arrays_fn`` call launching
     the two decoder kernels once each in at most MAX_DECODE_OPS device
-    operations; ``decode_fn()``
-    (the scan twin) giving ``decode_batch``'s segments on the untied
-    image of phase 23 and phase 5's on the tied one. Logged: the bf16
-    segment parity flag (a record, as ``bench.py``'s), each program's
-    audio-s/s beside phase 5's, the profile's busy share and the device
-    operations, device time and host queue time of one
-    ``decode_arrays_fn`` call.
+    operations; ``decode_fn()`` (the scan kernel) launching
+    ``viterbi_scan_forward`` and ``viterbi_backtrace`` once each, in at
+    most MAX_DECODE_OPS device operations, and giving ``decode_batch``'s
+    segments on the untied image of phase 23 and phase 5's on the tied
+    one. Logged: the bf16 segment parity flag (a record, as
+    ``bench.py``'s), each program's audio-s/s beside phase 5's, the
+    profile's busy share and the device operations, device time and host
+    queue time of one ``decode_arrays_fn`` call and of one ``decode_fn``
+    call.
 37. every training update as one CUDA graph (``train_network``
     captures a stage's update after its first, direct-call update and
     replays it for every later one; every one-card, mesh-less
@@ -2094,12 +2104,15 @@ def route_entries(name, source, replaces, launches, res, bound_ms, by):
 
 @contextlib.contextmanager
 def plain_viterbi():
-    """The decoder's kernels replaced by their plain versions (both
+    """The decoder's kernels replaced by their plain versions (the three
     Viterbi forwards and the backtrace): a plain decode on the card."""
     from nnacousticmodeling_tpu_torch.decoder import viterbi_backtrace as vbt
     from nnacousticmodeling_tpu_torch.decoder import viterbi_collapsed as vc
     from nnacousticmodeling_tpu_torch.decoder import viterbi_cube as vcube
-    with mock.patch.object(vc, "collapsed_viterbi_forward",
+    from nnacousticmodeling_tpu_torch.decoder.viterbi import ViterbiDecoder
+    with mock.patch.object(ViterbiDecoder, "_forward_scan",
+                           ViterbiDecoder._forward_scan_plain), \
+            mock.patch.object(vc, "collapsed_viterbi_forward",
                            vc.collapsed_viterbi_reference), \
             mock.patch.object(vcube, "cube_viterbi_forward",
                               vcube.cube_viterbi_reference), \
@@ -2212,6 +2225,141 @@ def hop_slope(short, long_, tag, card):
             f"{short['longest_walk']} -> {long_['longest_walk']} hops of the "
             f"longest walk [{card}]")
     return slope
+
+
+SCAN_OPS = 17    # a triphone a frame: per state two adds, a compare, a
+                 # select and the observation add; the export add and its
+                 # first-max compare
+SCAN_NAN_UTTS = 16
+
+
+def same_bits(got, want):
+    """Packed rows equal and end scores equal, NaN where NaN."""
+    (pg, eg), (pw, ew) = got, want
+    return bool(pg.equal(pw) and eg.shape == ew.shape and (
+        (eg == ew) | (eg.isnan() & ew.isnan())).all())
+
+
+def one_call_device_ms(torch, fn, name=None):
+    """Device ms of one call of ``fn`` under the profiler, after a
+    warm-up call, with a one-cycle device sleep queued behind it (a
+    session whose last kernel runs long has lost it); with ``name``, the
+    device time of the kernels whose name holds it, and a session counts
+    only if it recorded exactly one. None where three sessions did not
+    count."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        _, busy, top, counts = device_profile(
+            torch, lambda: (fn(), torch.cuda._sleep(1)),
+            launches_of=(name or "",))
+        if name is None and busy > 0:
+            return busy
+        if name is not None and counts[name] == 1:
+            return sum(v for k, v in top.items() if name in k)
+    return None
+
+
+def ms_or_not(ms):
+    return "not measured" if ms is None else f"{ms:.3f} ms"
+
+
+def scan_kernel_check(torch, np, dev, card, dec, lp, lens):
+    """Phase 23: ``viterbi_scan_forward`` on the untied cube decoder
+    ``dec`` and phase 4's ``lp``, bit-equal to both plain twins; on a
+    16-utterance copy with NaN and -inf frames to the general twin,
+    without and with a beam; on a non-cube 48-phone image to its general
+    twin. Times the kernel (CUDA events, device time), the cube twin
+    (wall and device, once), the general twin (once), the non-cube
+    image's kernel and twin, and computes the bounds. Returns a dict."""
+    from nnacousticmodeling_tpu_torch.decoder import viterbi_scan as vscan
+    from nnacousticmodeling_tpu_torch.decoder.image import (
+        make_synthetic_image)
+    from nnacousticmodeling_tpu_torch.decoder.viterbi import ViterbiDecoder
+
+    def kernel(d, x):
+        return vscan.viterbi_scan_forward(d._scan, x,
+                                          d._time_pack_for(x.shape[1]))
+
+    U, T, S = lp.shape
+    got = kernel(dec, lp)
+    err = 0.0
+    for tag, want in (("cube", dec._forward_scan_cube(lp, dec._cube_order)),
+                      ("general", dec._forward_scan_general(lp))):
+        if not same_bits(got, want):
+            fail(f"[scan kernel] differs from the plain {tag} twin on the "
+                 f"untied image")
+        err = max(err, float((got[0] - want[0]).abs().max()),
+                  float(torch.nan_to_num(got[1] - want[1], nan=0.0
+                                         ).abs().max()))
+        del want
+    if not same_bits(got, kernel(dec, lp)):
+        fail("[scan kernel] a second call gave other bits")
+    del got
+    # NaN and -inf frames, without and with a beam
+    x = lp[:SCAN_NAN_UTTS].clone()
+    x[0, T // 5] = float("nan")
+    x[1, T // 3, :S // 2] = float("nan")
+    x[2, T // 2, :(2 * S) // 3] = float("-inf")
+    beam_dec = ViterbiDecoder(dec.image, pip=20.0, lmw=1.0, beam=BEAM,
+                              backend="xla", device=dev)
+    for tag, d in (("exact", dec), ("beam", beam_dec)):
+        if not same_bits(kernel(d, x), d._forward_scan_general(x)):
+            fail(f"[scan kernel] differs from the general twin on NaN and "
+                 f"-inf frames ({tag})")
+    # the non-cube image
+    partial = make_synthetic_image(num_phones=PHONES, num_states=CLASSES,
+                                   full_context=False)
+    dec_p = ViterbiDecoder(partial, pip=20.0, lmw=1.0, backend="xla",
+                           device=dev)
+    if dec_p._cube_order is not None:
+        fail("the full_context=False image is a cube")
+    got_p = kernel(dec_p, lp)
+    if not same_bits(got_p, dec_p._forward_scan_general(lp)):
+        fail("[scan kernel] differs from the general twin on the non-cube "
+             "image")
+    del got_p
+    out = dict(err=err)
+    out["ms"] = cuda_ms(torch, lambda: kernel(dec, lp), 3)
+    out["device_ms"] = one_call_device_ms(torch, lambda: kernel(dec, lp),
+                                          "viterbi_scan_kernel")
+    out["partial_ms"] = cuda_ms(torch, lambda: kernel(dec_p, lp), 3)
+    out["plain_ms"] = cuda_ms(
+        torch, lambda: dec._forward_scan_cube(lp, dec._cube_order), 1,
+        warm=False)
+    out["plain_device_ms"] = one_call_device_ms(
+        torch, lambda: dec._forward_scan_cube(lp, dec._cube_order))
+    out["general_ms"] = cuda_ms(
+        torch, lambda: dec._forward_scan_general(lp), 1, warm=False)
+    out["partial_general_ms"] = cuda_ms(
+        torch, lambda: dec_p._forward_scan_general(lp), 1, warm=False)
+    tab = dec._scan
+    F, B, P = tab.width, tab.num_biphones, tab.num_phones
+    t3 = dec.image.num_triphones
+    table_bytes = sum(getattr(tab, k).numel() * 4 for k in (
+        "count", "idx", "tpa", "tpb", "fan", "lm", "p0", "end_idxs"))
+    nbytes = 4 * U * T * (S + B + P) + table_bytes
+    out["bound_ms"], out["bound_by"] = bound(nbytes, SCAN_OPS * U * T * t3,
+                                             F32_FLOPS)
+    state = 48 * U * T * F * B
+    out["state_floor_ms"] = (state + nbytes) / HBM_BYTES_PER_S * 1e3
+    out["partial"] = dict(triphones=partial.num_triphones, width=
+                          dec_p._scan.width)
+    log(f"[scan kernel] U={U} T={T} untied P={P} image: bit-equal to the "
+        f"cube and general twins, a second call bit-identical; 16 "
+        f"utterances with NaN and -inf frames bit-equal to the general "
+        f"twin without and with beam {BEAM}; non-cube image "
+        f"({partial.num_triphones} triphones, F={dec_p._scan.width}) "
+        f"bit-equal to its general twin; kernel {out['ms']:.3f} ms "
+        f"({ms_or_not(out['device_ms'])} device), non-cube "
+        f"{out['partial_ms']:.3f} ms; plain cube twin {out['plain_ms']:.1f} "
+        f"ms ({ms_or_not(out['plain_device_ms'])} device), general twin "
+        f"{out['general_ms']:.1f} ms, non-cube general twin "
+        f"{out['partial_general_ms']:.1f} ms; bound {out['bound_ms']:.3f} ms"
+        f" ({out['bound_by']}), the design's floor with the DP state in "
+        f"device memory {out['state_floor_ms']:.1f} ms ({state / 1e9:.1f} "
+        f"GB of state traffic) [{card}]")
+    return out
 
 
 def timed_decode(torch, dec, lp, offsets):
@@ -2442,7 +2590,8 @@ def decoder_audio_phases(torch, np, dev, card, img, corpus, lp_rand, lens,
                 fail(f"backend={backend!r} built {d.backend!r}")
             res, ms, launches = timed_decode(torch, d, lp, offsets)
             want = ({"cube_viterbi_forward", "viterbi_backtrace"}
-                    if backend == "pallas" else {"viterbi_backtrace"})
+                    if backend == "pallas" else
+                    {"viterbi_scan_forward", "viterbi_backtrace"})
             if {k for k, v in launches.items() if v} != want:
                 fail(f"the {backend} route launched {launches}, expected "
                      f"{sorted(want)}")
@@ -2465,40 +2614,26 @@ def decoder_audio_phases(torch, np, dev, card, img, corpus, lp_rand, lens,
                  f"not 'xla'")
         res_u, ms_u, launches_u = timed_decode(torch, auto_untied, lp,
                                                offsets)
-        if ({k for k, v in launches_u.items() if v} != {"viterbi_backtrace"}
+        if ({k for k, v in launches_u.items() if v}
+                != {"viterbi_scan_forward", "viterbi_backtrace"}
                 or not all(r.segments for r in res_u)):
             fail(f"untied decode: launches {launches_u}, "
                  f"{sum(not r.segments for r in res_u)} empty utterances")
         routes["untied auto -> xla"] = dict(
             decode_ms=ms_u, audio_s_per_s=audio_s / ms_u * 1e3,
             segments=sum(len(r.segments) for r in res_u))
-        # the cube twin against the general twin on the same cube image
-        # and phase 4's inputs: the same bits, and each one's time
-        twins, twin_ms = {}, {}
-        for tag, order in (("cube", auto_untied._cube_order),
-                           ("general", None)):
-            with mock.patch.object(auto_untied, "_cube_order", order):
-                twins[tag] = auto_untied._forward_scan(lp_rand)
-                twin_ms[tag] = cuda_ms(
-                    torch, lambda: auto_untied._forward_scan(lp_rand), 1,
-                    warm=False)
-        # the cube twin's device time: one profiled call (after a warm-up)
-        twin_ms["cube device"] = profiled_calls(
-            torch, lambda: auto_untied._forward_scan(lp_rand), 1)[0]
+        scan = scan_kernel_check(torch, np, dev, card, auto_untied, lp_rand,
+                                 lens)
         twin_bt = backtrace_check(
-            torch, auto_untied._bt_scan, *twins["cube"], lens,
-            auto_untied._time_pack_for(lp_rand.shape[1]),
-            "phase 23 scan-twin rows", card, timed=True)
-        if not all(torch.equal(a, b) for a, b in zip(twins["cube"],
-                                                     twins["general"])):
-            fail("the cube and general scan twins differ on the untied image")
-        del twins
+            torch, auto_untied._bt_scan, *auto_untied._forward_scan(lp_rand),
+            lens, auto_untied._time_pack_for(lp_rand.shape[1]),
+            "phase 23 scan-kernel rows", card, timed=True)
         twin_bt["target_rows"] = backtrace_check(
             torch, auto_untied._bt_scan, *auto_untied._forward_scan(lp_tgt),
             lens_tgt, auto_untied._time_pack_for(lp_tgt.shape[1]),
-            "phase 23 scan-twin target rows", card, timed=True)
+            "phase 23 scan-kernel target rows", card, timed=True)
         twin_bt["target_rows"]["hop_us"] = hop_slope(
-            twin_bt, twin_bt["target_rows"], "phase 23 scan twin", card)
+            twin_bt, twin_bt["target_rows"], "phase 23 scan kernel", card)
     del lp_tgt
     log("[backends] phase 5's posteriors, " + "; ".join(
         f"{k}: decode {v['decode_ms']:.1f} ms, {v['audio_s_per_s']:.1f} "
@@ -2506,11 +2641,6 @@ def decoder_audio_phases(torch, np, dev, card, img, corpus, lp_rand, lens,
         + f"; pallas and xla give phase 5's segments and PER ({per:.2f} %); "
         f"auto picks pallas on the irregular-end image, xla on the untied "
         f"one [{card}]")
-    log(f"[scan twins] untied image, phase 4's inputs: cube twin "
-        f"{twin_ms['cube']:.1f} ms ({twin_ms['cube device']:.1f} ms device, "
-        f"{100 * twin_ms['cube device'] / twin_ms['cube']:.1f} % of its "
-        f"wall), general twin {twin_ms['general']:.1f} ms, bit-equal "
-        f"[{card}]")
     phase_done(23)
 
     # ---- 24. the fbank kernel against its plain version ----------------
@@ -2614,7 +2744,7 @@ def decoder_audio_phases(torch, np, dev, card, img, corpus, lp_rand, lens,
 
     report["decoder_audio"] = dict(
         cube=cube, cube_bound_ms=cube_bound, cube_state_mb=state_mb,
-        routes=routes, scan_twin_ms=twin_ms, scan_twin_backtrace=twin_bt,
+        routes=routes, scan_kernel=scan, scan_backtrace=twin_bt,
         fbank=dict(fbk, batch_device_ms=fb_batch_ms),
         audio_slice=dict(per=per_a, audio_s=audio_s, audio_s_per_s=tput,
                          fbank_err=fb_main_err, feature_err=feat_err,
@@ -2626,6 +2756,14 @@ def decoder_audio_phases(torch, np, dev, card, img, corpus, lp_rand, lens,
         "nnacousticmodeling_tpu_torch/csrc/viterbi_cube.cu",
         "nnacousticmodeling_tpu/decoder/viterbi_pallas.py:255", launches,
         cube["exact"], cube_bound, cube_by) + [
+        {"name": "viterbi_scan_forward", "route": "cuda",
+         "source": "nnacousticmodeling_tpu_torch/csrc/viterbi_scan.cu",
+         "replaces": "nnacousticmodeling_tpu/decoder/viterbi.py:370, :447 "
+                     "(lax.scan twins, no pallas_call)",
+         "launches": launches_u.get("viterbi_scan_forward", 0),
+         "max_abs_err": scan["err"], "tolerance": 0.0, "ms": scan["ms"],
+         "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
+         "bound_by": scan["bound_by"], "library_ms": None},
         {"name": "fbank", "route": "cuda",
          "source": "nnacousticmodeling_tpu_torch/csrc/fbank.cu",
          "replaces": "nnacousticmodeling_tpu/ops/features.py:210",
@@ -4636,14 +4774,20 @@ def fused_phase(torch, np, dev, card, net, dec, corpus, lp5, results5, per5,
                 card)
     del lp_dec
 
-    # ---- (e) decode_fn: the scan twin ----------------------------------
+    # ---- (e) decode_fn: the scan kernel and the backtrace ---------------
     lp32, _ = program(net)
     lp32_host = lp32.cpu().numpy()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
     res_twin = results_of(dec, dec.decode_fn()(lp32, lens_dev))
+    fn_launches = dict(kernels.launches)
+    if fn_launches != {"viterbi_scan_forward": 1, "viterbi_backtrace": 1}:
+        fail(f"one decode_fn call launched {fn_launches}, not the scan "
+             f"kernel and the backtrace once each")
     diff = segments_differ(res_twin, results5)
     if diff:
-        fail(f"decode_fn (the cube scan twin) differs from phase 5's "
-             f"segments in {diff} utterances")
+        fail(f"decode_fn (the scan kernel on the tied cube) differs from "
+             f"phase 5's segments in {diff} utterances")
     untied = make_synthetic_image(num_phones=PHONES, num_states=CLASSES)
     dec_x = ViterbiDecoder(untied, pip=20.0, lmw=1.0, backend="xla",
                            device=dev)
@@ -4653,8 +4797,33 @@ def fused_phase(torch, np, dev, card, net, dec, corpus, lp5, results5, per5,
     if diff or not all(r.segments for r in res_u):
         fail(f"decode_fn on the untied image differs from decode_batch "
              f"(backend='xla') in {diff} utterances")
-    log(f"[fused] decode_fn: phase 5's segments on the tied image; "
-        f"decode_batch's (backend='xla') on phase 23's untied image")
+    # one decode_fn call alone, as (d) timed decode_arrays_fn's
+    fn = dec.decode_fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(lp32, lens_dev)
+    fn_queued_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    fn_done_ms = (time.perf_counter() - t0) * 1e3
+    for _ in range(3):      # a session now and then loses a long kernel
+        fn_wall, fn_busy, fn_top, fn_counts = device_profile(
+            torch, lambda: fn(lp32, lens_dev), launches_of=(
+                "", "viterbi_scan_kernel", "viterbi_backtrace_kernel"))
+        if fn_counts["viterbi_scan_kernel"] == 1:
+            break
+    if (fn_counts[""] > MAX_DECODE_OPS or fn_counts["viterbi_scan_kernel"] != 1
+            or fn_counts["viterbi_backtrace_kernel"] != 1):
+        fail(f"one decode_fn call ran {fn_counts}: more than "
+             f"{MAX_DECODE_OPS} device operations, or not one scan kernel "
+             f"and one backtrace kernel")
+    log(f"[fused] decode_fn: launches {fn_launches}; phase 5's segments on "
+        f"the tied image, decode_batch's (backend='xla') on phase 23's "
+        f"untied image; one call (T={T_MAIN}) {fn_counts['']} device "
+        f"operations (decode_arrays_fn {dec_counts['']}), {fn_busy:.3f} ms "
+        f"device busy (decode_arrays_fn {dec_busy:.3f}), queued in "
+        f"{fn_queued_ms:.3f} ms, done after {fn_done_ms:.3f} ms "
+        f"(decode_arrays_fn {queued_ms:.3f} / {done_ms:.3f}) [{card}]")
+    log_profile("decode_fn profile", fn_wall, fn_busy, fn_top, card)
     del lp32, lp32_host
     phase_done(36)
     report["fused"] = dict(
@@ -4671,6 +4840,10 @@ def fused_phase(torch, np, dev, card, net, dec, corpus, lp5, results5, per5,
                              "viterbi_backtrace_kernel"],
                          top_device_ms=dec_top, profiled_wall_ms=dec_wall,
                          queued_ms=queued_ms, done_ms=done_ms),
+        decode_fn_call=dict(device_ops=fn_counts[""], device_busy_ms=fn_busy,
+                            launches=fn_launches, top_device_ms=fn_top,
+                            profiled_wall_ms=fn_wall, queued_ms=fn_queued_ms,
+                            done_ms=fn_done_ms),
         seconds=phase_s[36])
     return launches
 

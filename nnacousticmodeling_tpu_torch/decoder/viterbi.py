@@ -9,10 +9,12 @@ JAX decoder's three backends:
   CPU tensors), the fastest whenever the image allows it;
 * ``pallas``: the dense-cube forward of ``viterbi_cube`` (likewise), for
   cube images the collapsed kernel refuses;
-* ``xla``: the scan twins ``_forward_scan_cube`` (cube images) and
-  ``_forward_scan`` (any image), plain PyTorch on the device, batched
-  over utterances with a Python loop over frames. The JAX package runs
-  them in XLA, outside any kernel.
+* ``xla``: the scan twins' forward, one launch of the
+  ``viterbi_scan_forward`` kernel for CUDA tensors (``viterbi_scan``),
+  on any image; for CPU tensors its plain versions, the twins
+  ``_forward_scan_cube`` (cube images) and ``_forward_scan_general``
+  (any image), batched over utterances with a Python loop over frames.
+  The JAX package runs the twins in XLA, outside any kernel.
 
 Every backend's backtrace is one launch of the ``viterbi_backtrace``
 kernel on the card (``viterbi_backtrace.py``; its plain version for CPU
@@ -46,6 +48,7 @@ from .viterbi_backtrace import (
     backtrace,
     backtrace_tables,
 )
+from . import viterbi_scan
 from .viterbi_collapsed import NEG_INF, CollapsedViterbi, UnsupportedImage
 from .viterbi_cube import CubeViterbi
 
@@ -67,13 +70,15 @@ class DecodeResult:
 
 def _first_max(x: torch.Tensor, dim: int) -> Tuple[torch.Tensor,
                                                    torch.Tensor]:
-    """(max, index of its first occurrence) along ``dim``."""
+    """(max, index of its first occurrence) along ``dim``, as
+    ``jnp.max`` / ``jnp.argmax``: where a slice holds a NaN, the max is
+    NaN and the index that of its first NaN."""
     mx = x.amax(dim=dim, keepdim=True)
     n = x.shape[dim]
     shape = [1] * x.dim()
     shape[dim] = n
     iota = torch.arange(n, device=x.device).reshape(shape)
-    arg = torch.where(x == mx, iota, n).amin(dim=dim)
+    arg = torch.where((x == mx) | torch.isnan(x), iota, n).amin(dim=dim)
     return mx.squeeze(dim), arg
 
 
@@ -126,7 +131,7 @@ class ViterbiDecoder:
         self._tp_trans = as_t(img.tp_transition, torch.float32)   # (T3, 3)
         self._lm = as_t(img.lm * np.float32(lmw), torch.float32)  # (B,)
         fanin = img.dense_fanin()                         # (B, F), -1 pad
-        self._fanin = as_t(np.maximum(fanin, 0), torch.int64)
+        self._fanin = as_t(fanin, torch.int64)   # -1 indexes from the end
         self._fanin_valid = as_t(fanin >= 0, torch.bool)
         self._fanin_any = as_t(fanin.max(axis=1) >= 0, torch.bool)
         self._end_idxs = as_t(img.end_idxs, torch.int64)          # (P,)
@@ -171,6 +176,8 @@ class ViterbiDecoder:
         P = img.num_phones
         self._bt_scan = backtrace_tables(LANES, P, self._end_idxs,
                                          self._biphone_in)
+        self._scan = viterbi_scan.scan_tables(img, lmw_lm, p0, self.pip,
+                                              self.beam, dev)
         self._bt_cube = self._bt_collapsed = None
         if self._pallas_fwd is not None:
             self._bt_cube = backtrace_tables(
@@ -334,11 +341,28 @@ class ViterbiDecoder:
 
     def _forward_scan(self, lp: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Scan twin: (U, T, S) -> packed (U, T, B) int32 ``tri * pack +
-        t_entry + 1`` and end scores (U, T, P), every frame of every
-        utterance (rows past an utterance's length are never read)."""
+        """The scan twins' forward: (U, T, S) -> packed (U, T, B) int32
+        ``tri * pack + t_entry + 1`` and end scores (U, T, P), every frame
+        of every utterance (rows past an utterance's length are never
+        read). CPU tensors take the plain twins, any other device the
+        ``viterbi_scan_forward`` kernel (which raises off CUDA)."""
+        if lp.device.type == "cpu":
+            return self._forward_scan_plain(lp)
+        return viterbi_scan.viterbi_scan_forward(
+            self._scan, lp, self._time_pack_for(lp.shape[1]))
+
+    def _forward_scan_plain(self, lp: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The kernel's plain versions: the cube twin on a dense cube,
+        else the general twin."""
         if self._cube_order is not None:
             return self._forward_scan_cube(lp, self._cube_order)
+        return self._forward_scan_general(lp)
+
+    def _forward_scan_general(self, lp: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """General twin, any image: ``_forward_scan``'s contract, the
+        export a first max over each biphone's ``dense_fanin`` row."""
         U, T, _ = lp.shape
         dev = lp.device
         t3 = self.image.num_triphones
@@ -376,6 +400,9 @@ class ViterbiDecoder:
             gathered = torch.where(self._fanin_valid,
                                    out_score[:, self._fanin], neg)  # (U, B, F)
             mx, col = _first_max(gathered, 2)      # first max = CSR order
+            # a padding column wins where every valid slot scores below
+            # NEG_INF: its id -1 exports, with the last triphone's entry
+            # time (JAX indexes -1 from the end); an empty row exports 0
             best_i = torch.where(
                 self._fanin_any,
                 self._fanin.expand(U, -1, -1).gather(2, col[..., None])[..., 0],

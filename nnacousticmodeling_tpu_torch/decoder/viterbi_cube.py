@@ -246,11 +246,14 @@ def cube_viterbi_reference(cv: CubeViterbi, lp: torch.Tensor,
         pp = torch.stack([pp0, pp1, pp2], dim=1)
         tt = torch.stack([tt0, tt1, tt2], dim=1)
 
-        # export: first max over left-context rows
+        # export: first max over left-context rows; a column whose max
+        # is NaN matches no row and takes the TPU kernel's arg = P and
+        # bt = the sum of tt2 over rows equal to P (pad row P, or none)
         out_score = pp2 + tps[5]                                 # (U, PS, B)
         mx = out_score.amax(dim=1, keepdim=True)
-        arg = torch.where(out_score == mx, rows, PS).amin(dim=1)  # (U, B)
-        bt = tt2.gather(1, arg[:, None, :])[:, 0]
+        arg = torch.where(out_score == mx, rows, P).amin(dim=1)  # (U, B)
+        bt = torch.where(arg < PS, tt2.gather(
+            1, arg.clamp(max=PS - 1)[:, None, :])[:, 0], 0)
         tri = arg.to(torch.int32) * cv.a_coef + cv.tri_base
         packed[:, k] = tri * TIME_PACK + bt + 1
         pnew = mx[:, 0] + cv.lm                                  # (U, B)

@@ -43,6 +43,7 @@ SOURCES = {
     "viterbi_backtrace": "viterbi_backtrace.cu",
     "viterbi_collapsed": "viterbi_collapsed.cu",
     "viterbi_cube": "viterbi_cube.cu",
+    "viterbi_scan": "viterbi_scan.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]

@@ -282,8 +282,8 @@ def test_collapsed_viterbi_kernel_bit_equal(cuda, num_phones, beam, route):
 def test_cube_viterbi_kernel_bit_equal(cuda, num_phones, ends, beam, route):
     """Both routes bit-equal to the plain version (9 phones: 81 lanes, the
     plan's device-memory route either way); segments equal to the CPU
-    decoder's and the scan twin's, which launches no Viterbi forward
-    kernel, only the backtrace kernel."""
+    decoder's and the scan twins', which launch the scan kernel and the
+    backtrace kernel once each."""
     from nnacousticmodeling_tpu_torch.decoder import viterbi_cube as vcube
     img = _viterbi_image(num_phones, ends)
     dec = ViterbiDecoder(img, pip=5.0, lmw=1.5, beam=beam, backend="pallas",
@@ -306,7 +306,7 @@ def test_cube_viterbi_kernel_bit_equal(cuda, num_phones, ends, beam, route):
     assert [r.segments for r in xla.decode_batch(lp, lens)] == want
     counted = {k: v - before.get(k, 0) for k, v in kernels.launches.items()
                if v != before.get(k, 0)}
-    assert counted == {"viterbi_backtrace": 1}
+    assert counted == {"viterbi_scan_forward": 1, "viterbi_backtrace": 1}
 
 
 # ---- the backtrace kernel -------------------------------------------------
@@ -561,6 +561,163 @@ def test_device_decode_callables(cuda, backend, num_phones, fn):
     assert int(counts[1]) == 0
     with pytest.raises(ValueError):
         call(torch.from_numpy(lp), lens_t)
+
+
+def _scan_image(name):
+    """The scan kernel's test images: untied cubes ('abc'; 'ci' with
+    context-independent pdfs; 'bac'), a partial image, one with empty
+    fan-in rows, and the 48-phone 1909-pdf untied cube of chip_smoke.py
+    phase 23."""
+    import dataclasses
+    if name == "untied":
+        return make_synthetic_image(num_phones=4, seed=0)
+    if name == "ci":
+        return make_synthetic_image(num_phones=4, seed=1, tied=False)
+    if name == "untied_bac":
+        return _to_bac(make_synthetic_image(num_phones=3, seed=3))
+    if name == "partial":
+        return make_synthetic_image(num_phones=3, seed=2,
+                                    full_context=False)
+    if name == "empty_rows":
+        img = make_synthetic_image(num_phones=4, seed=6, full_context=False)
+        keep = ~np.isin(img.biphone_out, [1, 6, 11])
+        bi_out = img.biphone_out[keep]
+        offsets = np.zeros(img.num_biphones + 1, np.int32)
+        np.cumsum(np.bincount(bi_out, minlength=img.num_biphones),
+                  out=offsets[1:])
+        return dataclasses.replace(
+            img, num_triphones=int(keep.sum()),
+            biphone_in=img.biphone_in[keep], biphone_out=bi_out,
+            state_idxs=img.state_idxs[keep],
+            tp_selfloop=img.tp_selfloop[keep],
+            tp_transition=img.tp_transition[keep], out_offsets=offsets,
+            out_values=np.argsort(bi_out, kind="stable").astype(np.int32),
+            phone_names=[img.phone_names[i]
+                         for i in np.flatnonzero(keep)]).validate()
+    assert name == "untied48"
+    return make_synthetic_image(num_phones=48, num_states=1909)
+
+
+def _scan_lp(img, u, t, seed):
+    """Dirichlet log-posteriors with an all-NaN frame, a half-NaN frame
+    and a frame that is -inf for two thirds of the pdfs."""
+    rng = np.random.default_rng(seed)
+    s = img.num_states
+    lp = np.log(rng.dirichlet(np.ones(s), size=(u, t))).astype(np.float32)
+    lp[0, t // 3] = np.nan
+    lp[-1, t // 2, : s // 2] = np.nan
+    lp[u // 2, (2 * t) // 3, : (2 * s) // 3] = -np.inf
+    return lp
+
+
+@pytest.mark.parametrize("name,beam,t", [
+    (n, b, t) for n in ("untied", "ci", "untied_bac", "partial",
+                        "empty_rows")
+    for b in (None, 2.0) for t in (14, 2100)] + [
+    ("untied48", None, 14), ("untied48", 8.0, 14)])
+def test_scan_kernel_bit_equal_to_plain_twins(cuda, name, beam, t):
+    """``viterbi_scan_forward``: every packed entry and end score (NaN
+    included) equal to the plain twins (general, and cube on a cube) on
+    the CPU and on the card, on NaN and -inf frames; T = 2100 packs at
+    4096. ``_forward_scan`` launches it once a call on the card."""
+    from nnacousticmodeling_tpu_torch.decoder import viterbi_scan as vscan
+    img = _scan_image(name)
+    u = 3 if t == 14 else 2
+    lp = _scan_lp(img, u, t, seed=t + len(name))
+    kw = dict(pip=5.0, lmw=1.5, beam=beam, backend="xla")
+    dec = ViterbiDecoder(img, device=cuda, **kw)
+    cpu = ViterbiDecoder(img, device="cpu", **kw)
+    lp_t = torch.from_numpy(lp).to(cuda)
+    pack = dec._time_pack_for(t)
+    assert pack == (4096 if t == 2100 else 2048)
+    before = kernels.launches["viterbi_scan_forward"]
+    got = dec._forward_scan(lp_t)
+    assert kernels.launches["viterbi_scan_forward"] == before + 1
+    again = vscan.viterbi_scan_forward(dec._scan, lp_t, pack)
+    torch.cuda.synchronize()
+    wants = [cpu._forward_scan_general(torch.from_numpy(lp)),
+             dec._forward_scan_general(lp_t)]
+    if dec._cube_order is not None:
+        wants += [cpu._forward_scan_cube(torch.from_numpy(lp),
+                                         cpu._cube_order),
+                  dec._forward_scan_cube(lp_t, dec._cube_order)]
+    for want in wants + [again]:
+        np.testing.assert_array_equal(got[0].cpu().numpy(),
+                                      want[0].cpu().numpy())
+        assert np.array_equal(got[1].cpu().numpy(), want[1].cpu().numpy(),
+                              equal_nan=True)
+    assert np.isnan(got[1].cpu().numpy()).any() == (beam is None)
+
+
+@pytest.mark.parametrize("name", ["untied", "partial", "empty_rows"])
+def test_decode_fn_launches_the_scan_kernel_and_the_backtrace(cuda, name):
+    """One ``decode_fn`` call: the two kernels once each, no plain twin,
+    and the CPU decoder's segments (``backend="xla"``)."""
+    img = _scan_image(name)
+    kw = dict(pip=5.0, lmw=1.5, beam=2.0, backend="xla")
+    dec = ViterbiDecoder(img, device=cuda, **kw)
+    cpu = ViterbiDecoder(img, device="cpu", **kw)
+    rng = np.random.default_rng(len(name))
+    lens = np.array([37, 0, 1, 2, 20, 36], np.int32)
+    lp = np.log(rng.dirichlet(np.ones(img.num_states), size=(len(lens), 37))
+                ).astype(np.float32)
+    fn = dec.decode_fn()
+    lens_t = torch.from_numpy(lens).to(cuda)
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain twin ran on the card")
+
+    dec._forward_scan_plain = refuse
+    kernels.reset_launches()
+    segs, counts = fn(torch.from_numpy(lp).to(cuda), lens_t)
+    assert dict(kernels.launches) == {"viterbi_scan_forward": 1,
+                                      "viterbi_backtrace": 1}
+    got = dec._to_results(segs.cpu().numpy(), counts.cpu().numpy())
+    want = cpu.decode_batch(lp, lens)
+    assert [r.segments for r in got] == [r.segments for r in want]
+
+
+def test_scan_kernel_refuses_malformed_tables(cuda):
+    """A malformed table, a CPU table, a wrong dtype or a pack that does
+    not hold T raises, counts no launch and never runs a plain twin; a
+    (0, T) or (U, 0) batch launches nothing."""
+    import dataclasses
+    from nnacousticmodeling_tpu_torch.decoder import viterbi_scan as vscan
+    img = _scan_image("partial")
+    dec = ViterbiDecoder(img, device=cuda)
+    tables = dec._scan
+    lp = torch.zeros((2, 5, img.num_states), device=cuda)
+    before = dict(kernels.launches)
+    bad = {
+        "exactly once": dataclasses.replace(tables, zero_slot=-1),
+        "table idx": dataclasses.replace(tables, idx=tables.idx[:, :-1]),
+        "table count": dataclasses.replace(tables,
+                                           count=tables.count[:-1]),
+        "tables on cpu": vscan.scan_tables(
+            img, tables.lm.cpu().numpy(), tables.p0.cpu().numpy(),
+            tables.pip, None, "cpu"),
+    }
+    for match, tab in bad.items():
+        with pytest.raises(ValueError, match=match):
+            vscan.viterbi_scan_forward(tab, lp, 2048)
+    with pytest.raises(ValueError, match="float32"):
+        vscan.viterbi_scan_forward(tables, lp.double(), 2048)
+    with pytest.raises(ValueError, match="CUDA"):
+        vscan.viterbi_scan_forward(tables, lp.cpu(), 2048)
+    with pytest.raises(ValueError, match="pack"):
+        vscan.viterbi_scan_forward(tables, lp, 4)
+    dec._scan = bad["exactly once"]
+    dec._forward_scan_plain = None          # calling it would raise
+    with pytest.raises(ValueError, match="exactly once"):
+        dec.decode_fn()(lp, torch.full((2,), 5, dtype=torch.int32,
+                                       device=cuda))
+    for shape in ((0, 5), (2, 0)):
+        packed, end = vscan.viterbi_scan_forward(
+            tables, torch.zeros(shape + (img.num_states,), device=cuda),
+            2048)
+        assert packed.shape == shape + (img.num_biphones,)
+        assert end.shape == shape + (img.num_phones,)
+    assert dict(kernels.launches) == before
 
 
 @pytest.mark.parametrize("kaldi_weights", [False, True])

@@ -85,11 +85,12 @@ def test_port_files_found():
                 "pipeline/parity.py", "parallel/__init__.py",
                 "parallel/mesh.py", "parallel/pipeline.py",
                 "parallel/distributed.py", "parallel/comm.py",
-                "utils/profiling.py"):
+                "utils/profiling.py", "decoder/viterbi_scan.py"):
         assert f"nnacousticmodeling_tpu_torch/{mod}" in names
     for src in ("gated_persistent.cuh", "gated_scan.cu", "gated_train.cu",
                 "peephole_persistent.cuh", "peephole_scan.cu",
-                "peephole_train.cu", "viterbi_cube.cu", "fbank.cu"):
+                "peephole_train.cu", "viterbi_cube.cu", "fbank.cu",
+                "viterbi_scan.cu"):
         assert (REPO / "nnacousticmodeling_tpu_torch" / "csrc" / src).is_file()
     assert (REPO / "chip_smoke.py").is_file()
 

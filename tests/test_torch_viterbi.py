@@ -179,3 +179,29 @@ def test_collapsed_viterbi_runs_on_the_card_unless_asked(monkeypatch):
     segs, counts = port._collapsed_backtrace(packed, end, lens_t)
     assert [r.segments for r in port._to_results(
         segs.numpy(), counts.numpy())] == [r.segments for r in want]
+
+
+@pytest.mark.parametrize("order", ["abc", "bac"])
+@pytest.mark.parametrize("beam", [None, 2.0])
+def test_collapsed_plain_forward_follows_jax_on_nan_frames(beam, order):
+    """An all-NaN frame through the collapsed plain version and the JAX
+    kernel in interpret mode: no row matches the NaN max, both keep the
+    key INT_MAX, and every packed entry and end score agrees."""
+    rng = np.random.default_rng(3)
+    img = make_synthetic_image(num_phones=4, seed=4,
+                               pdf_tied_transitions=True)
+    if order == "bac":
+        img = _to_bac(img)
+    lp = np.log(rng.dirichlet(np.ones(img.num_states), size=(2, 9))
+                ).astype(np.float32)
+    lp[0, 4, :] = np.nan
+    lens = np.array([9, 9], np.int32)
+    kw = dict(pip=5.0, lmw=1.5, beam=beam)
+    col = JaxDecoder(img, backend="collapsed", **kw)._collapsed_fwd
+    ck = ViterbiDecoder(img, device="cpu", **kw)._collapsed_fwd
+    packed, end = ck.forward(torch.from_numpy(lp), torch.from_numpy(lens))
+    want_packed, want_end = (np.asarray(a) for a in col.forward(
+        jnp.asarray(lp), jnp.asarray(lens)))
+    np.testing.assert_array_equal(packed.numpy(), want_packed)
+    assert np.array_equal(end.numpy(), want_end, equal_nan=True)
+    assert (packed.numpy()[0, 4] == np.iinfo(np.int32).max).all()

@@ -135,3 +135,29 @@ def test_backtrace_ignores_unwritten_rows(backend):
     assert counts_g.tolist() == counts.tolist() and counts[1] == 0
     for u in (0, 2):
         assert torch.equal(segs_g[u, :counts[u]], segs[u, :counts[u]])
+
+
+@pytest.mark.parametrize("order", ["abc", "bac"])
+@pytest.mark.parametrize("beam", [None, 2.0])
+def test_plain_forward_follows_jax_on_nan_frames(beam, order):
+    """An all-NaN frame: the TPU kernel's first max matches no row (arg =
+    P, bt = the sum of tt2 over rows equal to P); the plain version gives
+    its bits (it raised an out-of-range gather before)."""
+    rng = np.random.default_rng(3)
+    img = make_synthetic_image(num_phones=4, seed=4,
+                               pdf_tied_transitions=True)
+    if order == "bac":
+        img = _to_bac(img)
+    lp = np.log(rng.dirichlet(np.ones(img.num_states), size=(2, 9))
+                ).astype(np.float32)
+    lp[0, 4, :] = np.nan
+    lens = np.array([9, 9], np.int32)
+    jk = PallasCubeViterbi(img, order, pip=-5.0, lmw=1.5, beam=beam,
+                           interpret=True)
+    cv = CubeViterbi(img, order, pip=-5.0, lmw=1.5, beam=beam, device="cpu")
+    assert cv.PS > cv.P                 # pad row P holds the exported bt
+    packed, end = cv.forward(torch.from_numpy(lp), torch.from_numpy(lens))
+    want_packed, want_end = (np.asarray(a) for a in jk.forward(
+        jnp.asarray(lp), jnp.asarray(lens)))
+    np.testing.assert_array_equal(packed.numpy(), want_packed)
+    assert np.array_equal(end.numpy(), want_end, equal_nan=True)

@@ -177,3 +177,40 @@ def test_frame_ceiling_error():
         port._time_pack_for(port.max_frames + 10)
     with pytest.raises(ValueError, match="ceiling"):
         port._validate_frames(port.max_frames + 10)
+
+
+def _nan_frame(img, seed=0):
+    """U=2, T=9 Dirichlet log-posteriors whose utterance 0 has an all-NaN
+    frame 4, as a diverged acoustic model gives."""
+    rng = np.random.default_rng(seed)
+    lp = np.log(rng.dirichlet(np.ones(img.num_states), size=(2, 9))
+                ).astype(np.float32)
+    lp[0, 4, :] = np.nan
+    return lp
+
+
+@pytest.mark.parametrize("beam", [None, 2.0])
+@pytest.mark.parametrize("name", ["untied", "ci", "untied_bac", "partial"])
+def test_scan_twins_follow_jax_on_nan_frames(name, beam):
+    """The JAX twins' first max (``jnp.argmax`` / ``jnp.max``) takes a
+    row's first NaN: both port twins give their bits (they raised an
+    out-of-range gather before) and the JAX decoder's segments."""
+    img = IMAGES[name]()
+    lp = _nan_frame(img)
+    kw = dict(pip=5.0, lmw=1.5, beam=beam)
+    jax_dec = JaxDecoder(img, backend="xla", **kw)
+    port = ViterbiDecoder(img, backend="xla", device="cpu", **kw)
+    want_packed, want_end = (np.asarray(a) for a in jax.vmap(
+        jax_dec._forward_scan)(jnp.asarray(lp)))
+    lp_t = torch.from_numpy(lp)
+    twins = [port._forward_scan_general(lp_t)]
+    if port._cube_order is not None:
+        twins.append(port._forward_scan_cube(lp_t, port._cube_order))
+    assert len(twins) == (1 if name == "partial" else 2)
+    for packed, end in twins:
+        np.testing.assert_array_equal(packed.numpy(), want_packed)
+        assert np.array_equal(end.numpy(), want_end, equal_nan=True)
+    assert np.isnan(want_end[0, 4]).all() == (beam is None)
+    lens = np.array([9, 7])
+    want = [r.segments for r in jax_dec.decode_batch(lp, lens)]
+    assert [r.segments for r in port.decode_batch(lp, lens)] == want
