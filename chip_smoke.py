@@ -20,7 +20,9 @@ Phases (each one that fails ends the run with a non-zero exit):
    "global"``): packed rows and end scores bit-equal within lengths, a
    second call bit-identical, no (U, 3, PS, L) scratch on the cluster
    route; each route's ms and microseconds a frame, the cluster size and
-   the co-resident cluster count;
+   the co-resident cluster count; on NaN rows (an 8-phone image, an
+   all-NaN and a half-NaN frame) both routes without and with a beam
+   equal to the plain version (packed rows; end scores, NaN where NaN);
 5. the slice: a synthetic corpus of 128 test utterances of about 400
    frames, an LSTM 4x1024 -> 1909 with numpy-seeded weights carried in
    through ``load_jax_params``, prior-subtracted ``rnn_log_posteriors``,
@@ -136,8 +138,9 @@ Phases (each one that fails ends the run with a non-zero exit):
     collapsed kernel refuses, at phase 4's shapes, exact and with the
     beam, on both routes as phase 4: packed rows and end scores
     bit-equal within lengths, a second call bit-identical, each route's
-    ms and microseconds a frame; ``viterbi_backtrace`` bit-equal to its
-    plain walk on the cube rows of both images on both routes (the
+    ms and microseconds a frame; on phase 4's NaN rows both routes
+    without and with a beam equal to the plain version;
+    ``viterbi_backtrace`` bit-equal to its plain walk on the cube rows of both images on both routes (the
     lane-map table staged as int16, and read from device memory), each
     timed on the regular image's rows;
 23. the decoder's backends on phase 5's LSTM posteriors: ``pallas``
@@ -147,16 +150,22 @@ Phases (each one that fails ends the run with a non-zero exit):
     ``auto`` picks ``pallas`` on the irregular-end copy and ``xla`` on an
     untied-transition 48-phone 1909-pdf image, which decodes every
     utterance through the scan kernel; decode-stage ms and audio-s/s of
-    each route; on that untied image and phase 4's inputs the scan
-    kernel bit-equal to both plain twins (the cube twin and the general
-    one), and on a copy of 16 utterances with an all-NaN frame, a
-    half-NaN frame and a -inf frame to the general twin, without and
-    with a beam; on a non-cube 48-phone 1909-pdf image
-    (``full_context=False``) at phase 4's inputs to the general twin; the
-    kernel timed (CUDA events and device time) beside the cube twin (wall
-    and device time, once), the general twin (once) and its bounds: the
-    contract's (inputs read and outputs written once) and the floor of
-    its design (the DP state's 48 bytes a slot a frame in device memory);
+    each route; the scan kernel's two routes (the plan's cluster route,
+    16 blocks an utterance with the DP state in shared memory, and the
+    device-memory route, ``route="global"``) on that untied image and
+    phase 4's inputs each bit-equal to both plain twins (the cube twin
+    and the general one) and to each other; on a copy of 16 utterances
+    with an all-NaN frame, a half-NaN frame and a -inf frame, on the
+    untied and on a non-cube 48-phone 1909-pdf image
+    (``full_context=False``), without and with a beam, both routes
+    bit-equal to the general twin; on the non-cube image at phase 4's
+    inputs likewise; both routes timed in turns (CUDA events, and device
+    time), exact, with the beam and on the non-cube image, beside the
+    cube twin (wall and device time, once), the general twin (once), the
+    co-resident clusters and the bounds: the contract's (inputs read and
+    outputs written once), the device-memory route's floor (the DP
+    state's 48 bytes a slot a frame in device memory) and the cluster
+    route's (its load/store bytes a slot a frame at 128 B a clock);
     ``viterbi_backtrace`` bit-equal to its plain walk on the scan
     kernel's rows on both routes, each timed;
 24. the ``fbank`` kernel against its plain version on one seeded
@@ -300,7 +309,9 @@ Phases (each one that fails ends the run with a non-zero exit):
     the two decoder kernels once each in at most MAX_DECODE_OPS device
     operations; ``decode_fn()`` (the scan kernel) launching
     ``viterbi_scan_forward`` and ``viterbi_backtrace`` once each, in at
-    most MAX_DECODE_OPS device operations, and giving ``decode_batch``'s
+    most MAX_DECODE_OPS device operations (the scan kernel's cluster
+    route, ``viterbi_scan_cluster_kernel``, and no device-memory one),
+    and giving ``decode_batch``'s
     segments on the untied image of phase 23 and phase 5's on the tied
     one. Logged: the bf16 segment parity flag (a record, as
     ``bench.py``'s), each program's audio-s/s beside phase 5's, the
@@ -2091,6 +2102,46 @@ def viterbi_routes(torch, obj, forward, reference, capacity, lp, lens, tag,
     return out
 
 
+def nan_rows_check(torch, np, dev, kind, card):
+    """Phases 4 and 22: the collapsed (``kind`` "collapsed") or cube
+    ("cube") kernel on NaN rows, both routes, without and with a beam:
+    packed rows equal and end scores equal, NaN where NaN, to the plain
+    version. The input: 3 utterances of 12 Dirichlet frames (seed 3) on
+    the 8-phone 26-pdf pdf-tied image (seed 8), an all-NaN frame and a
+    frame NaN in half its pdfs."""
+    from nnacousticmodeling_tpu_torch.decoder import viterbi_collapsed as vc
+    from nnacousticmodeling_tpu_torch.decoder import viterbi_cube as vcube
+    from nnacousticmodeling_tpu_torch.decoder.image import (
+        make_synthetic_image)
+    from nnacousticmodeling_tpu_torch.decoder.viterbi import ViterbiDecoder
+    img = make_synthetic_image(num_phones=8, num_states=26, seed=8,
+                               pdf_tied_transitions=True)
+    rng = np.random.default_rng(3)
+    lp = np.log(rng.dirichlet(np.ones(26), size=(3, 12))).astype(np.float32)
+    lp[0, 4] = np.nan
+    lp[1, 6, :13] = np.nan
+    x = torch.from_numpy(lp).to(dev)
+    lens = torch.full((3,), 12, dtype=torch.int32, device=dev)
+    for beam in (None, 2.0):
+        if kind == "collapsed":
+            d = ViterbiDecoder(img, pip=5.0, lmw=1.5, beam=beam, device=dev)
+            obj, fwd, ref = (d._collapsed_fwd, vc.collapsed_viterbi_forward,
+                             vc.collapsed_viterbi_reference)
+        else:
+            d = ViterbiDecoder(img, pip=5.0, lmw=1.5, beam=beam,
+                               backend="pallas", device=dev)
+            obj, fwd, ref = (d._pallas_fwd, vcube.cube_viterbi_forward,
+                             vcube.cube_viterbi_reference)
+        want = ref(obj, x, lens)
+        for route in (None, "global"):
+            if not same_bits(fwd(obj, x, lens, route=route), want):
+                fail(f"[{kind} NaN rows] the {route or 'cluster'} route "
+                     f"differs from the plain version (beam {beam})")
+    log(f"[{kind} NaN rows] 3 x 12 frames with an all-NaN and a half-NaN "
+        f"frame: both routes equal to the plain version (packed rows; end "
+        f"scores, NaN where NaN) without and with beam 2.0 [{card}]")
+
+
 def route_entries(name, source, replaces, launches, res, bound_ms, by):
     """The ``{"kernels": [...]}`` entries of a Viterbi kernel's two routes
     (``name``, ``name.global``) from ``viterbi_routes``'s exact run."""
@@ -2231,6 +2282,11 @@ SCAN_OPS = 17    # a triphone a frame: per state two adds, a compare, a
                  # select and the observation add; the export add and its
                  # first-max compare
 SCAN_NAN_UTTS = 16
+SCAN_BEAM = 2.0
+SCAN_LSU_BYTES = 104     # a slot a frame on the cluster route: state 24 B
+                         # read and 16 written, 24 B of records and two
+                         # 4 B posteriors (pass 1); state 8 + 8, an 8 B
+                         # record, a posterior and a score (pass 2)
 
 
 def same_bits(got, want):
@@ -2264,66 +2320,107 @@ def ms_or_not(ms):
     return "not measured" if ms is None else f"{ms:.3f} ms"
 
 
+def sm_clock_ghz():
+    """The card's highest SM clock (``nvidia-smi`` clocks.max.sm), GHz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi clocks.max.sm failed: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0]) / 1e3
+
+
 def scan_kernel_check(torch, np, dev, card, dec, lp, lens):
-    """Phase 23: ``viterbi_scan_forward`` on the untied cube decoder
-    ``dec`` and phase 4's ``lp``, bit-equal to both plain twins; on a
-    16-utterance copy with NaN and -inf frames to the general twin,
-    without and with a beam; on a non-cube 48-phone image to its general
-    twin. Times the kernel (CUDA events, device time), the cube twin
-    (wall and device, once), the general twin (once), the non-cube
-    image's kernel and twin, and computes the bounds. Returns a dict."""
+    """Phase 23: ``viterbi_scan_forward``'s two routes (the plan's cluster
+    route and the device-memory route, ``route="global"``) on the untied
+    cube decoder ``dec`` and phase 4's ``lp``, each bit-equal to both
+    plain twins and to the other route; on a 16-utterance copy with NaN
+    and -inf frames, on the untied and a non-cube 48-phone image, without
+    and with a beam, both routes bit-equal to the general twin; on the
+    non-cube image at phase 4's inputs likewise. Times both routes in
+    turns (CUDA events, and device time of one call), the non-cube
+    image's, the cube twin (wall and device, once) and the general twin
+    (once); computes the bounds and the co-resident clusters. Returns a
+    dict."""
     from nnacousticmodeling_tpu_torch.decoder import viterbi_scan as vscan
     from nnacousticmodeling_tpu_torch.decoder.image import (
         make_synthetic_image)
     from nnacousticmodeling_tpu_torch.decoder.viterbi import ViterbiDecoder
 
-    def kernel(d, x):
-        return vscan.viterbi_scan_forward(d._scan, x,
-                                          d._time_pack_for(x.shape[1]))
+    def kernel(d, x, route=None):
+        return vscan.viterbi_scan_forward(
+            d._scan, x, d._time_pack_for(x.shape[1]), route=route)
 
+    routes = {"cluster": None, "global": "global"}
+    plan = dec._scan.plan
+    if plan.route != "cluster":
+        fail(f"[scan kernel] the plan took the {plan.route} route on the "
+             f"untied image, not a cluster")
     U, T, S = lp.shape
-    got = kernel(dec, lp)
+    got = {key: kernel(dec, lp, r) for key, r in routes.items()}
     err = 0.0
     for tag, want in (("cube", dec._forward_scan_cube(lp, dec._cube_order)),
                       ("general", dec._forward_scan_general(lp))):
-        if not same_bits(got, want):
-            fail(f"[scan kernel] differs from the plain {tag} twin on the "
-                 f"untied image")
-        err = max(err, float((got[0] - want[0]).abs().max()),
-                  float(torch.nan_to_num(got[1] - want[1], nan=0.0
-                                         ).abs().max()))
+        for key, g in got.items():
+            if not same_bits(g, want):
+                fail(f"[scan kernel] the {key} route differs from the plain "
+                     f"{tag} twin on the untied image")
+            err = max(err, float((g[0] - want[0]).abs().max()),
+                      float(torch.nan_to_num(g[1] - want[1], nan=0.0
+                                             ).abs().max()))
         del want
-    if not same_bits(got, kernel(dec, lp)):
-        fail("[scan kernel] a second call gave other bits")
+    for key, r in routes.items():
+        if not same_bits(got[key], kernel(dec, lp, r)):
+            fail(f"[scan kernel] the {key} route: a second call gave other "
+                 f"bits")
     del got
-    # NaN and -inf frames, without and with a beam
+    # NaN and -inf frames on both images, without and with a beam
+    partial = make_synthetic_image(num_phones=PHONES, num_states=CLASSES,
+                                   full_context=False)
     x = lp[:SCAN_NAN_UTTS].clone()
     x[0, T // 5] = float("nan")
     x[1, T // 3, :S // 2] = float("nan")
     x[2, T // 2, :(2 * S) // 3] = float("-inf")
-    beam_dec = ViterbiDecoder(dec.image, pip=20.0, lmw=1.0, beam=BEAM,
-                              backend="xla", device=dev)
-    for tag, d in (("exact", dec), ("beam", beam_dec)):
-        if not same_bits(kernel(d, x), d._forward_scan_general(x)):
-            fail(f"[scan kernel] differs from the general twin on NaN and "
-                 f"-inf frames ({tag})")
-    # the non-cube image
-    partial = make_synthetic_image(num_phones=PHONES, num_states=CLASSES,
-                                   full_context=False)
+    for img_tag, image in (("untied", dec.image), ("non-cube", partial)):
+        for beam in (None, SCAN_BEAM):
+            d = ViterbiDecoder(image, pip=20.0, lmw=1.0, beam=beam,
+                               backend="xla", device=dev)
+            want = d._forward_scan_general(x)
+            for key, r in routes.items():
+                if not same_bits(kernel(d, x, r), want):
+                    fail(f"[scan kernel] the {key} route differs from the "
+                         f"general twin on NaN and -inf frames ({img_tag}, "
+                         f"beam {beam})")
+    # the non-cube image at phase 4's inputs
     dec_p = ViterbiDecoder(partial, pip=20.0, lmw=1.0, backend="xla",
                            device=dev)
     if dec_p._cube_order is not None:
         fail("the full_context=False image is a cube")
-    got_p = kernel(dec_p, lp)
-    if not same_bits(got_p, dec_p._forward_scan_general(lp)):
-        fail("[scan kernel] differs from the general twin on the non-cube "
-             "image")
-    del got_p
-    out = dict(err=err)
-    out["ms"] = cuda_ms(torch, lambda: kernel(dec, lp), 3)
-    out["device_ms"] = one_call_device_ms(torch, lambda: kernel(dec, lp),
-                                          "viterbi_scan_kernel")
-    out["partial_ms"] = cuda_ms(torch, lambda: kernel(dec_p, lp), 3)
+    if dec_p._scan.plan.route != "cluster":
+        fail(f"[scan kernel] the non-cube image took {dec_p._scan.plan}")
+    want = dec_p._forward_scan_general(lp)
+    for key, r in routes.items():
+        if not same_bits(kernel(dec_p, lp, r), want):
+            fail(f"[scan kernel] the {key} route differs from the general "
+                 f"twin on the non-cube image")
+    del want
+    out = dict(err=err, cluster_size=plan.cluster,
+               clusters=vscan.scan_cluster_capacity(dec._scan),
+               partial_clusters=vscan.scan_cluster_capacity(dec_p._scan))
+    dec_b = ViterbiDecoder(dec.image, pip=20.0, lmw=1.0, beam=SCAN_BEAM,
+                           backend="xla", device=dev)
+    timed = {"ms": dec, "beam_ms": dec_b, "partial_ms": dec_p}
+    ms = {key: {t: [] for t in timed} for key in routes}
+    for key in ("cluster", "global", "global", "cluster"):
+        for t, d in timed.items():
+            ms[key][t].append(cuda_ms(
+                torch, lambda: kernel(d, lp, routes[key]), 3))
+    for key, name in (("cluster", "viterbi_scan_cluster_kernel"),
+                      ("global", "viterbi_scan_kernel")):
+        out[key] = dict({t: sum(v) / len(v) for t, v in ms[key].items()},
+                        runs=ms[key]["ms"], device_ms=one_call_device_ms(
+                            torch, lambda: kernel(dec, lp, routes[key]),
+                            name))
     out["plain_ms"] = cuda_ms(
         torch, lambda: dec._forward_scan_cube(lp, dec._cube_order), 1,
         warm=False)
@@ -2343,22 +2440,43 @@ def scan_kernel_check(torch, np, dev, card, dec, lp, lens):
                                              F32_FLOPS)
     state = 48 * U * T * F * B
     out["state_floor_ms"] = (state + nbytes) / HBM_BYTES_PER_S * 1e3
+    # the cluster route: every slot's shared-memory and L1 bytes a frame
+    # through its SM's load/store path at 128 bytes a clock, the clusters
+    # walking in waves of the co-resident count
+    waves = -(-U // out["clusters"])
+    slots_sm = F * B / plan.cluster
+    ghz = sm_clock_ghz()
+    out["lsu_floor_ms"] = (waves * T * slots_sm * SCAN_LSU_BYTES
+                           / (128 * ghz * 1e9) * 1e3)
+    out["sm_clock_ghz"] = ghz
     out["partial"] = dict(triphones=partial.num_triphones, width=
                           dec_p._scan.width)
-    log(f"[scan kernel] U={U} T={T} untied P={P} image: bit-equal to the "
-        f"cube and general twins, a second call bit-identical; 16 "
-        f"utterances with NaN and -inf frames bit-equal to the general "
-        f"twin without and with beam {BEAM}; non-cube image "
+    c, g = out["cluster"], out["global"]
+    log(f"[scan kernel] U={U} T={T} untied P={P} image: both routes "
+        f"bit-equal to the cube and general twins and to each other, second "
+        f"calls bit-identical; 16 utterances with NaN and -inf frames on "
+        f"the untied and the non-cube image bit-equal to the general twin "
+        f"on both routes without and with beam {SCAN_BEAM}; non-cube image "
         f"({partial.num_triphones} triphones, F={dec_p._scan.width}) "
-        f"bit-equal to its general twin; kernel {out['ms']:.3f} ms "
-        f"({ms_or_not(out['device_ms'])} device), non-cube "
-        f"{out['partial_ms']:.3f} ms; plain cube twin {out['plain_ms']:.1f} "
-        f"ms ({ms_or_not(out['plain_device_ms'])} device), general twin "
+        f"bit-equal to its general twin on both routes; cluster route (c="
+        f"{plan.cluster}, {out['clusters']} co-resident clusters, "
+        f"{out['partial_clusters']} on the non-cube image) "
+        f"{c['ms']:.3f} ms (turns {', '.join(f'{v:.3f}' for v in c['runs'])}"
+        f"; {ms_or_not(c['device_ms'])} device), beam {SCAN_BEAM} "
+        f"{c['beam_ms']:.3f} ms, non-cube {c['partial_ms']:.3f} ms; "
+        f"device-memory route {g['ms']:.3f} ms (turns "
+        f"{', '.join(f'{v:.3f}' for v in g['runs'])}; "
+        f"{ms_or_not(g['device_ms'])} device), beam {g['beam_ms']:.3f} ms, "
+        f"non-cube {g['partial_ms']:.3f} ms; plain cube twin {out['plain_ms']:.1f} ms "
+        f"({ms_or_not(out['plain_device_ms'])} device), general twin "
         f"{out['general_ms']:.1f} ms, non-cube general twin "
         f"{out['partial_general_ms']:.1f} ms; bound {out['bound_ms']:.3f} ms"
-        f" ({out['bound_by']}), the design's floor with the DP state in "
-        f"device memory {out['state_floor_ms']:.1f} ms ({state / 1e9:.1f} "
-        f"GB of state traffic) [{card}]")
+        f" ({out['bound_by']}); the device-memory route's floor (its DP "
+        f"state in device memory, {state / 1e9:.1f} GB) "
+        f"{out['state_floor_ms']:.1f} ms; the cluster route's floor ({waves}"
+        f" waves x {T} frames x {slots_sm:.0f} slots an SM x "
+        f"{SCAN_LSU_BYTES} load/store bytes a slot at 128 B a clock, "
+        f"{ghz:.3f} GHz) {out['lsu_floor_ms']:.1f} ms [{card}]")
     return out
 
 
@@ -2538,6 +2656,7 @@ def decoder_audio_phases(torch, np, dev, card, img, corpus, lp_rand, lens,
             torch, d._pallas_fwd, vcube.cube_viterbi_forward,
             vcube.cube_viterbi_reference, vcube.cube_cluster_capacity,
             lp_rand, lens, f"cube {tag}", card)
+    nan_rows_check(torch, np, dev, "cube", card)
     for tag in ("exact", "irregular exact"):
         d = decs[tag]
         packed, end = d._pallas_fwd.forward(lp_rand, lens)
@@ -2756,14 +2875,17 @@ def decoder_audio_phases(torch, np, dev, card, img, corpus, lp_rand, lens,
         "nnacousticmodeling_tpu_torch/csrc/viterbi_cube.cu",
         "nnacousticmodeling_tpu/decoder/viterbi_pallas.py:255", launches,
         cube["exact"], cube_bound, cube_by) + [
-        {"name": "viterbi_scan_forward", "route": "cuda",
+        {"name": "viterbi_scan_forward" + suffix, "route": "cuda",
          "source": "nnacousticmodeling_tpu_torch/csrc/viterbi_scan.cu",
          "replaces": "nnacousticmodeling_tpu/decoder/viterbi.py:370, :447 "
                      "(lax.scan twins, no pallas_call)",
-         "launches": launches_u.get("viterbi_scan_forward", 0),
-         "max_abs_err": scan["err"], "tolerance": 0.0, "ms": scan["ms"],
-         "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
-         "bound_by": scan["bound_by"], "library_ms": None},
+         "launches": launches_u.get("viterbi_scan_forward" + suffix, 0),
+         "max_abs_err": scan["err"], "tolerance": 0.0,
+         "ms": scan[key]["ms"], "plain_ms": scan["plain_ms"],
+         "bound_ms": scan["bound_ms"], "bound_by": scan["bound_by"],
+         "library_ms": None}
+        for suffix, key in (("", "cluster"), (".global", "global"))
+    ] + [
         {"name": "fbank", "route": "cuda",
          "source": "nnacousticmodeling_tpu_torch/csrc/fbank.cu",
          "replaces": "nnacousticmodeling_tpu/ops/features.py:210",
@@ -4808,14 +4930,17 @@ def fused_phase(torch, np, dev, card, net, dec, corpus, lp5, results5, per5,
     for _ in range(3):      # a session now and then loses a long kernel
         fn_wall, fn_busy, fn_top, fn_counts = device_profile(
             torch, lambda: fn(lp32, lens_dev), launches_of=(
-                "", "viterbi_scan_kernel", "viterbi_backtrace_kernel"))
-        if fn_counts["viterbi_scan_kernel"] == 1:
+                "", "viterbi_scan_cluster_kernel", "viterbi_scan_kernel",
+                "viterbi_backtrace_kernel"))
+        if fn_counts["viterbi_scan_cluster_kernel"] == 1:
             break
-    if (fn_counts[""] > MAX_DECODE_OPS or fn_counts["viterbi_scan_kernel"] != 1
+    if (fn_counts[""] > MAX_DECODE_OPS
+            or fn_counts["viterbi_scan_cluster_kernel"] != 1
+            or fn_counts["viterbi_scan_kernel"]
             or fn_counts["viterbi_backtrace_kernel"] != 1):
         fail(f"one decode_fn call ran {fn_counts}: more than "
              f"{MAX_DECODE_OPS} device operations, or not one scan kernel "
-             f"and one backtrace kernel")
+             f"on its cluster route and one backtrace kernel")
     log(f"[fused] decode_fn: launches {fn_launches}; phase 5's segments on "
         f"the tied image, decode_batch's (backend='xla') on phase 23's "
         f"untied image; one call (T={T_MAIN}) {fn_counts['']} device "
@@ -5329,6 +5454,7 @@ def main():
         vc.collapsed_viterbi_reference, vc.collapsed_cluster_capacity,
         lp_rand, lens, f"viterbi {tag}", card)
         for tag, d in (("exact", dec), ("beam", dec_beam))}
+    nan_rows_check(torch, np, dev, "collapsed", card)
     frames = int(lens.sum())
     cells = frames * ck.PS * ck.L
     vit_ops = 13 * cells + 2 * frames * ck.PS * ck.Pp

@@ -25,13 +25,17 @@
 // butterfly over the four groups picks the first maximum over left
 // contexts: the greater value, or on equal values the smaller row. For
 // finite values (NEG_INF is -1e20) that is the row and the value bits a
-// sequential strict-`>` walk from a = 0 gives.
+// sequential strict-`>` walk from a = 0 gives. A NaN sticks in a group's
+// walk and wins the butterfly, and the beam's maxima propagate it, as
+// the TPU kernels' jnp.max does: no row then matches the column's max,
+// so the collapsed key is 2**31 - 1 and the cube export takes row P
+// (Pol::nan_key), the bits of their plain versions.
 //
 // One cluster barrier a frame, split around half the frame's work. The
 // export of frame t depends only on frame t-1's states (state 2 reads
 // states 1 and 2), so a frame runs in two passes. Pass 1 updates states
 // 2 and 1 and the export, writes the block's exported slice and (with a
-// beam) its warps' maxima into its publish slot t % 2, and arrives at
+// beam) its row max (max_key) into its publish slot t % 2, and arrives at
 // barrier.cluster (release). Pass 2 updates state 0, whose entry reads
 // the exchanged row of frame t-1; then the block waits (acquire), reads
 // every peer's slot of frame t through distributed shared memory into
@@ -65,6 +69,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -101,7 +106,7 @@ inline size_t smem_bytes(int PS, int lanes, int S, int c) {
   return (size_t)3 * PS * w * 8               // state: (score, entry time)
          + (size_t)2 * (lanes + PS) * 4       // exported rows pc (2, padded)
          + (size_t)2 * w * 4                  // publish slots
-         + (size_t)2 * MAX_WARPS * 4          // published warp maxima
+         + 4 * 4                              // row maxima (2, padded)
          + 4 * 4                              // thresholds (2, padded)
          + (size_t)2 * round4(S) * 4;         // posterior rows (2)
 }
@@ -138,6 +143,45 @@ __device__ __forceinline__ float clamp(float x, float thr) {
   return (x >= thr) ? x : NEG_INF;
 }
 
+// max that propagates NaN, as torch.amax and jnp.max
+__device__ __forceinline__ float nan_max(float a, float b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  return a > b ? a : b;
+}
+
+// A walk's running first max in ascending order takes `out` over `best`:
+// the greater value, and the first NaN, which then sticks.
+__device__ __forceinline__ bool first_max_takes(float out, float best) {
+  return best == best && !(out <= best);
+}
+
+// The beam's row max as an int: order-preserving keys of the float bits,
+// every NaN the largest key (INT_MAX), so an int max over keys is the
+// NaN-propagating max of the values (up to the sign of a zero, which
+// max - beam does not see). A block's warps fold their keys into one
+// shared word by atomicMax, so a peer makes one remote load a block, not
+// one a warp (remote loads are slow). INT_MIN: no value.
+__device__ __forceinline__ int max_key(float v) {
+  const int i = __float_as_int(v);
+  return v != v ? 0x7fffffff : (i >= 0 ? i : i ^ 0x7fffffff);
+}
+__device__ __forceinline__ float key_value(int k) {
+  return k == 0x7fffffff ? __int_as_float(0x7fffffff)
+                         : __int_as_float(k >= 0 ? k : k ^ 0x7fffffff);
+}
+
+// A butterfly partner's (value, index) beats this thread's: the first NaN
+// (by index) beats every number; else the greater value, or on equal
+// values the smaller index.
+__device__ __forceinline__ bool partner_wins(float ob, int oa, float best,
+                                             int arg) {
+  const bool o_nan = ob != ob, b_num = best == best, first = oa < arg;
+  // bitwise, not short-circuit: predicates, no branches
+  return (o_nan & (b_num | first)) |
+         (!o_nan & b_num & ((ob > best) | ((ob == best) & first)));
+}
+
 // The right-context-collapsed kernel's entry, export and end row.
 struct Collapsed {
   const float* __restrict__ lmq;     // (n,) entry lm of each cell
@@ -160,6 +204,9 @@ struct Collapsed {
     return v + __ldg(lmmax + j);
   }
   __device__ int key(int a, int tt, int) const { return a * pack + tt + 1; }
+  // a NaN max: jnp.min over no matching row of the keys
+  __device__ int pad_row() const { return -1; }
+  __device__ int nan_key(int, int) const { return 0x7fffffff; }
   __device__ float end_score(int p, const float* pc, float thr,
                              int use_beam) const {
     const int jl = __ldg(pc0_map + p);
@@ -196,6 +243,9 @@ struct Cube {
   __device__ int key(int a, int tt, int j) const {
     return (a * a_coef + __ldg(tri_base + j)) * TIME_PACK + tt + 1;
   }
+  // a NaN max: arg = P, bt = the entry time of pad row P (0 if PS = P)
+  __device__ int pad_row() const { return P; }
+  __device__ int nan_key(int tt_pad, int j) const { return key(P, tt_pad, j); }
   __device__ float end_score(int p, const float* pc, float thr,
                              int use_beam) const {
     const float e = pc[pc_slot(__ldg(end_lane + p))];
@@ -233,8 +283,8 @@ __device__ __forceinline__ void decode(
   int2* st = reinterpret_cast<int2*>(smem_raw);                // (3, PS W)
   float* pcl = reinterpret_cast<float*>(st + 3 * splane);      // (2, pcn)
   float* pub = pcl + 2 * pcn;                                  // (2, W)
-  float* pubmax = pub + 2 * W;                                 // (2, 18)
-  float* thr_s = pubmax + 2 * MAX_WARPS;                       // 2 (+2)
+  int* row_max = reinterpret_cast<int*>(pub + 2 * W);          // 2 (+2)
+  float* thr_s = reinterpret_cast<float*>(row_max + 4);        // 2 (+2)
   float* lps = thr_s + 4;                                      // (2, S4)
 
   const int tid = threadIdx.x;
@@ -256,6 +306,7 @@ __device__ __forceinline__ void decode(
     const float* lp0 = lp + (size_t)u * T * S;
     for (int k = tid; k < S; k += nt) lps[k] = lp0[k];
   }
+  if (tid < 2) row_max[tid] = INT_MIN;
   float thr = THR0;
   __syncthreads();
 
@@ -275,8 +326,10 @@ __device__ __forceinline__ void decode(
     cp_async_commit();
 
     // ---- pass 1: states 2 and 1, the export of frame t ----
-    float local = -INFINITY;
-    for (int k = warp; k < nchunks; k += nwarps) {
+    int local = INT_MIN;                      // the beam's max key
+    unsigned nan_chunks = 0;   // chunks whose max is NaN (a slice that
+                               // fits holds < 32 chunks a warp)
+    for (int k = warp, m = 0; k < nchunks; k += nwarps, ++m) {
       const int jl = k * LANE_CHUNK + jj;     // lane within the slice
       const int j = lane0 + jl;               // lane of the row
       float best = 0.0f;
@@ -311,7 +364,7 @@ __device__ __forceinline__ void decode(
 
         // export: first max over this group's rows (strict >, ascending a)
         const float out = pp2 + __int_as_float(r3.x);
-        if (i == 0 || out > best) {
+        if (i == 0 || first_max_takes(out, best)) {
           best = out;
           arg = i * ROW_GROUPS + g;
           bt = tt2;
@@ -323,27 +376,28 @@ __device__ __forceinline__ void decode(
         const float ob = __shfl_xor_sync(0xffffffffu, best, off);
         const int oa = __shfl_xor_sync(0xffffffffu, arg, off);
         const int ot = __shfl_xor_sync(0xffffffffu, bt, off);
-        if (ob > best || (ob == best && oa < arg)) {
+        if (partner_wins(ob, oa, best, arg)) {
           best = ob;
           arg = oa;
           bt = ot;
         }
       }
       if (g == 0) {
-        packed[((size_t)u * T + t) * L + j] = pol.key(arg, bt, j);
+        // both tables' loads issue before the store
+        const int key = pol.key(arg, bt, j);
         const float v = pol.exported(best, j);
+        packed[((size_t)u * T + t) * L + j] = key;
+        if (best != best) nan_chunks |= 1u << m;  // rekeyed after the barrier
         pub[buf * W + jl] = v;
-        local = fmaxf(local, pol.beam_score(v, j));
+        if (use_beam) local = max(local, max_key(pol.beam_score(v, j)));
       }
     }
     if (use_beam) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        local = fmaxf(local, __shfl_xor_sync(0xffffffffu, local, off));
-      if (lane == 0) pubmax[buf * MAX_WARPS + warp] = local;
+      local = __reduce_max_sync(0xffffffffu, local);
+      if (lane == 0) atomicMax(row_max + buf, local);
     }
 #if !(VIT_LEAVE_OUT & 2)
-    cluster_arrive();    // frame t's slice and warp maxima published
+    cluster_arrive();    // frame t's slice and row max published
 #endif
 
     // ---- pass 2: state 0, entering from frame t-1's row ----
@@ -380,24 +434,32 @@ __device__ __forceinline__ void decode(
       pc_t[pol.pc_slot(e + 2)] = v.z;
       pc_t[pol.pc_slot(e + 3)] = v.w;
     }
-    if (use_beam && warp == 0) {
-      // lane r < c reads block r's warp maxima: one mapping, no division
-      float m = -INFINITY;
-      if (lane < c) {
-        const float* peer = cluster.map_shared_rank(pubmax + buf * MAX_WARPS,
-                                                    lane);
-#pragma unroll
-        for (int w = 0; w < MAX_WARPS; ++w)
-          if (w < nwarps) m = fmaxf(m, peer[w]);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-      if (lane == 0) thr_s[buf] = m - beam;
+    if (use_beam && warp == nwarps - 1) {
+      // lane r < c reads block r's row max: one remote word a block
+      const int mk = __reduce_max_sync(
+          0xffffffffu,
+          lane < c ? *cluster.map_shared_rank(row_max + buf, lane) : INT_MIN);
+      if (lane == 0) thr_s[buf] = key_value(mk) - beam;
     }
+    if (tid == 0) row_max[buf ^ 1] = INT_MIN;  // frame t+1's; peers read
+                                               // frame t-1's before wait t
     cp_async_wait_all();
     __syncthreads();     // row t, its threshold, posterior row t + 1
     if (use_beam) thr = thr_s[buf];
+    // a NaN max matches no row: the key of pad row P with its new entry
+    // time (state 2, untouched by pass 2), if the rows have one
+    for (int m = 0; nan_chunks; ++m, nan_chunks >>= 1) {
+      if (!(nan_chunks & 1u)) continue;
+      const int k = warp + m * nwarps;
+      const int pr = pol.pad_row();
+      const int tt = pr >= 0 && pr < PS
+                         ? st[2 * splane +
+                              (((pr / ROW_GROUPS) * nchunks + k) << 5) +
+                              (pr % ROW_GROUPS) * LANE_CHUNK + jj].y
+                         : 0;
+      const int j = lane0 + k * LANE_CHUNK + jj;
+      packed[((size_t)u * T + t) * L + j] = pol.nan_key(tt, j);
+    }
 
     float* endt = end + ((size_t)u * T + t) * P;
     for (int p = rank * nt + tid; p < P; p += c * nt)

@@ -8,7 +8,9 @@
 // kernel's float32 operation order (each step one IEEE add; strict `>`
 // updates; first max over left contexts; ((pc + lm) + pip) on entry;
 // the beam threshold of frame t clamps frame t's end row and frame
-// t+1's entry).
+// t+1's entry). A column whose max is NaN (jnp.max propagates it) matches
+// no row, so its key is jnp.min over none, 2**31 - 1, and its exported
+// score NaN; the beam's row max propagates NaN too.
 //
 // Two routes, chosen by the host's viterbi_cluster_plan from the image's
 // size, never as a fallback:
@@ -134,29 +136,32 @@ collapsed_viterbi_kernel(const float* __restrict__ lp,       // (U, T, S)
         ttu[i1] = tt1;
         ttu[i2] = tt2;
 
-        // export: first max over left contexts (strict >, ascending a)
+        // export: first max over left contexts (strict >, ascending a;
+        // the first NaN sticks)
         const float out = pp2 + tps[5 * plane + i0];
-        if (a == 0 || out > best) {
+        if (a == 0 || viterbi_cluster::first_max_takes(out, best)) {
           best = out;
           key = a * pack + tt2 + 1;
         }
       }
-      packed[((size_t)u * T + t) * L + j] = key;
+      packed[((size_t)u * T + t) * L + j] = best == best ? key : 0x7fffffff;
       pcn[j] = best;
-      local = fmaxf(local, best + lmmax[j]);
+      local = viterbi_cluster::nan_max(local, best + lmmax[j]);
     }
 
     // beam threshold of this frame: max over lanes of (pnew + lmmax)
     float thr_new = thr;
     if (use_beam) {
       for (int off = 16; off > 0; off >>= 1)
-        local = fmaxf(local, __shfl_xor_sync(0xffffffffu, local, off));
+        local = viterbi_cluster::nan_max(
+            local, __shfl_xor_sync(0xffffffffu, local, off));
       if ((tid & 31) == 0) red[tid >> 5] = local;
     }
     __syncthreads();   // pcn complete; warp maxima staged
     if (use_beam) {
       float rowm = red[0];
-      for (int w = 1; w < nwarps; ++w) rowm = fmaxf(rowm, red[w]);
+      for (int w = 1; w < nwarps; ++w)
+        rowm = viterbi_cluster::nan_max(rowm, red[w]);
       thr_new = rowm - beam;
     }
     for (int p = tid; p < P; p += nt) {

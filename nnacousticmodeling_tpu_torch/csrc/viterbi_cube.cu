@@ -9,7 +9,10 @@
 // kernel's float32 operation order (each step one IEEE add; p_in = q +
 // pip; strict `>` go/stay selects with the observation added after the
 // select; a first max over left contexts of pp2 + tps[5]; pnew = mx + lm;
-// then the beam clamp pnew >= rowmax - beam).
+// then the beam clamp pnew >= rowmax - beam). A column whose max is NaN
+// (jnp.max propagates it) matches no row: the TPU kernel's arg is then P
+// and its bt the entry time of pad row P (0 where PS = P); the beam's row
+// max propagates NaN too.
 //
 // Why the gathers are exact. The TPU kernel rearranged the exported row
 // with a one-hot matmul q = (Ea * p) @ Fb and extracted irregular end
@@ -105,7 +108,7 @@ cube_viterbi_kernel(const float* __restrict__ lp,        // (U, T, S)
     for (int j = tid; j < B; j += nt) {
       const int b = j % P;
       float best = 0.0f;
-      int arg = 0, bt = 0;
+      int arg = 0, bt = 0, tt_pad = 0;
 #pragma unroll 2
       for (int a = 0; a < PS; ++a) {
         const size_t i0 = (size_t)a * B + j;
@@ -142,31 +145,39 @@ cube_viterbi_kernel(const float* __restrict__ lp,        // (U, T, S)
         ttu[i1] = tt1;
         ttu[i2] = tt2;
 
-        // export: first max over left contexts (strict >, ascending a)
+        // export: first max over left contexts (strict >, ascending a;
+        // the first NaN sticks)
         const float out = pp2 + tps[5 * plane + i0];
-        if (a == 0 || out > best) {
+        if (a == 0 || viterbi_cluster::first_max_takes(out, best)) {
           best = out;
           arg = a;
           bt = tt2;
         }
+        if (a == P) tt_pad = tt2;
+      }
+      if (best != best) {
+        arg = P;
+        bt = tt_pad;
       }
       packed[((size_t)u * T + t) * B + j] =
           (arg * a_coef + tri_base[j]) * TIME_PACK + bt + 1;
       const float pnew = best + lm[j];
       pcn[j] = pnew;
-      local = fmaxf(local, pnew);
+      local = viterbi_cluster::nan_max(local, pnew);
     }
 
     // beam: clamp this frame's row below (row max - beam)
     if (use_beam) {
       for (int off = 16; off > 0; off >>= 1)
-        local = fmaxf(local, __shfl_xor_sync(0xffffffffu, local, off));
+        local = viterbi_cluster::nan_max(
+            local, __shfl_xor_sync(0xffffffffu, local, off));
       if ((tid & 31) == 0) red[tid >> 5] = local;
     }
     __syncthreads();   // pcn complete; warp maxima staged
     if (use_beam) {
       float rowm = red[0];
-      for (int w = 1; w < nwarps; ++w) rowm = fmaxf(rowm, red[w]);
+      for (int w = 1; w < nwarps; ++w)
+        rowm = viterbi_cluster::nan_max(rowm, red[w]);
       const float thr = rowm - beam;
       for (int j = tid; j < B; j += nt)
         pcn[j] = (pcn[j] >= thr) ? pcn[j] : NEG_INF;

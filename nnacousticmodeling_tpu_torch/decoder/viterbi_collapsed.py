@@ -81,11 +81,11 @@ def cluster_smem_bytes(ps: int, lanes: int, s: int, c: int) -> int:
     """Shared memory of one cluster-route block (``smem_bytes`` of
     csrc/viterbi_cluster.cuh): its state slice (score and entry time a
     cell), two full exported rows padded by ``ps``, two publish slots,
-    two sets of published warp maxima, two thresholds (padded to four)
+    two row maxima and two thresholds (each pair padded to four words)
     and two posterior rows."""
     w = lanes // c
-    return (3 * ps * w * 8 + 2 * (lanes + ps) * 4 + 2 * w * 4
-            + 2 * MAX_WARPS * 4 + 16 + 2 * _ceil(s, 4) * 4)
+    return (3 * ps * w * 8 + 2 * (lanes + ps) * 4 + 2 * w * 4 + 16 + 16
+            + 2 * _ceil(s, 4) * 4)
 
 
 def viterbi_cluster_plan(ps: int, lanes: int, s: int,

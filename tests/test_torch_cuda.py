@@ -309,6 +309,63 @@ def test_cube_viterbi_kernel_bit_equal(cuda, num_phones, ends, beam, route):
     assert counted == {"viterbi_scan_forward": 1, "viterbi_backtrace": 1}
 
 
+def _nan_probe(cuda, num_phones=8):
+    """The NaN rows of the collapsed and cube kernels' repair: 3
+    utterances of 12 Dirichlet frames (seed 3) with an all-NaN frame and
+    a frame NaN in half its pdfs, on the 8-phone pdf-tied image."""
+    img = _viterbi_image(num_phones)
+    rng = np.random.default_rng(3)
+    lp = np.log(rng.dirichlet(np.ones(img.num_states), size=(3, 12))
+                ).astype(np.float32)
+    lp[0, 4] = np.nan
+    lp[1, 6, :13] = np.nan
+    lens = torch.full((3,), 12, dtype=torch.int32, device=cuda)
+    return img, torch.from_numpy(lp).to(cuda), lens
+
+
+@pytest.mark.parametrize("route", [None, "global"])
+@pytest.mark.parametrize("beam", [None, 2.0])
+@pytest.mark.parametrize("kind", ["collapsed", "cube", "cube9", "cube12"])
+def test_viterbi_kernels_follow_plain_on_nan_rows(cuda, kind, beam, route):
+    """Where a column's max is NaN no row matches it (the TPU kernels'
+    jnp.max): the collapsed key 2**31 - 1, the cube export row P with pad
+    row P's entry time ("cube9": 9 phones, rows padded to 16, the
+    device-memory route either way; "cube12": 12 phones, rows padded to
+    16, on both routes); the beam's row max propagates NaN.
+    Both kernels, both routes: packed rows equal and end scores equal (NaN
+    where NaN) to the plain versions."""
+    from nnacousticmodeling_tpu_torch.decoder import viterbi_collapsed as vc
+    phones = {"cube9": 9, "cube12": 12}.get(kind, 8)
+    img, lp, lens = _nan_probe(cuda, phones)
+    kind = kind[:4] if kind.startswith("cube") else kind
+    dec = ViterbiDecoder(img, pip=5.0, lmw=1.5, beam=beam, device=cuda,
+                         backend="auto" if kind == "collapsed" else "pallas")
+    if kind == "collapsed":
+        obj, fwd, ref = (dec._collapsed_fwd, vc.collapsed_viterbi_forward,
+                         collapsed_viterbi_reference)
+    else:
+        obj, fwd, ref = (dec._pallas_fwd, cube_viterbi_forward,
+                         cube_viterbi_reference)
+    on_cluster = route is None and obj.plan.route == "cluster"
+    assert (obj.plan.route == "cluster") == (phones != 9)
+    if kind == "cube":
+        assert (obj.PS > obj.P) == (phones != 8)
+    name = f"{kind}_viterbi_forward" + ("" if on_cluster else ".global")
+    before = kernels.launches[name]
+    packed, end = fwd(obj, lp, lens, route=route)
+    torch.cuda.synchronize()
+    assert kernels.launches[name] == before + 1
+    want_packed, want_end = ref(obj, lp, lens)
+    np.testing.assert_array_equal(packed.cpu().numpy(),
+                                  want_packed.cpu().numpy())
+    assert np.array_equal(end.cpu().numpy(), want_end.cpu().numpy(),
+                          equal_nan=True)
+    if beam is None:
+        assert np.isnan(want_end.cpu().numpy()).any()
+    if kind == "collapsed":
+        assert (want_packed.cpu().numpy() == 2 ** 31 - 1).any()
+
+
 # ---- the backtrace kernel -------------------------------------------------
 def _to_bac(img):
     """The same model with triphones enumerated center-major (idx =
@@ -594,6 +651,9 @@ def _scan_image(name):
             out_values=np.argsort(bi_out, kind="stable").astype(np.int32),
             phone_names=[img.phone_names[i]
                          for i in np.flatnonzero(keep)]).validate()
+    if name == "partial48":
+        return make_synthetic_image(num_phones=48, num_states=1909,
+                                    full_context=False)
     assert name == "untied48"
     return make_synthetic_image(num_phones=48, num_states=1909)
 
@@ -649,6 +709,47 @@ def test_scan_kernel_bit_equal_to_plain_twins(cuda, name, beam, t):
     assert np.isnan(got[1].cpu().numpy()).any() == (beam is None)
 
 
+@pytest.mark.parametrize("beam", [None, 2.0])
+@pytest.mark.parametrize("name", ["untied", "untied_bac", "partial",
+                                  "empty_rows", "untied48", "partial48"])
+def test_scan_kernel_routes_bit_equal(cuda, name, beam):
+    """The scan kernel's two routes (the plan's cluster route, the
+    device-memory route forced) on NaN and -inf frames, with more
+    utterances than the card holds clusters at once: each bit-equal to
+    the general twin and to the other route, counted apart; the 48-phone
+    images take 16-block clusters, the small ones 1."""
+    from nnacousticmodeling_tpu_torch.decoder import viterbi_scan as vscan
+    img = _scan_image(name)
+    dec = ViterbiDecoder(img, pip=5.0, lmw=1.5, beam=beam, backend="xla",
+                         device=cuda)
+    tables = dec._scan
+    assert tables.plan.route == "cluster"
+    assert tables.plan.cluster == (16 if name.endswith("48") else 1)
+    clusters = vscan.scan_cluster_capacity(tables)
+    assert clusters >= 1
+    t = 14
+    lp = torch.from_numpy(_scan_lp(img, clusters + 3, t, seed=len(name))
+                          ).to(cuda)
+    pack = dec._time_pack_for(t)
+    before = dict(kernels.launches)
+    got = {route: vscan.viterbi_scan_forward(tables, lp, pack, route=route)
+           for route in (None, "global")}
+    torch.cuda.synchronize()
+    counted = {k: v - before.get(k, 0) for k, v in kernels.launches.items()
+               if v != before.get(k, 0)}
+    assert counted == {"viterbi_scan_forward": 1,
+                       "viterbi_scan_forward.global": 1}
+    want = dec._forward_scan_general(lp)
+    for packed, end in list(got.values()) + [got[None]]:
+        np.testing.assert_array_equal(packed.cpu().numpy(),
+                                      want[0].cpu().numpy())
+        assert np.array_equal(end.cpu().numpy(), want[1].cpu().numpy(),
+                              equal_nan=True)
+    assert torch.equal(got[None][0], got["global"][0])
+    again = vscan.viterbi_scan_forward(tables, lp, pack)
+    assert torch.equal(again[0], got[None][0])
+
+
 @pytest.mark.parametrize("name", ["untied", "partial", "empty_rows"])
 def test_decode_fn_launches_the_scan_kernel_and_the_backtrace(cuda, name):
     """One ``decode_fn`` call: the two kernels once each, no plain twin,
@@ -693,6 +794,8 @@ def test_scan_kernel_refuses_malformed_tables(cuda):
         "table idx": dataclasses.replace(tables, idx=tables.idx[:, :-1]),
         "table count": dataclasses.replace(tables,
                                            count=tables.count[:-1]),
+        "table records": dataclasses.replace(tables,
+                                             records=tables.records[:-1]),
         "tables on cpu": vscan.scan_tables(
             img, tables.lm.cpu().numpy(), tables.p0.cpu().numpy(),
             tables.pip, None, "cpu"),

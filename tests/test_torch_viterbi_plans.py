@@ -135,8 +135,7 @@ def test_chip_smoke_image_takes_a_cluster_of_16():
         assert (plan.route, plan.cluster, plan.slice, plan.threads) == (
             "cluster", 16, 144, 576)
         assert plan.smem_bytes == (3 * 48 * 144 * 8 + 2 * (2304 + 48) * 4
-                                   + 2 * 144 * 4 + 2 * MAX_WARPS * 4 + 16
-                                   + 2 * 1912 * 4)
+                                   + 2 * 144 * 4 + 16 + 16 + 2 * 1912 * 4)
 
 
 def test_odd_cube_takes_the_device_memory_route():
