@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .image import HmmImage
 from .viterbi_backtrace import (
     COLLAPSED_ABC,
@@ -234,9 +235,11 @@ class ViterbiDecoder:
             return self._collapsed_fwd
         pack = self._collapsed_pack_for(t)
         if pack not in self._collapsed_long:
-            self._collapsed_long[pack] = CollapsedViterbi(
-                self.image, self._cube_order, pip=self.pip, lmw=self.lmw,
-                beam=self.beam, pack=pack, device=self.device)
+            with span("nnam.decode.tables"):
+                self._collapsed_long[pack] = CollapsedViterbi(
+                    self.image, self._cube_order, pip=self.pip,
+                    lmw=self.lmw, beam=self.beam, pack=pack,
+                    device=self.device)
         return self._collapsed_long[pack]
 
     def _detect_cube_order(self) -> Optional[str]:
@@ -463,23 +466,26 @@ class ViterbiDecoder:
         take the scan twin, as in the JAX package (``viterbi.py:574-588``,
         ``:590-603``)."""
         if self._collapsed_fwd is not None:
-            ck = self._collapsed_for_t(lp.shape[1])
-            packed, end_scores = ck.forward(lp, lengths)
-            return self._collapsed_backtrace(packed, end_scores, lengths,
-                                             early_exit)
-        if self._pallas_fwd is not None and lp.shape[1] < TIME_PACK - 1:
-            packed, end_scores = self._pallas_fwd.forward(lp, lengths)
-            return self._pallas_backtrace(packed, end_scores, lengths,
-                                          early_exit)
-        return self._decode_scan(lp, lengths, early_exit)
+            forward = self._collapsed_for_t(lp.shape[1]).forward
+            back = self._collapsed_backtrace
+        elif self._pallas_fwd is not None and lp.shape[1] < TIME_PACK - 1:
+            forward, back = self._pallas_fwd.forward, self._pallas_backtrace
+        else:
+            return self._decode_scan(lp, lengths, early_exit)
+        with span("nnam.decode.forward"):
+            packed, end_scores = forward(lp, lengths)
+        with span("nnam.decode.backtrace"):
+            return back(packed, end_scores, lengths, early_exit)
 
     def _decode_scan(self, lp: torch.Tensor, lengths: torch.Tensor,
                      early_exit: bool = True):
         """The scan twin and its backtrace (the JAX ``vmap(
         _decode_device)``)."""
-        packed, end_scores = self._forward_scan(lp)
-        return self._device_backtrace(packed, end_scores, lengths,
-                                      early_exit=early_exit)
+        with span("nnam.decode.forward"):
+            packed, end_scores = self._forward_scan(lp)
+        with span("nnam.decode.backtrace"):
+            return self._device_backtrace(packed, end_scores, lengths,
+                                          early_exit=early_exit)
 
     def _as_input(self, log_probs, lengths):
         lp = torch.as_tensor(log_probs, dtype=torch.float32,

@@ -29,6 +29,8 @@ from collections import Counter
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+from .utils.profiling import span
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = {
@@ -109,25 +111,27 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     all started together. Returns each fresh build's compiler report
     (``-Xptxas -v``: registers, shared memory, spills)."""
     names = list(names) if names is not None else list(SOURCES)
+    stale = [n for n in names if not library_path(n).is_file()]
+    if not stale:
+        return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        so = library_path(name)
-        if so.is_file():
-            continue
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-               str(CSRC / SOURCES[name])]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, so)
     reports = {}
-    for name, (proc, tmp, so) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{out}")
-        os.replace(tmp, so)
-        reports[name] = out
+    with span("nnam.kernels.build"):
+        procs = {}
+        for name in stale:
+            so = library_path(name)
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+                   str(CSRC / SOURCES[name])]
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp, so)
+        for name, (proc, tmp, so) in procs.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}:\n{out}")
+            os.replace(tmp, so)
+            reports[name] = out
     return reports
 
 

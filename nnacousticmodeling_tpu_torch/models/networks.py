@@ -66,6 +66,7 @@ from ..ops.rnn_cuda import (
     peephole_scan_train,
 )
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from . import cells
 
 
@@ -334,7 +335,9 @@ class _RecurrentStack(nn.Module):
     def hidden_sequence(self, xs: torch.Tensor, state=None,
                         train: bool = False,
                         generator: Optional[torch.Generator] = None):
-        """(B, T, D) -> ((B, T, H) last-layer hiddens, state).
+        """(B, T, D) -> ((B, T, H) last-layer hiddens, state); the
+        hiddens may be a transposed view of the time-major ones the last
+        layer made (``apply_sequence`` copies them batch-major).
 
         ``train`` turns dropout and zoneout on (masks from
         ``generator``) and, with ``scan_impl="pallas"``, routes the
@@ -346,8 +349,10 @@ class _RecurrentStack(nn.Module):
         new_state = []
         for l in range(self.layers):
             p = self.cells[l].params()
-            proj = self._cell_input_proj(p, xs.reshape(b * t, -1))
-            proj = proj.reshape(b, t, -1).transpose(0, 1).contiguous()
+            with span("nnam.net.input_proj"):
+                proj = self._cell_input_proj(p, xs.reshape(b * t, -1))
+            with span("nnam.net.layout"):
+                proj = proj.reshape(b, t, -1).transpose(0, 1).contiguous()
             scanned = (self._cell_scan(p, state[l], proj, train)
                        if self.scan_impl == "pallas" else None)
             if scanned is not None:
@@ -363,6 +368,11 @@ class _RecurrentStack(nn.Module):
             new_state.append(carry)
             xs = dropout(hs.transpose(0, 1), self.dropout, train,
                          generator)                       # (B, T, H)
+            if l + 1 < self.layers:
+                # the copy the next layer's input projection would make
+                # of the transposed xs in its reshape
+                with span("nnam.net.layout"):
+                    xs = xs.contiguous()
         return xs, new_state
 
     def apply_sequence(self, xs: torch.Tensor, state=None,
@@ -371,7 +381,10 @@ class _RecurrentStack(nn.Module):
         """(B, T, D) -> ((B, T, C) logits, state)."""
         b, t, _ = xs.shape
         hs, new_state = self.hidden_sequence(xs, state, train, generator)
-        logits = self.out(hs.reshape(b * t, -1))
+        with span("nnam.net.layout"):
+            hs = hs.contiguous()        # the time-major hiddens, batch-major
+        with span("nnam.net.output"):
+            logits = self.out(hs.reshape(b * t, -1))
         return logits.reshape(b, t, -1), new_state
 
     forward = apply_sequence

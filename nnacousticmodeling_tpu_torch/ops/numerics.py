@@ -5,6 +5,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 #: The reference's infinity stand-in (kw_utils.py:39, phone_recog.cpp:144).
 REF_INF = 1e20
 
@@ -12,9 +14,10 @@ REF_INF = 1e20
 def log_softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Stable log-softmax with the JAX package's operation order:
     ``x - max - log(sum(exp(x - max)))``."""
-    m = torch.amax(x, dim=dim, keepdim=True)
-    return x - m - torch.log(torch.sum(torch.exp(x - m), dim=dim,
-                                       keepdim=True))
+    with span("nnam.numerics.log_softmax"):
+        m = torch.amax(x, dim=dim, keepdim=True)
+        return x - m - torch.log(torch.sum(torch.exp(x - m), dim=dim,
+                                           keepdim=True))
 
 
 def ref_logsum(lp: np.ndarray, axis: int = 0) -> np.ndarray:

@@ -59,7 +59,9 @@ epoch) is not built: its node count grows with the epoch (a ZoneoutLSTM
 update alone is thousands of nodes, and the TIMIT corpus gives hundreds
 of updates an epoch at b128 L20), while one graph an update already
 leaves the host out of the update. Validation, snapshots, early stopping
-and the stage-end rule run outside the graph, once an epoch. Dropout
+and the stage-end rule run outside the graph, once an epoch; each of
+them, the epoch, its host work and every update is a named span
+(``utils/profiling.py``) in a profiler session. Dropout
 masks come from one ``torch.Generator`` seeded with ``seed`` (in the
 place of the JAX key), registered with the graph, so that each replay
 draws the masks the direct call would; the two frameworks draw
@@ -104,6 +106,7 @@ from ..parallel.mesh import (
     unshard_net,
 )
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .checkpoint import params_from_arrays
 from .optimizers import make_optimizer
 from .stages import TrainStage
@@ -330,13 +333,56 @@ def _epoch_mean(values, split):
     return m if split is None else split.mean(m)
 
 
+class _DeviceSeconds:
+    """Seconds between two CUDA events, read (``float``) once both have
+    completed: the device's own time for the work between them, not the
+    host's time to enqueue it."""
+
+    def __init__(self, start, end):
+        self.start, self.end = start, end
+
+    def __float__(self) -> float:
+        self.end.synchronize()
+        return self.start.elapsed_time(self.end) / 1e3
+
+
+def _epoch_clock(dev):
+    """Start an epoch's clock; calling the result stops it and returns
+    the seconds between: on the card a ``_DeviceSeconds`` of two CUDA
+    events recorded on the current stream (under ``defer_metrics`` an
+    update loop only enqueues its work, so the host clock would time the
+    enqueueing), elsewhere the host clock's float."""
+    if dev.type != "cuda":
+        t0 = time.time()
+        return lambda: time.time() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+
+    def stop():
+        end.record()
+        return _DeviceSeconds(start, end)
+    return stop
+
+
 def _finalize_history(history):
-    """Turn deferred device-scalar metrics into floats (the one
-    blocking fetch of a ``defer_metrics`` run)."""
+    """Turn deferred device-scalar metrics and epoch times into floats
+    (the one blocking fetch of a ``defer_metrics`` run)."""
     for h in history:
         for k, v in h.items():
             if not isinstance(v, (bool, int, float, str)):
                 h[k] = float(v)
+
+
+def _fmt_metric(k, v) -> str:
+    """An epoch log's ``key=value``."""
+    if isinstance(v, (bool, int, str)):
+        return f"{k}={v}"
+    if isinstance(v, float):
+        return f"{k}={v:.4f}"
+    # a device scalar under defer_metrics: formatting it would force the
+    # fetch the flag exists to avoid
+    return f"{k}=<deferred>"
 
 
 def _record(step_no, losses, accs, loss, acc) -> None:
@@ -410,26 +456,28 @@ class _Updates:
 
     def __call__(self) -> None:
         if self.use_graph and self.warm and self.graph is None:
-            try:
-                shared = {} if self.pool is None else {"pool": self.pool}
-                self.graph, self.launched = _capture_update(
-                    self.step, self.generator, **shared)
-            except Exception as e:
-                raise RuntimeError(
-                    f"{self.caller}: capturing the update as a CUDA graph "
-                    f"failed ({type(e).__name__}: {e}); pass "
-                    f"cuda_graph=False to run it by direct call") from e
+            with span("nnam.train.capture"):
+                try:
+                    shared = {} if self.pool is None else {"pool": self.pool}
+                    self.graph, self.launched = _capture_update(
+                        self.step, self.generator, **shared)
+                except Exception as e:
+                    raise RuntimeError(
+                        f"{self.caller}: capturing the update as a CUDA "
+                        f"graph failed ({type(e).__name__}: {e}); pass "
+                        f"cuda_graph=False to run it by direct call") from e
             self.ptrs = [t.data_ptr() for t in self.tensors()]
-        if self.graph is None:
-            self.step()
-            self.warm = True
-            return
-        try:
-            self.graph.replay()
-        except RuntimeError as e:
-            raise RuntimeError(f"{self.caller}: replaying the captured "
-                               f"update failed: {e}") from e
-        kernels.replayed(self.launched)
+        with span("nnam.train.update"):
+            if self.graph is None:
+                self.step()
+                self.warm = True
+                return
+            try:
+                self.graph.replay()
+            except RuntimeError as e:
+                raise RuntimeError(f"{self.caller}: replaying the captured "
+                                   f"update failed: {e}") from e
+            kernels.replayed(self.launched)
 
 
 def _stage_tensors(net, opt):
@@ -472,7 +520,10 @@ def train_network(
     network's forward in a feed-forward stage. ``cuda_graph=False``
     makes every update a direct call on the card as well (the plain
     version the captured update is held against). Returns the final
-    params and the per-epoch history."""
+    params and the per-epoch history; an entry's ``elapsed_time`` is
+    the seconds of the epoch's updates and metrics, on the card between
+    two CUDA events (the device's time, deferred runs' included), else
+    on the host clock."""
     dev = resolve_device(device)
     _compute_dtype(config)
     _check_dispatch(config)
@@ -583,65 +634,70 @@ def train_network(
                 start_epoch = stage.epoch
             resume_blob = None
         for epoch in range(start_epoch, stage.epoch):
-            t0 = time.time()
-            state, tr_loss, tr_acc = run_epoch(state, rng_np)
-            entry = {"stage": si, "epoch": epoch + 1,
-                     "main/loss": tr_loss, "main/accuracy": tr_acc,
-                     "elapsed_time": time.time() - t0}
-            if use_val:
-                val_loss, val_acc = evaluate()
-                if split is not None:
-                    val_loss, val_acc = split.agree(torch.tensor(
-                        [val_loss, val_acc], dtype=torch.float64,
-                        device=dev)).tolist()
-                entry["validation/main/loss"] = val_loss
-                entry["validation/main/accuracy"] = val_acc
-            history.append(entry)
-            if not quiet:
-                def _fmt(k, v):
-                    if isinstance(v, (bool, int, str)):
-                        return f"{k}={v}"
-                    if isinstance(v, float):
-                        return f"{k}={v:.4f}"
-                    # a device scalar under defer_metrics: formatting it
-                    # would force the fetch the flag exists to avoid
-                    return f"{k}=<deferred>"
-                log("  " + "  ".join(_fmt(k, v) for k, v in entry.items()))
+            with span("nnam.train.epoch"):
+                stop_clock = _epoch_clock(dev)
+                state, tr_loss, tr_acc = run_epoch(state, rng_np)
+                elapsed = stop_clock()
+                if not config.defer_metrics:
+                    # run_epoch's fetch has waited for the epoch's work, so
+                    # the clock's end is all that is left to wait for
+                    elapsed = float(elapsed)
+                entry = {"stage": si, "epoch": epoch + 1,
+                         "main/loss": tr_loss, "main/accuracy": tr_acc,
+                         "elapsed_time": elapsed}
+                if use_val:
+                    val_loss, val_acc = evaluate()
+                    if split is not None:
+                        val_loss, val_acc = split.agree(torch.tensor(
+                            [val_loss, val_acc], dtype=torch.float64,
+                            device=dev)).tolist()
+                    entry["validation/main/loss"] = val_loss
+                    entry["validation/main/accuracy"] = val_acc
+                history.append(entry)
+                if not quiet:
+                    log("  " + "  ".join(_fmt_metric(k, v)
+                                         for k, v in entry.items()))
 
-            stop = False
-            if use_val:
-                vloss = entry["validation/main/loss"]
-                if not stage.early_stopping:
-                    if best_val is None or vloss < best_val:
-                        best_val = vloss
-                        best_params = _params_copy(net)
-                else:
-                    # EarlyStoppingTrigger semantics (eps = -0.001): stop
-                    # when val exceeds the best seen by more than 1e-3
-                    if best_val is None:
-                        best_val = vloss
-                    else:
-                        stop = (best_val - vloss) < -0.001
-                        if vloss < best_val:
+                stop = False
+                if use_val:
+                    vloss = entry["validation/main/loss"]
+                    if not stage.early_stopping:
+                        if best_val is None or vloss < best_val:
                             best_val = vloss
+                            with span("nnam.train.best_copy"):
+                                best_params = _params_copy(net)
+                    else:
+                        # EarlyStoppingTrigger semantics (eps = -0.001):
+                        # stop when val exceeds the best seen by more
+                        # than 1e-3
+                        if best_val is None:
+                            best_val = vloss
+                        else:
+                            stop = (best_val - vloss) < -0.001
+                            if vloss < best_val:
+                                best_val = vloss
 
-            if config.snapshot_path:
-                # saved after the best-model update, so a resume replays
-                # the uninterrupted trajectory exactly; a mesh run
-                # gathers the whole state (collective); in a world of
-                # ranks, rank 0 alone writes (JAX engine.py:463-466)
-                snap = (net.state_dict(), opt.state_dict(), best_params,
-                        state)
-                if par is not None:
-                    snap = (par.whole(snap[0]), par.whole_opt(opt),
-                            None if best_params is None
-                            else par.whole(best_params),
-                            None if state is None else par.whole_state(state))
-                if is_primary():
-                    _save_snapshot(config.snapshot_path, snap[0], snap[1], si,
-                                   epoch + 1, best_val, generator, rng_np,
-                                   best_params=snap[2], stopped=stop,
-                                   rnn_state=snap[3])
+                if config.snapshot_path:
+                    # saved after the best-model update, so a resume
+                    # replays the uninterrupted trajectory exactly; a mesh
+                    # run gathers the whole state (collective); in a world
+                    # of ranks, rank 0 alone writes (JAX
+                    # engine.py:463-466)
+                    with span("nnam.train.snapshot"):
+                        snap = (net.state_dict(), opt.state_dict(),
+                                best_params, state)
+                        if par is not None:
+                            snap = (par.whole(snap[0]), par.whole_opt(opt),
+                                    None if best_params is None
+                                    else par.whole(best_params),
+                                    None if state is None
+                                    else par.whole_state(state))
+                        if is_primary():
+                            _save_snapshot(
+                                config.snapshot_path, snap[0], snap[1], si,
+                                epoch + 1, best_val, generator, rng_np,
+                                best_params=snap[2], stopped=stop,
+                                rnn_state=snap[3])
             if config.epoch_hook is not None:
                 config.epoch_hook(si, epoch + 1)
             if stop:
@@ -716,13 +772,17 @@ def _make_ff_stage(net, opt, xd, yd, offsets, config, bs, val, apply_fn,
 
     def run_epoch(state, rng_np):
         updates.begin_epoch()
-        idx_all.copy_(torch.from_numpy(np.ascontiguousarray(
-            epoch_indices(rng_np))))
+        with span("nnam.train.shuffle"):
+            block = torch.from_numpy(np.ascontiguousarray(
+                epoch_indices(rng_np)))
+        with span("nnam.train.index_upload"):
+            idx_all.copy_(block)
         step_no.zero_()
         for _ in range(steps):
             updates()
-        return (None, conv(_epoch_mean(losses, split)),
-                conv(_epoch_mean(accs, split)))
+        with span("nnam.train.epoch_metrics"):
+            return (None, conv(_epoch_mean(losses, split)),
+                    conv(_epoch_mean(accs, split)))
 
     if val is None:
         return run_epoch, None
@@ -734,7 +794,7 @@ def _make_ff_stage(net, opt, xd, yd, offsets, config, bs, val, apply_fn,
         nv = int(xv.shape[0])
         chunk = config.eval_chunk
         tot_l = tot_c = 0.0
-        with torch.inference_mode():
+        with span("nnam.train.validate"), torch.inference_mode():
             for beg in range(0, nv, chunk):
                 logits = apply(xv[beg:beg + chunk], False)
                 yb = yv[beg:beg + chunk]
@@ -807,16 +867,20 @@ def _make_rnn_stage(net, opt, xd, yd, offsets, config, bs, val, eval_cache,
 
     def run_epoch(state, rng_np):
         updates.begin_epoch()
-        shuffled = sentence_shuffle_indices(offsets, n, rng_np)
-        # [s, b, t] = shuffled[(b*N/B + s*L + t) % N]
-        idx_all.copy_(torch.from_numpy(np.ascontiguousarray(
-            stream_batch_indices(shuffled, bs, 0, steps * L).T.reshape(
-                steps, L, bs).transpose(0, 2, 1))))
+        with span("nnam.train.shuffle"):
+            shuffled = sentence_shuffle_indices(offsets, n, rng_np)
+            # [s, b, t] = shuffled[(b*N/B + s*L + t) % N]
+            block = torch.from_numpy(np.ascontiguousarray(
+                stream_batch_indices(shuffled, bs, 0, steps * L).T.reshape(
+                    steps, L, bs).transpose(0, 2, 1)))
+        with span("nnam.train.index_upload"):
+            idx_all.copy_(block)
         step_no.zero_()
         for _ in range(steps):
             updates()
-        return (state, conv(_epoch_mean(losses, split)),
-                conv(_epoch_mean(accs, split)))
+        with span("nnam.train.epoch_metrics"):
+            return (state, conv(_epoch_mean(losses, split)),
+                    conv(_epoch_mean(accs, split)))
 
     if val is None:
         return run_epoch, None, state
@@ -834,12 +898,14 @@ def _make_rnn_stage(net, opt, xd, yd, offsets, config, bs, val, eval_cache,
     yv_streams = yv[vi].reshape(bs, vsteps)
 
     def evaluate():
-        with torch.inference_mode():
-            logits, _ = model.apply_sequence(xv_streams, model.init_state(bs))
-            loss = F.cross_entropy(logits.reshape(bs * vsteps, -1),
-                                   yv_streams.reshape(-1))
-            acc = (logits.argmax(-1) == yv_streams).float().mean()
-        return float(loss), float(acc)
+        with span("nnam.train.validate"):
+            with torch.inference_mode():
+                logits, _ = model.apply_sequence(xv_streams,
+                                                 model.init_state(bs))
+                loss = F.cross_entropy(logits.reshape(bs * vsteps, -1),
+                                       yv_streams.reshape(-1))
+                acc = (logits.argmax(-1) == yv_streams).float().mean()
+            return float(loss), float(acc)
 
     eval_cache[("rnn", bs)] = evaluate
     return run_epoch, evaluate, state

@@ -8,8 +8,8 @@ recurrent cells' leaves excepted (replicated in the port: the
 recurrence kernels read them whole); ``PipelinedMLP``'s restrictions;
 one-rank meshes through ``train_network`` and ``train_folds_parallel``,
 bit-equal to the runs without one; the helpers without a world;
-``Stopwatch`` as ``tests/test_ops.py`` uses it; ``trace`` writing a
-trace file on the CPU. The multi-rank paths are in
+``trace`` writing a trace file on the CPU (the port's spans in it:
+``tests/test_torch_spans.py``). The multi-rank paths are in
 ``tests/test_torch_distributed.py``.
 """
 
@@ -42,7 +42,7 @@ from nnacousticmodeling_tpu_torch.train import train_network
 from nnacousticmodeling_tpu_torch.train.fold_parallel import (
     train_folds_parallel,
 )
-from nnacousticmodeling_tpu_torch.utils.profiling import Stopwatch, trace
+from nnacousticmodeling_tpu_torch.utils.profiling import trace
 
 SPECS = ["data=8", "data=4,model=2", "fold=2, data=4", " data = 2 ,", "data",
          "", ",", "data=x", "a=1,b=2,a=3"]
@@ -239,18 +239,6 @@ def test_pick_backend_counts_the_ranks_of_this_node(monkeypatch, env, cards,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
     assert _pick_backend(int(env["WORLD_SIZE"]), "cuda") == want
-
-
-def test_stopwatch():
-    sw = Stopwatch()
-    with sw("a"):
-        pass
-    with sw("a"):
-        pass
-    with sw("b"):
-        pass
-    assert sw.counts["a"] == 2 and sw.counts["b"] == 1
-    assert "a:" in sw.report()
 
 
 def test_trace_writes_a_trace_file(tmp_path):
