@@ -2032,15 +2032,18 @@ def irregular_ends(img):
 
 def viterbi_routes(torch, obj, forward, reference, capacity, lp, lens, tag,
                    card):
-    """Phases 4 and 22: a Viterbi kernel's two routes on the same inputs,
-    the plan's cluster route and the device-memory route (``route=
-    "global"``), each bit-equal to the plain version within lengths and
-    bit-identical on a second call; the cluster route must allocate no
-    (U, 3, PS, lanes) scratch. Times both in turns (cluster, device
-    memory, device memory, cluster) and the plain version once; per
-    frame: the cluster route's time over the frames each co-resident
-    cluster walks, the device-memory route's over the longest utterance.
-    Returns {"cluster": ..., "global": ..., "plain_ms", "clusters"}."""
+    """Phases 4 and 22: a Viterbi kernel's routes on the same inputs, the
+    plan's cluster route, where it keeps the state in registers the same
+    cluster with the state in shared memory (``route="shared"``), and the
+    device-memory route (``route="global"``), each bit-equal to the plain
+    version within lengths and bit-identical on a second call; a cluster
+    route must allocate no (U, 3, PS, lanes) scratch. Times them in turns
+    (cluster, shared, device memory, then backwards) and the plain
+    version once; per frame: a cluster route's time over the frames each
+    co-resident cluster walks, the device-memory route's over the longest
+    utterance. Returns {"cluster": ..., ("shared": ...,) "global": ...,
+    "plain_ms", "clusters"}."""
+    from nnacousticmodeling_tpu_torch.decoder import viterbi_collapsed as vc
     U, T, _ = lp.shape
     mask = (torch.arange(T, device=lp.device)[None, :]
             < lens[:, None].long())
@@ -2052,9 +2055,14 @@ def viterbi_routes(torch, obj, forward, reference, capacity, lp, lens, tag,
     if plan.route != "cluster":
         fail(f"{tag}: the plan took the {plan.route} route, not a cluster")
     clusters = capacity(obj)
+    routes = [(None, "cluster", clusters)]
+    if plan.registers:
+        shared = vc._route(tag, plan, "shared", (obj.PS, lanes, obj.S))
+        routes.append(("shared", "shared", capacity(obj, shared)))
+    routes.append(("global", "global", 0))
     pr, er = reference(obj, lp, lens)
     out = {"clusters": clusters, "cluster_size": plan.cluster}
-    for route, key in ((None, "cluster"), ("global", "global")):
+    for route, key, _ in routes:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -2073,28 +2081,34 @@ def viterbi_routes(torch, obj, forward, reference, capacity, lp, lens, tag,
         if not (torch.equal(pk[mask], pk2[mask])
                 and torch.equal(ek[mask], ek2[mask])):
             fail(f"{tag}, {key} route: a second call gave other bits")
-        if (peak - outputs >= scratch) == (key == "cluster"):
+        if (peak - outputs >= scratch) == (key != "global"):
             fail(f"{tag}, {key} route: allocated {peak} bytes, its outputs "
                  f"{outputs}, the (U, 3, PS, lanes) scratch {scratch}")
         out[key] = dict(err=err, peak_bytes=peak, ms=[])
         del pk, ek, pk2, ek2
-    for route, key in ((None, "cluster"), ("global", "global"),
-                       ("global", "global"), (None, "cluster")):
+    for route, key, _ in routes + routes[::-1]:
         out[key]["ms"].append(cuda_ms(torch, lambda: forward(
             obj, lp, lens, route=route), 3))
-    for key in ("cluster", "global"):
+    for _, key, held in routes:
         r = out[key]
         r["ms"] = sum(r["ms"]) / len(r["ms"])
-        r["us_frame"] = (r["ms"] * 1e3 * clusters / frames if key ==
-                         "cluster" else r["ms"] * 1e3 / longest)
+        r["us_frame"] = (r["ms"] * 1e3 * held / frames if key != "global"
+                         else r["ms"] * 1e3 / longest)
     out["plain_ms"] = cuda_ms(torch, lambda: reference(obj, lp, lens), 1,
                               warm=False)
     c, g = out["cluster"], out["global"]
-    log(f"[{tag}] U={U} T={T} frames={frames}: both routes bit-equal within "
-        f"lengths, second calls bit-identical; cluster route (c="
-        f"{plan.cluster}, {clusters} co-resident clusters) {c['ms']:.3f} ms"
-        f" = {c['us_frame']:.2f} us a frame, {c['peak_bytes'] / 1e6:.1f} MB "
-        f"allocated (outputs {outputs / 1e6:.1f}); device-memory route "
+    sh = out.get("shared")
+    log(f"[{tag}] U={U} T={T} frames={frames}: {len(routes)} routes "
+        f"bit-equal within lengths, second calls bit-identical; cluster "
+        f"route (c={plan.cluster}, state in "
+        f"{'registers' if plan.registers else 'shared memory'}, {clusters} "
+        f"co-resident clusters) {c['ms']:.3f} ms = {c['us_frame']:.2f} us a "
+        f"frame, {c['peak_bytes'] / 1e6:.1f} MB allocated (outputs "
+        f"{outputs / 1e6:.1f}); "
+        + (f"state in shared memory {sh['ms']:.3f} ms = "
+           f"{sh['us_frame']:.2f} us a frame, {sh['peak_bytes'] / 1e6:.1f} "
+           f"MB allocated; " if sh else "")
+        + f"device-memory route "
         f"{g['ms']:.3f} ms = {g['us_frame']:.2f} us a frame, "
         f"{g['peak_bytes'] / 1e6:.1f} MB allocated (scratch "
         f"{scratch / 1e6:.1f}); plain "
@@ -2104,7 +2118,9 @@ def viterbi_routes(torch, obj, forward, reference, capacity, lp, lens, tag,
 
 def nan_rows_check(torch, np, dev, kind, card):
     """Phases 4 and 22: the collapsed (``kind`` "collapsed") or cube
-    ("cube") kernel on NaN rows, both routes, without and with a beam:
+    ("cube") kernel on NaN rows, every route (the collapsed kernel's
+    register route, its shared-memory route on the same cluster, and
+    either kernel's device-memory route), without and with a beam:
     packed rows equal and end scores equal, NaN where NaN, to the plain
     version. The input: 3 utterances of 12 Dirichlet frames (seed 3) on
     the 8-phone 26-pdf pdf-tied image (seed 8), an all-NaN frame and a
@@ -2133,24 +2149,30 @@ def nan_rows_check(torch, np, dev, kind, card):
             obj, fwd, ref = (d._pallas_fwd, vcube.cube_viterbi_forward,
                              vcube.cube_viterbi_reference)
         want = ref(obj, x, lens)
-        for route in (None, "global"):
+        routes = (None, "shared", "global") if obj.plan.registers else (
+            None, "global")
+        for route in routes:
             if not same_bits(fwd(obj, x, lens, route=route), want):
                 fail(f"[{kind} NaN rows] the {route or 'cluster'} route "
                      f"differs from the plain version (beam {beam})")
     log(f"[{kind} NaN rows] 3 x 12 frames with an all-NaN and a half-NaN "
-        f"frame: both routes equal to the plain version (packed rows; end "
-        f"scores, NaN where NaN) without and with beam 2.0 [{card}]")
+        f"frame: routes {', '.join(r or 'plan' for r in routes)} equal to "
+        f"the plain version (packed rows; end scores, NaN where NaN) "
+        f"without and with beam 2.0 [{card}]")
 
 
 def route_entries(name, source, replaces, launches, res, bound_ms, by):
-    """The ``{"kernels": [...]}`` entries of a Viterbi kernel's two routes
-    (``name``, ``name.global``) from ``viterbi_routes``'s exact run."""
+    """The ``{"kernels": [...]}`` entries of a Viterbi kernel's routes
+    (``name``, the plan's; ``name.shared``, where the plan keeps the state
+    in registers; ``name.global``) from ``viterbi_routes``'s exact
+    run."""
     return [{"name": name + suffix, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches.get(name + suffix, 0),
              "max_abs_err": res[key]["err"], "tolerance": 0.0,
              "ms": res[key]["ms"], "plain_ms": res["plain_ms"],
              "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
-            for suffix, key in (("", "cluster"), (".global", "global"))]
+            for suffix, key in (("", "cluster"), (".shared", "shared"),
+                                (".global", "global")) if key in res]
 
 
 @contextlib.contextmanager
@@ -4873,9 +4895,11 @@ def fused_phase(torch, np, dev, card, net, dec, corpus, lp5, results5, per5,
     done_ms = (time.perf_counter() - t0) * 1e3
     dec_launches = dict(kernels.launches)
     if dec_launches != {"collapsed_viterbi_forward": 1,
+                        "collapsed_viterbi_forward.registers": 1,
                         "viterbi_backtrace": 1}:
         fail(f"one decode_arrays_fn call launched {dec_launches}, not the "
-             f"collapsed Viterbi and the backtrace once each")
+             f"collapsed Viterbi (its register route) and the backtrace "
+             f"once each")
     dec_wall, dec_busy, dec_top, dec_counts = device_profile(
         torch, lambda: decode(lp_dec, lens_dev),
         launches_of=("", "collapsed_viterbi_cluster",
@@ -5508,6 +5532,10 @@ def main():
         if launches.get("collapsed_viterbi_forward.global", 0):
             fail("the main path took the collapsed kernel's device-memory "
                  "route, not the cluster route")
+        if launches.get("collapsed_viterbi_forward.registers", 0) != \
+                launches["collapsed_viterbi_forward"]:
+            fail("the main path's collapsed forwards did not all keep the "
+                 "state in registers")
         if lp.shape != (lengths.sum(), CLASSES) or not np.isfinite(lp).all():
             fail(f"posteriors malformed: shape {lp.shape}")
         if not all(r.segments for r in results):

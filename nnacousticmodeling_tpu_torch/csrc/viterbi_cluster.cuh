@@ -1,7 +1,8 @@
 // The cluster route of the two triphone Viterbi forwards (collapsed and
 // dense-cube), for Hopper (sm_90a): one thread-block cluster decodes one
-// utterance, and the utterance's DP state stays in the cluster's shared
-// memory for all its frames.
+// utterance, and the utterance's DP state stays on the cluster's SMs for
+// all its frames: in its threads' registers (the collapsed kernel's
+// register route) or in its blocks' shared memory.
 //
 // What bounds the device-memory route (viterbi_collapsed.cu,
 // viterbi_cube.cu). One block an utterance keeps the DP state -- (3
@@ -15,13 +16,19 @@
 // lane slice [r W, (r + 1) W), W = L / c, for all 3 states and PS rows.
 // A warp owns 8 lanes (a chunk) and its four groups of 8 threads the
 // rows a = g, g + 4, ...: thread (g, jj) of chunk k handles cell (a =
-// 4 i + g, lane 8 k + jj) at row step i. Its scores and entry times
-// stay in the block's shared memory, one int2 a cell, indexed (i, k,
-// thread) so a warp's 32 cells are contiguous. A cell's tables come as
-// 32 bytes of records (six f32 transitions, three 16-bit pdf ids and,
-// for the collapsed kernel, its 16-bit entry source), an int4 and two
-// int2, laid out on the host in the same (i, global chunk, thread)
-// order, so each of a warp's record loads reads contiguous bytes. A
+// 4 i + g, lane 8 k + jj) at row step i. Where a block's slice is at
+// most one chunk a warp and the rows are 4 rs for an even rs <= REG_STEPS
+// (the collapsed kernel's register route), a thread owns the same cells
+// for the whole utterance and keeps their scores and entry times in
+// registers, in a kernel built for exactly rs row steps: at 48 rows, 12
+// row steps x 3 states, 36 floats and 18 registers of 16-bit entry time
+// pairs. Elsewhere they stay in the block's shared memory, one int2 a
+// cell, indexed (i, k, thread) so a warp's 32 cells are contiguous. A
+// cell's tables come as 32 bytes of records (six f32 transitions, three
+// 16-bit pdf ids and, for the collapsed kernel, its 16-bit entry
+// source), an int4 and two int2, laid out on the host in the same (i,
+// global chunk, thread) order, so each of a warp's record loads reads
+// contiguous bytes. A
 // butterfly over the four groups picks the first maximum over left
 // contexts: the greater value, or on equal values the smaller row. For
 // finite values (NEG_INF is -1e20) that is the row and the value bits a
@@ -50,15 +57,27 @@
 // one. The cube kernel's beam clamps the exported row itself: a select
 // applied wherever the row is read.
 //
-// What bounds this route. With the state on chip, each cell still reads
-// its 32 bytes of records (36 with the collapsed kernel's entry score)
-// from L2 every frame -- 3.5 MB an utterance-frame on the synthetic
-// image, shared by every cluster -- beside its state's shared-memory
-// traffic and the gathers of the posterior and entry scores, all through
-// the SM's load/store pipe; each frame ends with the cluster barrier's
-// wait and a distributed-shared-memory gather of the L-float exported
-// row. (bench_viterbi_cluster.py splits a frame with the VIT_LEAVE_OUT
-// measurement builds.)
+// What bounds this route. Each cell reads its 32 bytes of records (36
+// with the collapsed kernel's entry score) from L2 every frame -- 3.5 MB
+// an utterance-frame on the synthetic image, shared by every cluster --
+// and gathers its posteriors and entry score through the SM's load/store
+// pipe; each frame ends with the cluster barrier's wait and a
+// distributed-shared-memory gather of the L-float exported row. The
+// shared-memory route adds 56 bytes of state traffic a cell a frame
+// (three int2 loads and two stores in pass 1, one of each in pass 2),
+// which the register route takes off the pipe. On one H100 at the
+// 48-phone image (bench_viterbi_cluster.py, which splits a frame with the
+// VIT_LEAVE_OUT measurement builds) the collapsed kernel's frame is 5.79
+// us a co-resident cluster on the register route against 6.57 on the
+// shared-memory route: 2.86 us of on-chip work (the record loads through
+// L1, the bank-conflicted gathers), 1.80 of the L2 record stream and 1.07
+// of barrier and exchange, against 4.27, 1.39 and 0.96 (each the time a
+// build that leaves it out saves; on the register route the two savings
+// add up, 2.93 us for both). A 576-thread block gets 96 registers a
+// thread (18 warps put 5 on some of the SM's four register-file
+// quarters): 54 hold the 12-step kernel's state, so the rest leave room
+// for a few steps' record loads in flight, which each step's being free
+// of branches lets the compiler issue early.
 //
 // Float order: each cell's operations are the device-memory route's (one
 // IEEE add a step, the observation added after the select, strict `>`),
@@ -93,31 +112,57 @@ constexpr int MAX_WARPS = 18;
 constexpr int MAX_THREADS = 32 * MAX_WARPS;
 constexpr int MAX_CLUSTER = 16;
 constexpr size_t SMEM_LIMIT = 232448;
+// Row steps a thread keeps in registers on the register route: PS / 4
+// exactly, with a kernel built for each even count up to REG_STEPS (the
+// collapsed kernel's rows are a multiple of 8), so no step runs past the
+// rows. Its entry times (-1 to T - 2) are 16 bits, two cells' a
+// register, so it decodes at most REG_FRAMES frames.
+constexpr int REG_STEPS = 12;
+constexpr int REG_FRAMES = 32767;
 
 // The block's layout, mirrored by viterbi_cluster_plan (decoder/
-// viterbi_collapsed.py).
+// viterbi_collapsed.py). rs: the row steps a thread keeps in registers
+// (PS / 4 on the register route), 0 with the state in shared memory.
 __host__ __device__ inline int threads_of(int w) {
   const int warps = w / LANE_CHUNK;
   return 32 * (warps < MAX_WARPS ? warps : MAX_WARPS);
 }
 __host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
-inline size_t smem_bytes(int PS, int lanes, int S, int c) {
+inline size_t smem_bytes(int PS, int lanes, int S, int c, int rs) {
   const int w = lanes / c;
-  return (size_t)3 * PS * w * 8               // state: (score, entry time)
+  return (rs ? 0 : (size_t)3 * PS * w * 8)    // state: (score, entry time)
          + (size_t)2 * (lanes + PS) * 4       // exported rows pc (2, padded)
          + (size_t)2 * w * 4                  // publish slots
          + 4 * 4                              // row maxima (2, padded)
          + 4 * 4                              // thresholds (2, padded)
          + (size_t)2 * round4(S) * 4;         // posterior rows (2)
 }
-// 0 if c blocks of lanes / c lanes each can decode this geometry.
-inline int check_layout(int PS, int lanes, int S, int c) {
+// 0 if c blocks of lanes / c lanes each can decode this geometry, with
+// the state in shared memory (rs = 0) or, one chunk a warp and its rows
+// in rs row steps (an even rs up to REG_STEPS), in registers.
+inline int check_layout(int PS, int lanes, int S, int c, int rs) {
   if (c < 1 || c > MAX_CLUSTER || lanes % c != 0 || PS % ROW_GROUPS != 0)
     return (int)cudaErrorInvalidValue;
   const int w = lanes / c;
-  if (w % LANE_CHUNK != 0 || smem_bytes(PS, lanes, S, c) > SMEM_LIMIT)
+  if (w % LANE_CHUNK != 0 || smem_bytes(PS, lanes, S, c, rs) > SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  if (rs && (rs != PS / ROW_GROUPS || rs > REG_STEPS || rs % 2 != 0 ||
+             w / LANE_CHUNK > MAX_WARPS))
     return (int)cudaErrorInvalidValue;
   return 0;
+}
+// 0 if the route of rs row steps in registers decodes T frames.
+inline int check_frames(int T, int rs) {
+  return rs && T > REG_FRAMES ? (int)cudaErrorInvalidValue : 0;
+}
+
+// The register route's entry times: cell i of a thread's row steps in the
+// low (even i) or high (odd i) 16 bits of register i / 2, sign-extended.
+__device__ __forceinline__ int half_time(int w, int i) {
+  return i & 1 ? w >> 16 : (int)(short)(w & 0xffff);
+}
+__device__ __forceinline__ int with_half_time(int w, int i, int v) {
+  return i & 1 ? __byte_perm(w, v, 0x5410) : __byte_perm(w, v, 0x3254);
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -190,6 +235,8 @@ struct Collapsed {
   const int* __restrict__ pc0_map;   // (P,)
   int pack;
 
+  static constexpr bool PAD_ROW = false;   // a NaN column's key is fixed
+
   __device__ int lane_ctx(int) const { return 0; }
   __device__ int pc_slot(int e) const { return e; }
   // ((pc[src] + lm) -> beam clamp) + pip; src < 0: no entry (0.0 + lm)
@@ -226,6 +273,7 @@ struct Cube {
   const int* __restrict__ end_lane;    // (P,)
   int P, a_coef;
   static constexpr int TIME_PACK = 2048;
+  static constexpr bool PAD_ROW = true;    // a NaN column's key reads row P
 
   __device__ int lane_ctx(int j) const { return (j % P) * (P + 1); }
   __device__ int pc_slot(int e) const { return e + e / P; }
@@ -253,7 +301,12 @@ struct Cube {
   }
 };
 
-template <class Pol>
+// RS: the row steps a thread keeps in registers (the register route; PS
+// / ROW_GROUPS, as check_layout requires), or 0 (the state in shared
+// memory). The register route's steps are fully unrolled, so each cell's
+// state has a register of its own, and carry no branch, so the compiler
+// can issue later steps' record loads early.
+template <class Pol, int RS>
 __device__ __forceinline__ void decode(
     const Pol& pol, const float* __restrict__ lp,   // (U, T, S)
     const int* __restrict__ lengths,                // (U,)
@@ -264,6 +317,10 @@ __device__ __forceinline__ void decode(
     float* __restrict__ end,                        // (U, T, P)
     int T, int S, int P, int PS, int L, float pip, float beam,
     int use_beam) {
+  // The register route serves the collapsed kernel alone: the cube
+  // kernel's instantiation spilled at the 96-register ceiling (its pad
+  // row's entry time, read by a NaN column's key, among the cost).
+  static_assert(RS == 0 || !Pol::PAD_ROW, "no register route with a pad row");
   cg::cluster_group cluster = cg::this_cluster();
   const int c = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -280,8 +337,9 @@ __device__ __forceinline__ void decode(
   const int2* __restrict__ rec0 = reinterpret_cast<const int2*>(rec + 6 * n);
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  int2* st = reinterpret_cast<int2*>(smem_raw);                // (3, PS W)
-  float* pcl = reinterpret_cast<float*>(st + 3 * splane);      // (2, pcn)
+  int2* st = reinterpret_cast<int2*>(smem_raw);     // (3, PS W) if RS = 0
+  float* pcl = reinterpret_cast<float*>(st + (RS ? 0 : 3 * splane));
+                                                    // (2, pcn)
   float* pub = pcl + 2 * pcn;                                  // (2, W)
   int* row_max = reinterpret_cast<int*>(pub + 2 * W);          // 2 (+2)
   float* thr_s = reinterpret_cast<float*>(row_max + 4);        // 2 (+2)
@@ -299,8 +357,22 @@ __device__ __forceinline__ void decode(
   const int k0 = lane0 / LANE_CHUNK;
   const int steps = PS / ROW_GROUPS;
 
-  const int2 init = make_int2(__float_as_int(NEG_INF), 0);
-  for (int e = tid; e < 3 * splane; e += nt) st[e] = init;
+  // the register route's state: this thread's cells (4 i + g, lane jj of
+  // its warp's chunk), score and entry time (half_time) of each state
+  float sc[3][RS ? RS : 1];
+  int tm[3][RS ? (RS + 1) / 2 : 1];
+  if constexpr (RS > 0) {
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+#pragma unroll
+      for (int i = 0; i < RS; ++i) sc[q][i] = NEG_INF;
+#pragma unroll
+      for (int i = 0; i < (RS + 1) / 2; ++i) tm[q][i] = 0;
+    }
+  } else {
+    const int2 init = make_int2(__float_as_int(NEG_INF), 0);
+    for (int e = tid; e < 3 * splane; e += nt) st[e] = init;
+  }
   for (int j = tid; j < L; j += nt) pcl[pcn + pol.pc_slot(j)] = p0[j];
   if (len > 0) {
     const float* lp0 = lp + (size_t)u * T * S;
@@ -329,38 +401,58 @@ __device__ __forceinline__ void decode(
     int local = INT_MIN;                      // the beam's max key
     unsigned nan_chunks = 0;   // chunks whose max is NaN (a slice that
                                // fits holds < 32 chunks a warp)
-    for (int k = warp, m = 0; k < nchunks; k += nwarps, ++m) {
+    // on the register route a warp walks its own chunk alone (the slice
+    // is one chunk a warp); bounding the loop there shows the compiler
+    // one pass, which keeps the 12-step kernel within its 96 registers
+    for (int k = warp, m = 0; k < (RS > 0 ? warp + 1 : nchunks);
+         k += nwarps, ++m) {
       const int jl = k * LANE_CHUNK + jj;     // lane within the slice
       const int j = lane0 + jl;               // lane of the row
       float best = 0.0f;
       int arg = 0, bt = 0;
-#pragma unroll 4
-      for (int i = 0; i < steps; ++i) {
+#pragma unroll (RS > 0 ? RS : 4)
+      for (int i = 0; i < (RS > 0 ? RS : steps); ++i) {
         const int idx =
             (((VIT_LEAVE_OUT & 1 ? 0 : i * nk) + k0 + k) << 5) + lane;
         const int si = ((i * nchunks + k) << 5) + lane;
         const int4 r = __ldg(rec12 + idx);
         const int2 r3 = __ldg(rec3 + idx);
-        const int2 c0 = st[si], c1 = st[splane + si], c2 = st[2 * splane + si];
-        const float old0 = __int_as_float(c0.x);
-        const float old1 = __int_as_float(c1.x);
-        const float old2 = __int_as_float(c2.x);
+        float old0, old1, old2;
+        int t0o, t1o, t2o;
+        if constexpr (RS > 0) {
+          old0 = sc[0][i], old1 = sc[1][i], old2 = sc[2][i];
+          t0o = half_time(tm[0][i / 2], i);
+          t1o = half_time(tm[1][i / 2], i);
+          t2o = half_time(tm[2][i / 2], i);
+        } else {
+          const int2 c0 = st[si], c1 = st[splane + si],
+                     c2 = st[2 * splane + si];
+          old0 = __int_as_float(c0.x), old1 = __int_as_float(c1.x);
+          old2 = __int_as_float(c2.x);
+          t0o = c0.y, t1o = c1.y, t2o = c2.y;
+        }
 
         const float go2 = old1 + __int_as_float(r.w);
         const float stay2 = old2 + __int_as_float(r.y);
         const bool take2 = go2 > stay2;
         const float pp2 =
             (take2 ? go2 : stay2) + lpc[(unsigned)r3.y >> 16];
-        const int tt2 = take2 ? c1.y : c2.y;
+        const int tt2 = take2 ? t1o : t2o;
 
         const float go1 = old0 + __int_as_float(r.z);
         const float stay1 = old1 + __int_as_float(r.x);
         const bool take1 = go1 > stay1;
         const float pp1 = (take1 ? go1 : stay1) + lpc[r3.y & 0xffff];
-        const int tt1 = take1 ? c0.y : c1.y;
+        const int tt1 = take1 ? t0o : t1o;
 
-        st[splane + si] = make_int2(__float_as_int(pp1), tt1);
-        st[2 * splane + si] = make_int2(__float_as_int(pp2), tt2);
+        if constexpr (RS > 0) {
+          sc[1][i] = pp1, sc[2][i] = pp2;
+          tm[1][i / 2] = with_half_time(tm[1][i / 2], i, tt1);
+          tm[2][i / 2] = with_half_time(tm[2][i / 2], i, tt2);
+        } else {
+          st[splane + si] = make_int2(__float_as_int(pp1), tt1);
+          st[2 * splane + si] = make_int2(__float_as_int(pp2), tt2);
+        }
 
         // export: first max over this group's rows (strict >, ascending a)
         const float out = pp2 + __int_as_float(r3.x);
@@ -401,22 +493,35 @@ __device__ __forceinline__ void decode(
 #endif
 
     // ---- pass 2: state 0, entering from frame t-1's row ----
-    for (int k = warp; k < nchunks; k += nwarps) {
+    for (int k = warp; k < (RS > 0 ? warp + 1 : nchunks); k += nwarps) {
       const int jl = k * LANE_CHUNK + jj;
       const int ctx = pol.lane_ctx(lane0 + jl);
-#pragma unroll 4
-      for (int i = 0; i < steps; ++i) {
+#pragma unroll (RS > 0 ? RS : 4)
+      for (int i = 0; i < (RS > 0 ? RS : steps); ++i) {
         const int idx =
             (((VIT_LEAVE_OUT & 1 ? 0 : i * nk) + k0 + k) << 5) + lane;
         const int si = ((i * nchunks + k) << 5) + lane;
         const int2 r = __ldg(rec0 + idx);
-        const int2 c0 = st[si];
+        float old0;
+        int t0o;
+        if constexpr (RS > 0) {
+          old0 = sc[0][i], t0o = half_time(tm[0][i / 2], i);
+        } else {
+          const int2 c0 = st[si];
+          old0 = __int_as_float(c0.x), t0o = c0.y;
+        }
         const float p_in = pol.entry(i * ROW_GROUPS + g, ctx, idx,
                                      r.y >> 16, pc_prev, thr, use_beam, pip);
-        const float stay0 = __int_as_float(c0.x) + __int_as_float(r.x);
+        const float stay0 = old0 + __int_as_float(r.x);
         const bool take0 = p_in > stay0;
         const float pp0 = (take0 ? p_in : stay0) + lpc[r.y & 0xffff];
-        st[si] = make_int2(__float_as_int(pp0), take0 ? t - 1 : c0.y);
+        const int tt0 = take0 ? t - 1 : t0o;
+        if constexpr (RS > 0) {
+          sc[0][i] = pp0;
+          tm[0][i / 2] = with_half_time(tm[0][i / 2], i, tt0);
+        } else {
+          st[si] = make_int2(__float_as_int(pp0), tt0);
+        }
       }
     }
 #if !(VIT_LEAVE_OUT & 2)
@@ -447,12 +552,13 @@ __device__ __forceinline__ void decode(
     __syncthreads();     // row t, its threshold, posterior row t + 1
     if (use_beam) thr = thr_s[buf];
     // a NaN max matches no row: the key of pad row P with its new entry
-    // time (state 2, untouched by pass 2), if the rows have one
+    // time (state 2, untouched by pass 2), if the rows have one (never on
+    // the register route)
     for (int m = 0; nan_chunks; ++m, nan_chunks >>= 1) {
       if (!(nan_chunks & 1u)) continue;
       const int k = warp + m * nwarps;
       const int pr = pol.pad_row();
-      const int tt = pr >= 0 && pr < PS
+      const int tt = RS == 0 && pr >= 0 && pr < PS
                          ? st[2 * splane +
                               (((pr / ROW_GROUPS) * nchunks + k) << 5) +
                               (pr % ROW_GROUPS) * LANE_CHUNK + jj].y
@@ -499,30 +605,31 @@ cudaError_t configure(K kern, int clusters, int c, int threads, size_t smem,
 
 // How many clusters of c blocks the card holds at once (into *out).
 template <class K>
-int capacity(K kern, int PS, int lanes, int S, int c, int* out) {
-  int err = check_layout(PS, lanes, S, c);
+int capacity(K kern, int PS, int lanes, int S, int c, int rs, int* out) {
+  int err = check_layout(PS, lanes, S, c, rs);
   if (err) return err;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg;
   const int w = lanes / c;
-  err = (int)configure(kern, 1, c, threads_of(w), smem_bytes(PS, lanes, S, c),
-                       nullptr, &attr, &cfg);
+  err = (int)configure(kern, 1, c, threads_of(w),
+                       smem_bytes(PS, lanes, S, c, rs), nullptr, &attr, &cfg);
   if (err) return err;
   return (int)cudaOccupancyMaxActiveClusters(out, kern, &cfg);
 }
 
-// One launch of U clusters of c blocks. Fails (never falls back) if the
-// layout is refused, the card holds no such cluster, or the launch fails.
+// One launch of U clusters of c blocks, kern being the instantiation of
+// rs row steps in registers. Fails (never falls back) if the layout is
+// refused, the card holds no such cluster, or the launch fails.
 template <class K, class... Args>
-int launch(K kern, int U, int PS, int lanes, int S, int c, void* stream,
-           Args... args) {
-  int err = check_layout(PS, lanes, S, c);
+int launch(K kern, int U, int PS, int lanes, int S, int c, int rs,
+           void* stream, Args... args) {
+  int err = check_layout(PS, lanes, S, c, rs);
   if (err) return err;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg;
   const int w = lanes / c;
   err = (int)configure(kern, U, c, threads_of(w),
-                       smem_bytes(PS, lanes, S, c),
+                       smem_bytes(PS, lanes, S, c, rs),
                        static_cast<cudaStream_t>(stream), &attr, &cfg);
   if (err) return err;
   int active = 0;

@@ -17,8 +17,11 @@
 //
 // * the cluster route, collapsed_viterbi_cluster (viterbi_cluster.cuh
 //   says what bounds the other route and what this design does about
-//   it): one thread-block cluster an utterance keeps the DP state in its
-//   blocks' shared memory, one cluster barrier a frame;
+//   it): one thread-block cluster an utterance keeps the DP state on
+//   chip, one cluster barrier a frame: in its threads' registers where
+//   the slice is one chunk a warp and the rows are an even count of row
+//   steps up to REG_STEPS (the register route, one kernel a count), else
+//   in its blocks' shared memory;
 // * the device-memory route, collapsed_viterbi_kernel below, for images
 //   whose state no cluster of at most 16 blocks holds: one block per
 //   utterance walks its frames with the state in device memory laid out
@@ -177,6 +180,7 @@ collapsed_viterbi_kernel(const float* __restrict__ lp,       // (U, T, S)
   }
 }
 
+template <int RS>
 __global__ void __launch_bounds__(viterbi_cluster::MAX_THREADS, 1)
 collapsed_viterbi_cluster_kernel(const float* __restrict__ lp,
                                  const int* __restrict__ lengths,
@@ -192,8 +196,30 @@ collapsed_viterbi_cluster_kernel(const float* __restrict__ lp,
                                  int P, int PS, int L, int pack, float pip,
                                  float beam, int use_beam) {
   const viterbi_cluster::Collapsed pol{lmq, lmmax, lmend, pc0_map, pack};
-  viterbi_cluster::decode(pol, lp, lengths, order, rec, p0, packed, end, T,
-                          S, P, PS, L, pip, beam, use_beam);
+  viterbi_cluster::decode<viterbi_cluster::Collapsed, RS>(
+      pol, lp, lengths, order, rec, p0, packed, end, T, S, P, PS, L, pip,
+      beam, use_beam);
+}
+
+// The cluster route's kernel for rs row steps in registers (0: the state
+// in shared memory), nullptr for a count none is built for.
+using ClusterKernel = decltype(&collapsed_viterbi_cluster_kernel<0>);
+static_assert(viterbi_cluster::REG_STEPS == 12, "one kernel an even count");
+ClusterKernel cluster_kernel(int rs) {
+  switch (rs) {
+    case 0: return collapsed_viterbi_cluster_kernel<0>;
+    case 2: return collapsed_viterbi_cluster_kernel<2>;
+    case 4: return collapsed_viterbi_cluster_kernel<4>;
+    case 6: return collapsed_viterbi_cluster_kernel<6>;
+    case 8: return collapsed_viterbi_cluster_kernel<8>;
+    case 10: return collapsed_viterbi_cluster_kernel<10>;
+    case 12: return collapsed_viterbi_cluster_kernel<12>;
+    default: return nullptr;
+  }
+}
+// rs of the route: PS / 4 row steps on the register route, else 0.
+int row_steps(int PS, int registers) {
+  return registers ? PS / viterbi_cluster::ROW_GROUPS : 0;
 }
 
 }  // namespace
@@ -231,19 +257,26 @@ extern "C" int collapsed_viterbi_forward(
 }
 
 // The cluster route: U clusters of c blocks; cluster i decodes utterance
-// order[i]. rec (8 PS L,) int32 and lmq (PS L,) are the cells' records
-// in the order of viterbi_cluster.cuh; packed (U, T, L) and end (U, T, P)
-// rows t < lengths[u] are written; no scratch. Returns the cudaError_t of
-// the layout check, the co-residency query or the launch.
+// order[i], its DP state in registers (registers != 0: the register
+// route, for at most REG_FRAMES frames) or in shared memory. rec (8 PS
+// L,) int32 and lmq (PS L,) are the cells' records in the order of
+// viterbi_cluster.cuh; packed (U, T, L) and end (U, T, P) rows t <
+// lengths[u] are written; no scratch. Returns the cudaError_t of the
+// layout check, the co-residency query or the launch.
 extern "C" int collapsed_viterbi_cluster(
     const void* lp, const void* lengths, const void* order, const void* rec,
     const void* lmq, const void* lmmax, const void* lmend, const void* p0,
     const void* pc0_map, void* packed, void* end, int U, int T, int S,
     int P, int PS, int L, int pack, float pip, float beam, int use_beam,
-    int c, void* stream) {
+    int c, int registers, void* stream) {
   if (U == 0 || T == 0) return 0;
+  const int rs = row_steps(PS, registers);
+  const ClusterKernel kern = cluster_kernel(rs);
+  if (!kern) return (int)cudaErrorInvalidValue;
+  const int err = viterbi_cluster::check_frames(T, rs);
+  if (err) return err;
   return viterbi_cluster::launch(
-      collapsed_viterbi_cluster_kernel, U, PS, L, S, c, stream,
+      kern, U, PS, L, S, c, rs, stream,
       static_cast<const float*>(lp), static_cast<const int*>(lengths),
       static_cast<const int*>(order), static_cast<const int*>(rec),
       static_cast<const float*>(lmq), static_cast<const float*>(lmmax),
@@ -252,9 +285,13 @@ extern "C" int collapsed_viterbi_cluster(
       static_cast<float*>(end), T, S, P, PS, L, pack, pip, beam, use_beam);
 }
 
-// How many clusters of c blocks the card holds at once for this geometry.
+// How many clusters of c blocks the card holds at once for this geometry
+// and route.
 extern "C" int collapsed_viterbi_cluster_capacity(int PS, int L, int S,
-                                                  int c, int* out) {
-  return viterbi_cluster::capacity(collapsed_viterbi_cluster_kernel, PS, L,
-                                   S, c, out);
+                                                  int c, int registers,
+                                                  int* out) {
+  const int rs = row_steps(PS, registers);
+  const ClusterKernel kern = cluster_kernel(rs);
+  if (!kern) return (int)cudaErrorInvalidValue;
+  return viterbi_cluster::capacity(kern, PS, L, S, c, rs, out);
 }

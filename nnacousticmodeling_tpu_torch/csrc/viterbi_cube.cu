@@ -29,7 +29,10 @@
 // * the cluster route, cube_viterbi_cluster (viterbi_cluster.cuh says
 //   what bounds the other route and what this design does about it): one
 //   thread-block cluster an utterance keeps the DP state in its blocks'
-//   shared memory, one cluster barrier a frame; the beam clamp pnew >=
+//   shared memory (not in registers, as the collapsed kernel's register
+//   route does: this kernel's instantiation of it spilled at the
+//   96-register ceiling and ran 31-33 % slower a frame on the 48-phone
+//   image), one cluster barrier a frame; the beam clamp pnew >=
 //   rowmax - beam becomes a select applied as the exported row is read,
 //   for the next frame's entry and for the end row (a select changes no
 //   bits);
@@ -205,8 +208,9 @@ cube_viterbi_cluster_kernel(const float* __restrict__ lp,
                             int PS, int B, int a_coef, float pip, float beam,
                             int use_beam) {
   const viterbi_cluster::Cube pol{lm, tri_base, end_lane, P, a_coef};
-  viterbi_cluster::decode(pol, lp, lengths, order, rec, p0, packed, end, T,
-                          S, P, PS, B, pip, beam, use_beam);
+  viterbi_cluster::decode<viterbi_cluster::Cube, 0>(
+      pol, lp, lengths, order, rec, p0, packed, end, T, S, P, PS, B, pip,
+      beam, use_beam);
 }
 
 }  // namespace
@@ -255,7 +259,7 @@ extern "C" int cube_viterbi_cluster(
     int c, void* stream) {
   if (U == 0 || T == 0) return 0;
   return viterbi_cluster::launch(
-      cube_viterbi_cluster_kernel, U, PS, B, S, c, stream,
+      cube_viterbi_cluster_kernel, U, PS, B, S, c, 0, stream,
       static_cast<const float*>(lp), static_cast<const int*>(lengths),
       static_cast<const int*>(order), static_cast<const int*>(rec),
       static_cast<const float*>(lm), static_cast<const float*>(p0),
@@ -268,5 +272,5 @@ extern "C" int cube_viterbi_cluster(
 extern "C" int cube_viterbi_cluster_capacity(int PS, int B, int S, int c,
                                              int* out) {
   return viterbi_cluster::capacity(cube_viterbi_cluster_kernel, PS, B, S, c,
-                                   out);
+                                   0, out);
 }

@@ -27,11 +27,16 @@ XLA scan path for every frame t < lengths[u].
 
 The kernel has two routes, and ``viterbi_cluster_plan`` (shared with
 the dense-cube kernel) picks one from the image's size: the cluster
-route keeps each utterance's DP state in the shared memory of a cluster
-of at most 16 blocks (``csrc/viterbi_cluster.cuh``); the device-memory
-route, for images whose state no such cluster holds, keeps it in a
-(U, 3, PS, L) scratch. ``kernels.launches`` counts them apart, as
-``collapsed_viterbi_forward`` and ``collapsed_viterbi_forward.global``.
+route keeps each utterance's DP state on the chip of a cluster of at
+most 16 blocks (``csrc/viterbi_cluster.cuh``), in its threads' registers
+where each warp owns one chunk of lanes and a kernel is built for the
+rows' count of row steps (the register route), else in the blocks'
+shared memory; the
+device-memory route, for images whose state no such cluster holds,
+keeps it in a (U, 3, PS, L) scratch. ``kernels.launches`` counts
+``collapsed_viterbi_forward`` (cluster) apart from
+``collapsed_viterbi_forward.global``, and the register route's calls
+again as ``collapsed_viterbi_forward.registers``.
 """
 
 from __future__ import annotations
@@ -57,11 +62,15 @@ CAP = 8
 
 #: csrc/viterbi_cluster.cuh: the cluster sizes tried, in order; the lanes
 #: of a warp and its row groups (a warp owns 8 lanes, each group of 8
-#: threads every fourth row); the warps a block at most
+#: threads every fourth row); the warps a block at most; the most row
+#: steps a thread keeps in registers on the register route (a kernel for
+#: each even count), and the most frames its 16-bit entry times hold
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
 LANE_CHUNK = 8
 ROW_GROUPS = 4
 MAX_WARPS = 18
+REG_STEPS = 12
+REG_FRAMES = 32767
 
 
 @dataclass(frozen=True)
@@ -69,41 +78,61 @@ class ViterbiPlan:
     """The route of a Viterbi forward (``"cluster"`` or ``"global"``, the
     device-memory route) and, on the cluster route, its layout: ``cluster``
     blocks an utterance, each owning ``slice`` lanes of every state and
-    row, with ``threads`` threads and ``smem_bytes`` of shared memory."""
+    row, with ``threads`` threads and ``smem_bytes`` of shared memory, and
+    the DP state in the threads' registers (``registers``, the register
+    route) or in the blocks' shared memory."""
     route: str
     cluster: int = 0
     slice: int = 0
     threads: int = 0
     smem_bytes: int = 0
+    registers: bool = False
 
 
-def cluster_smem_bytes(ps: int, lanes: int, s: int, c: int) -> int:
+def cluster_smem_bytes(ps: int, lanes: int, s: int, c: int,
+                       registers: bool = False) -> int:
     """Shared memory of one cluster-route block (``smem_bytes`` of
     csrc/viterbi_cluster.cuh): its state slice (score and entry time a
-    cell), two full exported rows padded by ``ps``, two publish slots,
-    two row maxima and two thresholds (each pair padded to four words)
-    and two posterior rows."""
+    cell; none on the register route), two full exported rows padded by
+    ``ps``, two publish slots, two row maxima and two thresholds (each
+    pair padded to four words) and two posterior rows."""
     w = lanes // c
-    return (3 * ps * w * 8 + 2 * (lanes + ps) * 4 + 2 * w * 4 + 16 + 16
+    state = 0 if registers else 3 * ps * w * 8
+    return (state + 2 * (lanes + ps) * 4 + 2 * w * 4 + 16 + 16
             + 2 * _ceil(s, 4) * 4)
 
 
+def registers_fit(ps: int, slice_: int) -> bool:
+    """Whether a block of ``slice_`` lanes can keep its state in its
+    threads' registers (``check_layout`` of csrc/viterbi_cluster.cuh): one
+    chunk a warp, and the rows an even count of row steps up to
+    ``REG_STEPS``, for which a kernel is built."""
+    steps = ps // ROW_GROUPS
+    return (steps <= REG_STEPS and steps % 2 == 0
+            and slice_ // LANE_CHUNK <= MAX_WARPS)
+
+
 def viterbi_cluster_plan(ps: int, lanes: int, s: int,
-                         smem_limit: int = SMEM_LIMIT) -> ViterbiPlan:
+                         smem_limit: int = SMEM_LIMIT,
+                         registers: bool = True) -> ViterbiPlan:
     """Lay out a Viterbi forward of ``ps`` rows, ``lanes`` lanes and ``s``
     pdfs: the smallest cluster in ``CLUSTER_SIZES`` whose blocks each
-    hold a slice of a multiple of ``LANE_CHUNK`` lanes in ``smem_limit``
-    bytes (fewer blocks a cluster, more utterances at once); the
-    device-memory route where none does. Pure host arithmetic."""
+    hold a slice of a multiple of ``LANE_CHUNK`` lanes, its state
+    included, in ``smem_limit`` bytes (fewer blocks a cluster, more
+    utterances at once), with the state in registers where that slice
+    allows (``registers_fit``; ``registers=False``: never); the
+    device-memory route where no cluster does. Pure host arithmetic."""
     if ps % ROW_GROUPS == 0:
         for c in CLUSTER_SIZES:
             w = lanes // c
             if lanes % c or w % LANE_CHUNK:
                 continue
-            smem = cluster_smem_bytes(ps, lanes, s, c)
-            if smem <= smem_limit:
+            if cluster_smem_bytes(ps, lanes, s, c) <= smem_limit:
+                regs = registers and registers_fit(ps, w)
                 return ViterbiPlan("cluster", c, w,
-                                   32 * min(w // LANE_CHUNK, MAX_WARPS), smem)
+                                   32 * min(w // LANE_CHUNK, MAX_WARPS),
+                                   cluster_smem_bytes(ps, lanes, s, c, regs),
+                                   regs)
     return ViterbiPlan("global")
 
 
@@ -497,8 +526,8 @@ _ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
                 ctypes.c_void_p])
 _CLUSTER_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
                      + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                        ctypes.c_int, ctypes.c_void_p])
-_CAPACITY_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+_CAPACITY_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
 
 
 def _lib():
@@ -512,33 +541,49 @@ def _lib():
     return lib
 
 
-def cluster_capacity(query, ps: int, lanes: int, s: int,
-                     plan: ViterbiPlan) -> int:
-    """How many clusters of ``plan`` the card holds at once, from a
-    ``*_cluster_capacity`` entry point ``query`` (raises if it fails)."""
+def cluster_capacity(query, *layout: int) -> int:
+    """How many clusters the card holds at once, from a
+    ``*_cluster_capacity`` entry point ``query`` given the geometry and
+    the plan's cluster size (and, for the Viterbi forwards, its register
+    flag) (raises if it fails)."""
     out = ctypes.c_int(0)
-    kernels.check(query(ps, lanes, s, plan.cluster, ctypes.byref(out)),
+    kernels.check(query(*layout, ctypes.byref(out)),
                   "cluster capacity query")
     return out.value
 
 
-def collapsed_cluster_capacity(ck: CollapsedViterbi) -> int:
-    """Clusters of ``ck``'s plan the card holds at once."""
+def collapsed_cluster_capacity(ck: CollapsedViterbi,
+                               plan: Optional[ViterbiPlan] = None) -> int:
+    """Clusters of ``plan`` (default ``ck.plan``) the card holds at
+    once."""
+    plan = ck.plan if plan is None else plan
     return cluster_capacity(_lib().collapsed_viterbi_cluster_capacity,
-                            ck.PS, ck.L, ck.S, ck.plan)
+                            ck.PS, ck.L, ck.S, plan.cluster,
+                            int(plan.registers))
 
 
-def _route(name: str, plan: ViterbiPlan, route: Optional[str]
-           ) -> ViterbiPlan:
-    """``plan``, or with ``route="global"`` the device-memory route (card
-    tests and chip_smoke.py time and check it on images the plan gives a
-    cluster)."""
+def _route(name: str, plan: ViterbiPlan, route: Optional[str],
+           geometry: Optional[Tuple[int, int, int]] = None,
+           frames: int = 0) -> ViterbiPlan:
+    """``plan`` for a decode of ``frames`` frames, or forced (card tests,
+    chip_smoke.py and the bench time and check every route on images the
+    plan gives a cluster): with ``route="global"`` the device-memory
+    route; with ``route="shared"`` the plan's cluster with its state in
+    shared memory, for a kernel that has a register route (``geometry``:
+    its rows, lanes and pdfs). The register route's plan takes the
+    shared-memory route for more than ``REG_FRAMES`` frames."""
+    if route is None and plan.registers and frames > REG_FRAMES:
+        route = "shared"
     if route is None:
         return plan
     if route == "global":
         return ViterbiPlan("global")
-    raise ValueError(f"{name}: route must be None or 'global', got "
-                     f"{route!r}")
+    if route == "shared" and geometry is not None \
+            and plan.route == "cluster":
+        return viterbi_cluster_plan(*geometry, registers=False)
+    allowed = "None, 'shared' or 'global'" if geometry else "None or 'global'"
+    raise ValueError(f"{name}: route must be {allowed} (with a cluster for "
+                     f"'shared'), got {route!r}")
 
 
 def _check_lp(name: str, tables: torch.Tensor, s: int, lp: torch.Tensor,
@@ -566,16 +611,17 @@ def collapsed_viterbi_forward(ck: CollapsedViterbi, lp: torch.Tensor,
     """CUDA kernel wrapper (``csrc/viterbi_collapsed.cu``) on ``ck.plan``'s
     route: one cluster (or, on the device-memory route, one block) per
     utterance walks its frames up to its length. Rows past an
-    utterance's length are left unwritten. ``route="global"`` forces the
-    device-memory route (tests and chip_smoke.py)."""
+    utterance's length are left unwritten. ``route="shared"`` forces the
+    cluster route with the state in shared memory, ``route="global"`` the
+    device-memory route (tests, chip_smoke.py and the bench)."""
     name = "collapsed_viterbi_forward"
     _check_lp(name, ck.tps, ck.S, lp, lengths)
     if lp.shape[1] >= ck.pack - 1:
         raise ValueError(f"{lp.shape[1]} frames need a pack factor > "
                          f"{ck.pack}")
+    plan = _route(name, ck.plan, route, (ck.PS, ck.L, ck.S), lp.shape[1])
     stream = torch.cuda.current_stream(lp.device).cuda_stream
-    return _collapsed_launch(ck, lp, lengths, _route(name, ck.plan, route),
-                             _lib(), stream)
+    return _collapsed_launch(ck, lp, lengths, plan, _lib(), stream)
 
 
 def _collapsed_launch(ck: CollapsedViterbi, lp: torch.Tensor,
@@ -598,7 +644,8 @@ def _collapsed_launch(ck: CollapsedViterbi, lp: torch.Tensor,
             ck.records.data_ptr(), ck.lmq_cells.data_ptr(),
             ck.lmmax.data_ptr(), ck.lmend.data_ptr(), ck.p0.data_ptr(),
             pc0.data_ptr(), packed.data_ptr(), end.data_ptr(), U, T, S, P,
-            PS, L, ck.pack, ck._pip, beam, use_beam, plan.cluster, stream)
+            PS, L, ck.pack, ck._pip, beam, use_beam, plan.cluster,
+            int(plan.registers), stream)
         name = "collapsed_viterbi_forward"
     else:
         pp = torch.empty((U, 3, PS, L), dtype=torch.float32, device=dev)
@@ -613,4 +660,6 @@ def _collapsed_launch(ck: CollapsedViterbi, lp: torch.Tensor,
         name = "collapsed_viterbi_forward.global"
     kernels.check(status, name)
     kernels.launches[name] += 1
+    if plan.registers:
+        kernels.launches[f"{name}.registers"] += 1
     return packed, end

@@ -34,8 +34,11 @@ bit-identical to the XLA scan path for every frame t < lengths[u].
 As the collapsed kernel, the kernel has a cluster route and a
 device-memory route, picked by ``viterbi_cluster_plan``; a lane count
 that no cluster splits into slices of a multiple of 8 lanes (an odd P)
-takes the device-memory route. ``kernels.launches`` counts them apart,
-as ``cube_viterbi_forward`` and ``cube_viterbi_forward.global``.
+takes the device-memory route. Its cluster route keeps the state in
+shared memory: the collapsed kernel's register route, built for this
+kernel, spilled at the card's 96 registers a thread and ran slower
+(``csrc/viterbi_cube.cu``). ``kernels.launches`` counts the routes
+apart, as ``cube_viterbi_forward`` and ``cube_viterbi_forward.global``.
 """
 
 from __future__ import annotations
@@ -49,7 +52,6 @@ import torch
 from .. import kernels
 from ..utils.device import resolve_device
 from .viterbi_collapsed import (
-    _CAPACITY_ARGTYPES,
     NEG_INF,
     UnsupportedImage,
     ViterbiPlan,
@@ -173,7 +175,7 @@ class CubeViterbi:
         # q[a, b] = p[b*P + a]: the entry gather's source lanes
         self.qsrc = as_t(np.arange(P)[None, :] * P + np.arange(P)[:, None],
                          torch.int64)                 # (P, P) [a, b]
-        self.plan = viterbi_cluster_plan(PS, B, self.S)
+        self.plan = viterbi_cluster_plan(PS, B, self.S, registers=False)
         if self.plan.route == "cluster":
             self.records = as_t(cluster_records(pdf_plane, tps),
                                 torch.int32)          # (8 PS B,)
@@ -272,6 +274,7 @@ _ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
 _CLUSTER_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                      + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                         ctypes.c_int, ctypes.c_void_p])
+_CAPACITY_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
 
 
 def _lib():
@@ -288,7 +291,7 @@ def _lib():
 def cube_cluster_capacity(cv: CubeViterbi) -> int:
     """Clusters of ``cv``'s plan the card holds at once."""
     return cluster_capacity(_lib().cube_viterbi_cluster_capacity, cv.PS,
-                            cv.B, cv.S, cv.plan)
+                            cv.B, cv.S, cv.plan.cluster)
 
 
 def cube_viterbi_forward(cv: CubeViterbi, lp: torch.Tensor,
@@ -300,13 +303,13 @@ def cube_viterbi_forward(cv: CubeViterbi, lp: torch.Tensor,
     utterance's length are left unwritten. ``route="global"`` forces the
     device-memory route (tests and chip_smoke.py)."""
     name = "cube_viterbi_forward"
+    plan = _route(name, cv.plan, route)
     _check_lp(name, cv.tps, cv.S, lp, lengths)
     if lp.shape[1] >= TIME_PACK - 1:
         raise ValueError(f"{name}: {lp.shape[1]} frames; the cube kernel "
                          f"packs T < {TIME_PACK - 1}")
     stream = torch.cuda.current_stream(lp.device).cuda_stream
-    return _cube_launch(cv, lp, lengths, _route(name, cv.plan, route),
-                        _lib(), stream)
+    return _cube_launch(cv, lp, lengths, plan, _lib(), stream)
 
 
 def _cube_launch(cv: CubeViterbi, lp: torch.Tensor, lengths: torch.Tensor,

@@ -243,7 +243,7 @@ def scan_cluster_capacity(tables: ScanTables) -> int:
     """Clusters of ``tables``' plan the card holds at once."""
     return cluster_capacity(_lib().viterbi_scan_cluster_capacity,
                             tables.width, tables.num_biphones,
-                            tables.num_states, tables.plan)
+                            tables.num_states, tables.plan.cluster)
 
 
 def viterbi_scan_forward(tables: ScanTables, lp: torch.Tensor, pack: int,

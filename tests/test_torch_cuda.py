@@ -5,8 +5,10 @@ Run on a machine with one: ``python -m pytest tests/test_torch_cuda.py
 
 Tolerances as in ``test_torch_lstm.py`` for the recurrence (bf16 ``h``
 rounding after sums in another order); the Viterbi forwards are bit-equal
-on both routes (the plan's cluster route, and the device-memory route
-forced with ``route="global"``), and a refused cluster launch raises.
+on every route (the plan's cluster route, its state in registers where
+the image allows, the cluster route with the state in shared memory
+forced with ``route="shared"``, and the device-memory route forced with
+``route="global"``), and a refused cluster launch raises.
 ``lstm_scan`` (one persistent launch, tensor-core sums) gives the same
 bits on every call. The LSTM training forward runs ``lstm_scan``'s
 kernel code (csrc/lstm_persistent.cuh) and is bit-equal to it. Its
@@ -211,12 +213,17 @@ def _viterbi_kernel_case(cuda, obj, forward, reference, capacity, route,
     """``forward`` (the kernel wrapper) on ``route`` against ``reference``
     within lengths, with more utterances than the card holds clusters at
     once (waves) and lengths 0, 1 and the batch's T among them; a second
-    call bit-identical; only ``name`` (the route's counter) counted; the
-    cluster route allocates no (U, 3, PS, lanes) scratch. Returns the
-    posteriors and lengths (numpy)."""
+    call bit-identical; only ``name`` (the route's counter) counted, and
+    ``name.registers`` beside it on the register route; the cluster route
+    allocates no (U, 3, PS, lanes) scratch. Returns the posteriors and
+    lengths (numpy)."""
+    from nnacousticmodeling_tpu_torch.decoder import viterbi_collapsed as vc
     rng = np.random.default_rng(seed)
     t = 23
-    cluster = obj.plan.route == "cluster" and route is None
+    plan = vc._route("case", obj.plan, route,
+                     (obj.PS, obj.tps.shape[2], obj.S))
+    cluster = plan.route == "cluster"
+    registers = plan.registers
     u = capacity(obj) + 3 if cluster else 5
     lens = rng.integers(0, t + 1, u).astype(np.int32)
     lens[:3] = [0, 1, t]
@@ -235,7 +242,8 @@ def _viterbi_kernel_case(cuda, obj, forward, reference, capacity, route,
     torch.cuda.synchronize()
     counted = {k: v - before.get(k, 0) for k, v in kernels.launches.items()
                if v != before.get(k, 0)}
-    assert counted == {name: 2}
+    assert counted == ({name: 2, f"{name}.registers": 2} if registers
+                       else {name: 2})
     lanes = obj.tps.shape[2]
     scratch = u * 3 * obj.PS * lanes * 8
     outputs = u * t * (lanes + obj.P) * 4
@@ -249,20 +257,23 @@ def _viterbi_kernel_case(cuda, obj, forward, reference, capacity, route,
     return lp, lens
 
 
-@pytest.mark.parametrize("route", [None, "global"])
+@pytest.mark.parametrize("route", [None, "shared", "global"])
 @pytest.mark.parametrize("beam", [None, 2.0])
 @pytest.mark.parametrize("num_phones", [4, 9, 48])
 def test_collapsed_viterbi_kernel_bit_equal(cuda, num_phones, beam, route):
-    """Both routes (the plan's cluster and the device-memory route forced)
-    bit-equal to the plain version; segments equal to the CPU decoder's."""
+    """Every route (the plan's: the state in registers, or for 9 phones,
+    256 lanes, 32 chunks for 18 warps, in shared memory; the state in
+    shared memory and the device-memory route forced) bit-equal to the
+    plain version; segments equal to the CPU decoder's."""
     from nnacousticmodeling_tpu_torch.decoder import viterbi_collapsed as vc
     img = _viterbi_image(num_phones)
     dec = ViterbiDecoder(img, pip=5.0, lmw=1.5, beam=beam, device=cuda)
     ck = dec._collapsed_fwd
     assert ck.plan.route == "cluster"
+    assert ck.plan.registers == (num_phones != 9)
     assert ck.plan.cluster == (16 if num_phones == 48 else 1)
-    name = ("collapsed_viterbi_forward" if route is None
-            else "collapsed_viterbi_forward.global")
+    name = ("collapsed_viterbi_forward.global" if route == "global"
+            else "collapsed_viterbi_forward")
     lp, lens = _viterbi_kernel_case(
         cuda, ck, vc.collapsed_viterbi_forward,
         collapsed_viterbi_reference, vc.collapsed_cluster_capacity, route,
@@ -272,6 +283,9 @@ def test_collapsed_viterbi_kernel_bit_equal(cuda, num_phones, beam, route):
     got = [r.segments for r in dec.decode_batch(lp, lens)]
     assert kernels.launches["collapsed_viterbi_forward"] == \
         before.get("collapsed_viterbi_forward", 0) + 1
+    assert kernels.launches["collapsed_viterbi_forward.registers"] == \
+        before.get("collapsed_viterbi_forward.registers", 0) + \
+        ck.plan.registers
     assert got == [r.segments for r in cpu.decode_batch(lp, lens)]
 
 
@@ -280,8 +294,9 @@ def test_collapsed_viterbi_kernel_bit_equal(cuda, num_phones, beam, route):
 @pytest.mark.parametrize("ends", ["regular", "irregular"])
 @pytest.mark.parametrize("num_phones", [8, 9, 48])
 def test_cube_viterbi_kernel_bit_equal(cuda, num_phones, ends, beam, route):
-    """Both routes bit-equal to the plain version (9 phones: 81 lanes, the
-    plan's device-memory route either way); segments equal to the CPU
+    """Both routes bit-equal to the plain version (8 and 48 phones: the
+    plan's cluster route, the state in shared memory; 9 phones: 81 lanes,
+    the plan's device-memory route either way); segments equal to the CPU
     decoder's and the scan twins', which launch the scan kernel and the
     backtrace kernel once each."""
     from nnacousticmodeling_tpu_torch.decoder import viterbi_cube as vcube
@@ -290,6 +305,7 @@ def test_cube_viterbi_kernel_bit_equal(cuda, num_phones, ends, beam, route):
                          device=cuda)
     cv = dec._pallas_fwd
     assert cv.plan.route == ("global" if num_phones == 9 else "cluster")
+    assert not cv.plan.registers
     on_cluster = route is None and cv.plan.route == "cluster"
     name = ("cube_viterbi_forward" if on_cluster
             else "cube_viterbi_forward.global")
@@ -323,17 +339,20 @@ def _nan_probe(cuda, num_phones=8):
     return img, torch.from_numpy(lp).to(cuda), lens
 
 
-@pytest.mark.parametrize("route", [None, "global"])
 @pytest.mark.parametrize("beam", [None, 2.0])
-@pytest.mark.parametrize("kind", ["collapsed", "cube", "cube9", "cube12"])
+@pytest.mark.parametrize("kind,route", [
+    ("collapsed", None), ("collapsed", "shared"), ("collapsed", "global"),
+    ("cube", None), ("cube", "global"), ("cube9", None), ("cube9", "global"),
+    ("cube12", None), ("cube12", "global")])
 def test_viterbi_kernels_follow_plain_on_nan_rows(cuda, kind, beam, route):
     """Where a column's max is NaN no row matches it (the TPU kernels'
     jnp.max): the collapsed key 2**31 - 1, the cube export row P with pad
     row P's entry time ("cube9": 9 phones, rows padded to 16, the
     device-memory route either way; "cube12": 12 phones, rows padded to
-    16, on both routes); the beam's row max propagates NaN.
-    Both kernels, both routes: packed rows equal and end scores equal (NaN
-    where NaN) to the plain versions."""
+    16, on both routes); the beam's row max propagates NaN. Both kernels,
+    every route (the collapsed kernel's plan: its state in registers;
+    its cluster with the state in shared memory forced): packed rows
+    equal and end scores equal (NaN where NaN) to the plain versions."""
     from nnacousticmodeling_tpu_torch.decoder import viterbi_collapsed as vc
     phones = {"cube9": 9, "cube12": 12}.get(kind, 8)
     img, lp, lens = _nan_probe(cuda, phones)
@@ -346,15 +365,19 @@ def test_viterbi_kernels_follow_plain_on_nan_rows(cuda, kind, beam, route):
     else:
         obj, fwd, ref = (dec._pallas_fwd, cube_viterbi_forward,
                          cube_viterbi_reference)
-    on_cluster = route is None and obj.plan.route == "cluster"
+    on_cluster = route != "global" and obj.plan.route == "cluster"
     assert (obj.plan.route == "cluster") == (phones != 9)
+    assert obj.plan.registers == (kind == "collapsed")
     if kind == "cube":
         assert (obj.PS > obj.P) == (phones != 8)
     name = f"{kind}_viterbi_forward" + ("" if on_cluster else ".global")
-    before = kernels.launches[name]
+    before = dict(kernels.launches)
     packed, end = fwd(obj, lp, lens, route=route)
     torch.cuda.synchronize()
-    assert kernels.launches[name] == before + 1
+    counted = {k: v - before.get(k, 0) for k, v in kernels.launches.items()
+               if v != before.get(k, 0)}
+    assert counted == ({name: 1, f"{name}.registers": 1} if route is None
+                       and obj.plan.registers else {name: 1})
     want_packed, want_end = ref(obj, lp, lens)
     np.testing.assert_array_equal(packed.cpu().numpy(),
                                   want_packed.cpu().numpy())
@@ -364,6 +387,78 @@ def test_viterbi_kernels_follow_plain_on_nan_rows(cuda, kind, beam, route):
         assert np.isnan(want_end.cpu().numpy()).any()
     if kind == "collapsed":
         assert (want_packed.cpu().numpy() == 2 ** 31 - 1).any()
+
+
+@pytest.mark.parametrize("kind,route", [
+    ("collapsed", None), ("collapsed", "shared"), ("cube", None)])
+def test_viterbi_kernels_entry_times_at_the_pack_limit(cuda, kind, route):
+    """T = pack - 2, the most frames a pack factor holds: entry times up to
+    T - 2 (and -1, an entry at frame 0) kept on the cluster routes (the
+    collapsed kernel's register route and its shared-memory route; the
+    cube kernel's), bit-equal to the plain version within lengths."""
+    from nnacousticmodeling_tpu_torch.decoder import viterbi_collapsed as vc
+    from nnacousticmodeling_tpu_torch.decoder import viterbi_cube as vcube
+    img = _viterbi_image(4)
+    dec = ViterbiDecoder(img, pip=5.0, lmw=1.5, device=cuda,
+                         backend="auto" if kind == "collapsed" else "pallas")
+    if kind == "collapsed":
+        obj, fwd, ref = (dec._collapsed_fwd, vc.collapsed_viterbi_forward,
+                         collapsed_viterbi_reference)
+        pack = obj.pack
+    else:
+        obj, fwd, ref = (dec._pallas_fwd, cube_viterbi_forward,
+                         cube_viterbi_reference)
+        pack = vcube.TIME_PACK
+    assert obj.plan.registers == (kind == "collapsed")
+    t = pack - 2
+    lens = torch.tensor([t, t - 1, 5], dtype=torch.int32, device=cuda)
+    rng = np.random.default_rng(pack)
+    lp = torch.from_numpy(np.log(rng.dirichlet(
+        np.ones(obj.S), size=(3, t))).astype(np.float32)).to(cuda)
+    packed, end = fwd(obj, lp, lens, route=route)
+    want_packed, want_end = ref(obj, lp, lens)
+    for i, n in enumerate(lens.tolist()):
+        assert torch.equal(packed[i, :n], want_packed[i, :n])
+        assert torch.equal(end[i, :n], want_end[i, :n])
+    # the keys' entry times (tt + 1) reach past half the pack factor
+    assert int((want_packed[0, :t] % pack).max()) > pack // 2
+
+
+@pytest.mark.parametrize("beam", [None, 2.0])
+@pytest.mark.parametrize("num_phones,cluster", [
+    (8, 1), (16, 2), (24, 8), (32, 8), (40, 16), (48, 16)])
+def test_collapsed_register_kernel_of_each_step_count(cuda, num_phones,
+                                                      cluster, beam):
+    """Each register-route kernel (PS / 4 = 2, 4, ..., 12 row steps) on a
+    cluster whose slice is one chunk a warp, and the shared-memory route
+    on the same cluster: bit-equal to the plain version within lengths
+    (0, 1 and T among them). The plans of 16 and 24 phones take fewer,
+    wider blocks at these pdf counts, so the cluster is given here."""
+    from nnacousticmodeling_tpu_torch.decoder import viterbi_collapsed as vc
+    img = _viterbi_image(num_phones)
+    ck = ViterbiDecoder(img, pip=5.0, lmw=1.5, beam=beam,
+                        device=cuda)._collapsed_fwd
+    w = ck.L // cluster
+    assert ck.PS == num_phones and w % vc.LANE_CHUNK == 0
+    assert vc.registers_fit(ck.PS, w)
+    rng = np.random.default_rng(num_phones)
+    t = 17
+    lens = torch.tensor([t, 0, 1, 9, t - 1], dtype=torch.int32, device=cuda)
+    lp = torch.from_numpy(np.log(rng.dirichlet(
+        np.ones(ck.S), size=(5, t))).astype(np.float32)).to(cuda)
+    want_packed, want_end = collapsed_viterbi_reference(ck, lp, lens)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for registers in (True, False):
+        plan = vc.ViterbiPlan(
+            "cluster", cluster, w, 32 * min(w // vc.LANE_CHUNK,
+                                            vc.MAX_WARPS),
+            vc.cluster_smem_bytes(ck.PS, ck.L, ck.S, cluster, registers),
+            registers)
+        packed, end = vc._collapsed_launch(ck, lp, lens, plan, vc._lib(),
+                                           stream)
+        for i, n in enumerate(lens.tolist()):
+            assert torch.equal(packed[i, :n], want_packed[i, :n])
+            assert torch.equal(end[i, :n], want_end[i, :n])
 
 
 # ---- the backtrace kernel -------------------------------------------------
